@@ -11,11 +11,13 @@ Phases (any failure exits non-zero before the last line):
   2. build: compiles ganecdotes_torch/csrc/*.cu for sm_90a, prints the time;
   3. kernels: each kernel at every shape the ffhq-256 serving path gives it
      at B = 8, held against its plain PyTorch version on the card (float32,
-     TF32 off) and timed with CUDA events beside its plain version, one
-     library call where one computes the same function, and its bound;
+     TF32 off; the up conv also against conv_transpose + blur) and timed
+     with CUDA events beside its plain version, one library call where one
+     computes the same function, and its bound;
   4. serve: OneShotServer (ffhq-256, hfc_with_swav, random weights from a
      seed) answers 3 requests of 8 z with every kernel's launch counted;
-     then the same requests with every op on its plain version on the card;
+     then a server with every op on its plain version on the card, its mean
+     latent drawn anew from the same seed, answers the same requests;
   5. one JSON line of the kernels, then the result line.
 
 ``--details PATH`` also writes every shape's numbers, the build record and
@@ -148,6 +150,7 @@ def check_kernels(dev):
     for name, shapes in path_shapes().items():
         for shape, calls in shapes:
             lib = None  # one PyTorch call as a yardstick, where there is one
+            other = None  # a second plain form, where the path has one
             if name == "fused_leaky_relu":
                 x = torch.randn(*shape, generator=gen, device=dev)
                 bias = torch.randn(shape[-1], generator=gen, device=dev)
@@ -192,6 +195,8 @@ def check_kernels(dev):
                 def plain(ref=ref, args=args):
                     return ref(*args)
 
+                if up:  # conv_transpose + blur, independent of the phase taps
+                    other = modulated_conv.styled_up_conv3x3_xla(*args)
                 b, h, w, ci, co = shape
                 f = 2 if up else 1
                 moved = nbytes(*args) + b * f * h * f * w * co * 4
@@ -217,11 +222,13 @@ def check_kernels(dev):
             want = plain()
             torch.cuda.synchronize()
             err, rel, scale = errors(got, want)
-            ok = err <= KERNEL_TOL * max(1.0, scale)
+            tol = KERNEL_TOL * max(1.0, scale)
+            other_err = None if other is None else errors(got, other)[0]
+            ok = err <= tol and (other_err is None or other_err <= tol)
             row = {
                 "kernel": name, "shape": list(shape), "calls_per_request": calls,
-                "max_abs_err": err, "max_rel_err": rel, "tol": KERNEL_TOL * max(1.0, scale),
-                "ok": ok,
+                "max_abs_err": err, "max_rel_err": rel, "tol": tol,
+                "max_abs_err_convT_blur": other_err, "ok": ok,
                 "ms": time_ms(kern),
                 "plain_ms": time_ms(plain),
                 "library_ms": None, "library_err": None,
@@ -234,11 +241,14 @@ def check_kernels(dev):
             row["bytes"], row["flops"] = moved, flops
             rows.append(row)
             print(f"  {name:18s} {str(tuple(shape)):26s} err {err:.3e} "
-                  f"(rel {rel:.2e}, tol {row['tol']:.1e}) "
+                  f"(rel {rel:.2e}, tol {tol:.1e}"
+                  + ("" if other_err is None else f"; vs convT+blur {other_err:.3e}")
+                  + ") "
                   f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
                   f"lib {row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} "
                   f"bound {row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
-            check(ok, f"{name} {shape}: max abs err {err} over tolerance")
+            check(ok, f"{name} {shape}: max abs err {err} (vs convT+blur "
+                      f"{other_err}) over tolerance {tol}")
     return rows
 
 
@@ -306,9 +316,16 @@ def serve(dev):
 
     prof = profile_request(server, zs[-1])
 
-    plain = OneShotServer(device=dev, gen=server.gen, ssl_params=server.ssl_params,
-                          seg_params=server.seg_params,
-                          mean_latent=server.mean_latent, ops=PLAIN)
+    # same seed, so the plain server draws the same 4096 z for its own mean
+    # latent: the set-up's (4096, 512) fused_leaky_relu calls are checked too
+    plain = OneShotServer(device=dev, seed=0, gen=server.gen,
+                          ssl_params=server.ssl_params,
+                          seg_params=server.seg_params, ops=PLAIN)
+    mean_err, _, mean_scale = errors(server.mean_latent, plain.mean_latent)
+    print(f"  mean latent vs plain: err {mean_err:.3e} "
+          f"(tol {KERNEL_TOL * max(1.0, mean_scale):.1e})", flush=True)
+    check(mean_err <= KERNEL_TOL * max(1.0, mean_scale),
+          f"mean latent differs from the plain set-up: {mean_err}")
     img_err, lab_agree, z0_agree, plain_times = 0.0, 1.0, 1.0, []
     for z, (img, labels, z0) in zip(zs, outs):
         t0 = time.perf_counter()
@@ -331,7 +348,8 @@ def serve(dev):
         "setup_s": setup_s, "request_ms": times, "steady_request_ms": steady,
         "img_per_s": B / steady * 1e3, "peak_memory_bytes": peak,
         "launches": launches, "plain_request_ms": plain_times,
-        "image_err": img_err, "label_agreement": lab_agree,
+        "mean_latent_err": mean_err, "image_err": img_err,
+        "label_agreement": lab_agree,
         "z0_agreement": z0_agree, "profile": prof,
     }
 
@@ -353,7 +371,8 @@ def kernels_line(rows, launches):
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "max_abs_err": max(max(r["max_abs_err"], r["max_abs_err_convT_blur"] or 0.0)
+                               for r in rs),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": max(t_b, t_f),
             "bound_by": "bytes" if t_b >= t_f else "operations",

@@ -5,19 +5,13 @@
 //
 // Bound: bytes. Two flops per element against 8 bytes moved (x read once,
 // y written once; bias stays in L1), far below the card's ~20 flop/byte
-// fp32 balance point. Design: one grid-stride elementwise pass; 16-byte
-// vector loads and stores when the rows allow it (C % 4 == 0 and aligned
-// pointers), so each thread moves 16 bytes per access and a warp 512
-// contiguous bytes. The bias index is computed per element, so no layout
-// beyond row-major (N, C) is assumed.
+// fp32 balance point. Design: one grid-stride elementwise pass; a warp
+// reads and writes 128 contiguous bytes per step. The bias index is
+// computed per element, so no layout beyond row-major (N, C) is assumed.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-__device__ __forceinline__ float act(float v, float slope, float scale) {
-  return (v >= 0.f ? v : v * slope) * scale;
-}
 
 __global__ void fused_leaky_relu_kernel(const float* __restrict__ x,
                                         const float* __restrict__ bias,
@@ -28,32 +22,7 @@ __global__ void fused_leaky_relu_kernel(const float* __restrict__ x,
        i += stride) {
     float v = x[i];
     if (bias) v += bias[i % c];
-    y[i] = act(v, slope, scale);
-  }
-}
-
-__global__ void fused_leaky_relu_vec4_kernel(const float4* __restrict__ x,
-                                             const float* __restrict__ bias,
-                                             float4* __restrict__ y,
-                                             int64_t n4, int c, float slope,
-                                             float scale) {
-  int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += stride) {
-    float4 v = x[i];
-    if (bias) {
-      // c % 4 == 0, so the four lanes share one row
-      int ch = (int)((i * 4) % c);
-      v.x += bias[ch];
-      v.y += bias[ch + 1];
-      v.z += bias[ch + 2];
-      v.w += bias[ch + 3];
-    }
-    v.x = act(v.x, slope, scale);
-    v.y = act(v.y, slope, scale);
-    v.z = act(v.z, slope, scale);
-    v.w = act(v.w, slope, scale);
-    y[i] = v;
+    y[i] = (v >= 0.f ? v : v * slope) * scale;
   }
 }
 
@@ -64,20 +33,9 @@ extern "C" int gk_fused_leaky_relu(const float* x, const float* bias, float* y,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = 256;
-  const int64_t max_blocks = 132 * 32;  // grid-stride beyond ~32 blocks/SM
-  bool vec = (c % 4 == 0) && ((uintptr_t)x % 16 == 0) && ((uintptr_t)y % 16 == 0);
-  if (vec) {
-    int64_t n4 = n / 4;
-    int64_t blocks = (n4 + threads - 1) / threads;
-    if (blocks > max_blocks) blocks = max_blocks;
-    fused_leaky_relu_vec4_kernel<<<(unsigned)blocks, threads, 0, s>>>(
-        reinterpret_cast<const float4*>(x), bias, reinterpret_cast<float4*>(y),
-        n4, c, slope, scale);
-  } else {
-    int64_t blocks = (n + threads - 1) / threads;
-    if (blocks > max_blocks) blocks = max_blocks;
-    fused_leaky_relu_kernel<<<(unsigned)blocks, threads, 0, s>>>(
-        x, bias, y, n, c, slope, scale);
-  }
+  int64_t blocks = (n + threads - 1) / threads;
+  if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond ~32 blocks/SM
+  fused_leaky_relu_kernel<<<(unsigned)blocks, threads, 0, s>>>(
+      x, bias, y, n, c, slope, scale);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 Route: ``nvcc`` by hand into a ``.so`` with a plain C interface, loaded with
 ``ctypes`` (every pointer and the stream passed as ``c_void_p``). Each source
 compiles to an object file in its own ``nvcc`` process, all started together,
-and one more ``nvcc`` links them. The library is built at first use under
+and one more ``nvcc`` links them, so the build takes about as long as its
+slowest source however many sources later slices add. The library is built at first use under
 ``BUILD_DIR``, named by a hash of the sources and flags, so an unchanged tree
 loads the library it built before.
 
@@ -60,9 +61,9 @@ class Taps(ctypes.Structure):
 _SIGNATURES = {
     # x, bias (or NULL), y, n, c, negative_slope, scale, stream
     "gk_fused_leaky_relu": [P, P, P, ctypes.c_longlong, I, F, F, P],
-    # x, y, B, H, W, C, OH, OW, up_x, up_y, down_x, down_y, pad_x0, pad_y0,
-    # taps, kh, kw, stream
-    "gk_upfirdn2d": [P, P] + [I] * 12 + [Taps, I, I, P],
+    # x, y, B, H, W, C, OH, OW, up_x, up_y, pad_x0, pad_y0, taps, kh, kw,
+    # stream
+    "gk_upfirdn2d": [P, P] + [I] * 10 + [Taps, I, I, P],
     # xm, w, demod, noise, noise batch stride, nw, bias, out,
     # B, H, W, Cin, Cout, up, stream
     "gk_styled_conv3x3": [P, P, P, P, ctypes.c_longlong, P, P, P,

@@ -74,25 +74,25 @@ def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
     """Kernel on a CUDA tensor; plain version on a CPU tensor.
 
     ``kernel`` is a host array (e.g. from ``make_kernel``) of side <= 8; its
-    taps travel to the card by value with the launch.
+    taps travel to the card by value with the launch. The kernel takes
+    up 1 or 2 per axis and down = 1.
     """
     if x.device.type == "cpu":
         return upfirdn2d_ref(x, kernel, up, down, pad)
-    (up_x, up_y), (down_x, down_y), (px0, px1, py0, py1) = _normalize_args(
-        up, down, pad
-    )
+    (up_x, up_y), down, (px0, px1, py0, py1) = _normalize_args(up, down, pad)
     _build.check_tensor(KERNEL, x, "x", ndim=4)
     if isinstance(kernel, torch.Tensor):
         raise TypeError(f"{KERNEL}: pass the FIR kernel as a host array")
     k = np.asarray(kernel, dtype=np.float32)
     if k.ndim != 2 or not 1 <= k.shape[0] <= _build.KMAX or not 1 <= k.shape[1] <= _build.KMAX:
         raise ValueError(f"{KERNEL}: kernel must be 2-D with sides <= {_build.KMAX}, got {k.shape}")
-    if min(up_x, up_y, down_x, down_y) < 1:
-        raise ValueError(f"{KERNEL}: up and down must be >= 1")
+    if up_x not in (1, 2) or up_y not in (1, 2) or down != (1, 1):
+        raise ValueError(f"{KERNEL}: the kernel takes up 1 or 2 and down 1, "
+                         f"got up {(up_x, up_y)}, down {down}")
     b, h, w, c = x.shape
     kh, kw = k.shape
-    oh = out_size(h, up_y, py0, py1, kh, down_y)
-    ow = out_size(w, up_x, px0, px1, kw, down_x)
+    oh = out_size(h, up_y, py0, py1, kh, 1)
+    ow = out_size(w, up_x, px0, px1, kw, 1)
     if oh <= 0 or ow <= 0:
         raise ValueError(f"{KERNEL}: empty output {oh}x{ow} for input {tuple(x.shape)}")
     y = torch.empty((b, oh, ow, c), dtype=x.dtype, device=x.device)
@@ -102,7 +102,7 @@ def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
     taps.k[: kh * kw] = k.ravel().tolist()
     _build.launch(
         KERNEL, "gk_upfirdn2d", _build.ptr(x), _build.ptr(y),
-        b, h, w, c, oh, ow, up_x, up_y, down_x, down_y, px0, py0,
+        b, h, w, c, oh, ow, up_x, up_y, px0, py0,
         taps, kh, kw, _build.stream_of(x),
     )
     return y

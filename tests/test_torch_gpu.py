@@ -75,7 +75,7 @@ def test_styled_convs_match_plain(cuda, shape, noise_b):
 
 
 @pytest.mark.parametrize("kw", [dict(up=2, pad=(2, 1)), dict(pad=(1, 1)),
-                                dict(pad=(-1, 2, 0, 1)), dict(down=2, pad=(1, 1)),
+                                dict(pad=(-1, 2, 0, 1)), dict(up=2, pad=(1, -1)),
                                 dict(up=(2, 1), pad=(2, 1, 0, 0))])
 def test_upfirdn2d_matches_plain(cuda, kw):
     x = torch.randn(2, 9, 11, 5, generator=torch.Generator().manual_seed(0)).to(cuda)
@@ -105,6 +105,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         tup.upfirdn2d(x, np.ones((9, 9), np.float32))
     with pytest.raises(TypeError):
         tup.upfirdn2d(x, torch.ones(4, 4, device=cuda))
+    k = tup.make_kernel((1, 3, 3, 1))
+    with pytest.raises(ValueError):  # no path subsamples: down is 1
+        tup.upfirdn2d(x, k, down=2, pad=(1, 1))
+    with pytest.raises(ValueError):
+        tup.upfirdn2d(x, k, up=3, pad=(2, 1))
     a = _styled_inputs(2, 4, 4, 6, 8, 1, False, cuda)  # Cin % 4 != 0
     with pytest.raises(ValueError):
         tmc.styled_conv3x3(*a)
@@ -129,10 +134,12 @@ def test_server_kernels_match_plain_ops(cuda):
     img, labels, z0 = server.serve(z)
     torch.cuda.synchronize()
     assert all(v > 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
-    plain = OneShotServer(mc, sc, device=cuda, gen=server.gen,
+    # the plain server draws its own mean latent from the same seed
+    plain = OneShotServer(mc, sc, device=cuda, seed=1, gen=server.gen,
                           ssl_params=server.ssl_params,
-                          seg_params=server.seg_params,
-                          mean_latent=server.mean_latent, ops=PLAIN)
+                          seg_params=server.seg_params, ops=PLAIN)
+    torch.testing.assert_close(server.mean_latent, plain.mean_latent,
+                               atol=ATOL, rtol=0)
     p_img, p_labels, p_z0 = plain.serve(z)
     torch.testing.assert_close(img, p_img, atol=2e-4, rtol=1e-4)
     assert (labels == p_labels).float().mean().item() >= 0.999
