@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Build the PyTorch/CUDA port's kernels and drive its serving path on one GPU.
+"""Build the PyTorch/CUDA port's kernels and drive its serving and SwAV
+pretraining paths on one GPU.
 
 Run from the repository root on a machine with one CUDA card and nvcc
 (found through CUDA_HOME, PATH or /usr/local/cuda):
@@ -13,19 +14,27 @@ Phases (any failure exits non-zero before the last line):
      at B = 8, held against its plain PyTorch version on the card (float32,
      TF32 off; the up conv also against conv_transpose + blur) and timed
      with CUDA events beside its plain version, one library call where one
-     computes the same function, and its bound;
+     computes the same function, and its bound; the Sinkhorn kernel at the
+     pretraining path's (patch_size, nprototypes) scores, uniform and image
+     marginals, a ragged shape and niters = 0;
   4. serve: OneShotServer (ffhq-256, hfc_with_swav, random weights from a
      seed) answers 3 requests of 8 z with every kernel's launch counted;
      then a server with every op on its plain version on the card, its mean
      latent drawn anew from the same seed, answers the same requests;
-  5. one JSON line of the kernels, then the result line.
+  5. pretrain: SwAVClustering at the full hfc_with_swav ffhq config (random
+     generator from a seed) takes 1 warm-up and 4 timed steps with every
+     kernel's launch counted, saves and reloads swav_params.npz, and the same
+     steps from the same seed run again with every op on its plain version;
+     one more step runs under torch.profiler;
+  6. one JSON line of the kernels, then the result line.
 
 ``--details PATH`` also writes every shape's numbers, the build record and
-the serving profile to a JSON file.
+the serving and pretraining profiles to a JSON file.
 """
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -45,8 +54,14 @@ FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 KERNEL_TOL = 1e-4  # max |kernel - plain| <= KERNEL_TOL * max(1, max |plain|)
 IMAGE_TOL = 1e-3  # same measure for the served image after 13 conv layers
 LABEL_AGREEMENT = 0.999
+SINKHORN_TOL = 1e-4  # absolute, on codes in [0, 1]
+PRETRAIN_STEPS = 4  # timed, after one warm-up step
+# KERNELS vs PLAIN pretraining run, per-step loss and final params (see
+# check_pretrain_agreement for the reason)
+STEP_LOSS_RTOL = 1e-5
+STEP_PARAM_TOL = 1e-6  # max |kernels - plain| <= STEP_PARAM_TOL * max(1, max |plain|)
 
-KERNELS = {
+KERNELS_TABLE = {
     "fused_leaky_relu": ("ganecdotes_torch/csrc/fused_act.cu",
                          "ganecdotes_tpu/ops/fused_act.py:72"),
     "upfirdn2d": ("ganecdotes_torch/csrc/upfirdn2d.cu",
@@ -55,7 +70,11 @@ KERNELS = {
                        "ganecdotes_tpu/ops/modulated_conv_pallas.py:317"),
     "styled_up_conv3x3": ("ganecdotes_torch/csrc/styled_conv.cu",
                           "ganecdotes_tpu/ops/modulated_conv_pallas.py:564"),
+    "sinkhorn_knopp": ("ganecdotes_torch/csrc/sinkhorn.cu",
+                       "ganecdotes_tpu/ops/sinkhorn_pallas.py:380"),
 }
+SERVING_KERNELS = ("fused_leaky_relu", "upfirdn2d", "styled_conv3x3",
+                   "styled_up_conv3x3")
 
 
 class SmokeFailure(RuntimeError):
@@ -226,7 +245,7 @@ def check_kernels(dev):
             other_err = None if other is None else errors(got, other)[0]
             ok = err <= tol and (other_err is None or other_err <= tol)
             row = {
-                "kernel": name, "shape": list(shape), "calls_per_request": calls,
+                "kernel": name, "shape": list(shape), "calls": calls,
                 "max_abs_err": err, "max_rel_err": rel, "tol": tol,
                 "max_abs_err_convT_blur": other_err, "ok": ok,
                 "ms": time_ms(kern),
@@ -249,6 +268,92 @@ def check_kernels(dev):
                   f"bound {row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
             check(ok, f"{name} {shape}: max abs err {err} (vs convT+blur "
                       f"{other_err}) over tolerance {tol}")
+    return rows
+
+
+def swav_configs():
+    """(model config, perturb_args, swav_args, sinkhorn_args) of the
+    hfc_with_swav ffhq-256 pretraining path, as shipped."""
+    from ganecdotes_torch.configs.models import ffhq_256 as mc
+    from ganecdotes_torch.configs.segmentors import hfc_with_swav_ffhq_config as sc
+
+    prep = sc.hfc_prep_args
+    return mc, prep["perturb_args"], prep["swav_args"], prep["sinkhorn_args"]
+
+
+def sinkhorn_bound(b, k, niters):
+    """(bytes, operations) the function needs: niters + 1 reads of the scores
+    (one per iteration and one for the codes, the Gauss-Seidel least: each
+    iteration needs the last one's potentials, and the scores do not fit in
+    the 50 MB L2 at the path's shape) and one write of the codes; about 4
+    operations (fma, compare, exp, add) per element per read."""
+    n = b * k
+    return (niters + 2) * n * 4 + 2 * (b + k) * 4, 4 * (niters + 1) * n
+
+
+def check_sinkhorn(dev):
+    """The Sinkhorn kernel against sinkhorn_knopp_ref at the pretraining
+    path's scores: L2-normalised projections @ unit prototypes + bias."""
+    from ganecdotes_torch.ops import sinkhorn
+    from ganecdotes_torch.selfsup.swav import _histogram_pdf
+
+    _, _, sa, sk = swav_configs()
+    b, k, nc = sa["patch_size"], sa["nprototypes"], sa["nclasses"]
+    niters, eps = sk["niters"], sk["eps"]
+    calls = 2 * sa["num_patches"]  # per step
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def scores(b, k):
+        z = torch.nn.functional.normalize(
+            torch.randn(b, nc, generator=gen, device=dev), dim=1)
+        p = torch.nn.functional.normalize(
+            torch.randn(nc, k, generator=gen, device=dev), dim=0)
+        bias = (torch.rand(k, generator=gen, device=dev) * 2 - 1) / nc**0.5
+        return (z @ p + bias).contiguous()
+
+    def uniform(b, k):
+        return (torch.ones(k, device=dev) / k, torch.ones(b, device=dev) / b)
+
+    # an 'image' pdf: histograms of a 256 x 256 feature-norm-like map
+    img = torch.randn(1, 256, 256, generator=gen, device=dev).abs() + 1.0
+    cases = [
+        ("uniform", b, k, niters, uniform(b, k), calls),
+        ("image", b, k, niters, (_histogram_pdf(img, k), _histogram_pdf(img, b)), 0),
+        ("ragged", b - 3, k - 1, niters, uniform(b - 3, k - 1), 0),
+        ("niters0", b, k, 0, uniform(b, k), 0),
+    ]
+    rows = []
+    for case, b_, k_, n_, (r, c), n_calls in cases:
+        x = scores(b_, k_)
+
+        def kern(x=x, n_=n_, r=r, c=c):
+            return sinkhorn.sinkhorn_knopp(x, n_, eps, r, c)
+
+        def plain(x=x, n_=n_, r=r, c=c):
+            return sinkhorn.sinkhorn_knopp_ref(x, n_, eps, r, c)
+
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        finite = bool(torch.isfinite(got).all())
+        moved, flops = sinkhorn_bound(b_, k_, n_)
+        row = {
+            "kernel": "sinkhorn_knopp", "case": case, "shape": [b_, k_],
+            "niters": n_, "eps": eps, "calls": n_calls, "max_abs_err": err,
+            "tol": SINKHORN_TOL, "max_abs_err_convT_blur": None,
+            "ok": err <= SINKHORN_TOL and finite,
+            "ms": time_ms(kern), "plain_ms": time_ms(plain), "library_ms": None,
+            "bytes": moved, "flops": flops,
+        }
+        row["bound_ms"], row["bound_by"] = bound_ms(moved, flops)
+        rows.append(row)
+        print(f"  sinkhorn_knopp {case:8s} {str((b_, k_)):14s} niters {n_:2d} "
+              f"err {err:.3e} (tol {SINKHORN_TOL:.0e}) ms {row['ms']:.4f} "
+              f"plain {row['plain_ms']:.4f} bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']})", flush=True)
+        check(row["ok"], f"sinkhorn {case} {(b_, k_)}: max abs err {err} "
+                         f"(finite {finite}) over tolerance {SINKHORN_TOL}")
     return rows
 
 
@@ -303,8 +408,8 @@ def serve(dev):
     peak = torch.cuda.max_memory_allocated()
     print(f"  setup {setup_s:.3f} s; request ms {[round(t, 3) for t in times]}; "
           f"launches {launches}; peak memory {peak / 2**30:.3f} GiB", flush=True)
-    for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched on the serving path")
+    for k in SERVING_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched on the serving path")
 
     for img, labels, z0 in outs:
         check(tuple(img.shape) == (B, 256, 256, 3), f"image shape {tuple(img.shape)}")
@@ -354,20 +459,191 @@ def serve(dev):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 5: SwAV pretraining
+# ---------------------------------------------------------------------------
+
+PROFILE_LABELS = ("swav.generator", "swav.projection", "swav.sinkhorn",
+                  "swav.lars")
+
+
+def profile_step(swav):
+    """Device time of one KERNELS step (torch.profiler), split by the step's
+    record_function ranges. Each range's device-side span is taken from the
+    trace, and the device time of the kernels that start inside it is its
+    share; kernels outside every range (the backward, which autograd runs on
+    its own thread, and the loss) make up "loss/backward"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ganecdotes_torch.selfsup.swav import draw_step_inputs, make_swav_train_step
+
+    mc = swav._model_config_dict()
+    optimizer, step = make_swav_train_step(
+        swav.model.meta, mc, swav.perturb_args, swav.swav_args,
+        swav.sinkhorn_args, swav.mean_latent, swav._image_hw, swav.ops)
+    draws = draw_step_inputs(torch.Generator().manual_seed(7), swav.model.meta,
+                             mc, swav.perturb_args, swav.swav_args, swav._image_hw)
+    opt_state = optimizer.init(swav.ssl_params)
+    step(swav.model, swav.ssl_params, opt_state, draws, 0)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(swav.model, swav.ssl_params, opt_state, draws, 0)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in device
+             if e.name in PROFILE_LABELS]
+    kernels = [e for e in device if e.name not in PROFILE_LABELS]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    split = {label: 0.0 for label in PROFILE_LABELS}
+    span_ms = {label: 0.0 for label in PROFILE_LABELS}
+    for label, t0_us, t1_us in spans:
+        span_ms[label] += (t1_us - t0_us) / 1e3
+    for e in kernels:
+        label = next((lb for lb, a, b in spans if a <= e.time_range.start < b), None)
+        if label is not None:
+            split[label] += e.time_range.elapsed_us() / 1e3
+    split["loss/backward"] = busy - sum(split.values())
+    by_name = {}
+    for e in kernels:
+        n, ms = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    return {
+        "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+        "split_ms": split, "span_ms": span_ms,
+        "top": [{"name": k[:90], "ms": ms, "count": n} for k, (n, ms) in top],
+    }
+
+
+def run_pretrain(gen, dev, ops, out_dir=None):
+    """SwAVClustering(...).pretrain() at the shipped config for 1 + PRETRAIN_STEPS
+    steps; the swav and the per-step host-clock ms."""
+    from ganecdotes_torch.selfsup.swav import SwAVClustering
+
+    mc, pa, sa, sk = swav_configs()
+    sa = dict(sa, num_epochs=1 + PRETRAIN_STEPS, num_samples=1)
+    swav = SwAVClustering(gen, mc, pa, sa, sk, out_dir=out_dir, device=dev,
+                          seed=42, ops=ops)
+    swav.record_loss_history = True
+    swav.pretrain()
+    torch.cuda.synchronize()
+    ends = [0.0] + swav.epoch_seconds
+    return swav, [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+
+
+def pretrain(dev):
+    from ganecdotes_torch.models.stylegan2.generator import Generator
+    from ganecdotes_torch.ops import _build
+    from ganecdotes_torch.ops.opset import KERNELS, PLAIN
+    from ganecdotes_torch.selfsup.lars import tree_leaves
+    from ganecdotes_torch.selfsup.swav import SwAVClustering
+
+    mc, pa, sa, sk = swav_configs()
+    gen = Generator(**mc.gen_args, generator=torch.Generator().manual_seed(0)).to(dev)
+    out_dir = os.path.join(ROOT, "build", "chip_smoke_swav")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    swav, step_ms = run_pretrain(gen, dev, KERNELS, out_dir)
+    total_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steps = 1 + PRETRAIN_STEPS
+    timed = step_ms[1:]
+    steady = statistics.median(timed)
+    print(f"  {steps} steps in {total_s:.3f} s (set-up included); step ms "
+          f"{[round(t, 3) for t in step_ms]} (first: warm-up); median "
+          f"{steady:.3f} ms, {1e3 / steady:.3f} steps/s; peak memory "
+          f"{peak / 2**30:.3f} GiB; launches {launches}", flush=True)
+    for k in KERNELS_TABLE:
+        check(launches[k] > 0, f"kernel {k} was not launched on the pretraining path")
+    per_step = 2 * sa["num_patches"]
+    check(launches["sinkhorn_knopp"] == per_step * steps,
+          f"sinkhorn launched {launches['sinkhorn_knopp']} times in {steps} "
+          f"steps, expected {per_step} per step")
+    losses = swav.loss_history
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
+          f"losses {losses}")
+    params = swav.ssl_params
+    check(tuple(params["projection"][0]["weight"].shape) == (sa["hlen"], sa["nclasses"])
+          and tuple(params["prototype"]["weight"].shape) == (sa["nclasses"], sa["nprototypes"]),
+          "param shapes")
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(params)),
+          "non-finite params")
+
+    # swav_params.npz, saved by pretrain, loads back exactly
+    loaded = SwAVClustering(gen, mc, pa, sa, sk, train=False, out_dir=out_dir,
+                            device=dev, seed=42)
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                tree_leaves(loaded.ssl_params))),
+          "swav_params.npz did not load back equal")
+    preds, labels = loaded.predict_swav_codes(
+        torch.randn(1, 512, generator=torch.Generator().manual_seed(3)),
+        input_is_latent=False)
+    check(tuple(preds.shape) == (1, mc.image_size, mc.image_size, sa["nclasses"])
+          and bool(torch.isfinite(preds).all()), "predict_swav_codes output")
+
+    prof = profile_step(swav)
+    print(f"  one step under torch.profiler: {json.dumps(prof)}", flush=True)
+
+    plain, plain_ms = run_pretrain(gen, dev, PLAIN)
+    agreement = check_pretrain_agreement(swav, plain)
+    print(f"  plain ops: step ms {[round(t, 3) for t in plain_ms]}; "
+          f"{json.dumps(agreement)}", flush=True)
+    return {
+        "steps": steps, "step_ms": step_ms, "steady_step_ms": steady,
+        "steps_per_s": 1e3 / steady, "total_s": total_s,
+        "peak_memory_bytes": peak, "launches": launches, "losses": losses,
+        "plain_step_ms": plain_ms, "plain_losses": plain.loss_history,
+        "agreement": agreement, "profile": prof,
+    }
+
+
+def check_pretrain_agreement(kern, plain):
+    """The KERNELS run against the PLAIN run from the same seed (same
+    draws, same init): per-step loss within STEP_LOSS_RTOL, final params
+    within STEP_PARAM_TOL * max(1, max |plain|).
+
+    Both runs are float32 with TF32 off and differ only in the kernels'
+    summation order, so they agree to float32 rounding: on an NVIDIA H100
+    80GB HBM3 at 700 W the five steps' losses differed by at most 1.5e-7
+    relative and the params by 2.2e-8. The tolerances leave some 50x margin over that; a kernel that
+    computes something else moves a loss of ~10 by far more than 1e-4.
+    """
+    from ganecdotes_torch.selfsup.lars import tree_leaves
+
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(kern.loss_history, plain.loss_history))
+    param_err = 0.0
+    for a, b in zip(tree_leaves(kern.ssl_params), tree_leaves(plain.ssl_params)):
+        err, _, scale = errors(a, b)
+        param_err = max(param_err, err / max(1.0, scale))
+    out = {"losses": kern.loss_history, "plain_losses": plain.loss_history,
+           "loss_max_rel_err": loss_rel, "param_max_err": param_err}
+    check(loss_rel <= STEP_LOSS_RTOL,
+          f"losses differ from the plain run: {loss_rel} > {STEP_LOSS_RTOL}")
+    check(param_err <= STEP_PARAM_TOL,
+          f"params differ from the plain run: {param_err} > {STEP_PARAM_TOL}")
+    return out
+
+
 def kernels_line(rows, launches):
     out = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces) in KERNELS_TABLE.items():
         rs = [r for r in rows if r["kernel"] == name]
-        per_req = [r for r in rs if r["calls_per_request"] > 0]
+        per_req = [r for r in rs if r["calls"] > 0]
 
         def total(key, per_req=per_req):
             vals = [r[key] for r in per_req]
             if any(v is None for v in vals):
                 return None
-            return sum(v * r["calls_per_request"] for v, r in zip(vals, per_req))
+            return sum(v * r["calls"] for v, r in zip(vals, per_req))
 
-        t_b = sum(r["bytes"] * r["calls_per_request"] for r in per_req) / HBM_BYTES_PER_S * 1e3
-        t_f = sum(r["flops"] * r["calls_per_request"] for r in per_req) / FP32_FLOPS * 1e3
+        t_b = sum(r["bytes"] * r["calls"] for r in per_req) / HBM_BYTES_PER_S * 1e3
+        t_f = sum(r["flops"] * r["calls"] for r in per_req) / FP32_FLOPS * 1e3
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -411,19 +687,26 @@ def main():
                 print("  " + line.strip())
 
     print("kernels vs plain versions (ms per call, CUDA events):", flush=True)
-    rows = check_kernels(dev)
+    rows = check_kernels(dev) + check_sinkhorn(dev)
     print("serve (ffhq-256, hfc_with_swav, B = 8):", flush=True)
     served = serve(dev)
     print(f"  steady request {served['steady_request_ms']:.3f} ms, "
           f"{served['img_per_s']:.2f} img/s; profile: {json.dumps(served['profile'])}",
           flush=True)
+    print("pretrain (ffhq-256, hfc_with_swav SwAV, full config):", flush=True)
+    pretrained = pretrain(dev)
 
-    line = kernels_line(rows, served["launches"])
+    # each kernel's launches from the path it belongs to; the serving
+    # kernel rows are per request of 8, the Sinkhorn row per SwAV step
+    launches = dict(served["launches"],
+                    sinkhorn_knopp=pretrained["launches"]["sinkhorn_knopp"])
+    line = kernels_line(rows, launches)
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
         with open(args.details, "w") as f:
             json.dump({"card": smi, "kind": kind, "build": info, "shapes": rows,
-                       "serve": served, "kernels": line}, f, indent=1)
+                       "serve": served, "pretrain": pretrained, "kernels": line},
+                      f, indent=1)
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,1 @@
-"""Kernels of the serving path (CUDA, csrc/) and their plain PyTorch versions."""
+"""The port's kernels (CUDA, csrc/) and their plain PyTorch versions."""

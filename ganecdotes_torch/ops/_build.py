@@ -41,6 +41,7 @@ LAUNCHES = {
     "upfirdn2d": 0,
     "styled_conv3x3": 0,
     "styled_up_conv3x3": 0,
+    "sinkhorn_knopp": 0,
 }
 
 # what the last ``load`` did: seconds, whether it compiled, the log path
@@ -68,6 +69,9 @@ _SIGNATURES = {
     # B, H, W, Cin, Cout, up, stream
     "gk_styled_conv3x3": [P, P, P, P, ctypes.c_longlong, P, P, P,
                           I, I, I, I, I, I, P],
+    # scores, r, c, q, u, t, v, part_m, part_s, B, K, niters, inv_eps,
+    # rows per chunk, chunks, stream
+    "gk_sinkhorn_knopp": [P] * 9 + [I, I, I, F, I, I, P],
 }
 
 _lib = None

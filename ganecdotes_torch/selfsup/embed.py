@@ -9,11 +9,15 @@ and only the nclasses-wide result is upsampled and summed
 upsample + concat form as the oracle. The folded ``project_segment_fcn``
 (head conv folded into the pyramid) is not ported yet: the server runs the
 unfused form, projection then head.
+
+For the SwAV step, ``project_gathered`` projects only a subset of pixels:
+per level it gathers the picked pixels' features, then multiplies, so the
+weight's gradient is the dense product gᵀ·dz and no scatter-add is needed.
 """
 
 import torch
 
-from ganecdotes_torch.ops.interp import resize_nearest
+from ganecdotes_torch.ops.interp import _nearest_indices, resize_nearest
 
 
 def layer_channel_dims(features):
@@ -38,7 +42,11 @@ def _split_weight_by_layer(weight, channel_dims, hlen=None):
     ``hlen`` may cut the concat mid-level (the reference slices channels
     [:hlen]); levels past the cut get zero usable channels.
     """
-    total = weight.shape[0] if hlen is None else hlen
+    return _level_chunks(channel_dims,
+                         weight.shape[0] if hlen is None else hlen)
+
+
+def _level_chunks(channel_dims, total):
     chunks = []
     off = 0
     for c in channel_dims:
@@ -79,3 +87,35 @@ def project_feature_maps(features, weight, hlen=None, interp="nearest"):
         acc = acc + z
     return resize_nearest(acc, (h, w))
 
+
+def _gather_levels(features, picks, out_hw, chunks):
+    """Per level with usable channels: (offset, use, (B, N, use) gather)."""
+    h, w = out_hw
+    ys = torch.div(picks, w, rounding_mode="floor")
+    xs = picks % w
+    for f, (off, use) in zip(features, chunks):
+        if use == 0:
+            continue
+        ri = _nearest_indices(f.shape[1], h, f.device)[ys]
+        ci = _nearest_indices(f.shape[2], w, f.device)[xs]
+        yield off, use, f[:, ri, ci, :use]
+
+
+def pixel_feature_gather(features, picks, out_hw, hlen=None):
+    """The full concat feature vectors (B, N, sum c[:hlen]) of the pixels at
+    flat row-major indices ``picks`` (N,) into the (H, W) grid."""
+    dims = layer_channel_dims(features)
+    chunks = _level_chunks(dims, sum(dims) if hlen is None else hlen)
+    return torch.cat([g for _, _, g in _gather_levels(features, picks, out_hw,
+                                                      chunks)], dim=-1)
+
+
+def project_gathered(features, picks, out_hw, weight, hlen=None):
+    """sum_l gather_l(picks) @ W_l = pixel_feature_gather(...) @ weight,
+    without the (N, hlen) concat. Returns (B, N, out)."""
+    chunks = _split_weight_by_layer(weight, layer_channel_dims(features), hlen)
+    out = None
+    for off, use, g in _gather_levels(features, picks, out_hw, chunks):
+        z = g @ weight[off : off + use].to(g.dtype)
+        out = z if out is None else out + z
+    return out

@@ -10,7 +10,9 @@ Tolerances: kernel and plain version both compute in float32 (TF32 off)
 and differ only in summation order. The convs sum 9*Cin = 4608 terms into
 outputs of magnitude up to ~10, where a few float32 ulps are ~1e-5 to 3e-5
 (2.2e-5 measured on an H100): 1e-4 absolute + 1e-5 relative. Resampling
-and elementwise ops: 1e-5 absolute.
+and elementwise ops: 1e-5 absolute. Sinkhorn codes in [0, 1]: 1e-4
+absolute, the JAX package's tolerance for an online-max log-sum-exp against
+the two-pass one (tests/test_selfsup.py:191-195).
 """
 
 from types import SimpleNamespace
@@ -22,6 +24,7 @@ import torch
 from ganecdotes_torch.ops import _build
 from ganecdotes_torch.ops import fused_act as tfa
 from ganecdotes_torch.ops import modulated_conv as tmc
+from ganecdotes_torch.ops import sinkhorn as tsk
 from ganecdotes_torch.ops import upfirdn2d as tup
 from ganecdotes_torch.ops.opset import PLAIN
 
@@ -133,7 +136,9 @@ def test_server_kernels_match_plain_ops(cuda):
     z = torch.randn(4, 512, generator=torch.Generator().manual_seed(2))
     img, labels, z0 = server.serve(z)
     torch.cuda.synchronize()
-    assert all(v > 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
+    serving = ("fused_leaky_relu", "upfirdn2d", "styled_conv3x3",
+               "styled_up_conv3x3")
+    assert all(_build.LAUNCHES[k] > 0 for k in serving), _build.LAUNCHES
     # the plain server draws its own mean latent from the same seed
     plain = OneShotServer(mc, sc, device=cuda, seed=1, gen=server.gen,
                           ssl_params=server.ssl_params,
@@ -144,3 +149,75 @@ def test_server_kernels_match_plain_ops(cuda):
     torch.testing.assert_close(img, p_img, atol=2e-4, rtol=1e-4)
     assert (labels == p_labels).float().mean().item() >= 0.999
     assert (z0 == p_z0).float().mean().item() >= 0.999
+
+
+@pytest.mark.parametrize("b,k,niters,eps", [
+    (64, 128, 10, 0.005), (1999, 1237, 3, 0.05), (300, 256, 0, 0.05),
+    (130, 7, 2, 0.5)])
+def test_sinkhorn_matches_plain(cuda, b, k, niters, eps):
+    """Small, ragged (B and K no multiple of any tile; K % 4 != 0 takes the
+    scalar loads), niters = 0, and K below one warp's width."""
+    g = torch.Generator().manual_seed(b + k)
+    scores = torch.randn(b, k, generator=g).to(cuda)
+    r = torch.rand(k, generator=g) + 0.1
+    c = torch.rand(b, generator=g) + 0.1
+    r, c = (r / r.sum()).to(cuda), (c / c.sum()).to(cuda)
+    before = _build.LAUNCHES["sinkhorn_knopp"]
+    q = tsk.sinkhorn_knopp(scores, niters, eps, r, c)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sinkhorn_knopp"] == before + 1
+    torch.testing.assert_close(q, tsk.sinkhorn_knopp_ref(scores, niters, eps, r, c),
+                               atol=1e-4, rtol=0)
+    # deterministic: no atomics
+    torch.testing.assert_close(tsk.sinkhorn_knopp(scores, niters, eps, r, c), q,
+                               atol=0, rtol=0)
+
+
+def test_sinkhorn_refuses_what_it_does_not_take(cuda):
+    x = torch.randn(16, 8, device=cuda)
+    r, c = torch.ones(8, device=cuda) / 8, torch.ones(16, device=cuda) / 16
+    with pytest.raises(TypeError):
+        tsk.sinkhorn_knopp(x.double(), 2, 0.1, r, c)
+    with pytest.raises(ValueError):
+        tsk.sinkhorn_knopp(torch.randn(8, 16, device=cuda).T, 2, 0.1, r, c)
+    with pytest.raises(ValueError):
+        tsk.sinkhorn_knopp(x, 2, 0.1, c, r)
+    with pytest.raises(ValueError):
+        tsk.sinkhorn_knopp(x, 2, 0.1, r.cpu(), c)
+
+
+def test_swav_pretrain_kernels_match_plain_ops(cuda):
+    """Two SwAV steps at size 32 with KERNELS and with PLAIN from the same
+    seed: the same draws, the Sinkhorn kernel launched 2 x num_patches times
+    per step, and losses and params that agree."""
+    from ganecdotes_torch.models.stylegan2.generator import Generator
+    from ganecdotes_torch.ops.opset import KERNELS
+    from ganecdotes_torch.selfsup.lars import tree_leaves
+    from ganecdotes_torch.selfsup.swav import SwAVClustering
+
+    mc = SimpleNamespace(truncation=0.7, latent_dim=512, image_size=32,
+                         num_latents_for_mean=256)
+    pa = dict(truncation=0.7, n_layers=3, n_samples=1, layer_no=None,
+              perturb_std=[1.0] * 3)
+    sa = dict(num_epochs=2, num_samples=1, num_patches=2, patch_size=200,
+              sampling_method="random", hf_interp="nearest", use_scheduler=False,
+              trust_coeff=0.01, train_args=dict(lr=0.01, momentum=0.9),
+              projn_nw="linear", temperature=0.01, nprototypes=300,
+              nclasses=16, hlen=1300, add_local_loss=False, epoch_print_freq=1)
+    sk = dict(source_pdf="uniform", niters=10, eps=0.005)
+    gen = Generator(32, generator=torch.Generator().manual_seed(0))
+    runs = []
+    for ops in (KERNELS, PLAIN):
+        _build.reset_launches()
+        swav = SwAVClustering(gen, mc, pa, sa, sk, device=cuda, seed=5, ops=ops)
+        swav.record_loss_history = True
+        swav.pretrain()
+        torch.cuda.synchronize()
+        runs.append((swav, dict(_build.LAUNCHES)))
+    (kern, launches), (plain, plain_launches) = runs
+    assert launches["sinkhorn_knopp"] == 2 * 2 * 2, launches
+    assert all(v > 0 for v in launches.values()), launches
+    assert all(v == 0 for v in plain_launches.values()), plain_launches
+    np.testing.assert_allclose(kern.loss_history, plain.loss_history, rtol=1e-4)
+    for a, b in zip(tree_leaves(kern.ssl_params), tree_leaves(plain.ssl_params)):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)

@@ -29,6 +29,7 @@ from ganecdotes_torch.ops import _build
 from ganecdotes_torch.ops import fused_act as tfa
 from ganecdotes_torch.ops import interp as tinterp
 from ganecdotes_torch.ops import modulated_conv as tmc
+from ganecdotes_torch.ops.opset import OpSet
 from ganecdotes_torch.ops import subpixel_upconv as tsub
 from ganecdotes_torch.ops import upfirdn2d as tup
 
@@ -286,6 +287,9 @@ def test_cpu_wrappers_launch_nothing():
 def test_kernel_build_has_a_source_per_kernel():
     srcs, _ = _build._sources()
     names = {s.rsplit("/", 1)[-1] for s in srcs}
-    assert {"fused_act.cu", "upfirdn2d.cu", "styled_conv.cu"} <= names
+    assert {"fused_act.cu", "upfirdn2d.cu", "styled_conv.cu",
+            "sinkhorn.cu"} <= names
     assert set(_build.LAUNCHES) == {"fused_leaky_relu", "upfirdn2d",
-                                    "styled_conv3x3", "styled_up_conv3x3"}
+                                    "styled_conv3x3", "styled_up_conv3x3",
+                                    "sinkhorn_knopp"}
+    assert set(_build.LAUNCHES) == set(OpSet._fields)
