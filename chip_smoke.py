@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Build the PyTorch/CUDA port's kernels and drive its serving and SwAV
-pretraining paths on one GPU.
+"""Build the PyTorch/CUDA port's kernels and drive its serving, SwAV
+pretraining and BagGAN training paths on one GPU.
 
 Run from the repository root on a machine with one CUDA card and nvcc
 (found through CUDA_HOME, PATH or /usr/local/cuda):
@@ -26,10 +26,23 @@ Phases (any failure exits non-zero before the last line):
      kernel's launch counted, saves and reloads swav_params.npz, and the same
      steps from the same seed run again with every op on its plain version;
      one more step runs under torch.profiler;
-  6. one JSON line of the kernels, then the result line.
+  6. the ADA warp pass and its adjoint at the two pass shapes BagGAN-HQ's
+     augment gives them at 256^2, B = 20 (the pass geometry from ADA draws
+     at p = 1: flips, transposed images), and a small ragged flipped case:
+     each kernel against its plain version, the adjoint identity, and the
+     times of kernel, plain version, F.grid_sample (the adjoint:
+     grid_sampler_2d_backward) and the bound;
+  7. train: BagGANHQ at the full pidray config (random weights and "real"
+     batches from a seed, ADA p set to 0.6) for 5 iterations (R1 and PPL at
+     iteration 0, PPL at 4) with every kernel's launch counted per step
+     kind, then again with every op on its plain version; iteration 0's
+     gradients of each step kind and every iteration's losses held against
+     the plain run; one more iteration (all four step kinds) under
+     torch.profiler;
+  8. one JSON line of the kernels, then the result line.
 
 ``--details PATH`` also writes every shape's numbers, the build record and
-the serving and pretraining profiles to a JSON file.
+the serving, pretraining and training profiles to a JSON file.
 """
 
 import argparse
@@ -41,6 +54,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 
 import torch
 
@@ -72,9 +86,30 @@ KERNELS_TABLE = {
                           "ganecdotes_tpu/ops/modulated_conv_pallas.py:564"),
     "sinkhorn_knopp": ("ganecdotes_torch/csrc/sinkhorn.cu",
                        "ganecdotes_tpu/ops/sinkhorn_pallas.py:380"),
+    "resample_rows": ("ganecdotes_torch/csrc/affine_warp.cu",
+                      "ganecdotes_tpu/ops/affine_warp_pallas.py:296"),
+    "resample_rows_t": ("ganecdotes_torch/csrc/affine_warp.cu",
+                        "ganecdotes_tpu/ops/affine_warp_pallas.py:328"),
 }
 SERVING_KERNELS = ("fused_leaky_relu", "upfirdn2d", "styled_conv3x3",
                    "styled_up_conv3x3")
+PRETRAIN_KERNELS = SERVING_KERNELS + ("sinkhorn_knopp",)
+RESAMPLE_KERNELS = ("resample_rows", "resample_rows_t")
+GAN_B = 20  # the pidray config's batch
+GAN_SIZE = 256  # and its image side
+GAN_ITERS = 5
+ADA_P = 0.6  # the shipped augment_p = 0 draws identity warps for ages
+# the pass: kernel and plain version take the same rounded steps; the
+# adjoint sums the same products in another order
+RESAMPLE_TOL = 1e-5  # max |kernel - plain| <= RESAMPLE_TOL * max(1, max |plain|)
+ADJOINT_TOL = 1e-5  # |<A x, g> - <x, A^T g>| <= ADJOINT_TOL * ||A x|| ||g||
+# KERNELS vs PLAIN training run (see check_gan_agreement for the reasons):
+# iteration 0's gradients, each tensor's ||kernels - plain|| against the
+# norm of its step's whole plain gradient; the D step's from equal weights,
+# R1's, G's and PPL's after 1, 2 and 3 Adam updates
+GAN_GRAD_TOL = {"d": 2e-3, "r1": 3e-2, "g": 3e-2, "ppl": 3e-2}
+GAN_LOSS_TOL = 1e-5  # the first D loss, |kernels - plain| / max(1, |plain|)
+GAN_DRIFT_TOL = 2e-2  # every later loss, the same measure
 
 
 class SmokeFailure(RuntimeError):
@@ -558,7 +593,7 @@ def pretrain(dev):
           f"{[round(t, 3) for t in step_ms]} (first: warm-up); median "
           f"{steady:.3f} ms, {1e3 / steady:.3f} steps/s; peak memory "
           f"{peak / 2**30:.3f} GiB; launches {launches}", flush=True)
-    for k in KERNELS_TABLE:
+    for k in PRETRAIN_KERNELS:
         check(launches[k] > 0, f"kernel {k} was not launched on the pretraining path")
     per_step = 2 * sa["num_patches"]
     check(launches["sinkhorn_knopp"] == per_step * steps,
@@ -630,6 +665,335 @@ def check_pretrain_agreement(kern, plain):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: ADA's warp pass and its adjoint
+# ---------------------------------------------------------------------------
+
+
+def resample_cases(dev):
+    """(case, x, alpha, intercept, out_len, calls per augment call) of the
+    two passes BagGAN-HQ's augment runs at 256^2, B = 20, with the geometry
+    of ADA draws at p = 1 (p = 0 draws the identity), and a small ragged
+    case with a flip. The images are random: the pass does not care."""
+    from ganecdotes_torch.gan.ada import sample_transforms, warp_geometry
+    from ganecdotes_torch.ops.affine_warp import norm_to_pixel_matrix, shear_geometry
+    from ganecdotes_torch.ops.resample import resample_rows_ref
+
+    for seed in range(21, 121):  # the first draw with both branches and a flip
+        G, _ = sample_transforms(torch.Generator().manual_seed(seed), 1.0, GAN_B,
+                                 GAN_SIZE, GAN_SIZE, dev)
+        G_inv, src, out = warp_geometry(G, GAN_SIZE, GAN_SIZE)
+        M = norm_to_pixel_matrix(G_inv, src, out)
+        swap, delta, icpt_v, a, icpt_h = shear_geometry(M, src[1], out[0])
+        if (bool(swap.any()) and not bool(swap.all())
+                and bool((delta < 0).any() or (a < 0).any())):
+            break
+    else:
+        raise SmokeFailure("no ADA draw covers both warp branches and a flip")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn(GAN_B, 3, src[0], src[1], generator=gen, device=dev)
+    x_eff = torch.where(swap[:, None, None, None], x.transpose(2, 3), x).contiguous()
+    at = resample_rows_ref(x_eff, delta, icpt_v, out[0]).transpose(2, 3).contiguous()
+    b, s_len, w, v = 3, 101, 77, 59
+    ragged = (torch.randn(b, 1, s_len, w, generator=gen, device=dev),
+              -(torch.rand(b, generator=gen, device=dev) * 0.6 + 0.7),
+              torch.rand(b, w, generator=gen, device=dev) * (s_len + 10) + 0.8 * s_len - 5)
+    return [("pass V", x_eff, delta.contiguous(), icpt_v.contiguous(), out[0], 1),
+            ("pass H", at, a.contiguous(), icpt_h.contiguous(), out[1], 1),
+            ("ragged flip", *ragged, v, 0)]
+
+
+def _grid_for_pass(alpha, intercept, s_len, out_len):
+    """F.grid_sample's grid for a pass along rows: columns stay, rows read
+    alpha*v + intercept[w] (normalised, align_corners=False)."""
+    b, w = intercept.shape
+    dev = intercept.device
+    cols = torch.arange(w, device=dev, dtype=torch.float32)
+    rows = (alpha[:, None, None] * torch.arange(out_len, device=dev, dtype=torch.float32)[None, :, None]
+            + intercept[:, None, :])
+    gx = ((2 * cols + 1) / w - 1).expand(b, out_len, w)
+    gy = (2 * rows + 1) / s_len - 1
+    return torch.stack([gx, gy], dim=-1).contiguous()
+
+
+def check_resample(dev):
+    import torch.nn.functional as F
+
+    from ganecdotes_torch.ops import resample
+
+    rows = []
+    for case, x, alpha, icpt, out_len, calls in resample_cases(dev):
+        s_len = x.shape[2]
+        grid = _grid_for_pass(alpha, icpt, s_len, out_len)
+        g = torch.randn(x.shape[0], x.shape[1], out_len, x.shape[3], device=dev)
+        specs = {
+            "resample_rows": (
+                lambda x=x, a=alpha, i=icpt, n=out_len: resample.resample_rows(x, a, i, n),
+                lambda x=x, a=alpha, i=icpt, n=out_len: resample.resample_rows_ref(x, a, i, n),
+                lambda x=x, grid=grid: F.grid_sample(x, grid, mode="bilinear",
+                                                     padding_mode="zeros",
+                                                     align_corners=False),
+                nbytes(x, alpha, icpt, g)),
+            "resample_rows_t": (
+                lambda g=g, a=alpha, i=icpt, n=s_len: resample.resample_rows_t(g, a, i, n),
+                lambda g=g, a=alpha, i=icpt, n=s_len: resample.resample_rows_t_ref(g, a, i, n),
+                lambda g=g, x=x, grid=grid: torch.ops.aten.grid_sampler_2d_backward(
+                    g, x, grid, 0, 0, False, [True, False])[0],
+                nbytes(g, alpha, icpt, x)),
+        }
+        outs = {}
+        for name, (kern, plain, lib, moved) in specs.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err, rel, scale = errors(got, want)
+            tol = RESAMPLE_TOL * max(1.0, scale)
+            lib_err = errors(lib(), want)[0]
+            outs[name] = got
+            row = {
+                "kernel": name, "case": case, "shape": list(x.shape), "out_len": out_len,
+                "calls": calls, "max_abs_err": err, "max_rel_err": rel, "tol": tol,
+                "max_abs_err_convT_blur": None, "library_err": lib_err,
+                "ms": time_ms(kern), "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
+                "bytes": moved, "flops": 3 * (g.numel() if name == "resample_rows" else x.numel()),
+            }
+            row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"])
+            row["ok"] = err <= tol
+            rows.append(row)
+            print(f"  {name:15s} {case:11s} {str(tuple(x.shape)):20s} -> {out_len} "
+                  f"err {err:.3e} (tol {tol:.1e}; grid_sample {lib_err:.2e}) "
+                  f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+                  f"lib {row['library_ms']:.4f} bound {row['bound_ms']:.4f} "
+                  f"({row['bound_by']})", flush=True)
+            check(row["ok"], f"{name} {case}: max abs err {err} over tolerance {tol}")
+        lhs = (outs["resample_rows"].double() * g.double()).sum().item()
+        rhs = (x.double() * outs["resample_rows_t"].double()).sum().item()
+        bound = ADJOINT_TOL * (outs["resample_rows"].double().norm()
+                               * g.double().norm()).item()
+        print(f"  adjoint identity {case}: <Ax,g> {lhs:.6e} <x,A^T g> {rhs:.6e} "
+              f"diff {abs(lhs - rhs):.3e} (tol {bound:.3e})", flush=True)
+        rows[-1]["adjoint_diff"] = abs(lhs - rhs)
+        check(abs(lhs - rhs) <= bound, f"adjoint identity fails on {case}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 7: BagGAN-HQ training
+# ---------------------------------------------------------------------------
+
+GAN_PROFILE_LABELS = ("gan.d_step", "gan.r1", "gan.g_step", "gan.ppl", "gan.ada")
+
+
+def pidray_config(out_dir):
+    """The port's copy of the pidray config, with its outputs under out_dir
+    and no log file."""
+    from ganecdotes_torch.configs.models.baggan import config_pidray_unlabeled as pc
+
+    cfg = {k: v for k, v in vars(pc).items()
+           if not k.startswith("_") and not isinstance(v, types.ModuleType)}
+    cfg.update(out_dir=out_dir, checkpoint_dir=out_dir, training_log_path=None)
+    return types.SimpleNamespace(**cfg)
+
+
+def gan_losses(gan, it):
+    cfg = gan.config
+    keys = ["d", "d_out", "d_ref", "g_gan"]
+    if it % cfg.d_reg_every == 0:
+        keys.append("d_r1")
+    if it % cfg.g_reg_every == 0:
+        keys.append("g_ppl")
+    return {k: float(getattr(gan, "loss_" + k)) for k in keys}
+
+
+def run_gan(dev, ops):
+    """BagGANHQ at the full pidray config for GAN_ITERS iterations from seed
+    0; the trainer, per-iteration host ms and losses."""
+    from ganecdotes_torch.gan.train import BagGANHQ
+
+    cfg = pidray_config(os.path.join(ROOT, "build", "chip_smoke_gan"))
+    gan = BagGANHQ(cfg, seed=0, device=dev, ops=ops)
+    gan.ada_state["p"].fill_(ADA_P)
+    gan.time_steps = True
+    gan.keep_first_grads = True
+    gen = torch.Generator(device=dev).manual_seed(11)
+    size = cfg.image_size
+    iter_ms, losses = [], []
+    for it in range(GAN_ITERS):
+        real = torch.rand(cfg.batch_size, size, size, cfg.num_channels,
+                          generator=gen, device=dev) * 2 - 1
+        gan.set_input(real, iter_no=it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gan.optimize_parameters()
+        torch.cuda.synchronize()
+        iter_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(gan_losses(gan, it))
+    return gan, iter_ms, losses
+
+
+def profile_iteration(gan):
+    """Device time of one KERNELS iteration with all four step kinds
+    (iter_no 0) under torch.profiler, split by the record_function ranges:
+    each kernel counts toward the innermost range whose device-side span it
+    starts in (gan.ada lies inside the steps); kernels outside every range
+    make up "outside"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gan.time_steps = False
+    gan.set_input(gan.ref_image, iter_no=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gan.optimize_parameters()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in device
+             if e.name in GAN_PROFILE_LABELS]
+    kernels = [e for e in device if e.name not in GAN_PROFILE_LABELS]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    split = {label: 0.0 for label in GAN_PROFILE_LABELS}
+    span_ms = {label: 0.0 for label in GAN_PROFILE_LABELS}
+    in_range = {label: {} for label in GAN_PROFILE_LABELS}  # kernel name -> ms
+    for label, a, b in spans:
+        span_ms[label] += (b - a) / 1e3
+    for e in kernels:
+        inside = [(b - a, lb) for lb, a, b in spans if a <= e.time_range.start < b]
+        if inside:
+            label, ms = min(inside)[1], e.time_range.elapsed_us() / 1e3
+            split[label] += ms
+            in_range[label][e.name] = in_range[label].get(e.name, 0.0) + ms
+    split["outside"] = busy - sum(split.values())
+    top_by_range = {
+        label: [{"name": k[:90], "ms": ms}
+                for k, ms in sorted(names.items(), key=lambda kv: -kv[1])[:5]]
+        for label, names in in_range.items()}
+    by_name = {}
+    for e in kernels:
+        n, ms = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    resample_ms = sum(ms for k, (_, ms) in by_name.items() if "resample_rows" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    return {
+        "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+        "split_ms": split, "span_ms": span_ms, "resample_kernels_ms": resample_ms,
+        "top": [{"name": k[:90], "ms": ms, "count": n} for k, (n, ms) in top],
+        "top_by_range": top_by_range,
+    }
+
+
+def _tensor_names(gan, kind):
+    if kind in ("d", "r1"):
+        return [n for n, _ in gan.netD.named_parameters()]
+    return ([n for n, _ in gan.netG.named_parameters()]
+            + [f"noises.{i}" for i in range(len(gan.netG.noises))])
+
+
+def check_gan_agreement(kern, plain):
+    """The KERNELS run against the PLAIN run from the same seed (same
+    weights, batches and draws): iteration 0's gradients of each step kind,
+    tensor by tensor, within GAN_GRAD_TOL of the norm of that step's whole
+    gradient; the first D loss within GAN_LOSS_TOL and every later loss
+    within GAN_DRIFT_TOL, relative to max(1, |plain|); the params after the
+    run only reported.
+
+    Both runs are float32 with TF32 off; the kernels sum in other orders
+    than cuDNN and the plain passes. The D step's gradients come from equal
+    weights and differ by rounding, amplified through the WGAN-GP gradient
+    of a gradient (4.2e-4 of the norm on an NVIDIA H100 80GB HBM3 at 700 W).
+    Adam's first step with beta1 = 0 moves each parameter by about
+    lr * sign(g), so a gradient element within rounding of zero moves its
+    parameter by up to 2 lr the other way: R1, G and PPL see weights that
+    differ by that after 1, 2 and 3 updates (their gradients differed by
+    2.6e-3, 1.2e-3 and 6.1e-3 of the norm; no tensor more than 1.5e-3),
+    every loss after the first update drifts (1.9e-3 to 2.3e-3 relative
+    over 5 iterations in three runs: cuDNN's reductions are not bitwise
+    repeatable), and the params are compared only as a reported number.
+    The gradient tolerances leave 5x and more over those readings, the
+    drift tolerance about 9x; a kernel that computes something
+    else (a wrong tap, padding or mask) moves a gradient by its own size.
+    """
+    (k_gan, _, k_losses), (p_gan, _, p_losses) = kern, plain
+    grads = {}
+    for kind, gs in k_gan.first_grads.items():
+        ps = p_gan.first_grads[kind]
+        norm = sum(float(p.square().sum()) for p in ps) ** 0.5
+        errs = [(float((g - p).norm()) / max(norm, 1e-30), name)
+                for g, p, name in zip(gs, ps, _tensor_names(k_gan, kind))]
+        diff = sum(float((g - p).square().sum()) for g, p in zip(gs, ps)) ** 0.5
+        worst, name = max(errs)
+        grads[kind] = {"rel_l2": diff / max(norm, 1e-30), "worst_tensor": name,
+                       "worst_tensor_err": worst, "tol": GAN_GRAD_TOL[kind]}
+        check(worst <= GAN_GRAD_TOL[kind],
+              f"{kind} gradients differ from the plain run: {grads[kind]}")
+    loss_errs = [{k: abs(a[k] - b[k]) / max(1.0, abs(b[k])) for k in b}
+                 for a, b in zip(k_losses, p_losses)]
+    first = loss_errs[0]["d"]
+    drift = max(v for errs in loss_errs for v in errs.values())
+    check(first <= GAN_LOSS_TOL, f"the first D loss differs from the plain run: {first}")
+    check(drift <= GAN_DRIFT_TOL, f"losses drift from the plain run: {loss_errs}")
+    with torch.no_grad():
+        param_err = max(float((a - b).abs().max())
+                        for net in ("netG", "netD")
+                        for a, b in zip(getattr(k_gan, net).parameters(),
+                                        getattr(p_gan, net).parameters()))
+    return {"grads": grads, "first_loss_rel_err": first, "loss_max_rel_drift": drift,
+            "loss_rel_errs": loss_errs, "param_max_abs_diff": param_err}
+
+
+def train(dev):
+    from ganecdotes_torch.gan.train import STEP_KINDS
+    from ganecdotes_torch.ops import _build
+    from ganecdotes_torch.ops.opset import KERNELS, PLAIN
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    kern = run_gan(dev, KERNELS)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    gan, iter_ms, losses = kern
+    step_ms = {k: statistics.median(v) for k, v in gan.step_ms.items() if v}
+    dg_ms = statistics.median(iter_ms[1:4])
+    print(f"  {GAN_ITERS} iterations, ms {[round(t, 3) for t in iter_ms]} (iteration 0: "
+          f"D + R1 + G + PPL and warm-up; 1-3: D + G; 4: D + G + PPL); D + G iteration "
+          f"median {dg_ms:.3f} ms; ms per step kind (median) "
+          f"{ {k: round(v, 3) for k, v in step_ms.items()} }; peak memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    print(f"  launches {launches}", flush=True)
+    for kind in STEP_KINDS:
+        print(f"  launches in {kind} steps: {gan.step_launches[kind]}", flush=True)
+    print(f"  losses {json.dumps(losses)}", flush=True)
+    for k in SERVING_KERNELS + RESAMPLE_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched on the training path")
+    check(all(math.isfinite(v) for l in losses for v in l.values()), "non-finite loss")
+    # iteration 0's gradients leave the card before the plain run
+    gan.first_grads = {k: [g.cpu() for g in v] for k, v in gan.first_grads.items()}
+    _build.reset_launches()
+    plain = run_gan(dev, PLAIN)
+    check(all(v == 0 for v in _build.LAUNCHES.values()), "the plain run launched a kernel")
+    plain[0].first_grads = {k: [g.cpu() for g in v] for k, v in plain[0].first_grads.items()}
+    agreement = check_gan_agreement(kern, plain)
+    print(f"  plain ops: iteration ms {[round(t, 3) for t in plain[1]]}; ms per step kind "
+          f"{ {k: round(statistics.median(v), 3) for k, v in plain[0].step_ms.items() if v} }; "
+          f"{json.dumps(agreement)}", flush=True)
+    plain_iter_ms, plain_step_ms, plain_losses = plain[1], plain[0].step_ms, plain[2]
+    del plain
+    img = gan.test()
+    check(tuple(img.shape) == (GAN_B, GAN_SIZE, GAN_SIZE, 3)
+          and bool(torch.isfinite(img).all()),
+          "sample image")
+    prof = profile_iteration(gan)
+    print(f"  one iteration (D + R1 + G + PPL) under torch.profiler: {json.dumps(prof)}",
+          flush=True)
+    return {
+        "iterations": GAN_ITERS, "iter_ms": iter_ms, "dg_iter_ms": dg_ms,
+        "step_ms": gan.step_ms, "step_ms_median": step_ms, "peak_memory_bytes": peak,
+        "launches": launches, "step_launches": gan.step_launches, "losses": losses,
+        "plain_iter_ms": plain_iter_ms, "plain_step_ms": plain_step_ms,
+        "plain_losses": plain_losses, "agreement": agreement, "profile": prof,
+    }
+
+
 def kernels_line(rows, launches):
     out = []
     for name, (source, replaces) in KERNELS_TABLE.items():
@@ -695,18 +1059,25 @@ def main():
           flush=True)
     print("pretrain (ffhq-256, hfc_with_swav SwAV, full config):", flush=True)
     pretrained = pretrain(dev)
+    print("ADA warp pass vs plain version (ms per call, CUDA events):", flush=True)
+    rows += check_resample(dev)
+    print(f"train (BagGAN-HQ pidray, 256^2, B = {GAN_B}, full width and depth):",
+          flush=True)
+    trained = train(dev)
 
     # each kernel's launches from the path it belongs to; the serving
-    # kernel rows are per request of 8, the Sinkhorn row per SwAV step
+    # kernel rows are per request of 8, the Sinkhorn row per SwAV step, the
+    # resample rows per augment call (launches: the 5 training iterations)
     launches = dict(served["launches"],
-                    sinkhorn_knopp=pretrained["launches"]["sinkhorn_knopp"])
+                    sinkhorn_knopp=pretrained["launches"]["sinkhorn_knopp"],
+                    **{k: trained["launches"][k] for k in RESAMPLE_KERNELS})
     line = kernels_line(rows, launches)
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
         with open(args.details, "w") as f:
             json.dump({"card": smi, "kind": kind, "build": info, "shapes": rows,
-                       "serve": served, "pretrain": pretrained, "kernels": line},
-                      f, indent=1)
+                       "serve": served, "pretrain": pretrained, "train": trained,
+                       "kernels": line}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

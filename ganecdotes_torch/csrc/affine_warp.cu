@@ -1,0 +1,151 @@
+// One 1-D pass of ADA's separable shear warp, and its exact adjoint, on
+// (B, C, S, W) float32: each column w of each (image, channel) plane is
+// resampled along S at the source positions alpha[b]*v + intercept[b, w].
+//
+// Replaces ganecdotes_tpu/ops/affine_warp_pallas.py::resample_rows (the
+// pallas_call at affine_warp_pallas.py:234) and ::resample_rows_t (the
+// pallas_call at :266). The index algebra is that of the plain pass
+// (ops/affine_warp.py::_resample_pass, affine_warp_pallas.py:85-111):
+//
+//   U = floor(intercept[b, w]), vfrac = intercept - U,
+//   q = floor(alpha*v), r = alpha*v - q, e = floor(r + vfrac), f = r + vfrac - e,
+//   tap_t = x[b, c, U + q + t, w] for t in {0, 1, 2}, zero where the
+//           unwrapped index U + q + t lies outside [0, S-1],
+//   out[b, c, v, w] = (1 - f)*lo + f*hi, (lo, hi) = e ? (tap1, tap2) : (tap0, tap1).
+//
+// The TPU kernel rolls each column by U with log2(S) conditional shifts and
+// selects the taps with one-hot matmuls, because the TPU has no cheap
+// gather; here each thread reads its three taps directly. Every float step
+// is a separately rounded _rn intrinsic, so nvcc contracts nothing into an
+// FMA and the result equals the plain torch pass bit for bit.
+//
+// Bound: bytes. The forward reads each tap once from L2/L1 (neighbouring
+// threads hold neighbouring w, so a warp's loads of one tap row coalesce
+// whenever U varies slowly along w) and writes each output once; at ADA's
+// 256^2 shape pass V moves 150.5 MB in and 99.6 MB out (74.7 us at 3.35
+// TB/s), pass H 99.6 MB in and 65.9 MB out (49.4 us).
+//
+// The adjoint splats each cotangent onto the taps it read, with no atomics:
+// one thread owns one (b, c, w) source column, zeroes it, and walks v in
+// order, adding the weighted cotangents into its own column. No two threads
+// write one address, so runs repeat bit for bit. The column is S floats in
+// device memory, read and written per tap (it stays in L1/L2 at these
+// sizes); a faster design keeps a sliding window of it in registers, since
+// the taps move monotonically in v.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+struct Geometry {
+  int k0;     // unwrapped index of tap 0
+  bool e1;    // carry: taps (1, 2) instead of (0, 1)
+  float f;    // fractional weight of the upper tap
+};
+
+__device__ __forceinline__ Geometry geometry(float alpha, float icpt, int v) {
+  const float U = floorf(icpt);
+  const float vfrac = __fsub_rn(icpt, U);
+  const float au = __fmul_rn(alpha, (float)v);
+  const float q = floorf(au);
+  const float r = __fsub_rn(au, q);
+  const float e_in = __fadd_rn(r, vfrac);
+  const float e = floorf(e_in);
+  Geometry g;
+  g.k0 = (int)U + (int)q;
+  g.e1 = e == 1.f;
+  g.f = __fsub_rn(e_in, e);
+  return g;
+}
+
+__global__ void resample_rows_kernel(const float* __restrict__ x,
+                                     const float* __restrict__ alpha,
+                                     const float* __restrict__ icpt,
+                                     float* __restrict__ out, int C, int S,
+                                     int W, int V, int64_t total) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += stride) {
+    const int w = (int)(i % W);
+    int64_t r = i / W;
+    const int v = (int)(r % V);
+    const int64_t plane = r / V;  // b * C + c
+    const int b = (int)(plane / C);
+    const Geometry g = geometry(alpha[b], icpt[(int64_t)b * W + w], v);
+    const float* col = x + plane * S * W + w;
+    float tap[3];
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const int k = g.k0 + t;
+      tap[t] = (k >= 0 && k < S) ? col[(int64_t)k * W] : 0.f;
+    }
+    const float lo = g.e1 ? tap[1] : tap[0];
+    const float hi = g.e1 ? tap[2] : tap[1];
+    out[i] = __fadd_rn(__fmul_rn(__fsub_rn(1.f, g.f), lo), __fmul_rn(g.f, hi));
+  }
+}
+
+__global__ void resample_rows_t_kernel(const float* __restrict__ gout,
+                                       const float* __restrict__ alpha,
+                                       const float* __restrict__ icpt,
+                                       float* __restrict__ dx, int C, int S,
+                                       int W, int V, int64_t columns) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < columns;
+       i += stride) {
+    const int w = (int)(i % W);
+    const int64_t plane = i / W;
+    const int b = (int)(plane / C);
+    const float a = alpha[b];
+    const float ic = icpt[(int64_t)b * W + w];
+    float* col = dx + plane * S * W + w;
+    const float* gcol = gout + plane * V * W + w;
+    for (int s = 0; s < S; ++s) col[(int64_t)s * W] = 0.f;
+    for (int v = 0; v < V; ++v) {
+      const float gv = gcol[(int64_t)v * W];
+      const Geometry g = geometry(a, ic, v);
+      const float one_f = __fsub_rn(1.f, g.f);
+      // coefficient of each tap in the forward lerp
+      const float coef[3] = {g.e1 ? 0.f : one_f, g.e1 ? one_f : g.f,
+                             g.e1 ? g.f : 0.f};
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const int k = g.k0 + t;
+        if (k >= 0 && k < S && coef[t] != 0.f) {
+          float* p = col + (int64_t)k * W;
+          *p = __fadd_rn(*p, __fmul_rn(coef[t], gv));
+        }
+      }
+    }
+  }
+}
+
+unsigned grid_for(int64_t n, int threads) {
+  int64_t blocks = (n + threads - 1) / threads;
+  if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond ~32 blocks/SM
+  return (unsigned)(blocks > 0 ? blocks : 1);
+}
+
+}  // namespace
+
+extern "C" int gk_resample_rows(const float* x, const float* alpha,
+                                const float* icpt, float* out, int B, int C,
+                                int S, int W, int V, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = 256;
+  const int64_t total = (int64_t)B * C * V * W;
+  resample_rows_kernel<<<grid_for(total, threads), threads, 0, s>>>(
+      x, alpha, icpt, out, C, S, W, V, total);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gk_resample_rows_t(const float* gout, const float* alpha,
+                                  const float* icpt, float* dx, int B, int C,
+                                  int S, int W, int V, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int threads = 128;
+  const int64_t columns = (int64_t)B * C * W;
+  resample_rows_t_kernel<<<grid_for(columns, threads), threads, 0, s>>>(
+      gout, alpha, icpt, dx, C, S, W, V, columns);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,357 @@
+"""Adaptive discriminator augmentation (StyleGAN2-ADA), NHWC (port of
+ganecdotes_tpu/gan/ada.py).
+
+Random geometry (flip, 90-degree rotations, translations, isotropic and
+anisotropic scale, rotations) composed as 3x3 matrices and applied with
+SYM6 wavelet anti-aliasing (2x upsample, the affine warp, 2x downsample),
+then random color (brightness, contrast, luma flip, hue, saturation) as 4x4
+matrices; and the adaptive-p controller.
+
+The warp runs through ``ops.resample_rows`` ('shear_pallas', the default on
+every device: the CUDA pass with ``KERNELS``, its plain version with
+``PLAIN``); the four 12-tap wavelet passes are ``upfirdn2d_ref`` (the JAX
+package runs them outside any kernel too, as C = 3 matmuls). Random
+matrices are drawn from an explicit ``torch.Generator`` on the CPU; the
+trainer draws them up front (``gan/train.py::draw_step_inputs``) and passes
+them in as ``transform_matrix=(G, C)``.
+"""
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ganecdotes_torch.ops.affine_warp import affine_warp, norm_to_pixel_matrix
+from ganecdotes_torch.ops.grid_sample import grid_sample_bilinear
+from ganecdotes_torch.ops.opset import KERNELS
+from ganecdotes_torch.ops.upfirdn2d import upfirdn2d_ref
+
+SYM6 = (
+    0.015404109327027373, 0.0034907120842174702, -0.11799011114819057,
+    -0.048311742585633, 0.4910559419267466, 0.787641141030194,
+    0.3379294217276218, -0.07263752278646252, -0.021060292512300564,
+    0.04472490177066578, 0.0017677118642428036, -0.007800708325034148,
+)
+
+# ---------------------------------------------------------------------------
+# transform matrices (batched, float32)
+# ---------------------------------------------------------------------------
+
+
+def _eye(n, b):
+    return torch.eye(n).repeat(b, 1, 1)
+
+
+def translate_mat(t_x, t_y):
+    mat = _eye(3, t_x.shape[0])
+    mat[:, 0, 2], mat[:, 1, 2] = t_x, t_y
+    return mat
+
+
+def rotate_mat(theta):
+    mat = _eye(3, theta.shape[0])
+    c, s = torch.cos(theta), torch.sin(theta)
+    mat[:, 0, 0], mat[:, 0, 1], mat[:, 1, 0], mat[:, 1, 1] = c, -s, s, c
+    return mat
+
+
+def scale_mat(s_x, s_y):
+    mat = _eye(3, s_x.shape[0])
+    mat[:, 0, 0], mat[:, 1, 1] = s_x, s_y
+    return mat
+
+
+def translate3d_mat(t_x, t_y, t_z):
+    mat = _eye(4, t_x.shape[0])
+    mat[:, 0, 3], mat[:, 1, 3], mat[:, 2, 3] = t_x, t_y, t_z
+    return mat
+
+
+def scale3d_mat(s_x, s_y, s_z):
+    mat = _eye(4, s_x.shape[0])
+    mat[:, 0, 0], mat[:, 1, 1], mat[:, 2, 2] = s_x, s_y, s_z
+    return mat
+
+
+def rotate3d_mat(axis, theta):
+    u_x, u_y, u_z = axis
+    cross = torch.tensor([(0, -u_z, u_y), (u_z, 0, -u_x), (-u_y, u_x, 0)])
+    ax = torch.tensor(axis)
+    outer = torch.outer(ax, ax)
+    sin_t = torch.sin(theta)[:, None, None]
+    cos_t = torch.cos(theta)[:, None, None]
+    rot = cos_t * torch.eye(3) + sin_t * cross + (1 - cos_t) * outer
+    mat = _eye(4, theta.shape[0])
+    mat[:, :3, :3] = rot
+    return mat
+
+
+def luma_flip_mat(axis, i):
+    ax = torch.tensor(axis + (0,))
+    return _eye(4, i.shape[0]) - 2 * torch.outer(ax, ax) * i[:, None, None]
+
+
+def saturation_mat(axis, i):
+    ax = torch.tensor(axis + (0,))
+    outer = torch.outer(ax, ax)
+    return outer + (_eye(4, i.shape[0]) - outer) * i[:, None, None]
+
+
+# ---------------------------------------------------------------------------
+# random sampling of composed transforms
+# ---------------------------------------------------------------------------
+
+
+def _random_mat_apply(generator, p, transform, prev, eye):
+    b = transform.shape[0]
+    select = (torch.rand(b, 1, 1, generator=generator) < p).to(transform.dtype)
+    return (select * transform + (1 - select) * eye) @ prev
+
+
+def sample_affine(generator, p, size, height, width):
+    """Composed geometric transform (ref ada.py:269-325), (B, 3, 3), drawn on
+    the CPU from ``generator``; ``p`` a float."""
+    eye = _eye(3, size)
+    G = eye
+    g = generator
+
+    # flip
+    param = torch.randint(0, 2, (size,), generator=g).to(torch.float32)
+    G = _random_mat_apply(g, p, scale_mat(1 - 2.0 * param, torch.ones(size)), G, eye)
+    # 90-degree rotate (0 or 3 quarter-turns)
+    param = torch.tensor([0.0, 3.0])[torch.randint(0, 2, (size,), generator=g)]
+    G = _random_mat_apply(g, p, rotate_mat(-math.pi / 2 * param), G, eye)
+    # integer translate
+    param = torch.rand(2, size, generator=g) * 0.25 - 0.125
+    G = _random_mat_apply(g, p, translate_mat(torch.round(param[1] * width),
+                                              torch.round(param[0] * height)), G, eye)
+    # isotropic scale
+    param = torch.exp(torch.randn(size, generator=g) * 0.2 * math.log(2))
+    G = _random_mat_apply(g, p, scale_mat(param, param), G, eye)
+
+    p_rot = 1 - math.sqrt(1 - p)
+    # pre-rotate
+    param = (torch.rand(size, generator=g) * 2 - 1) * math.pi
+    G = _random_mat_apply(g, p_rot, rotate_mat(-param), G, eye)
+    # anisotropic scale
+    param = torch.exp(torch.randn(size, generator=g) * 0.2 * math.log(2))
+    G = _random_mat_apply(g, p, scale_mat(param, 1 / param), G, eye)
+    # post-rotate
+    param = (torch.rand(size, generator=g) * 2 - 1) * math.pi
+    G = _random_mat_apply(g, p_rot, rotate_mat(-param), G, eye)
+    # fractional translate
+    param = torch.randn(2, size, generator=g) * 0.125
+    G = _random_mat_apply(g, p, translate_mat(param[1] * width, param[0] * height), G, eye)
+    return G
+
+
+def sample_color(generator, p, size):
+    """Composed color transform (ref ada.py:328-359), (B, 4, 4), drawn on the
+    CPU from ``generator``; ``p`` a float."""
+    eye = _eye(4, size)
+    C = eye
+    g = generator
+    axis_val = 1 / math.sqrt(3)
+    axis = (axis_val, axis_val, axis_val)
+
+    # brightness
+    param = torch.randn(size, generator=g) * 0.2
+    C = _random_mat_apply(g, p, translate3d_mat(param, param, param), C, eye)
+    # contrast
+    param = torch.exp(torch.randn(size, generator=g) * 0.5 * math.log(2))
+    C = _random_mat_apply(g, p, scale3d_mat(param, param, param), C, eye)
+    # luma flip
+    param = torch.randint(0, 2, (size,), generator=g).to(torch.float32)
+    C = _random_mat_apply(g, p, luma_flip_mat(axis, param), C, eye)
+    # hue rotation
+    param = (torch.rand(size, generator=g) * 2 - 1) * math.pi
+    C = _random_mat_apply(g, p, rotate3d_mat(axis, param), C, eye)
+    # saturation
+    param = torch.exp(torch.randn(size, generator=g) * math.log(2))
+    C = _random_mat_apply(g, p, saturation_mat(axis, param), C, eye)
+    return C
+
+
+def sample_transforms(generator, p, size, height, width, device=None):
+    """(G, C) for one ``augment`` call: the inverse of a ``sample_affine``
+    draw and a ``sample_color`` draw, in that order, on ``device``."""
+    G = torch.linalg.inv(sample_affine(generator, p, size, height, width))
+    C = sample_color(generator, p, size)
+    return G.to(device), C.to(device)
+
+
+# ---------------------------------------------------------------------------
+# application
+# ---------------------------------------------------------------------------
+
+
+def _affine_grid(theta, h, w):
+    """F.affine_grid(align_corners=False) semantics: normalized coords."""
+    dev = theta.device
+    xs = (torch.arange(w, device=dev) * 2 + 1) / w - 1
+    ys = (torch.arange(h, device=dev) * 2 + 1) / h - 1
+    base = torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w),
+                        torch.ones(h, w, device=dev)], dim=-1)
+    return torch.einsum("bij,hwj->bhwi", theta, base.to(theta.dtype))
+
+
+def _scale_single(s_x, s_y, device):
+    return torch.tensor([[s_x, 0, 0], [0, s_y, 0], [0, 0, 1]],
+                        dtype=torch.float32, device=device)
+
+
+def _translate_single(t_x, t_y, device):
+    return torch.tensor([[1, 0, t_x], [0, 1, t_y], [0, 0, 1]],
+                        dtype=torch.float32, device=device)
+
+
+def warp_geometry(G, h, w, len_k=len(SYM6), pad_frac=0.25):
+    """Where ADA's warp samples for (B, 3, 3) inverse affine matrices ``G``
+    on an h x w image: (G_inv, the padded 2x source's (H, W), the warp's
+    output (H, W)), with ``G_inv`` in ``F.affine_grid`` coordinates."""
+    dev = G.device
+    pad_k = len_k // 4
+    pad_x = int(round(w * pad_frac)) + pad_k * 2
+    pad_y = int(round(h * pad_frac)) + pad_k * 2
+    src_h, src_w = 2 * (h + 2 * pad_y), 2 * (w + 2 * pad_x)
+    G_inv = _scale_single(2, 2, dev) @ G @ _scale_single(0.5, 0.5, dev)
+    G_inv = (_translate_single(-0.5, -0.5, dev) @ G_inv
+             @ _translate_single(0.5, 0.5, dev))
+    out_h = (h + pad_k * 2) * 2
+    out_w = (w + pad_k * 2) * 2
+    G_inv = (_scale_single(2 / src_w, 2 / src_h, dev)
+             @ G_inv
+             @ _scale_single(1 / (2 / out_w), 1 / (2 / out_h), dev))
+    return G_inv, (src_h, src_w), (out_h, out_w)
+
+
+def random_apply_affine(img, p=None, generator=None, G=None,
+                        antialiasing_kernel=SYM6, pad_frac=0.25,
+                        warp_impl="shear_pallas", ops=KERNELS):
+    """Geometric ADA transform with SYM6 anti-aliasing (ref ada.py:464-517).
+
+    img: (B, H, W, C) NHWC. ``G`` the (B, 3, 3) inverse affine matrices, or
+    None to draw them from ``generator`` at probability ``p``. A static
+    reflect pad of ``pad_frac`` of the size plus the kernel's margin
+    replaces the reference's per-batch pad. ``warp_impl``: 'shear_pallas'
+    (``ops.resample_rows``), 'shear' (the plain passes) or 'exact' (the
+    grid_sample oracle). Returns (img_out, G).
+    """
+    k = np.asarray(antialiasing_kernel, dtype=np.float32)
+    len_k = len(k)
+    b, h, w, c = img.shape
+    if G is None:
+        G = torch.linalg.inv(sample_affine(generator, p, b, h, w)).to(img.device)
+
+    pad_k = len_k // 4
+    pad_x = int(round(w * pad_frac)) + pad_k * 2
+    pad_y = int(round(h * pad_frac)) + pad_k * 2
+    img_pad = F.pad(img.permute(0, 3, 1, 2), [pad_x, pad_x, pad_y, pad_y],
+                    mode="reflect").permute(0, 2, 3, 1)
+
+    up_pad = ((len_k + 1) // 2, (len_k - 2) // 2)
+    img_2x = upfirdn2d_ref(img_pad, k[None, :], up=(2, 1), down=1,
+                           pad=(up_pad[0], up_pad[1], 0, 0))
+    img_2x = upfirdn2d_ref(img_2x, k[:, None], up=(1, 2), down=1,
+                           pad=(0, 0, up_pad[0], up_pad[1]))
+
+    G_inv, src_hw, (out_h, out_w) = warp_geometry(G, h, w, len_k, pad_frac)
+    if warp_impl == "exact":
+        grid = _affine_grid(G_inv[:, :2, :], out_h, out_w)
+        img_affine = grid_sample_bilinear(img_2x, grid)
+    else:
+        M_pix = norm_to_pixel_matrix(G_inv, img_2x.shape[1:3], (out_h, out_w))
+        img_affine = affine_warp(img_2x, M_pix, out_hw=(out_h, out_w),
+                                 impl=warp_impl, ops=ops)
+
+    k_flip = np.ascontiguousarray(k[::-1])
+    d_p = -pad_k * 2
+    down_pad = (d_p + (len_k - 1) // 2, d_p + (len_k - 2) // 2)
+    img_down = upfirdn2d_ref(img_affine, k_flip[None, :], up=1, down=(2, 1),
+                             pad=(down_pad[0], down_pad[1], 0, 0))
+    img_down = upfirdn2d_ref(img_down, k_flip[:, None], up=1, down=(1, 2),
+                             pad=(0, 0, down_pad[0], down_pad[1]))
+    return img_down, G
+
+
+def apply_color(img, mat):
+    """img (B, H, W, 3) @ mat[:3, :3]^T + mat[:3, 3] (ref ada.py:520-528)."""
+    out = torch.einsum("bhwc,bdc->bhwd", img, mat[:, :3, :3].to(img.dtype))
+    return out + mat[:, :3, 3][:, None, None, :].to(img.dtype)
+
+
+def random_apply_color(img, p=None, generator=None, C=None):
+    if C is None:
+        C = sample_color(generator, p, img.shape[0]).to(img.device)
+    return apply_color(img, C), C
+
+
+def augment(img, p=None, generator=None, transform_matrix=(None, None),
+            warp_impl="shear_pallas", ops=KERNELS):
+    """Full ADA augmentation: affine then color (ref ada.py:540-544).
+    Returns (img, (G, C))."""
+    img, G = random_apply_affine(img, p, generator, transform_matrix[0],
+                                 warp_impl=warp_impl, ops=ops)
+    img, C = random_apply_color(img, p, generator, transform_matrix[1])
+    return img, (G, C)
+
+
+# ---------------------------------------------------------------------------
+# adaptive-p controller
+# ---------------------------------------------------------------------------
+
+
+def ada_init_state(p0=0.0, device=None):
+    return {
+        "buf": torch.zeros(2, device=device),
+        "update": torch.zeros((), dtype=torch.int32, device=device),
+        "p": torch.tensor(float(p0), dtype=torch.float32, device=device),
+        "r_t": torch.tensor(0.0, dtype=torch.float32, device=device),
+    }
+
+
+def ada_update(state, real_pred, target, aug_len, update_every):
+    """One controller step on device tensors, with no host sync: adds the
+    sign statistics of ``real_pred`` to the buffer and, every
+    ``update_every``-th call, moves p by sign(r_t - target) * n / aug_len."""
+    real_pred = real_pred.detach()
+    stats = torch.stack([torch.sign(real_pred).sum(),
+                         torch.tensor(float(real_pred.numel()), device=real_pred.device)])
+    buf = state["buf"] + stats
+    update = state["update"] + 1
+    due = update % update_every == 0
+    r_t = buf[0] / buf[1]
+    sign = torch.where(r_t > target, 1.0, -1.0)
+    p_new = torch.clamp(state["p"] + sign * buf[1] / aug_len, 0.0, 1.0)
+    return {
+        "buf": torch.where(due, torch.zeros_like(buf), buf),
+        "update": torch.where(due, torch.zeros_like(update), update),
+        "p": torch.where(due, p_new, state["p"]),
+        "r_t": torch.where(due, r_t, state["r_t"]),
+    }
+
+
+class AdaptiveAugment:
+    """Stateful wrapper with the reference's class API (ada.py:28-91), the
+    intended statistic E[sign(D(real))] against the target."""
+
+    def __init__(self, ada_aug_target, ada_aug_len, update_every, device=None):
+        self.ada_aug_target = ada_aug_target
+        self.ada_aug_len = ada_aug_len
+        self.update_every = update_every
+        self.state = ada_init_state(device=device)
+
+    @property
+    def r_t_stat(self):
+        return float(self.state["r_t"])
+
+    @property
+    def ada_aug_p(self):
+        return float(self.state["p"])
+
+    def tune(self, real_pred):
+        self.state = ada_update(self.state, torch.as_tensor(real_pred),
+                                self.ada_aug_target, self.ada_aug_len,
+                                self.update_every)
+        return float(self.state["p"])

@@ -1,0 +1,130 @@
+"""StyleGAN2 discriminator: ResBlock downsample stack + minibatch stddev
+(port of ganecdotes_tpu/models/stylegan2/discriminator.py), NHWC.
+
+The module tree mirrors the JAX parameter pytree key for key ("conv_in",
+"blocks.i.conv1/conv2/skip", "final_conv", "final_lin1", "final_lin2"), so
+``convert.from_jax_discriminator_params`` is a plain load. Every blur goes
+through ``ops.upfirdn2d`` and every biased activation through
+``ops.fused_leaky_relu``, where ``ops`` is ``KERNELS`` (CUDA kernels, as
+autograd Functions that R1 and WGAN-GP differentiate twice) or ``PLAIN``.
+The stride-2 convs and the 1x1 skips are ``F.conv2d``. The InfoGAN Q heads
+are not ported yet.
+"""
+
+import math
+
+import torch
+import torch.nn as nn
+
+from ganecdotes_torch.models.stylegan2.generator import channel_map
+from ganecdotes_torch.nn.layers import (
+    EqualConv2d,
+    EqualLinear,
+    conv2d_nhwc,
+    leaky_relu,
+)
+from ganecdotes_torch.ops.opset import KERNELS
+from ganecdotes_torch.ops.upfirdn2d import blur_2d
+
+
+def conv_layer_apply(p, x, downsample=False, activate=True,
+                     blur_kernel=(1, 3, 3, 1), ops=KERNELS):
+    """ConvLayer semantics (ref model.py:651-697): optional blur + stride-2
+    conv, equalized weight, fused bias + leaky-ReLU."""
+    kh = p.weight.shape[0]
+    w = p.scaled_weight()
+    if downsample:
+        pk = len(blur_kernel) - 2 + (kh - 1)
+        x = blur_2d(x, blur_kernel, pad=((pk + 1) // 2, pk // 2),
+                    impl=ops.upfirdn2d)
+        out = conv2d_nhwc(x, w, stride=2, padding=0)
+    else:
+        out = conv2d_nhwc(x, w, stride=1, padding=kh // 2)
+    # the NHWC conv output is a channels-last view; the kernels take it
+    # contiguous
+    out = out.contiguous()
+    if activate:
+        if p.bias is not None:
+            return ops.fused_leaky_relu(out, p.bias)
+        return leaky_relu(out) * math.sqrt(2)
+    if p.bias is not None:
+        out = out + p.bias.to(out.dtype)
+    return out
+
+
+class ResBlock(nn.Module):
+    def __init__(self, in_ch, out_ch, generator=None):
+        super().__init__()
+        self.conv1 = EqualConv2d(in_ch, in_ch, 3, generator=generator)
+        self.conv2 = EqualConv2d(in_ch, out_ch, 3, generator=generator)
+        self.skip = EqualConv2d(in_ch, out_ch, 1, bias=False, generator=generator)
+
+    def forward(self, x, blur_kernel=(1, 3, 3, 1), ops=KERNELS):
+        out = conv_layer_apply(self.conv1, x, blur_kernel=blur_kernel, ops=ops)
+        out = conv_layer_apply(self.conv2, out, downsample=True,
+                               blur_kernel=blur_kernel, ops=ops)
+        skip = conv_layer_apply(self.skip, x, downsample=True, activate=False,
+                                blur_kernel=blur_kernel, ops=ops)
+        return (out + skip) / math.sqrt(2)
+
+
+def discriminator_meta(size, blur_kernel=(1, 3, 3, 1)):
+    """Static architecture record."""
+    return {"size": size, "stddev_group": 4, "stddev_feat": 1,
+            "blur_kernel": tuple(blur_kernel)}
+
+
+class Discriminator(nn.Module):
+    """StyleGAN2 discriminator initialised from a ``torch.Generator`` on the
+    CPU (as JAX ``init_discriminator``: N(0, 1) weights, zero biases); move
+    it with ``.to(device)``."""
+
+    def __init__(self, size, channel_multiplier=2, in_channels=3,
+                 blur_kernel=(1, 3, 3, 1), res2chlmap=None, generator=None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        g = generator
+        self.meta = discriminator_meta(size, blur_kernel)
+        channels = channel_map(channel_multiplier, res2chlmap)
+        log_size = int(math.log2(size))
+        self.conv_in = EqualConv2d(in_channels, channels[size], 1, generator=g)
+        self.blocks = nn.ModuleList()
+        in_ch = channels[size]
+        for i in range(log_size, 2, -1):
+            out_ch = channels[2 ** (i - 1)]
+            self.blocks.append(ResBlock(in_ch, out_ch, g))
+            in_ch = out_ch
+        self.final_conv = EqualConv2d(channels[4] + 1, channels[4], 3, generator=g)
+        self.final_lin1 = EqualLinear(channels[4] * 4 * 4, channels[4], generator=g)
+        self.final_lin2 = EqualLinear(channels[4], 1, generator=g)
+
+    def forward(self, x, ops=KERNELS):
+        return discriminator_forward(self, x, ops)
+
+
+def minibatch_stddev(x, group_size=4, num_new_features=1):
+    """Minibatch standard-deviation statistic (ref model.py:763-772), NHWC."""
+    b, h, w, c = x.shape
+    group = min(b, group_size)
+    y = x.reshape(group, -1, h, w, num_new_features, c // num_new_features)
+    var = y.to(torch.float32).var(dim=0, unbiased=False)
+    stddev = torch.sqrt(var + 1e-8)
+    stddev = stddev.mean(dim=(1, 2, 4), keepdim=True).squeeze(4)  # (b/g,1,1,1)
+    stddev = stddev.repeat(group, h, w, 1).to(x.dtype)
+    return torch.cat([x, stddev], dim=-1)
+
+
+def discriminator_forward(d, x, ops=KERNELS):
+    """x: (B, H, W, 3) -> logits (B, 1)."""
+    bk = d.meta["blur_kernel"]
+    out = conv_layer_apply(d.conv_in, x, blur_kernel=bk, ops=ops)
+    for blk in d.blocks:
+        out = blk(out, blur_kernel=bk, ops=ops)
+    out = minibatch_stddev(out, d.meta["stddev_group"], d.meta["stddev_feat"])
+    out = conv_layer_apply(d.final_conv, out, blur_kernel=bk, ops=ops)
+    b = out.shape[0]
+    # torch's NCHW flatten order, so converted weights stay valid
+    out = out.permute(0, 3, 1, 2).reshape(b, -1)
+    out = d.final_lin1(out, activation="fused_lrelu", act=ops.fused_leaky_relu)
+    return d.final_lin2(out)

@@ -12,9 +12,11 @@ plain load.
 Every StyledConv goes through ``ops.styled_conv3x3`` / ``styled_up_conv3x3``,
 the mapping's activations through ``ops.fused_leaky_relu`` and the to_rgb
 skip upsamples through ``ops.upfirdn2d``, where ``ops`` is ``KERNELS``
-(CUDA kernels) or ``PLAIN`` (their plain versions, the reference).
-Style mixing and ``randomize_noise=True`` are not ported yet: serving uses
-the fixed noise buffers or noise passed in.
+(CUDA kernels, as autograd Functions, so gradients reach mapping and
+synthesis) or ``PLAIN`` (their plain versions, the reference).
+Random noise is passed in, never drawn inside the forward: ``make_noise``
+draws the per-layer maps from a ``torch.Generator`` (JAX's threefry and
+torch's RNG never agree, so a test hands both packages the same maps).
 """
 
 import math
@@ -205,6 +207,14 @@ def mapping_apply(g, z, ops=KERNELS):
     return x
 
 
+def make_noise(meta, batch=1, generator=None, device=None):
+    """Random per-layer noise maps (ref model.py:543-552), NHWC (B, r, r, 1),
+    drawn on the CPU from ``generator`` and moved to ``device``."""
+    return [torch.randn(batch, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2), 1,
+                        generator=generator).to(device)
+            for i in range(meta["num_layers"])]
+
+
 def mean_latent(g, n_latent_samples, generator, ops=KERNELS):
     """Mean w over n style(z) samples (ref model.py:554-560); z is drawn on
     the CPU from ``generator`` and moved to the generator's device."""
@@ -214,32 +224,51 @@ def mean_latent(g, n_latent_samples, generator, ops=KERNELS):
 
 
 def generator_forward(g, styles, input_is_latent=False, truncation=1.0,
-                      truncation_latent=None, noise=None, ops=KERNELS):
-    """(image, features) for one style: (B, style_dim) z, or w with
-    ``input_is_latent``, or a (B, n_latent, style_dim) w-plus.
+                      truncation_latent=None, noise=None, randomize_noise=False,
+                      inject_index=None, return_latents=False, ops=KERNELS):
+    """Full forward pass (ref Generator.forward, model.py:565-648).
 
-    ``noise`` is a list of per-layer (1 or B, H, W, 1) maps; None uses the
-    fixed buffers (the reference's ``randomize_noise=False``).
+    ``styles``: a list of one or two (B, style_dim) z (or w with
+    ``input_is_latent``), or one (B, n_latent, style_dim) w-plus. Two styles
+    mix: rows below ``inject_index`` take the first. ``noise`` is a list of
+    per-layer (1 or B, H, W, 1) maps; None uses the fixed buffers, which
+    ``randomize_noise=True`` refuses (pass the maps, from ``make_noise``).
+
+    Returns (image, features), (image, latent) with ``return_latents``, or
+    (image, latent, features) with ``return_latents="all"``.
     """
     meta = g.meta
     blur_kernel = meta["blur_kernel"]
     n_latent = meta["n_latent"]
-    if isinstance(styles, (list, tuple)):
-        if len(styles) != 1:
-            raise NotImplementedError("style mixing is not ported yet")
-        styles = styles[0]
-    s = styles
+    if not isinstance(styles, (list, tuple)):
+        styles = [styles]
     if not input_is_latent:
-        if s.dim() == 3:
-            b, k, d = s.shape
-            s = mapping_apply(g, s.reshape(b * k, d), ops).reshape(b, k, d)
-        else:
-            s = mapping_apply(g, s, ops)
+        mapped = []
+        for s in styles:
+            if s.dim() == 3:
+                b, k, d = s.shape
+                mapped.append(mapping_apply(g, s.reshape(b * k, d), ops).reshape(b, k, d))
+            else:
+                mapped.append(mapping_apply(g, s, ops))
+        styles = mapped
     if noise is None:
+        if randomize_noise:
+            raise ValueError("randomize_noise=True needs the noise maps passed "
+                             "in (make_noise)")
         noise = list(g.noises)
     if truncation < 1.0:
-        s = truncation_latent + truncation * (s - truncation_latent)
-    latent = s[:, None, :].expand(-1, n_latent, -1) if s.dim() < 3 else s
+        styles = [truncation_latent + truncation * (s - truncation_latent)
+                  for s in styles]
+    if len(styles) == 1:
+        s = styles[0]
+        latent = s[:, None, :].expand(-1, n_latent, -1) if s.dim() < 3 else s
+    else:
+        if inject_index is None:
+            raise ValueError("style mixing needs an inject_index")
+        latent = torch.cat([
+            styles[0][:, None, :].expand(-1, inject_index, -1),
+            styles[1][:, None, :].expand(-1, n_latent - inject_index, -1)],
+            dim=1)
 
     batch = latent.shape[0]
     out = g.input.expand(batch, -1, -1, -1).contiguous()
@@ -258,4 +287,8 @@ def generator_forward(g, styles, input_is_latent=False, truncation=1.0,
         skip = g.to_rgbs[li // 2](out, latent[:, i + 2], skip,
                                   blur_kernel=blur_kernel, ops=ops)
         i += 2
+    if return_latents == "all":
+        return skip, latent, features
+    if return_latents:
+        return skip, latent
     return skip, features

@@ -88,3 +88,28 @@ def conv2d_transpose_nhwc(x, w, stride=2):
     y = F.conv_transpose2d(_nchw(x), w.permute(2, 3, 0, 1).to(x.dtype),
                            stride=stride)
     return y.permute(0, 2, 3, 1)
+
+
+class EqualConv2d(nn.Module):
+    """Equalized conv weights (ref model.py:185-203): HWIO weight ~ N(0,1),
+    zero bias, scaled at use time by 1/sqrt(in*k*k)."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, bias=True, generator=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(
+            kernel_size, kernel_size, in_ch, out_ch, generator=generator))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+
+    def scaled_weight(self):
+        kh, kw, in_ch, _ = self.weight.shape
+        return self.weight * (1.0 / math.sqrt(in_ch * kh * kw))
+
+    def forward(self, x, stride=1, padding=0):
+        return equal_conv2d_apply(self, x, stride, padding)
+
+
+def equal_conv2d_apply(p, x, stride=1, padding=0):
+    out = conv2d_nhwc(x, p.scaled_weight(), stride=stride, padding=padding)
+    if p.bias is not None:
+        out = out + p.bias.to(out.dtype)
+    return out

@@ -42,6 +42,8 @@ LAUNCHES = {
     "styled_conv3x3": 0,
     "styled_up_conv3x3": 0,
     "sinkhorn_knopp": 0,
+    "resample_rows": 0,
+    "resample_rows_t": 0,
 }
 
 # what the last ``load`` did: seconds, whether it compiled, the log path
@@ -72,6 +74,9 @@ _SIGNATURES = {
     # scores, r, c, q, u, t, v, part_m, part_s, B, K, niters, inv_eps,
     # rows per chunk, chunks, stream
     "gk_sinkhorn_knopp": [P] * 9 + [I, I, I, F, I, I, P],
+    # x (or g), alpha, intercept, out (or dx), B, C, S, W, V, stream
+    "gk_resample_rows": [P] * 4 + [I] * 5 + [P],
+    "gk_resample_rows_t": [P] * 4 + [I] * 5 + [P],
 }
 
 _lib = None

@@ -6,7 +6,13 @@
 ``styled_conv3x3`` (non-up) and ``styled_up_conv3x3`` (2x up, blur composed
 into four polyphase 3x3 filters) launch the CUDA kernel of
 csrc/styled_conv.cu on CUDA tensors, at every shape, and take their plain
-versions only for tensors on the CPU. Plain versions:
+versions only for tensors on the CPU, inside an autograd Function either
+way. Their backward is the VJP of the plain composite, as the JAX package's
+``_bwd`` and ``_up_bwd`` are (modulated_conv_pallas.py:308-314, :554-561):
+``styled_conv3x3_ref`` and ``styled_up_conv3x3_xla``, recomputed from the
+saved inputs. It is first order only (``once_differentiable``): a path that
+takes gradients of gradients through the generator (PPL) runs the plain
+composites instead. Plain versions:
 
 * ``styled_conv3x3_ref``: modulate -> conv3x3 -> epilogue;
 * ``styled_up_conv3x3_ref``: the sub-pixel form (what the kernel computes);
@@ -21,6 +27,7 @@ grid; noise_weight a scalar tensor; bias (Cout,).
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ganecdotes_torch.nn.layers import conv2d_nhwc, conv2d_transpose_nhwc
 from ganecdotes_torch.ops import _build
@@ -119,9 +126,7 @@ def _check_weight(kernel, w, x):
         raise ValueError(f"{kernel}: w has shape {tuple(w.shape)}, expected (3, 3, {x.shape[3]}, Cout)")
 
 
-def styled_conv3x3(x, w, s, demod, noise, noise_weight, bias):
-    """Non-up StyledConv body: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+def _conv_forward(x, w, s, demod, noise, noise_weight, bias):
     if x.device.type == "cpu":
         return styled_conv3x3_ref(x, w, s, demod, noise, noise_weight, bias)
     _check_weight("styled_conv3x3", w, x)
@@ -129,11 +134,7 @@ def styled_conv3x3(x, w, s, demod, noise, noise_weight, bias):
                    bias, up=False)
 
 
-def styled_up_conv3x3(x, w, s, demod, noise, noise_weight, bias,
-                      blur_kernel=(1, 3, 3, 1)):
-    """Upsampling StyledConv body (2x): the CUDA kernel on CUDA tensors, the
-    plain sub-pixel version on CPU tensors. The four phase weights come from
-    ``compose_up_kernel`` -> ``phase_stack_major``."""
+def _up_conv_forward(x, w, s, demod, noise, noise_weight, bias, blur_kernel):
     if x.device.type == "cpu":
         return styled_up_conv3x3_ref(x, w, s, demod, noise, noise_weight,
                                      bias, blur_kernel)
@@ -141,3 +142,60 @@ def styled_up_conv3x3(x, w, s, demod, noise, noise_weight, bias,
     taps = phase_stack_major(compose_up_kernel(w, blur_kernel))
     return _launch("styled_up_conv3x3", x, taps, s, demod, noise,
                    noise_weight, bias, up=True)
+
+
+def _composite_vjp(ctx, fn, g, *extra):
+    """Input gradients of ``fn(*saved, *extra)`` against ``g``, recomputed
+    from the saved inputs (only those the caller needs)."""
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    wanted = [t for t in inputs if t.requires_grad]
+    grads = iter(())
+    if wanted:
+        with torch.enable_grad():
+            out = fn(*inputs, *extra)
+        grads = iter(torch.autograd.grad(out, wanted, g))
+    return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+class _StyledConv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, s, demod, noise, noise_weight, bias):
+        ctx.save_for_backward(x, w, s, demod, noise, noise_weight, bias)
+        return _conv_forward(x, w, s, demod, noise, noise_weight, bias)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _composite_vjp(ctx, styled_conv3x3_ref, g)
+
+
+class _StyledUpConv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, s, demod, noise, noise_weight, bias, blur_kernel):
+        ctx.save_for_backward(x, w, s, demod, noise, noise_weight, bias)
+        ctx.blur_kernel = blur_kernel
+        return _up_conv_forward(x, w, s, demod, noise, noise_weight, bias,
+                                blur_kernel)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _composite_vjp(ctx, styled_up_conv3x3_xla, g,
+                              ctx.blur_kernel) + (None,)
+
+
+def styled_conv3x3(x, w, s, demod, noise, noise_weight, bias):
+    """Non-up StyledConv body: the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors; first-order differentiable."""
+    return _StyledConv3x3.apply(x, w, s, demod, noise, noise_weight, bias)
+
+
+def styled_up_conv3x3(x, w, s, demod, noise, noise_weight, bias,
+                      blur_kernel=(1, 3, 3, 1)):
+    """Upsampling StyledConv body (2x): the CUDA kernel on CUDA tensors, the
+    plain sub-pixel version on CPU tensors; first-order differentiable. The
+    four phase weights come from ``compose_up_kernel`` ->
+    ``phase_stack_major``."""
+    return _StyledUpConv3x3.apply(x, w, s, demod, noise, noise_weight, bias,
+                                  tuple(blur_kernel))

@@ -1,0 +1,104 @@
+"""ADA's 1-D warp pass and its exact adjoint (port of
+ganecdotes_tpu/ops/affine_warp_pallas.py ``resample_rows`` and
+``resample_rows_t``).
+
+``resample_rows(x, alpha, intercept, out_len)`` resamples (B, C, S, W)
+``x`` along S: output row v of column w reads source position
+``alpha[b]*v + intercept[b, w]`` with bilinear weights, zero outside
+[0, S-1]; ``resample_rows_t(g, alpha, intercept, src_len)`` is its adjoint.
+Both launch the CUDA kernels of csrc/affine_warp.cu on CUDA tensors and
+take the plain versions (``ops/affine_warp.py::_resample_pass`` and
+``_resample_pass_t``) only for tensors on the CPU.
+
+The pass is linear in the image, so each op is the other's VJP: two
+autograd Functions whose backwards call each other, which gives
+derivatives of every order with respect to the image (R1 takes gradients
+of gradients through ADA). The cotangents of ``alpha`` and ``intercept``
+are None, as the JAX kernel returns zeros for them: ADA's transform is
+drawn, never differentiated.
+"""
+
+import torch
+
+from ganecdotes_torch.ops import _build
+from ganecdotes_torch.ops.affine_warp import _resample_pass, _resample_pass_t
+
+
+def resample_rows_ref(x, alpha, intercept, out_len):
+    """Plain version: ``_resample_pass`` along rows."""
+    return _resample_pass(x, alpha, intercept, axis=2, out_len=out_len)
+
+
+def resample_rows_t_ref(g, alpha, intercept, src_len):
+    """Plain version of the adjoint: ``_resample_pass_t``."""
+    return _resample_pass_t(g, alpha, intercept, src_len)
+
+
+def _launch(kernel, entry, src, alpha, intercept, out_rows):
+    """Checks and the launch shared by both kernels: ``src`` (B, C, R, W)
+    in, (B, C, out_rows, W) out. The C entries take the forward's geometry
+    (S source rows, V output rows)."""
+    _build.check_tensor(kernel, src, "input", ndim=4)
+    _build.check_tensor(kernel, alpha, "alpha", ndim=1, device=src.device)
+    _build.check_tensor(kernel, intercept, "intercept", ndim=2, device=src.device)
+    b, c, _, w = src.shape
+    if alpha.shape[0] != b or tuple(intercept.shape) != (b, w):
+        raise ValueError(f"{kernel}: alpha {tuple(alpha.shape)} and intercept "
+                         f"{tuple(intercept.shape)} do not match {tuple(src.shape)}")
+    if out_rows <= 0:
+        raise ValueError(f"{kernel}: {out_rows} output rows")
+    out = torch.empty((b, c, out_rows, w), dtype=src.dtype, device=src.device)
+    if out.numel() == 0:
+        return out
+    s, v = (src.shape[2], out_rows) if kernel == "resample_rows" else (out_rows, src.shape[2])
+    _build.launch(kernel, entry, _build.ptr(src), _build.ptr(alpha),
+                  _build.ptr(intercept), _build.ptr(out), b, c, s, w, v,
+                  _build.stream_of(src))
+    return out
+
+
+class _ResampleRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, alpha, intercept, out_len):
+        ctx.save_for_backward(alpha, intercept)
+        ctx.src_len = x.shape[2]
+        if x.device.type == "cpu":
+            return resample_rows_ref(x, alpha, intercept, out_len)
+        return _launch("resample_rows", "gk_resample_rows", x, alpha,
+                       intercept, out_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        alpha, intercept = ctx.saved_tensors
+        return (_ResampleRowsT.apply(g.contiguous(), alpha, intercept, ctx.src_len),
+                None, None, None)
+
+
+class _ResampleRowsT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, alpha, intercept, src_len):
+        ctx.save_for_backward(alpha, intercept)
+        ctx.out_len = g.shape[2]
+        if g.device.type == "cpu":
+            return resample_rows_t_ref(g, alpha, intercept, src_len)
+        return _launch("resample_rows_t", "gk_resample_rows_t", g, alpha,
+                       intercept, src_len)
+
+    @staticmethod
+    def backward(ctx, gg):
+        alpha, intercept = ctx.saved_tensors
+        return (_ResampleRows.apply(gg.contiguous(), alpha, intercept, ctx.out_len),
+                None, None, None)
+
+
+def resample_rows(x, alpha, intercept, out_len):
+    """(B, C, S, W) -> (B, C, out_len, W): the CUDA kernel on CUDA tensors
+    (float32, contiguous; alpha (B,), intercept (B, W)), the plain version on
+    CPU tensors. Differentiable to any order in ``x``."""
+    return _ResampleRows.apply(x, alpha, intercept, int(out_len))
+
+
+def resample_rows_t(g, alpha, intercept, src_len):
+    """Adjoint of ``resample_rows``: (B, C, V, W) -> (B, C, src_len, W).
+    Differentiable to any order in ``g``."""
+    return _ResampleRowsT.apply(g, alpha, intercept, int(src_len))

@@ -5,8 +5,10 @@ ganecdotes_tpu/ops/sinkhorn_pallas.py).
 ganecdotes_tpu/selfsup/swav.py:225-245 written with ``torch.logsumexp``.
 ``sinkhorn_knopp`` launches the streaming CUDA kernel (csrc/sinkhorn.cu) on
 a CUDA tensor and takes the plain version only for a tensor on the CPU.
-No gradient: SwAV uses the codes as constant targets, so neither form is
-recorded by autograd (the plain one runs under ``torch.no_grad()``).
+No gradient: SwAV uses the codes as constant targets (the JAX step wraps
+them in stop_gradient), so ``sinkhorn_knopp`` refuses scores that need a
+gradient while grad mode is on, rather than hand back codes cut from the
+graph; callers pass ``scores.detach()``.
 """
 
 import torch
@@ -36,7 +38,11 @@ def sinkhorn_knopp_ref(scores, niters, eps, r, c):
 
 def sinkhorn_knopp(scores, niters, eps, r, c):
     """Kernel on CUDA tensors (scores (B, K), r (K,), c (B,), float32,
-    contiguous); the plain version on CPU tensors."""
+    contiguous); the plain version on CPU tensors. No gradient."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (scores, r, c) if isinstance(t, torch.Tensor)):
+        raise ValueError(f"{KERNEL}: the codes have no gradient; pass detached "
+                         "scores and marginals")
     if scores.device.type == "cpu":
         return sinkhorn_knopp_ref(scores, niters, eps, r, c)
     _build.check_tensor(KERNEL, scores, "scores", ndim=2)

@@ -14,7 +14,14 @@ Semantics, as in the reference CUDA op StyleGAN2 ships with:
 Pad order is the reference's (x0, x1, y0, y1). All functions are NHWC.
 ``upfirdn2d_ref`` is the plain PyTorch version (a depthwise conv);
 ``upfirdn2d`` launches the CUDA kernel (csrc/upfirdn2d.cu) on a CUDA tensor
-and takes the plain version only for a tensor on the CPU.
+and takes the plain version only for a tensor on the CPU, inside one
+autograd Function either way. Its backward (the gradient algebra of the
+reference's ``UpFirDn2dBackward``): flipped taps and the "gradient padding"
+``k - pad0 - 1`` and ``in*up - out + pad0 - up + 1`` per axis. For the blur
+(up = 1) that is the same Function again, as the JAX package's backward is
+the same Pallas kernel (upfirdn2d_pallas.py:222-242), so it has derivatives
+of any order; for up = 2 it is the plain down-2 FIR in torch ops, which
+autograd differentiates further.
 """
 
 import numpy as np
@@ -70,25 +77,12 @@ def upfirdn2d_ref(x, kernel, up=1, down=1, pad=(0, 0)):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
-    """Kernel on a CUDA tensor; plain version on a CPU tensor.
-
-    ``kernel`` is a host array (e.g. from ``make_kernel``) of side <= 8; its
-    taps travel to the card by value with the launch. The kernel takes
-    up 1 or 2 per axis and down = 1.
-    """
+def _forward(x, k, up, pad):
+    """The kernel's launch (CUDA) or the plain version (CPU), down = 1."""
+    (up_x, up_y), (px0, px1, py0, py1) = up, pad
     if x.device.type == "cpu":
-        return upfirdn2d_ref(x, kernel, up, down, pad)
-    (up_x, up_y), down, (px0, px1, py0, py1) = _normalize_args(up, down, pad)
+        return upfirdn2d_ref(x, k, up, 1, pad)
     _build.check_tensor(KERNEL, x, "x", ndim=4)
-    if isinstance(kernel, torch.Tensor):
-        raise TypeError(f"{KERNEL}: pass the FIR kernel as a host array")
-    k = np.asarray(kernel, dtype=np.float32)
-    if k.ndim != 2 or not 1 <= k.shape[0] <= _build.KMAX or not 1 <= k.shape[1] <= _build.KMAX:
-        raise ValueError(f"{KERNEL}: kernel must be 2-D with sides <= {_build.KMAX}, got {k.shape}")
-    if up_x not in (1, 2) or up_y not in (1, 2) or down != (1, 1):
-        raise ValueError(f"{KERNEL}: the kernel takes up 1 or 2 and down 1, "
-                         f"got up {(up_x, up_y)}, down {down}")
     b, h, w, c = x.shape
     kh, kw = k.shape
     oh = out_size(h, up_y, py0, py1, kh, 1)
@@ -108,6 +102,55 @@ def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
     return y
 
 
+class _UpFirDn2d(torch.autograd.Function):
+    """upfirdn2d at down = 1; ``k`` a float32 host array, ``up`` and ``pad``
+    normalised tuples (x and y)."""
+
+    @staticmethod
+    def forward(ctx, x, k, up, pad):
+        ctx.k, ctx.up, ctx.pad, ctx.in_hw = k, up, pad, x.shape[1:3]
+        return _forward(x, k, up, pad)
+
+    @staticmethod
+    def backward(ctx, g):
+        (up_x, up_y), (px0, _, py0, _) = ctx.up, ctx.pad
+        kh, kw = ctx.k.shape
+        (h, w), (oh, ow) = ctx.in_hw, g.shape[1:3]
+        gpad = (kw - px0 - 1, w * up_x - ow + px0 - up_x + 1,
+                kh - py0 - 1, h * up_y - oh + py0 - up_y + 1)
+        kf = np.ascontiguousarray(ctx.k[::-1, ::-1])
+        if ctx.up == (1, 1):
+            return _UpFirDn2d.apply(g.contiguous(), kf, (1, 1), gpad), None, None, None
+        return upfirdn2d_ref(g, kf, 1, ctx.up, gpad), None, None, None
+
+
+def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
+    """Kernel on a CUDA tensor; plain version on a CPU tensor; differentiable.
+
+    ``kernel`` is a host array (e.g. from ``make_kernel``) of side <= 8; its
+    taps travel to the card by value with the launch. The kernel takes
+    up 1 or 2 per axis and down = 1: the subsampling passes (the
+    discriminator's strided convs follow a blur; ADA's wavelet passes) call
+    ``upfirdn2d_ref``.
+    """
+    up, down, pad = _normalize_args(up, down, pad)
+    if isinstance(kernel, torch.Tensor):
+        raise TypeError(f"{KERNEL}: pass the FIR kernel as a host array")
+    k = np.asarray(kernel, dtype=np.float32)
+    kernel_case = (k.ndim == 2 and 1 <= k.shape[0] <= _build.KMAX
+                   and 1 <= k.shape[1] <= _build.KMAX)
+    if kernel_case and (up[0] not in (1, 2) or up[1] not in (1, 2) or down != (1, 1)):
+        kernel_case = False
+    if not kernel_case:
+        if x.device.type == "cpu":  # the plain version takes any case
+            return upfirdn2d_ref(x, k, up, down, pad)
+        if k.ndim != 2 or max(k.shape) > _build.KMAX:
+            raise ValueError(f"{KERNEL}: kernel must be 2-D with sides <= {_build.KMAX}, got {k.shape}")
+        raise ValueError(f"{KERNEL}: the kernel takes up 1 or 2 and down 1, "
+                         f"got up {up}, down {down}")
+    return _UpFirDn2d.apply(x, k, up, pad)
+
+
 def upsample_2d(x, kernel_taps=(1, 3, 3, 1), factor=2, impl=upfirdn2d):
     """Upsample module semantics (ref models/stylegan2/model.py:124-142).
 
@@ -118,6 +161,14 @@ def upsample_2d(x, kernel_taps=(1, 3, 3, 1), factor=2, impl=upfirdn2d):
     pad0 = (p + 1) // 2 + factor - 1
     pad1 = p // 2
     return impl(x, k, up=factor, down=1, pad=(pad0, pad1))
+
+
+def downsample_2d(x, kernel_taps=(1, 3, 3, 1), factor=2):
+    """Downsample module semantics (ref models/stylegan2/model.py:145-163),
+    plain: no kernel subsamples."""
+    k = make_kernel(kernel_taps)
+    p = k.shape[0] - factor
+    return upfirdn2d_ref(x, k, up=1, down=factor, pad=((p + 1) // 2, p // 2))
 
 
 def blur_2d(x, kernel_taps=(1, 3, 3, 1), pad=(0, 0), upsample_factor=1,

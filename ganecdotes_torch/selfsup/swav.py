@@ -138,7 +138,7 @@ def sinkhorn_knopp(scores, niters, eps, r, c, ops=KERNELS):
     through ``ops.sinkhorn_knopp``. No gradient flows through either form:
     the codes are constant targets (the JAX step wraps them in
     stop_gradient)."""
-    return ops.sinkhorn_knopp(scores, niters, eps, r, c)
+    return ops.sinkhorn_knopp(scores.detach(), niters, eps, r, c)
 
 
 def _histogram_pdf(values, nbins):

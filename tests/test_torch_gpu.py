@@ -216,8 +216,180 @@ def test_swav_pretrain_kernels_match_plain_ops(cuda):
         runs.append((swav, dict(_build.LAUNCHES)))
     (kern, launches), (plain, plain_launches) = runs
     assert launches["sinkhorn_knopp"] == 2 * 2 * 2, launches
-    assert all(v > 0 for v in launches.values()), launches
+    path = ("fused_leaky_relu", "upfirdn2d", "styled_conv3x3",
+            "styled_up_conv3x3", "sinkhorn_knopp")
+    assert all(launches[k] > 0 for k in path), launches
     assert all(v == 0 for v in plain_launches.values()), plain_launches
     np.testing.assert_allclose(kern.loss_history, plain.loss_history, rtol=1e-4)
     for a, b in zip(tree_leaves(kern.ssl_params), tree_leaves(plain.ssl_params)):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the BagGAN slice: ADA's warp pass, the Functions' gradients, one iteration
+# ---------------------------------------------------------------------------
+
+
+def _pass_case(b, c, s, w, v, negative, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, c, s, w, generator=g)
+    alpha = torch.rand(b, generator=g) * 0.6 + 0.7
+    icpt = torch.rand(b, w, generator=g) * (s + 10) - 5
+    if negative:
+        alpha, icpt = -alpha, icpt + 0.8 * s
+    return x.to(dev), alpha.to(dev), icpt.to(dev), v
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 40, 36, 29), (3, 1, 101, 77, 59),
+                                   (1, 2, 9, 300, 120)])
+@pytest.mark.parametrize("negative", [False, True])
+def test_resample_kernels_match_plain(cuda, shape, negative):
+    """Small, ragged (W and V no multiple of a warp) and flipped (alpha < 0)
+    passes: the forward kernel equals the plain pass (same rounded steps),
+    the adjoint agrees to 1e-5 and repeats bit for bit (no atomics)."""
+    from ganecdotes_torch.ops import resample as trs
+
+    x, alpha, icpt, v = _pass_case(*shape, negative, cuda)
+    before = dict(_build.LAUNCHES)
+    out = trs.resample_rows(x, alpha, icpt, v)
+    torch.testing.assert_close(out, trs.resample_rows_ref(x, alpha, icpt, v),
+                               atol=ATOL, rtol=0)
+    g = torch.randn_like(out)
+    dx = trs.resample_rows_t(g, alpha, icpt, x.shape[2])
+    torch.testing.assert_close(dx, trs.resample_rows_t_ref(g, alpha, icpt, x.shape[2]),
+                               atol=ATOL, rtol=0)
+    torch.testing.assert_close(trs.resample_rows_t(g, alpha, icpt, x.shape[2]), dx,
+                               atol=0, rtol=0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["resample_rows"] == before["resample_rows"] + 1
+    assert _build.LAUNCHES["resample_rows_t"] == before["resample_rows_t"] + 2
+    # the adjoint identity <A x, g> = <x, A^T g>, summed in float64
+    lhs = (out.double() * g.double()).sum()
+    rhs = (x.double() * dx.double()).sum()
+    scale = out.double().norm() * g.double().norm()
+    assert abs(float(lhs - rhs)) <= 1e-5 * float(scale)
+
+
+def _second_order(fn, x, w):
+    """grad_x of ||grad_x <w, fn(x)^2>||^2: two backward passes."""
+    x = x.detach().requires_grad_(True)
+    (g,) = torch.autograd.grad((w * fn(x) ** 2).sum(), x, create_graph=True)
+    (gg,) = torch.autograd.grad(g.square().sum(), x)
+    return gg
+
+
+def test_double_grad_through_kernels_matches_plain(cuda):
+    """R1's shape of derivative through the resample, blur and fused
+    Functions (kernels in both backward passes) against plain autograd."""
+    from ganecdotes_torch.ops import resample as trs
+
+    x, alpha, icpt, v = _pass_case(2, 3, 40, 36, 29, False, cuda, seed=1)
+    w = torch.randn(2, 3, v, 36, device=cuda)
+    before = dict(_build.LAUNCHES)
+    got = _second_order(lambda t: trs.resample_rows(t, alpha, icpt, v), x, w)
+    want = _second_order(lambda t: trs.resample_rows_ref(t, alpha, icpt, v), x, w)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    assert _build.LAUNCHES["resample_rows_t"] > before["resample_rows_t"]
+    assert _build.LAUNCHES["resample_rows"] > before["resample_rows"] + 1
+
+    xb = torch.randn(2, 9, 11, 8, device=cuda)
+    wb = torch.randn(2, 10, 12, 8, device=cuda)
+    k = tup.make_kernel((1, 3, 3, 1))
+    got = _second_order(lambda t: tup.upfirdn2d(t, k, pad=(2, 2)), xb, wb)
+    want = _second_order(lambda t: tup.upfirdn2d_ref(t, k, pad=(2, 2)), xb, wb)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+    xf = torch.randn(4, 6, 8, device=cuda)
+    bias = torch.randn(8, device=cuda)
+    got = _second_order(lambda t: tfa.fused_leaky_relu(t, bias), xf, xf.cos())
+    want = _second_order(lambda t: tfa.fused_leaky_relu_ref(t, bias), xf, xf.cos())
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("up", [False, True], ids=["conv", "up_conv"])
+def test_styled_conv_function_grads_match_plain(cuda, up):
+    a = _styled_inputs(2, 8, 8, 64, 32, 1, up, cuda, seed=3)
+    fn = tmc.styled_up_conv3x3 if up else tmc.styled_conv3x3
+    ref = tmc.styled_up_conv3x3_xla if up else tmc.styled_conv3x3_ref
+    ins = [t.clone().requires_grad_(True) for t in a]
+    out = fn(*ins)
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, ins, g)
+    ins_ref = [t.clone().requires_grad_(True) for t in a]
+    want = torch.autograd.grad(ref(*ins_ref), ins_ref, g)
+    for u, v in zip(got, want):
+        torch.testing.assert_close(u, v, **CONV_TOL)
+
+
+def test_kernel_outputs_carry_the_graph(cuda):
+    """No detached kernel outputs: every wrapper that launches a kernel
+    returns a tensor autograd can follow, or refuses an input that needs a
+    gradient (the Sinkhorn, whose codes are constants)."""
+    from ganecdotes_torch.ops import resample as trs
+
+    x = torch.randn(2, 4, 4, 8, device=cuda, requires_grad=True)
+    bias = torch.zeros(8, device=cuda, requires_grad=True)
+    assert tfa.fused_leaky_relu(x, bias).requires_grad
+    assert tup.upfirdn2d(x, tup.make_kernel((1, 3, 3, 1)), pad=(2, 1)).requires_grad
+    a = [t.requires_grad_(True) for t in _styled_inputs(2, 4, 4, 8, 8, 1, False, cuda)]
+    assert tmc.styled_conv3x3(*a).requires_grad
+    a = [t.requires_grad_(True) for t in _styled_inputs(2, 4, 4, 8, 8, 1, True, cuda)]
+    assert tmc.styled_up_conv3x3(*a).requires_grad
+    xr, alpha, icpt, v = _pass_case(1, 1, 9, 7, 5, False, cuda)
+    xr.requires_grad_(True)
+    assert trs.resample_rows(xr, alpha, icpt, v).requires_grad
+    assert trs.resample_rows_t(xr, alpha, icpt, 11).requires_grad
+    scores = torch.randn(16, 8, device=cuda, requires_grad=True)
+    r, c = torch.ones(8, device=cuda) / 8, torch.ones(16, device=cuda) / 16
+    with pytest.raises(ValueError, match="gradient"):
+        tsk.sinkhorn_knopp(scores, 2, 0.1, r, c)
+    with torch.no_grad():
+        tsk.sinkhorn_knopp(scores, 2, 0.1, r, c)
+    tsk.sinkhorn_knopp(scores.detach(), 2, 0.1, r, c)
+
+
+def test_baggan_iteration_kernels_match_plain_ops(cuda, tmp_path):
+    """One iteration with R1 and PPL of a 32x32 BagGAN (ADA at p = 0.6)
+    with KERNELS and with PLAIN from the same seed: every kernel launched,
+    both resample Functions included; equal draws. The learning rate is 0,
+    so every step kind sees equal weights (Adam's first step moves each
+    weight by about lr * sign(g), which flips with the rounding of a
+    gradient near zero) and the two runs differ only in float32 summation
+    order: losses within 1e-4 relative, each step kind's gradients within
+    1e-3 of its norm."""
+    from ganecdotes_torch.gan.train import STEP_KINDS, BagGANHQ
+    from ganecdotes_torch.ops.opset import KERNELS
+
+    cfg = SimpleNamespace(
+        out_dir=str(tmp_path), checkpoint_dir=str(tmp_path), is_train=True,
+        image_size=32, latent_dim=64, num_channels=3, batch_size=4,
+        gan_mode="wgangp", use_ppl=True, r1_lambda=10, ppl_lambda=2,
+        path_batch_shrink=2, ppl_decay=0.01, d_reg_every=16, g_reg_every=4,
+        mixing_prob=0.9, chl_multiplier=1, res2chlmap={4: 64, 8: 64, 16: 32, 32: 32},
+        g_reg_ratio=4 / 5, d_reg_ratio=16 / 17, augment=True, augment_p=0,
+        ada_target=0.6, ada_length=500000, lr=0.0, beta1=0.0,
+        generator_params=dict(mlp_layers=2), losses_to_print=["g_gan", "d", "g_ppl"])
+    real = torch.rand(4, 32, 32, 3, generator=torch.Generator().manual_seed(3)) * 2 - 1
+    runs = []
+    for ops in (KERNELS, PLAIN):
+        _build.reset_launches()
+        gan = BagGANHQ(cfg, seed=2, device=cuda, ops=ops)
+        gan.ada_state["p"].fill_(0.6)
+        gan.keep_first_grads = True
+        gan.set_input(real, iter_no=0)
+        gan.optimize_parameters()
+        torch.cuda.synchronize()
+        runs.append((gan, dict(_build.LAUNCHES)))
+    (kern, launches), (plain, plain_launches) = runs
+    assert all(v > 0 for k, v in launches.items() if k != "sinkhorn_knopp"), launches
+    assert all(v == 0 for v in plain_launches.values()), plain_launches
+    for a, b in zip(kern.draws.g_aug, plain.draws.g_aug):
+        assert torch.equal(a, b)
+    for name in ("d", "d_r1", "g_gan", "g_ppl"):
+        a, b = float(getattr(kern, "loss_" + name)), float(getattr(plain, "loss_" + name))
+        assert abs(a - b) <= 1e-4 * max(1.0, abs(b)), (name, a, b)
+    for kind in STEP_KINDS:
+        diff = sum(float((u - v).square().sum())
+                   for u, v in zip(kern.first_grads[kind], plain.first_grads[kind]))
+        norm = sum(float(v.square().sum()) for v in plain.first_grads[kind])
+        assert diff <= (1e-3) ** 2 * norm, (kind, (diff / norm) ** 0.5)

@@ -288,8 +288,10 @@ def test_kernel_build_has_a_source_per_kernel():
     srcs, _ = _build._sources()
     names = {s.rsplit("/", 1)[-1] for s in srcs}
     assert {"fused_act.cu", "upfirdn2d.cu", "styled_conv.cu",
-            "sinkhorn.cu"} <= names
+            "sinkhorn.cu", "affine_warp.cu"} <= names
     assert set(_build.LAUNCHES) == {"fused_leaky_relu", "upfirdn2d",
                                     "styled_conv3x3", "styled_up_conv3x3",
-                                    "sinkhorn_knopp"}
+                                    "sinkhorn_knopp", "resample_rows",
+                                    "resample_rows_t"}
+    assert {"gk_resample_rows", "gk_resample_rows_t"} <= set(_build._SIGNATURES)
     assert set(_build.LAUNCHES) == set(OpSet._fields)
