@@ -14,7 +14,9 @@ Phases (any failure exits non-zero before the last line):
      at B = 8, held against its plain PyTorch version on the card (float32,
      TF32 off; the up conv also against conv_transpose + blur) and timed
      with CUDA events beside its plain version, one library call where one
-     computes the same function, and its bound; the Sinkhorn kernel at the
+     computes the same function, and its bound (at the rate of the
+     arithmetic the kernel runs in: 3xTF32 on the tensor cores for the up
+     conv's GEMM, fp32 SIMT otherwise); the Sinkhorn kernel at the
      pretraining path's (patch_size, nprototypes) scores, uniform and image
      marginals, a ragged shape and niters = 0;
   4. serve: OneShotServer (ffhq-256, hfc_with_swav, random weights from a
@@ -28,10 +30,11 @@ Phases (any failure exits non-zero before the last line):
      one more step runs under torch.profiler;
   6. the ADA warp pass and its adjoint at the two pass shapes BagGAN-HQ's
      augment gives them at 256^2, B = 20 (the pass geometry from ADA draws
-     at p = 1: flips, transposed images), and a small ragged flipped case:
-     each kernel against its plain version, the adjoint identity, and the
-     times of kernel, plain version, F.grid_sample (the adjoint:
-     grid_sampler_2d_backward) and the bound;
+     at p = 1: flips, transposed images), a small ragged flipped case and
+     small cases at alpha = 0 and 0.05: each kernel against its plain
+     version, two launches of the adjoint bit for bit, the adjoint
+     identity, and the times of kernel, plain version, F.grid_sample (the
+     adjoint: grid_sampler_2d_backward) and the bound;
   7. train: BagGANHQ at the full pidray config (random weights and "real"
      batches from a seed, ADA p set to 0.6) for 5 iterations (R1 and PPL at
      iteration 0, PPL at 4) with every kernel's launch counted per step
@@ -63,6 +66,10 @@ B = 8  # MAX_TEST_BATCH, one request
 N_REQUESTS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
+TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
+# the arithmetic each kernel's operations run in, and its peak rate
+FP32 = ("fp32 SIMT", FP32_FLOPS)
+TF32X3 = ("3xTF32 tensor cores", TF32_FLOPS)
 # kernel vs plain version: both float32, different summation order; the
 # error stays within a few ulps of the largest partial sums
 KERNEL_TOL = 1e-4  # max |kernel - plain| <= KERNEL_TOL * max(1, max |plain|)
@@ -82,7 +89,7 @@ KERNELS_TABLE = {
                   "ganecdotes_tpu/ops/upfirdn2d_pallas.py:132"),
     "styled_conv3x3": ("ganecdotes_torch/csrc/styled_conv.cu",
                        "ganecdotes_tpu/ops/modulated_conv_pallas.py:317"),
-    "styled_up_conv3x3": ("ganecdotes_torch/csrc/styled_conv.cu",
+    "styled_up_conv3x3": ("ganecdotes_torch/csrc/styled_up_conv.cu",
                           "ganecdotes_tpu/ops/modulated_conv_pallas.py:564"),
     "sinkhorn_knopp": ("ganecdotes_torch/csrc/sinkhorn.cu",
                        "ganecdotes_tpu/ops/sinkhorn_pallas.py:380"),
@@ -143,10 +150,17 @@ def time_ms(fn, budget_ms=100.0):
     return e0.elapsed_time(e1) / iters
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, ops):
+    """The least time for the work: the bytes over the memory rate, or the
+    operations over the peak rate of the arithmetic they run in, whichever
+    is larger. ``ops`` lists (operations, (arithmetic, rate)). Returns (ms,
+    "bytes" or "operations (the arithmetic and its rate)")."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_f = flops / FP32_FLOPS * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+    t_f = sum(n / arith[1] for n, arith in ops) * 1e3
+    if t_b >= t_f:
+        return t_b, "bytes"
+    rate = " + ".join(f"{arith[0]} {arith[1] / 1e12:g} TFLOP/s" for _, arith in ops)
+    return t_f, f"operations ({rate})"
 
 
 def errors(got, want):
@@ -217,6 +231,7 @@ def check_kernels(dev):
 
                 moved = nbytes(x, bias, x)
                 flops = 3 * x.numel()
+                ops = [(flops, FP32)]
             elif name == "upfirdn2d":
                 x = torch.randn(*shape, generator=gen, device=dev)
 
@@ -237,6 +252,7 @@ def check_kernels(dev):
                 out_n = x.numel() * 4
                 moved = nbytes(x) + out_n * 4
                 flops = 2 * out_n * 16 // 4  # 4 of the 16 taps see data
+                ops = [(flops, FP32)]
             else:
                 up = name == "styled_up_conv3x3"
                 args = styled_inputs(shape, up, gen, dev)
@@ -259,8 +275,13 @@ def check_kernels(dev):
                 # the up branch conv_transpose + 4x4 blur, which needs a
                 # quarter of the MACs of the four composed phase filters
                 flops = 2 * b * h * w * 9 * ci * co
-                if up:
-                    flops += 2 * b * (2 * h) * (2 * w) * co * 16
+                ops = [(flops, FP32)]
+                if up:  # 3xTF32: three tensor-core products per multiply-add
+                    # the 4x4 blur is separable: 4 taps across the 2H + 1
+                    # scratch rows, then 4 down, per output channel
+                    blur = 2 * b * co * 4 * (2 * w) * ((2 * h + 1) + 2 * h)
+                    ops = [(3 * flops, TF32X3), (blur, FP32)]
+                    flops += 2 * b * (2 * h) * (2 * w) * co * 16  # as a 2-D filter
                 xm = (args[0] * args[2][:, None, None, :]).permute(0, 3, 1, 2)
                 if up:
                     wl = args[1].permute(2, 3, 0, 1).contiguous()
@@ -291,7 +312,7 @@ def check_kernels(dev):
                 if name == "upfirdn2d":
                     row["library_err"] = errors(lib(), want)[0]
                 row["library_ms"] = time_ms(lib)
-            row["bound_ms"], row["bound_by"] = bound_ms(moved, flops)
+            row["bound_ms"], row["bound_by"] = bound_ms(moved, ops)
             row["bytes"], row["flops"] = moved, flops
             rows.append(row)
             print(f"  {name:18s} {str(tuple(shape)):26s} err {err:.3e} "
@@ -381,7 +402,7 @@ def check_sinkhorn(dev):
             "ms": time_ms(kern), "plain_ms": time_ms(plain), "library_ms": None,
             "bytes": moved, "flops": flops,
         }
-        row["bound_ms"], row["bound_by"] = bound_ms(moved, flops)
+        row["bound_ms"], row["bound_by"] = bound_ms(moved, [(flops, FP32)])
         rows.append(row)
         print(f"  sinkhorn_knopp {case:8s} {str((b_, k_)):14s} niters {n_:2d} "
               f"err {err:.3e} (tol {SINKHORN_TOL:.0e}) ms {row['ms']:.4f} "
@@ -673,8 +694,9 @@ def check_pretrain_agreement(kern, plain):
 def resample_cases(dev):
     """(case, x, alpha, intercept, out_len, calls per augment call) of the
     two passes BagGAN-HQ's augment runs at 256^2, B = 20, with the geometry
-    of ADA draws at p = 1 (p = 0 draws the identity), and a small ragged
-    case with a flip. The images are random: the pass does not care."""
+    of ADA draws at p = 1 (p = 0 draws the identity), a small ragged case
+    with a flip, and small cases at alpha = 0 and 0.05. The images are
+    random: the pass does not care."""
     from ganecdotes_torch.gan.ada import sample_transforms, warp_geometry
     from ganecdotes_torch.ops.affine_warp import norm_to_pixel_matrix, shear_geometry
     from ganecdotes_torch.ops.resample import resample_rows_ref
@@ -698,9 +720,15 @@ def resample_cases(dev):
     ragged = (torch.randn(b, 1, s_len, w, generator=gen, device=dev),
               -(torch.rand(b, generator=gen, device=dev) * 0.6 + 0.7),
               torch.rand(b, w, generator=gen, device=dev) * (s_len + 10) + 0.8 * s_len - 5)
+    # alpha = 0 (delta is not clamped) and a small alpha: the adjoint's
+    # widest candidate windows
+    x_r = torch.randn(b, 1, s_len, w, generator=gen, device=dev)
+    icpt_r = torch.rand(b, w, generator=gen, device=dev) * (s_len + 10) - 5
     return [("pass V", x_eff, delta.contiguous(), icpt_v.contiguous(), out[0], 1),
             ("pass H", at, a.contiguous(), icpt_h.contiguous(), out[1], 1),
-            ("ragged flip", *ragged, v, 0)]
+            ("ragged flip", *ragged, v, 0),
+            ("alpha 0", x_r, torch.zeros(b, device=dev), icpt_r, v, 0),
+            ("alpha 0.05", x_r, torch.full((b,), 0.05, device=dev), icpt_r, v, 0)]
 
 
 def _grid_for_pass(alpha, intercept, s_len, out_len):
@@ -749,6 +777,8 @@ def check_resample(dev):
             tol = RESAMPLE_TOL * max(1.0, scale)
             lib_err = errors(lib(), want)[0]
             outs[name] = got
+            if name == "resample_rows_t":  # deterministic: no atomics
+                check(torch.equal(kern(), got), f"{name} {case}: two launches differ")
             row = {
                 "kernel": name, "case": case, "shape": list(x.shape), "out_len": out_len,
                 "calls": calls, "max_abs_err": err, "max_rel_err": rel, "tol": tol,
@@ -756,7 +786,8 @@ def check_resample(dev):
                 "ms": time_ms(kern), "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
                 "bytes": moved, "flops": 3 * (g.numel() if name == "resample_rows" else x.numel()),
             }
-            row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["flops"])
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                row["bytes"], [(row["flops"], FP32)])
             row["ok"] = err <= tol
             rows.append(row)
             print(f"  {name:15s} {case:11s} {str(tuple(x.shape)):20s} -> {out_len} "
@@ -1006,16 +1037,20 @@ def kernels_line(rows, launches):
                 return None
             return sum(v * r["calls"] for v, r in zip(vals, per_req))
 
-        t_b = sum(r["bytes"] * r["calls"] for r in per_req) / HBM_BYTES_PER_S * 1e3
-        t_f = sum(r["flops"] * r["calls"] for r in per_req) / FP32_FLOPS * 1e3
+        # the rows' own bounds, each at its arithmetic's rate, summed; the
+        # line is bound by what bounds most of that sum
+        share = {}
+        for r in per_req:
+            kind = r["bound_by"].split()[0]  # "bytes" or "operations"
+            share[kind] = share.get(kind, 0.0) + r["bound_ms"] * r["calls"]
         out.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(max(r["max_abs_err"], r["max_abs_err_convT_blur"] or 0.0)
                                for r in rs),
             "ms": total("ms"), "plain_ms": total("plain_ms"),
-            "bound_ms": max(t_b, t_f),
-            "bound_by": "bytes" if t_b >= t_f else "operations",
+            "bound_ms": total("bound_ms"),
+            "bound_by": max(share, key=share.get),
             "library_ms": total("library_ms"),
         })
     return out

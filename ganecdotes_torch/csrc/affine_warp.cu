@@ -25,17 +25,32 @@
 // 256^2 shape pass V moves 150.5 MB in and 99.6 MB out (74.7 us at 3.35
 // TB/s), pass H 99.6 MB in and 65.9 MB out (49.4 us).
 //
-// The adjoint splats each cotangent onto the taps it read, with no atomics:
-// one thread owns one (b, c, w) source column, zeroes it, and walks v in
-// order, adding the weighted cotangents into its own column. No two threads
-// write one address, so runs repeat bit for bit. The column is S floats in
-// device memory, read and written per tap (it stays in L1/L2 at these
-// sizes); a faster design keeps a sliding window of it in registers, since
-// the taps move monotonically in v.
+// The adjoint is a gather: one thread per (b, s, w) of the (B, C, S, W)
+// result, w fastest across a warp, writing its C elements exactly once (no
+// zero fill, no atomics). dx[s] sums coef_t(v) * g[v] over the v whose taps
+// k0(v) + t hit s, t = s - k0(v) in {0, 1, 2}. k0(v) = U + floor(alpha*v)
+// is monotone in v (non-decreasing for alpha >= 0, non-increasing for
+// alpha < 0), so those v form one contiguous range: the thread takes the
+// candidate window [min, max] of (s - 2 - U)/alpha and (s + 1 - U)/alpha
+// (times a rounded 1/alpha), widened by one on each side (the rounding of
+// alpha*v and of the quotients moves its ends by far less than that) and
+// clipped to [0, V), and decides each candidate's membership and
+// coefficient with the same geometry() as the forward, so the coefficients
+// are bit for bit the forward's. The geometry does not depend on the
+// channel, so one walk of v serves up to CMAX channels. alpha = 0 (delta is
+// not clamped) and a subnormal alpha, whose 1/alpha overflows, take all of
+// [0, V); small |alpha| gives wide windows, right
+// but slower. Each sum runs in increasing v, so runs repeat bit for bit. At
+// ADA's scales (|alpha| ~ 1) a thread visits about 6 candidates; the pass
+// moves the same bytes as the forward.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int TW = 32;   // adjoint block: 32 columns w (one warp) ...
+constexpr int TS = 8;    // ... by 8 source rows s
+constexpr int CMAX = 4;  // channels one adjoint thread sums per walk of v
 
 struct Geometry {
   int k0;     // unwrapped index of tap 0
@@ -89,33 +104,50 @@ __global__ void resample_rows_t_kernel(const float* __restrict__ gout,
                                        const float* __restrict__ alpha,
                                        const float* __restrict__ icpt,
                                        float* __restrict__ dx, int C, int S,
-                                       int W, int V, int64_t columns) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < columns;
-       i += stride) {
-    const int w = (int)(i % W);
-    const int64_t plane = i / W;
-    const int b = (int)(plane / C);
-    const float a = alpha[b];
-    const float ic = icpt[(int64_t)b * W + w];
-    float* col = dx + plane * S * W + w;
-    const float* gcol = gout + plane * V * W + w;
-    for (int s = 0; s < S; ++s) col[(int64_t)s * W] = 0.f;
-    for (int v = 0; v < V; ++v) {
-      const float gv = gcol[(int64_t)v * W];
-      const Geometry g = geometry(a, ic, v);
-      const float one_f = __fsub_rn(1.f, g.f);
-      // coefficient of each tap in the forward lerp
-      const float coef[3] = {g.e1 ? 0.f : one_f, g.e1 ? one_f : g.f,
-                             g.e1 ? g.f : 0.f};
+                                       int W, int V) {
+  const int w = blockIdx.x * TW + threadIdx.x;
+  const int s = blockIdx.y * TS + threadIdx.y;
+  const int b = blockIdx.z;
+  if (w >= W || s >= S) return;
+  const float a = alpha[b];
+  const float ic = icpt[(int64_t)b * W + w];
+  int v0 = 0, v1 = V - 1;
+  // 1/alpha overflows for a subnormal alpha: take all of [0, V) there too
+  const float inv = __frcp_rn(a);
+  if (a != 0.f && isfinite(inv)) {
+    const float U = floorf(ic);
+    const float e0 = __fmul_rn(__fsub_rn((float)(s - 2), U), inv);
+    const float e1 = __fmul_rn(__fsub_rn((float)(s + 1), U), inv);
+    // clip in float first: the ends may be huge or infinite
+    const float lo = fminf(fmaxf(fminf(e0, e1), -2.f), (float)V + 1.f);
+    const float hi = fminf(fmaxf(fmaxf(e0, e1), -2.f), (float)V + 1.f);
+    v0 = max(v0, (int)floorf(lo) - 1);
+    v1 = min(v1, (int)ceilf(hi) + 1);
+  }
+  // the geometry is the same for every channel: CMAX channels per walk
+  for (int c0 = 0; c0 < C; c0 += CMAX) {
+    const float* gp = gout + ((int64_t)b * C + c0) * V * W + w;
+    float acc[CMAX];
 #pragma unroll
-      for (int t = 0; t < 3; ++t) {
-        const int k = g.k0 + t;
-        if (k >= 0 && k < S && coef[t] != 0.f) {
-          float* p = col + (int64_t)k * W;
-          *p = __fadd_rn(*p, __fmul_rn(coef[t], gv));
-        }
+    for (int c = 0; c < CMAX; ++c) acc[c] = 0.f;
+    for (int v = v0; v <= v1; ++v) {
+      const Geometry g = geometry(a, ic, v);
+      const int t = s - g.k0;
+      if (t < 0 || t > 2) continue;
+      const float one_f = __fsub_rn(1.f, g.f);
+      // coefficient of tap t in the forward lerp
+      const float coef = t == 0 ? (g.e1 ? 0.f : one_f)
+                       : t == 1 ? (g.e1 ? one_f : g.f)
+                                : (g.e1 ? g.f : 0.f);
+#pragma unroll
+      for (int c = 0; c < CMAX; ++c) {
+        if (c0 + c < C)
+          acc[c] = __fadd_rn(acc[c], __fmul_rn(coef, gp[((int64_t)c * V + v) * W]));
       }
+    }
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c) {
+      if (c0 + c < C) dx[(((int64_t)b * C + c0 + c) * S + s) * W + w] = acc[c];
     }
   }
 }
@@ -143,9 +175,8 @@ extern "C" int gk_resample_rows_t(const float* gout, const float* alpha,
                                   const float* icpt, float* dx, int B, int C,
                                   int S, int W, int V, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 128;
-  const int64_t columns = (int64_t)B * C * W;
-  resample_rows_t_kernel<<<grid_for(columns, threads), threads, 0, s>>>(
-      gout, alpha, icpt, dx, C, S, W, V, columns);
+  const dim3 grid((W + TW - 1) / TW, (S + TS - 1) / TS, B);
+  resample_rows_t_kernel<<<grid, dim3(TW, TS), 0, s>>>(gout, alpha, icpt, dx,
+                                                       C, S, W, V);
   return (int)cudaGetLastError();
 }

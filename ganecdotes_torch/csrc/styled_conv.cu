@@ -2,14 +2,9 @@
 //
 //   out = lrelu(demod * conv3x3(x * s, W) + nw * noise + bias, 0.2) * sqrt(2)
 //
-// Replaces, from ganecdotes_tpu/ops/modulated_conv_pallas.py:
-//   * styled_conv3x3     (_pallas_forward, pallas_call at :212), and
-//   * styled_up_conv3x3  (_up_pallas_forward, pallas_call at :466): the 2x
-//     transposed conv with the [1,3,3,1] blur composed into four polyphase
-//     3x3 filters (ops/subpixel_upconv.py compose_up_kernel ->
-//     phase_stack_major, computed by the wrapper); phase ph = a*2 + c
-//     writes fine pixel (2y + a, 2x + c), and the epilogue reads the noise
-//     on the fine grid.
+// Replaces ganecdotes_tpu/ops/modulated_conv_pallas.py::styled_conv3x3
+// (_pallas_forward, the pallas_call at :212). The upsampling body
+// (styled_up_conv3x3) has its own kernels in styled_up_conv.cu.
 //
 // The wrapper materialises x * s (as the JAX kernel does); this kernel
 // reads it once per tap from L2.
@@ -17,8 +12,8 @@
 // Bound: operations. 2*9*Cin*Cout flops per output pixel against
 // (Cin + Cout)*4 bytes: hundreds of flops per byte at the serving widths,
 // far above the fp32 balance point (67 TFLOP/s over 3.35 TB/s = 20).
-// Design: an implicit GEMM in fp32 on the SIMT cores. M = output pixels
-// (of one phase), N = Cout, K = 9 taps x Cin. A block owns a 128 x 128
+// Design: an implicit GEMM in fp32 on the SIMT cores. M = output pixels,
+// N = Cout, K = 9 taps x Cin. A block owns a 128 x 128
 // output tile; 256 threads each hold an 8 x 8 register tile, so every
 // shared-memory value loaded feeds 8 FMAs. K advances in chunks of 8
 // channels of one tap: the A chunk is gathered from the (tile + halo) pixels
@@ -31,7 +26,8 @@
 // 16-byte-vector write. Shapes are free: pixel rows past M and channels
 // past Cout are masked, so the 4x4 first layer (Cin = 512) runs here too.
 // Requires Cin % 4 == 0, Cout % 4 == 0 and 16-byte-aligned pointers (the
-// wrapper checks). Tensor cores (wgmma), TMA and bf16 are later work.
+// wrapper checks). The tensor-core main loop of styled_up_conv.cu is the
+// next step for this kernel.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,10 +39,9 @@ constexpr int BK = 8;
 constexpr int NT = 256;
 constexpr float SQRT2 = 1.4142135623730951f;
 
-template <bool UP>
 __global__ void __launch_bounds__(NT, 2)
 styled_conv3x3_kernel(const float* __restrict__ xm,     // (B, H, W, Cin)
-                      const float* __restrict__ w,      // (P, 3, 3, Cin, Cout)
+                      const float* __restrict__ w,      // (3, 3, Cin, Cout)
                       const float* __restrict__ demod,  // (B, Cout)
                       const float* __restrict__ noise,  // (Nb, OH, OW)
                       int64_t noise_bs,                 // 0: broadcast over B
@@ -62,8 +57,6 @@ styled_conv3x3_kernel(const float* __restrict__ xm,     // (B, H, W, Cin)
   const int M = B * HW;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int phase = UP ? (int)blockIdx.z : 0;
-  const float* wp = w + (int64_t)phase * 9 * Cin * Cout;
 
   // A loader: one pixel row, four consecutive channels
   const int a_row = tid >> 1;
@@ -103,7 +96,7 @@ styled_conv3x3_kernel(const float* __restrict__ xm,     // (B, H, W, Cin)
     b_reg = make_float4(0.f, 0.f, 0.f, 0.f);
     if (b_in && kk < Cin) {
       b_reg = *reinterpret_cast<const float4*>(
-          wp + ((int64_t)tap * Cin + kk) * Cout + n0 + b_n);
+          w + ((int64_t)tap * Cin + kk) * Cout + n0 + b_n);
     }
   };
   auto stash = [&](int buf) {
@@ -152,8 +145,6 @@ styled_conv3x3_kernel(const float* __restrict__ xm,     // (B, H, W, Cin)
 
   // epilogue
   const float nwv = *nw;
-  const int OW = UP ? 2 * W : W;
-  const int OH = UP ? 2 * H : H;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
@@ -162,10 +153,8 @@ styled_conv3x3_kernel(const float* __restrict__ xm,     // (B, H, W, Cin)
     int r = m - b * HW;
     int y = r / W;
     int x = r - y * W;
-    int oy = UP ? 2 * y + (phase >> 1) : y;
-    int ox = UP ? 2 * x + (phase & 1) : x;
-    int64_t opix = ((int64_t)b * OH + oy) * OW + ox;
-    float nz = nwv * noise[(int64_t)b * noise_bs + (int64_t)oy * OW + ox];
+    int64_t opix = ((int64_t)b * H + y) * W + x;
+    float nz = nwv * noise[(int64_t)b * noise_bs + (int64_t)y * W + x];
     float* orow = out + opix * Cout;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -195,17 +184,11 @@ extern "C" int gk_styled_conv3x3(const float* xm, const float* w,
                                  const float* demod, const float* noise,
                                  long long noise_bs, const float* nw,
                                  const float* bias, float* out, int B, int H,
-                                 int W, int Cin, int Cout, int up,
-                                 void* stream) {
+                                 int W, int Cin, int Cout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = B * H * W;
-  dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN, up ? 4 : 1);
-  if (up) {
-    styled_conv3x3_kernel<true><<<grid, NT, 0, s>>>(
-        xm, w, demod, noise, noise_bs, nw, bias, out, B, H, W, Cin, Cout);
-  } else {
-    styled_conv3x3_kernel<false><<<grid, NT, 0, s>>>(
-        xm, w, demod, noise, noise_bs, nw, bias, out, B, H, W, Cin, Cout);
-  }
+  dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN);
+  styled_conv3x3_kernel<<<grid, NT, 0, s>>>(
+      xm, w, demod, noise, noise_bs, nw, bias, out, B, H, W, Cin, Cout);
   return (int)cudaGetLastError();
 }

@@ -68,9 +68,13 @@ _SIGNATURES = {
     # stream
     "gk_upfirdn2d": [P, P] + [I] * 10 + [Taps, I, I, P],
     # xm, w, demod, noise, noise batch stride, nw, bias, out,
-    # B, H, W, Cin, Cout, up, stream
+    # B, H, W, Cin, Cout, stream
     "gk_styled_conv3x3": [P, P, P, P, ctypes.c_longlong, P, P, P,
-                          I, I, I, I, I, I, P],
+                          I, I, I, I, I, P],
+    # xm, w (3, 3, Cout, Cin), demod, noise, noise batch stride, nw, bias,
+    # scratch, out, B, H, W, Cin, Cout, the four 1-D blur taps, stream
+    "gk_styled_up_conv3x3": [P, P, P, P, ctypes.c_longlong, P, P, P, P,
+                             I, I, I, I, I, F, F, F, F, P],
     # scores, r, c, q, u, t, v, part_m, part_s, B, K, niters, inv_eps,
     # rows per chunk, chunks, stream
     "gk_sinkhorn_knopp": [P] * 9 + [I, I, I, F, I, I, P],

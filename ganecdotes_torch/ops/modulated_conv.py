@@ -3,9 +3,11 @@
 
     out = lrelu(demod * conv3x3(x * s, W) + nw * noise + bias, 0.2) * sqrt(2)
 
-``styled_conv3x3`` (non-up) and ``styled_up_conv3x3`` (2x up, blur composed
-into four polyphase 3x3 filters) launch the CUDA kernel of
-csrc/styled_conv.cu on CUDA tensors, at every shape, and take their plain
+``styled_conv3x3`` (non-up) launches the CUDA kernel of csrc/styled_conv.cu;
+``styled_up_conv3x3`` (2x up) the two kernels of csrc/styled_up_conv.cu: the
+stride-2 transposed conv as a sub-pixel GEMM with only the 9 taps that see
+data, on tensor cores in 3xTF32, into a scratch tensor, then the blur and
+the epilogue. Both run on CUDA tensors at every shape and take their plain
 versions only for tensors on the CPU, inside an autograd Function either
 way. Their backward is the VJP of the plain composite, as the JAX package's
 ``_bwd`` and ``_up_bwd`` are (modulated_conv_pallas.py:308-314, :554-561):
@@ -15,9 +17,11 @@ takes gradients of gradients through the generator (PPL) runs the plain
 composites instead. Plain versions:
 
 * ``styled_conv3x3_ref``: modulate -> conv3x3 -> epilogue;
-* ``styled_up_conv3x3_ref``: the sub-pixel form (what the kernel computes);
+* ``styled_up_conv3x3_ref``: the composed sub-pixel form (four 3x3 phase
+  filters with the blur folded in);
 * ``styled_up_conv3x3_xla``: conv_transpose + demod + blur, the form the
-  JAX generator runs by default; the sub-pixel form is held against it.
+  JAX generator runs by default and the up kernels follow; the sub-pixel
+  form is held against it.
 
 Arguments: x (B,H,W,Cin) NHWC; w (3,3,Cin,Cout) HWIO, already EqualConv-
 scaled; s (B,Cin); demod (B,Cout); noise (1 or B, OH, OW, 1) on the output
@@ -26,16 +30,13 @@ grid; noise_weight a scalar tensor; bias (Cout,).
 
 import math
 
+import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
 from ganecdotes_torch.nn.layers import conv2d_nhwc, conv2d_transpose_nhwc
 from ganecdotes_torch.ops import _build
-from ganecdotes_torch.ops.subpixel_upconv import (
-    compose_up_kernel,
-    phase_stack_major,
-    upsampled_conv2x_blur,
-)
+from ganecdotes_torch.ops.subpixel_upconv import upsampled_conv2x_blur
 from ganecdotes_torch.ops.upfirdn2d import blur_2d, upfirdn2d_ref
 
 SQRT2 = math.sqrt(2.0)
@@ -81,14 +82,16 @@ def styled_up_conv3x3_xla(x, w, s, demod, noise, noise_weight, bias,
     return torch.where(out >= 0, out, 0.2 * out) * SQRT2
 
 
-def _launch(kernel, x, w_taps, s, demod, noise, noise_weight, bias, up):
-    """Checks, modulation and the launch shared by both kernels."""
-    for name, t, nd in (("x", x, 4), ("s", s, 2), ("demod", demod, 2),
+def _check(kernel, x, w, s, demod, noise, noise_weight, bias, up):
+    """Checks shared by both kernels; the output's (B, OH, OW, Cout)."""
+    for name, t, nd in (("x", x, 4), ("w", w, 4), ("s", s, 2), ("demod", demod, 2),
                         ("noise", noise, 4), ("bias", bias, 1)):
         _build.check_tensor(kernel, t, name, ndim=nd, device=x.device)
-    b, h, w, cin = x.shape
-    cout = w_taps.shape[-1]
-    oh, ow = (2 * h, 2 * w) if up else (h, w)
+    b, h, wd, cin = x.shape
+    cout = w.shape[3]
+    oh, ow = (2 * h, 2 * wd) if up else (h, wd)
+    if tuple(w.shape[:3]) != (3, 3, cin):
+        raise ValueError(f"{kernel}: w has shape {tuple(w.shape)}, expected (3, 3, {cin}, Cout)")
     if cin % 4 or cout % 4:
         raise ValueError(f"{kernel}: channels must be multiples of 4, got {cin}->{cout}")
     if tuple(s.shape) != (b, cin):
@@ -103,45 +106,63 @@ def _launch(kernel, x, w_taps, s, demod, noise, noise_weight, bias, up):
     _build.check_tensor(kernel, noise_weight, "noise_weight", device=x.device)
     if noise_weight.numel() != 1:
         raise ValueError(f"{kernel}: noise_weight must be a scalar")
-    # the modulation x * s is materialised here, as the JAX kernel does
-    xm = x * s[:, None, None, :]
-    w_taps = w_taps.contiguous()
-    _build.check_tensor(kernel, w_taps, "w", device=x.device)
-    out = torch.empty((b, oh, ow, cout), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
-    noise_bs = 0 if noise.shape[0] == 1 else oh * ow
-    _build.launch(
-        kernel, "gk_styled_conv3x3",
-        _build.ptr(xm), _build.ptr(w_taps), _build.ptr(demod),
-        _build.ptr(noise), noise_bs, _build.ptr(noise_weight), _build.ptr(bias),
-        _build.ptr(out), b, h, w, cin, cout, int(up), _build.stream_of(x),
-    )
-    return out
-
-
-def _check_weight(kernel, w, x):
-    _build.check_tensor(kernel, w, "w", ndim=4, device=x.device)
-    if tuple(w.shape[:3]) != (3, 3, x.shape[3]):
-        raise ValueError(f"{kernel}: w has shape {tuple(w.shape)}, expected (3, 3, {x.shape[3]}, Cout)")
+    return b, oh, ow, cout
 
 
 def _conv_forward(x, w, s, demod, noise, noise_weight, bias):
     if x.device.type == "cpu":
         return styled_conv3x3_ref(x, w, s, demod, noise, noise_weight, bias)
-    _check_weight("styled_conv3x3", w, x)
-    return _launch("styled_conv3x3", x, w, s, demod, noise, noise_weight,
-                   bias, up=False)
+    kernel = "styled_conv3x3"
+    b, oh, ow, cout = _check(kernel, x, w, s, demod, noise, noise_weight,
+                             bias, up=False)
+    out = torch.empty((b, oh, ow, cout), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    # the modulation x * s is materialised here, as the JAX kernel does
+    xm = x * s[:, None, None, :]
+    _build.launch(
+        kernel, "gk_styled_conv3x3",
+        _build.ptr(xm), _build.ptr(w), _build.ptr(demod), _build.ptr(noise),
+        0 if noise.shape[0] == 1 else oh * ow, _build.ptr(noise_weight),
+        _build.ptr(bias), _build.ptr(out), *x.shape, cout, _build.stream_of(x),
+    )
+    return out
+
+
+def _blur_taps(kernel, blur_kernel):
+    """The separable 1-D taps of ``make_kernel(blur_kernel, gain=4)``:
+    2 * k / sum(k), float32."""
+    k = np.asarray(blur_kernel, np.float32)
+    if k.shape != (4,):
+        raise ValueError(f"{kernel}: the kernel takes a 1-D blur of 4 taps, got {blur_kernel}")
+    return [float(t) for t in np.float32(2.0) * k / k.sum()]
 
 
 def _up_conv_forward(x, w, s, demod, noise, noise_weight, bias, blur_kernel):
     if x.device.type == "cpu":
         return styled_up_conv3x3_ref(x, w, s, demod, noise, noise_weight,
                                      bias, blur_kernel)
-    _check_weight("styled_up_conv3x3", w, x)
-    taps = phase_stack_major(compose_up_kernel(w, blur_kernel))
-    return _launch("styled_up_conv3x3", x, taps, s, demod, noise,
-                   noise_weight, bias, up=True)
+    kernel = "styled_up_conv3x3"
+    taps = _blur_taps(kernel, blur_kernel)
+    b, oh, ow, cout = _check(kernel, x, w, s, demod, noise, noise_weight,
+                             bias, up=True)
+    out = torch.empty((b, oh, ow, cout), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    # demod * conv_transpose, (B, 2H+1, 2W+1, Cout), before the blur
+    scratch = torch.empty((b, oh + 1, ow + 1, cout), dtype=x.dtype,
+                          device=x.device)
+    _build.check_tensor(kernel, scratch, "scratch")
+    xm = x * s[:, None, None, :]
+    w_nk = w.permute(0, 1, 3, 2).contiguous()  # per tap Cout x Cin, k contiguous
+    _build.launch(
+        kernel, "gk_styled_up_conv3x3",
+        _build.ptr(xm), _build.ptr(w_nk), _build.ptr(demod), _build.ptr(noise),
+        0 if noise.shape[0] == 1 else oh * ow, _build.ptr(noise_weight),
+        _build.ptr(bias), _build.ptr(scratch), _build.ptr(out), *x.shape,
+        cout, *taps, _build.stream_of(x),
+    )
+    return out
 
 
 def _composite_vjp(ctx, fn, g, *extra):
@@ -193,9 +214,8 @@ def styled_conv3x3(x, w, s, demod, noise, noise_weight, bias):
 
 def styled_up_conv3x3(x, w, s, demod, noise, noise_weight, bias,
                       blur_kernel=(1, 3, 3, 1)):
-    """Upsampling StyledConv body (2x): the CUDA kernel on CUDA tensors, the
-    plain sub-pixel version on CPU tensors; first-order differentiable. The
-    four phase weights come from ``compose_up_kernel`` ->
-    ``phase_stack_major``."""
+    """Upsampling StyledConv body (2x): the CUDA kernels on CUDA tensors
+    (a 1-D ``blur_kernel`` of 4 taps), the plain sub-pixel version on CPU
+    tensors; first-order differentiable."""
     return _StyledUpConv3x3.apply(x, w, s, demod, noise, noise_weight, bias,
                                   tuple(blur_kernel))

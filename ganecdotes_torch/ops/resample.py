@@ -47,6 +47,9 @@ def _launch(kernel, entry, src, alpha, intercept, out_rows):
                          f"{tuple(intercept.shape)} do not match {tuple(src.shape)}")
     if out_rows <= 0:
         raise ValueError(f"{kernel}: {out_rows} output rows")
+    if kernel == "resample_rows_t" and (b > 65535 or out_rows > 8 * 65535):
+        # the adjoint's grid: one block row per 8 source rows, one z per image
+        raise ValueError(f"{kernel}: at most 65535 images and {8 * 65535} source rows")
     out = torch.empty((b, c, out_rows, w), dtype=src.dtype, device=src.device)
     if out.numel() == 0:
         return out

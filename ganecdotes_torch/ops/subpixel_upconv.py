@@ -6,8 +6,9 @@ with the [1,3,3,1] kernel at gain 4. Both stages are linear, so they
 compose into one transposed conv with the 6x6 kernel
 K = conv_full(flip(w), k4). On the stride-2 lattice only 9 of K's 36 taps
 see data per output phase, so the whole thing is FOUR 3x3 convs, one per
-output phase, followed by a depth-to-space interleave. This module prepares
-those phase weights (for the CUDA up-kernel) and holds the plain version.
+output phase, followed by a depth-to-space interleave. This module holds
+that form, the plain version ``styled_up_conv3x3_ref`` runs. (The CUDA up
+kernels keep conv_transpose and blur apart: csrc/styled_up_conv.cu.)
 """
 
 import torch
@@ -42,12 +43,6 @@ def _phases(K):
 def phase_stack(K):
     """(6,6,Cin,Cout) -> (3,3,Cin,4*Cout) phase kernels, channel block ph = a*2+c."""
     return torch.cat(_phases(K), dim=-1)
-
-
-def phase_stack_major(K):
-    """(6,6,Cin,Cout) -> (4,3,3,Cin,Cout): the same phase kernels stacked on a
-    leading phase axis (ph = a*2+c), the layout the CUDA up-kernel reads."""
-    return torch.stack(_phases(K), dim=0)
 
 
 def upsampled_conv2x_blur(x, w, blur_kernel=(1, 3, 3, 1)):

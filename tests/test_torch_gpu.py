@@ -59,9 +59,14 @@ def _styled_inputs(B, H, W, Cin, Cout, noise_b, up, dev, seed=0):
 
 
 @pytest.mark.parametrize("shape", [(8, 4, 4, 512, 512), (2, 16, 16, 128, 128),
-                                   (3, 5, 7, 36, 20), (1, 9, 3, 4, 132)])
+                                   (3, 5, 7, 36, 20), (1, 9, 3, 4, 132),
+                                   (2, 32, 32, 512, 256), (3, 13, 6, 40, 136)])
 @pytest.mark.parametrize("noise_b", ["one", "batch"])
 def test_styled_convs_match_plain(cuda, shape, noise_b):
+    """The ffhq first up layer, a pidray-like 32 -> 64 layer, and ragged
+    shapes: (3, 13, 6, 40, 136) leaves every phase class of the up GEMM
+    with a partial last tile in M (3*14*7 = 294 rows, ...), in N (136) and
+    in K (40 channels)."""
     B, H, W, Ci, Co = shape
     nb = 1 if noise_b == "one" else B
     before = dict(_build.LAUNCHES)
@@ -230,26 +235,37 @@ def test_swav_pretrain_kernels_match_plain_ops(cuda):
 # ---------------------------------------------------------------------------
 
 
-def _pass_case(b, c, s, w, v, negative, dev, seed=0):
+def _pass_case(b, c, s, w, v, negative, dev, seed=0, alpha=None):
+    """A pass with alpha in [0.7, 1.3] (negated where ``negative``), or the
+    given ``alpha`` for every image, and intercepts that run off both ends
+    of the source column."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(b, c, s, w, generator=g)
-    alpha = torch.rand(b, generator=g) * 0.6 + 0.7
+    a = torch.rand(b, generator=g) * 0.6 + 0.7
+    if alpha is not None:
+        a = torch.full((b,), float(alpha))
     icpt = torch.rand(b, w, generator=g) * (s + 10) - 5
     if negative:
-        alpha, icpt = -alpha, icpt + 0.8 * s
-    return x.to(dev), alpha.to(dev), icpt.to(dev), v
+        a, icpt = -a, icpt + 0.8 * s
+    return x.to(dev), a.to(dev), icpt.to(dev), v
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 40, 36, 29), (3, 1, 101, 77, 59),
                                    (1, 2, 9, 300, 120)])
-@pytest.mark.parametrize("negative", [False, True])
-def test_resample_kernels_match_plain(cuda, shape, negative):
+@pytest.mark.parametrize("negative,alpha", [(False, None), (True, None),
+                                            (False, 0.0), (False, 0.05),
+                                            (True, 0.05), (True, 1e-40)],
+                         ids=["pos", "neg", "zero", "small", "small_neg",
+                              "subnormal_neg"])
+def test_resample_kernels_match_plain(cuda, shape, negative, alpha):
     """Small, ragged (W and V no multiple of a warp) and flipped (alpha < 0)
-    passes: the forward kernel equals the plain pass (same rounded steps),
-    the adjoint agrees to 1e-5 and repeats bit for bit (no atomics)."""
+    passes, and alpha = 0, |alpha| = 0.05 and a subnormal alpha, whose
+    1/alpha overflows (the adjoint's widest candidate windows): the forward
+    kernel equals the plain pass (same rounded steps), the adjoint agrees to
+    1e-5 and repeats bit for bit (no atomics)."""
     from ganecdotes_torch.ops import resample as trs
 
-    x, alpha, icpt, v = _pass_case(*shape, negative, cuda)
+    x, alpha, icpt, v = _pass_case(*shape, negative, cuda, alpha=alpha)
     before = dict(_build.LAUNCHES)
     out = trs.resample_rows(x, alpha, icpt, v)
     torch.testing.assert_close(out, trs.resample_rows_ref(x, alpha, icpt, v),
@@ -268,6 +284,19 @@ def test_resample_kernels_match_plain(cuda, shape, negative):
     rhs = (x.double() * dx.double()).sum()
     scale = out.double().norm() * g.double().norm()
     assert abs(float(lhs - rhs)) <= 1e-5 * float(scale)
+
+
+def test_resample_adjoint_repeats_bit_for_bit(cuda):
+    """Two launches of the adjoint at ADA's pass V width (one image) give
+    equal bits: each element is one thread's sum in increasing v."""
+    from ganecdotes_torch.ops import resample as trs
+
+    _, alpha, icpt, v = _pass_case(2, 3, 792, 792, 524, True, cuda, seed=4)
+    g = torch.randn(2, 3, v, 792, generator=torch.Generator().manual_seed(5)).to(cuda)
+    first = trs.resample_rows_t(g, alpha, icpt, 792)
+    second = trs.resample_rows_t(g, alpha, icpt, 792)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def _second_order(fn, x, w):
