@@ -15,10 +15,15 @@ Phases (any failure exits non-zero before the last line):
      TF32 off; the up conv also against conv_transpose + blur) and timed
      with CUDA events beside its plain version, one library call where one
      computes the same function, and its bound (at the rate of the
-     arithmetic the kernel runs in: 3xTF32 on the tensor cores for the up
-     conv's GEMM, fp32 SIMT otherwise); the Sinkhorn kernel at the
-     pretraining path's (patch_size, nprototypes) scores, uniform and image
-     marginals, a ragged shape and niters = 0;
+     arithmetic the kernel runs in: 3xTF32 on the tensor cores for both
+     StyledConvs' GEMMs, fp32 SIMT otherwise; the non-up conv's fp32 SIMT
+     figure is printed beside it); the blur and the fused bias + leaky-ReLU
+     at the shapes BagGAN-HQ's discriminator gives them (measured only, not
+     summed per request); the Sinkhorn kernel at the pretraining path's
+     (patch_size, nprototypes) scores, uniform and image marginals, a
+     ragged shape, niters = 0 and the generic K = 8000, each launched twice
+     and required equal bit for bit, within 1e-4 and 0.1/K of its plain
+     version, and the kernel one iteration short required to miss 0.1/K;
   4. serve: OneShotServer (ffhq-256, hfc_with_swav, random weights from a
      seed) answers 3 requests of 8 z with every kernel's launch counted;
      then a server with every op on its plain version on the card, its mean
@@ -76,6 +81,10 @@ KERNEL_TOL = 1e-4  # max |kernel - plain| <= KERNEL_TOL * max(1, max |plain|)
 IMAGE_TOL = 1e-3  # same measure for the served image after 13 conv layers
 LABEL_AGREEMENT = 0.999
 SINKHORN_TOL = 1e-4  # absolute, on codes in [0, 1]
+# and scaled to the codes: each row sums to 1 over K, so the mean code is
+# 1/K, and 1e-4 alone is half a mean code at K = 5000. A planted fault (the
+# kernel one iteration short) must exceed this gate.
+SINKHORN_CODE_TOL = 0.1  # max |kernel - plain| <= SINKHORN_CODE_TOL / K
 PRETRAIN_STEPS = 4  # timed, after one warm-up step
 # KERNELS vs PLAIN pretraining run, per-step loss and final params (see
 # check_pretrain_agreement for the reason)
@@ -163,6 +172,23 @@ def bound_ms(nbytes, ops):
     return t_f, f"operations ({rate})"
 
 
+def tensor_core_instructions(library):
+    """HMMA (tensor-core MMA) instructions per kernel in the built library's
+    SASS, by cuobjdump next to nvcc (the same toolkit: it fails if missing)."""
+    from ganecdotes_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and "HMMA" in line:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
 def errors(got, want):
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
@@ -219,6 +245,7 @@ def check_kernels(dev):
         for shape, calls in shapes:
             lib = None  # one PyTorch call as a yardstick, where there is one
             other = None  # a second plain form, where the path has one
+            simt = None  # a StyledConv's bound at fp32 SIMT rates
             if name == "fused_leaky_relu":
                 x = torch.randn(*shape, generator=gen, device=dev)
                 bias = torch.randn(shape[-1], generator=gen, device=dev)
@@ -273,14 +300,18 @@ def check_kernels(dev):
                 # the least work for the function: the conv at its own
                 # resolution (9 MACs per input pixel and channel pair); for
                 # the up branch conv_transpose + 4x4 blur, which needs a
-                # quarter of the MACs of the four composed phase filters
+                # quarter of the MACs of the four composed phase filters.
+                # Both GEMMs run in 3xTF32: three tensor-core products per
+                # multiply-add.
                 flops = 2 * b * h * w * 9 * ci * co
-                ops = [(flops, FP32)]
-                if up:  # 3xTF32: three tensor-core products per multiply-add
+                ops = [(3 * flops, TF32X3)]
+                # the same work at fp32 SIMT rates, for comparison
+                simt = bound_ms(moved, [(flops, FP32)])[0]
+                if up:
                     # the 4x4 blur is separable: 4 taps across the 2H + 1
                     # scratch rows, then 4 down, per output channel
                     blur = 2 * b * co * 4 * (2 * w) * ((2 * h + 1) + 2 * h)
-                    ops = [(3 * flops, TF32X3), (blur, FP32)]
+                    ops.append((blur, FP32))
                     flops += 2 * b * (2 * h) * (2 * w) * co * 16  # as a 2-D filter
                 xm = (args[0] * args[2][:, None, None, :]).permute(0, 3, 1, 2)
                 if up:
@@ -313,6 +344,11 @@ def check_kernels(dev):
                     row["library_err"] = errors(lib(), want)[0]
                 row["library_ms"] = time_ms(lib)
             row["bound_ms"], row["bound_by"] = bound_ms(moved, ops)
+            row["bound_fp32_simt_ms"] = simt
+            if name == "styled_conv3x3":  # how many ways the kernel split its taps
+                b, h, w, _, co = shape
+                row["tap_splits"] = modulated_conv.tap_splits(
+                    b * h * w, co, torch.cuda.get_device_properties(dev).multi_processor_count)
             row["bytes"], row["flops"] = moved, flops
             rows.append(row)
             print(f"  {name:18s} {str(tuple(shape)):26s} err {err:.3e} "
@@ -321,9 +357,112 @@ def check_kernels(dev):
                   + ") "
                   f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
                   f"lib {row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} "
-                  f"bound {row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+                  f"bound {row['bound_ms']:.4f} ({row['bound_by']})"
+                  + ("" if simt is None else f" [fp32 SIMT {simt:.4f}]")
+                  + (f" taps split {row['tap_splits']}" if "tap_splits" in row else ""),
+                  flush=True)
             check(ok, f"{name} {shape}: max abs err {err} (vs convT+blur "
                       f"{other_err}) over tolerance {tol}")
+    return rows
+
+
+def gan_d_shapes():
+    """The blur's and the fused bias + leaky-ReLU's calls in one forward of
+    BagGAN-HQ's discriminator at the pidray config (256^2, B = 20):
+    (kernel, case, shape, pad or None, calls per D forward). Each ResBlock
+    at resolution r blurs its input (B, r, r, C) with pad (2, 2) before the
+    stride-2 3x3 conv and with pad (1, 1) before the 1x1 skip; the backward
+    runs the same kernel with the flipped taps on the gradients of those
+    outputs, (B, r + 1, r + 1, C) with pad (1, 1) and (B, r - 1, r - 1, C)
+    with pad (2, 2). The fused act follows conv_in, each block's two convs,
+    the final conv and the first linear layer."""
+    from ganecdotes_torch.models.stylegan2.generator import channel_map
+
+    cfg = pidray_config(os.path.join(ROOT, "build", "chip_smoke_gan"))
+    # as gan/train.py builds the discriminator
+    ch = channel_map(getattr(cfg, "chl_multiplier", 2), getattr(cfg, "res2chlmap", None))
+    b, size = cfg.batch_size, cfg.image_size
+    out = []
+    r = size
+    while r > 4:
+        c = ch[r]
+        out += [("upfirdn2d", f"D fwd 3x3 {r}^2x{c}", (b, r, r, c), (2, 2), 1),
+                ("upfirdn2d", f"D fwd skip {r}^2x{c}", (b, r, r, c), (1, 1), 1),
+                ("upfirdn2d", f"D bwd 3x3 {r}^2x{c}", (b, r + 1, r + 1, c), (1, 1), 1),
+                ("upfirdn2d", f"D bwd skip {r}^2x{c}", (b, r - 1, r - 1, c), (2, 2), 1)]
+        r //= 2
+    r = size
+    while r >= 4:  # conv_in / conv1 at r, conv2 into r (final_conv at 4)
+        out.append(("fused_leaky_relu", f"D act {r}^2x{ch[r]}", (b, r, r, ch[r]), None, 2))
+        r //= 2
+    out.append(("fused_leaky_relu", f"D act lin1 {ch[4]}", (b, ch[4]), None, 1))
+    return out
+
+
+def check_gan_shapes(dev):
+    """The blur and the fused act at gan_d_shapes(), each against its plain
+    version with the time of kernel, plain version and bytes bound; the
+    blur's library call is the depthwise F.conv2d (groups = C). Measured
+    only: calls = 0, so no row joins a per-request sum."""
+    import torch.nn.functional as F
+
+    from ganecdotes_torch.ops import fused_act, upfirdn2d
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    k = upfirdn2d.make_kernel((1, 3, 3, 1))
+    wk = torch.as_tensor(k[::-1, ::-1].copy(), device=dev)
+    rows = []
+    for name, case, shape, pad, d_calls in gan_d_shapes():
+        x = torch.randn(*shape, generator=gen, device=dev)
+        lib = None
+        if name == "upfirdn2d":
+            def kern(x=x, pad=pad):
+                return upfirdn2d.upfirdn2d(x, k, pad=pad)
+
+            def plain(x=x, pad=pad):
+                return upfirdn2d.upfirdn2d_ref(x, k, pad=pad)
+
+            w = wk.expand(shape[3], 1, 4, 4)
+
+            def lib(x=x, w=w, pad=pad):  # the same function in one call
+                return F.conv2d(x.permute(0, 3, 1, 2), w, padding=pad[0],
+                                groups=x.shape[3]).permute(0, 2, 3, 1)
+
+            out_n = shape[0] * (shape[1] + 2 * pad[0] - 3) ** 2 * shape[3]
+            moved = nbytes(x) + out_n * 4
+            flops = 2 * out_n * 16
+        else:
+            bias = torch.randn(shape[-1], generator=gen, device=dev)
+
+            def kern(x=x, bias=bias):
+                return fused_act.fused_leaky_relu(x, bias)
+
+            def plain(x=x, bias=bias):
+                return fused_act.fused_leaky_relu_ref(x, bias)
+
+            moved = nbytes(x, bias, x)
+            flops = 3 * x.numel()
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel, scale = errors(got, want)
+        tol = KERNEL_TOL * max(1.0, scale)
+        row = {
+            "kernel": name, "case": case, "shape": list(shape), "pad": pad,
+            "calls": 0, "calls_per_d_forward": d_calls,
+            "max_abs_err": err, "max_rel_err": rel, "tol": tol,
+            "max_abs_err_convT_blur": None, "ok": err <= tol,
+            "ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "library_ms": None if lib is None else time_ms(lib),
+            "library_err": None if lib is None else errors(lib(), want)[0],
+            "bytes": moved, "flops": flops,
+        }
+        row["bound_ms"], row["bound_by"] = bound_ms(moved, [(flops, FP32)])
+        rows.append(row)
+        print(f"  {name:18s} {case:26s} {str(tuple(shape)):22s} err {err:.3e} "
+              f"(tol {tol:.1e}) ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+              f"lib {row['library_ms'] if lib is None else round(row['library_ms'], 4)} "
+              f"bound {row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+        check(row["ok"], f"{name} {case}: max abs err {err} over tolerance {tol}")
     return rows
 
 
@@ -377,6 +516,7 @@ def check_sinkhorn(dev):
         ("image", b, k, niters, (_histogram_pdf(img, k), _histogram_pdf(img, b)), 0),
         ("ragged", b - 3, k - 1, niters, uniform(b - 3, k - 1), 0),
         ("niters0", b, k, 0, uniform(b, k), 0),
+        ("K 8000", b, 8000, niters, uniform(b, 8000), 0),  # the generic config's K
     ]
     rows = []
     for case, b_, k_, n_, (r, c), n_calls in cases:
@@ -393,23 +533,40 @@ def check_sinkhorn(dev):
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         finite = bool(torch.isfinite(got).all())
+        code_tol = SINKHORN_CODE_TOL / k_
+        # deterministic: the chunks' partials merge in a fixed order
+        check(torch.equal(kern(), got), f"sinkhorn {case}: two launches differ")
+        # the planted fault: one iteration short, against the full plain run
+        fault_err = None
+        if n_ > 0:
+            short = sinkhorn.sinkhorn_knopp(x, n_ - 1, eps, r, c)
+            fault_err = (short - want).abs().max().item()
         moved, flops = sinkhorn_bound(b_, k_, n_)
         row = {
             "kernel": "sinkhorn_knopp", "case": case, "shape": [b_, k_],
             "niters": n_, "eps": eps, "calls": n_calls, "max_abs_err": err,
-            "tol": SINKHORN_TOL, "max_abs_err_convT_blur": None,
-            "ok": err <= SINKHORN_TOL and finite,
+            "tol": SINKHORN_TOL, "code_tol": code_tol,
+            "fault_max_abs_err": fault_err, "max_abs_err_convT_blur": None,
+            "max_code": want.max().item(),
+            "scores_span_over_eps": ((x.max() - x.min()) / eps).item(),
+            "ok": err <= min(SINKHORN_TOL, code_tol) and finite,
             "ms": time_ms(kern), "plain_ms": time_ms(plain), "library_ms": None,
             "bytes": moved, "flops": flops,
         }
         row["bound_ms"], row["bound_by"] = bound_ms(moved, [(flops, FP32)])
         rows.append(row)
+        fault = "" if fault_err is None else f"; niters - 1 err {fault_err:.3e}"
         print(f"  sinkhorn_knopp {case:8s} {str((b_, k_)):14s} niters {n_:2d} "
-              f"err {err:.3e} (tol {SINKHORN_TOL:.0e}) ms {row['ms']:.4f} "
+              f"err {err:.3e} (tol {SINKHORN_TOL:.0e}, {code_tol:.2e} = "
+              f"{SINKHORN_CODE_TOL}/K{fault}) ms {row['ms']:.4f} "
               f"plain {row['plain_ms']:.4f} bound {row['bound_ms']:.4f} "
               f"({row['bound_by']})", flush=True)
         check(row["ok"], f"sinkhorn {case} {(b_, k_)}: max abs err {err} "
-                         f"(finite {finite}) over tolerance {SINKHORN_TOL}")
+                         f"(finite {finite}) over tolerance {SINKHORN_TOL} "
+                         f"or {code_tol}")
+        check(fault_err is None or fault_err > code_tol,
+              f"sinkhorn {case}: the gate {code_tol} misses a kernel one "
+              f"iteration short (max abs err {fault_err})")
     return rows
 
 
@@ -1082,11 +1239,18 @@ def main():
           f"{os.path.relpath(info['library'], ROOT)}", flush=True)
     with open(info["log"]) as f:
         for line in f:
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Function properties" in line:
                 print("  " + line.strip())
+    hmma = tensor_core_instructions(info["library"])
+    print(f"  tensor-core (HMMA) instructions in the SASS: {json.dumps(hmma)}", flush=True)
+    check(any("styled_conv3x3" in k for k in hmma),
+          "the non-up StyledConv kernel has no tensor-core instruction")
 
     print("kernels vs plain versions (ms per call, CUDA events):", flush=True)
     rows = check_kernels(dev) + check_sinkhorn(dev)
+    print("blur and fused act at BagGAN-HQ's discriminator shapes (measured only):",
+          flush=True)
+    rows += check_gan_shapes(dev)
     print("serve (ffhq-256, hfc_with_swav, B = 8):", flush=True)
     served = serve(dev)
     print(f"  steady request {served['steady_request_ms']:.3f} ms, "
@@ -1110,7 +1274,8 @@ def main():
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
         with open(args.details, "w") as f:
-            json.dump({"card": smi, "kind": kind, "build": info, "shapes": rows,
+            json.dump({"card": smi, "kind": kind, "build": info, "hmma": hmma,
+                       "shapes": rows,
                        "serve": served, "pretrain": pretrained, "train": trained,
                        "kernels": line}, f, indent=1)
     print(smi)

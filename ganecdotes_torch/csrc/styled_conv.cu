@@ -11,171 +11,145 @@
 //
 // Bound: operations. 2*9*Cin*Cout flops per output pixel against
 // (Cin + Cout)*4 bytes: hundreds of flops per byte at the serving widths,
-// far above the fp32 balance point (67 TFLOP/s over 3.35 TB/s = 20).
-// Design: an implicit GEMM in fp32 on the SIMT cores. M = output pixels,
-// N = Cout, K = 9 taps x Cin. A block owns a 128 x 128
-// output tile; 256 threads each hold an 8 x 8 register tile, so every
-// shared-memory value loaded feeds 8 FMAs. K advances in chunks of 8
-// channels of one tap: the A chunk is gathered from the (tile + halo) pixels
-// of x * s with zero fill outside the image (the 'same' padding never
-// exists in memory), the B chunk is a slice of the HWIO weight, which is
-// already K x N row-major. Both chunks are double-buffered in shared memory
-// and the next one is fetched into registers while the current one is
-// multiplied, so one barrier per chunk suffices. The epilogue applies
-// demod, noise, bias, leaky-ReLU and sqrt(2) in registers before the single
-// 16-byte-vector write. Shapes are free: pixel rows past M and channels
-// past Cout are masked, so the 4x4 first layer (Cin = 512) runs here too.
-// Requires Cin % 4 == 0, Cout % 4 == 0 and 16-byte-aligned pointers (the
-// wrapper checks). The tensor-core main loop of styled_up_conv.cu is the
-// next step for this kernel.
+// far above the balance point of the tensor cores.
+// Design: an implicit GEMM on the 3xTF32 tensor-core main loop of
+// tf32x3.cuh, M = output pixels, N = Cout, K = 9 taps x Cin. Tap (dy, dx)
+// reads pixel (y + dy - 1, x + dx - 1) with zero fill outside the image,
+// so the 'same' padding never exists in memory; the weights come as
+// (3, 3, Cout, Cin), k contiguous per output channel. The whole epilogue
+// (demod, noise, bias, leaky-ReLU, sqrt(2)) runs in registers on the MMA
+// fragments before the single write. Shapes are free: pixel rows past M
+// and channels past Cout are masked. Small M (the 4x4 to 16x16 layers at
+// B = 8, every early layer at B = 1) leaves most SMs idle while a few
+// blocks walk K = 9 * Cin, so the wrapper may split the 9 taps 3 or 9 ways
+// over blockIdx.z: each split writes its raw sums to a scratch tensor and
+// styled_conv_epilogue_kernel sums the splits in order, then runs the
+// epilogue. Requires Cin % 4 == 0, Cout % 4 == 0 and 16-byte-aligned
+// pointers (the wrapper checks).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int BM = 128;
-constexpr int BN = 128;
-constexpr int BK = 8;
-constexpr int NT = 256;
+using namespace tf32x3;
+
 constexpr float SQRT2 = 1.4142135623730951f;
 
-__global__ void __launch_bounds__(NT, 2)
+// demod, noise, bias, leaky-ReLU and sqrt(2), in the plain version's order
+__device__ __forceinline__ float finish(float acc, float d, float nz, float bias) {
+  float o = acc * d;
+  o = o + nz;
+  o = o + bias;
+  return (o >= 0.f ? o : 0.2f * o) * SQRT2;
+}
+
+__global__ void __launch_bounds__(NT, 1)
 styled_conv3x3_kernel(const float* __restrict__ xm,     // (B, H, W, Cin)
-                      const float* __restrict__ w,      // (3, 3, Cin, Cout)
+                      const float* __restrict__ w,      // (3, 3, Cout, Cin)
                       const float* __restrict__ demod,  // (B, Cout)
-                      const float* __restrict__ noise,  // (Nb, OH, OW)
+                      const float* __restrict__ noise,  // (Nb, H, W)
                       int64_t noise_bs,                 // 0: broadcast over B
                       const float* __restrict__ nw,     // scalar
                       const float* __restrict__ bias,   // (Cout,)
-                      float* __restrict__ out,          // (B, OH, OW, Cout)
-                      int B, int H, int W, int Cin, int Cout) {
-  __shared__ __align__(16) float As[2][BK][BM];
-  __shared__ __align__(16) float Bs[2][BK][BN];
+                      float* __restrict__ out,          // (B, H, W, Cout)
+                      float* __restrict__ part,  // (nsplit, M, Cout) if nsplit > 1
+                      int nsplit, int B, int H, int W, int Cin, int Cout) {
+  extern __shared__ __align__(16) float smem[];
 
-  const int tid = threadIdx.x;
   const int HW = H * W;
   const int M = B * HW;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
+  const int t0 = 9 * blockIdx.z / nsplit, t1 = 9 * (blockIdx.z + 1) / nsplit;
 
-  // A loader: one pixel row, four consecutive channels
-  const int a_row = tid >> 1;
-  const int a_k = (tid & 1) * 4;
-  const int am = m0 + a_row;
-  const bool a_in = am < M;
-  int ab = 0, ay = 0, ax = 0;
-  if (a_in) {
-    ab = am / HW;
-    int r = am - ab * HW;
-    ay = r / W;
-    ax = r - ay * W;
-  }
-  // B loader: one K row, four consecutive output channels
-  const int b_k = tid >> 5;
-  const int b_n = (tid & 31) * 4;
-  const bool b_in = n0 + b_n < Cout;
+  const ARows a = a_rows(m0, M, H, W, H, W);
+  float acc[4][4][4];
+  gemm(acc, smem, t1 - t0, Cin, [&](float* stage, int tap, int c0) {
+    tap += t0;
+    const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+    load_stage(stage, xm, w + (int64_t)tap * Cout * Cin, a, dy - 1, dx - 1,
+               c0, n0, H, W, Cin, Cout);
+  });
 
-  const int kchunks = (Cin + BK - 1) / BK;
-  const int T = 9 * kchunks;
-
-  float4 a_reg, b_reg;
-  auto fetch = [&](int t) {
-    int tap = t / kchunks;
-    int ci0 = (t - tap * kchunks) * BK;
-    int dy = tap / 3;
-    int dx = tap - dy * 3;
-    int iy = ay + dy - 1;
-    int ix = ax + dx - 1;
-    int ci = ci0 + a_k;
-    a_reg = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (a_in && ci < Cin && iy >= 0 && iy < H && ix >= 0 && ix < W) {
-      a_reg = *reinterpret_cast<const float4*>(
-          xm + (((int64_t)ab * H + iy) * W + ix) * Cin + ci);
-    }
-    int kk = ci0 + b_k;
-    b_reg = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (b_in && kk < Cin) {
-      b_reg = *reinterpret_cast<const float4*>(
-          w + ((int64_t)tap * Cin + kk) * Cout + n0 + b_n);
-    }
-  };
-  auto stash = [&](int buf) {
-    As[buf][a_k + 0][a_row] = a_reg.x;
-    As[buf][a_k + 1][a_row] = a_reg.y;
-    As[buf][a_k + 2][a_row] = a_reg.z;
-    As[buf][a_k + 3][a_row] = a_reg.w;
-    *reinterpret_cast<float4*>(&Bs[buf][b_k][b_n]) = b_reg;
-  };
-
-  // compute mapping: rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, likewise
-  // columns with tx, so the float4 reads of a warp are contiguous
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-
-  float acc[8][8];
+  if (nsplit > 1) {  // this split's raw sums
+    float* pz = part + (int64_t)blockIdx.z * M * Cout;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  fetch(0);
-  stash(0);
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < T) fetch(t + 1);
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + frag_row(i, h);
+        if (m >= M) continue;
 #pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][64 + ty * 4]);
-      float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][64 + tx * 4]);
-      float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    // the other buffer was last read before the previous barrier
-    if (t + 1 < T) stash(cur ^ 1);
-    __syncthreads();
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + frag_col(j);
+          if (n < Cout)
+            *reinterpret_cast<float2*>(pz + (int64_t)m * Cout + n) =
+                make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        }
+      }
+    return;
   }
 
-  // epilogue
   const float nwv = *nw;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (m >= M) continue;
-    int b = m / HW;
-    int r = m - b * HW;
-    int y = r / W;
-    int x = r - y * W;
-    int64_t opix = ((int64_t)b * H + y) * W + x;
-    float nz = nwv * noise[(int64_t)b * noise_bs + (int64_t)y * W + x];
-    float* orow = out + opix * Cout;
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      int n = n0 + h * 64 + tx * 4;
-      if (n >= Cout) continue;
-      float4 d = *reinterpret_cast<const float4*>(demod + (int64_t)b * Cout + n);
-      float4 bb = *reinterpret_cast<const float4*>(bias + n);
-      float v[4] = {acc[i][h * 4 + 0], acc[i][h * 4 + 1], acc[i][h * 4 + 2],
-                    acc[i][h * 4 + 3]};
-      float dv[4] = {d.x, d.y, d.z, d.w};
-      float bv[4] = {bb.x, bb.y, bb.z, bb.w};
+      const int m = m0 + frag_row(i, h);
+      if (m >= M) continue;
+      const int b = m / HW;
+      const int r = m - b * HW;
+      const float nz = nwv * noise[(int64_t)b * noise_bs + r];
+      float* orow = out + (int64_t)m * Cout;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float o = v[q] * dv[q];
-        o = o + nz;
-        o = o + bv[q];
-        v[q] = (o >= 0.f ? o : 0.2f * o) * SQRT2;
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + frag_col(j);
+        if (n >= Cout) continue;
+        const float2 d =
+            *reinterpret_cast<const float2*>(demod + (int64_t)b * Cout + n);
+        const float2 bb = *reinterpret_cast<const float2*>(bias + n);
+        *reinterpret_cast<float2*>(orow + n) =
+            make_float2(finish(acc[i][j][2 * h], d.x, nz, bb.x),
+                        finish(acc[i][j][2 * h + 1], d.y, nz, bb.y));
       }
-      *reinterpret_cast<float4*>(orow + n) = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
+}
+
+// out = the epilogue of the splits' sums, added in split order; a thread
+// takes 4 channels of one pixel
+__global__ void styled_conv_epilogue_kernel(const float* __restrict__ part,
+                                            int nsplit,
+                                            const float* __restrict__ demod,
+                                            const float* __restrict__ noise,
+                                            int64_t noise_bs,
+                                            const float* __restrict__ nw,
+                                            const float* __restrict__ bias,
+                                            float* __restrict__ out, int M,
+                                            int HW, int Cout) {
+  const int C4 = Cout >> 2;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)M * C4) return;
+  const int m = (int)(i / C4), n = (int)(i - (int64_t)m * C4) * 4;
+  const int64_t at = (int64_t)m * Cout + n;
+  float4 a = *reinterpret_cast<const float4*>(part + at);
+  for (int z = 1; z < nsplit; ++z) {
+    const float4 p =
+        *reinterpret_cast<const float4*>(part + (int64_t)z * M * Cout + at);
+    a.x += p.x;
+    a.y += p.y;
+    a.z += p.z;
+    a.w += p.w;
+  }
+  const int b = m / HW;
+  const float nz = *nw * noise[(int64_t)b * noise_bs + (m - b * HW)];
+  const float4 d = *reinterpret_cast<const float4*>(demod + (int64_t)b * Cout + n);
+  const float4 bb = *reinterpret_cast<const float4*>(bias + n);
+  *reinterpret_cast<float4*>(out + at) =
+      make_float4(finish(a.x, d.x, nz, bb.x), finish(a.y, d.y, nz, bb.y),
+                  finish(a.z, d.z, nz, bb.z), finish(a.w, d.w, nz, bb.w));
 }
 
 }  // namespace
@@ -183,12 +157,22 @@ styled_conv3x3_kernel(const float* __restrict__ xm,     // (B, H, W, Cin)
 extern "C" int gk_styled_conv3x3(const float* xm, const float* w,
                                  const float* demod, const float* noise,
                                  long long noise_bs, const float* nw,
-                                 const float* bias, float* out, int B, int H,
-                                 int W, int Cin, int Cout, void* stream) {
+                                 const float* bias, float* out, float* part,
+                                 int nsplit, int B, int H, int W, int Cin,
+                                 int Cout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nsplit != 1 && nsplit != 3 && nsplit != 9) return (int)cudaErrorInvalidValue;
+  cudaError_t e = set_smem(styled_conv3x3_kernel);
+  if (e != cudaSuccess) return (int)e;
   const int M = B * H * W;
-  dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN);
-  styled_conv3x3_kernel<<<grid, NT, 0, s>>>(
-      xm, w, demod, noise, noise_bs, nw, bias, out, B, H, W, Cin, Cout);
+  dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN, nsplit);
+  styled_conv3x3_kernel<<<grid, NT, SMEM_BYTES, s>>>(
+      xm, w, demod, noise, noise_bs, nw, bias, out, part, nsplit, B, H, W,
+      Cin, Cout);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || nsplit == 1) return (int)e;
+  const int64_t total = (int64_t)M * (Cout / 4);
+  styled_conv_epilogue_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      part, nsplit, demod, noise, noise_bs, nw, bias, out, M, H * W, Cout);
   return (int)cudaGetLastError();
 }

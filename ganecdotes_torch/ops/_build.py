@@ -67,17 +67,17 @@ _SIGNATURES = {
     # x, y, B, H, W, C, OH, OW, up_x, up_y, pad_x0, pad_y0, taps, kh, kw,
     # stream
     "gk_upfirdn2d": [P, P] + [I] * 10 + [Taps, I, I, P],
-    # xm, w, demod, noise, noise batch stride, nw, bias, out,
-    # B, H, W, Cin, Cout, stream
-    "gk_styled_conv3x3": [P, P, P, P, ctypes.c_longlong, P, P, P,
-                          I, I, I, I, I, P],
+    # xm, w (3, 3, Cout, Cin), demod, noise, noise batch stride, nw, bias,
+    # out, split scratch (or NULL), tap splits, B, H, W, Cin, Cout, stream
+    "gk_styled_conv3x3": [P, P, P, P, ctypes.c_longlong, P, P, P, P,
+                          I, I, I, I, I, I, P],
     # xm, w (3, 3, Cout, Cin), demod, noise, noise batch stride, nw, bias,
     # scratch, out, B, H, W, Cin, Cout, the four 1-D blur taps, stream
     "gk_styled_up_conv3x3": [P, P, P, P, ctypes.c_longlong, P, P, P, P,
                              I, I, I, I, I, F, F, F, F, P],
-    # scores, r, c, q, u, t, v, part_m, part_s, B, K, niters, inv_eps,
+    # scores, r, c, q, u, part_m, part_s, B, K, niters, inv_eps,
     # rows per chunk, chunks, stream
-    "gk_sinkhorn_knopp": [P] * 9 + [I, I, I, F, I, I, P],
+    "gk_sinkhorn_knopp": [P] * 7 + [I, I, I, F, I, I, P],
     # x (or g), alpha, intercept, out (or dx), B, C, S, W, V, stream
     "gk_resample_rows": [P] * 4 + [I] * 5 + [P],
     "gk_resample_rows_t": [P] * 4 + [I] * 5 + [P],

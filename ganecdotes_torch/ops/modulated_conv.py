@@ -3,13 +3,15 @@
 
     out = lrelu(demod * conv3x3(x * s, W) + nw * noise + bias, 0.2) * sqrt(2)
 
-``styled_conv3x3`` (non-up) launches the CUDA kernel of csrc/styled_conv.cu;
-``styled_up_conv3x3`` (2x up) the two kernels of csrc/styled_up_conv.cu: the
-stride-2 transposed conv as a sub-pixel GEMM with only the 9 taps that see
-data, on tensor cores in 3xTF32, into a scratch tensor, then the blur and
-the epilogue. Both run on CUDA tensors at every shape and take their plain
-versions only for tensors on the CPU, inside an autograd Function either
-way. Their backward is the VJP of the plain composite, as the JAX package's
+``styled_conv3x3`` (non-up) launches the CUDA kernel of csrc/styled_conv.cu:
+a 9-tap implicit GEMM on tensor cores in 3xTF32 with the epilogue in
+registers; ``styled_up_conv3x3`` (2x up) the two kernels of
+csrc/styled_up_conv.cu: the stride-2 transposed conv as a sub-pixel GEMM
+with only the 9 taps that see data, on the same main loop
+(csrc/tf32x3.cuh), into a scratch tensor, then the blur and the epilogue.
+Both run on CUDA tensors at every shape and take their plain versions only
+for tensors on the CPU, inside an autograd Function either way. Their
+backward is the VJP of the plain composite, as the JAX package's
 ``_bwd`` and ``_up_bwd`` are (modulated_conv_pallas.py:308-314, :554-561):
 ``styled_conv3x3_ref`` and ``styled_up_conv3x3_xla``, recomputed from the
 saved inputs. It is first order only (``once_differentiable``): a path that
@@ -109,6 +111,18 @@ def _check(kernel, x, w, s, demod, noise, noise_weight, bias, up):
     return b, oh, ow, cout
 
 
+def tap_splits(m, cout, sms):
+    """How many ways csrc/styled_conv.cu splits its 9 taps (1, 3 or 9) for
+    M = m output pixels on ``sms`` SMs. Only a grid of fewer 128 x 128
+    tiles than SMs is split, into the fewest waves of whole-K work (the
+    smaller split on a tie): a split writes (split, M, Cout) partial sums
+    that a second kernel adds up."""
+    tiles = -(-m // 128) * -(-cout // 128)
+    if tiles >= sms:
+        return 1
+    return min((1, 3, 9), key=lambda n: -(-tiles * n // sms) / n)
+
+
 def _conv_forward(x, w, s, demod, noise, noise_weight, bias):
     if x.device.type == "cpu":
         return styled_conv3x3_ref(x, w, s, demod, noise, noise_weight, bias)
@@ -120,11 +134,21 @@ def _conv_forward(x, w, s, demod, noise, noise_weight, bias):
         return out
     # the modulation x * s is materialised here, as the JAX kernel does
     xm = x * s[:, None, None, :]
+    w_nk = w.permute(0, 1, 3, 2).contiguous()  # per tap Cout x Cin, k contiguous
+    m = b * oh * ow
+    nsplit = tap_splits(m, cout, torch.cuda.get_device_properties(x.device)
+                        .multi_processor_count)
+    part = None
+    if nsplit > 1:
+        part = torch.empty((nsplit, m, cout), dtype=x.dtype, device=x.device)
+        _build.check_tensor(kernel, part, "scratch")
     _build.launch(
         kernel, "gk_styled_conv3x3",
-        _build.ptr(xm), _build.ptr(w), _build.ptr(demod), _build.ptr(noise),
+        _build.ptr(xm), _build.ptr(w_nk), _build.ptr(demod), _build.ptr(noise),
         0 if noise.shape[0] == 1 else oh * ow, _build.ptr(noise_weight),
-        _build.ptr(bias), _build.ptr(out), *x.shape, cout, _build.stream_of(x),
+        _build.ptr(bias), _build.ptr(out),
+        None if part is None else _build.ptr(part), nsplit, *x.shape, cout,
+        _build.stream_of(x),
     )
     return out
 

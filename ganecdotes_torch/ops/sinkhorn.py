@@ -3,8 +3,9 @@ ganecdotes_tpu/ops/sinkhorn_pallas.py).
 
 ``sinkhorn_knopp_ref`` is the plain version: the potentials iteration of
 ganecdotes_tpu/selfsup/swav.py:225-245 written with ``torch.logsumexp``.
-``sinkhorn_knopp`` launches the streaming CUDA kernel (csrc/sinkhorn.cu) on
-a CUDA tensor and takes the plain version only for a tensor on the CPU.
+``sinkhorn_knopp`` launches the streaming CUDA kernel (csrc/sinkhorn.cu:
+one read of the scores per iteration, niters + 1 in all) on a CUDA tensor
+and takes the plain version only for a tensor on the CPU.
 No gradient: SwAV uses the codes as constant targets (the JAX step wraps
 them in stop_gradient), so ``sinkhorn_knopp`` refuses scores that need a
 gradient while grad mode is on, rather than hand back codes cut from the
@@ -16,7 +17,9 @@ import torch
 from ganecdotes_torch.ops import _build
 
 KERNEL = "sinkhorn_knopp"
-ROWS_PER_CHUNK = 128  # rows one block of the column pass streams
+# the largest K the kernel takes (csrc/sinkhorn.cu kMaxK): each of its 512
+# threads keeps u and the column accumulators of 4 float4 groups in registers
+MAX_K = 8192
 
 
 def sinkhorn_knopp_ref(scores, niters, eps, r, c):
@@ -54,17 +57,22 @@ def sinkhorn_knopp(scores, niters, eps, r, c):
                          f"do not match scores {tuple(scores.shape)}")
     if niters < 0 or b == 0 or k == 0:
         raise ValueError(f"{KERNEL}: niters {niters} at shape {(b, k)}")
+    if k > MAX_K:
+        raise ValueError(f"{KERNEL}: K = {k} prototypes, the kernel takes at "
+                         f"most {MAX_K}")
     q = torch.empty_like(scores)
-    nchunks = -(-b // ROWS_PER_CHUNK)
-    scratch = torch.empty(k + 2 * b + 2 * nchunks * k, dtype=torch.float32,
+    # one block per SM, each a contiguous chunk of rows, none empty
+    sms = torch.cuda.get_device_properties(scores.device).multi_processor_count
+    rows = -(-b // sms)
+    nchunks = -(-b // rows)
+    # u and the chunks' column (max, sum) partials
+    scratch = torch.empty(k + 2 * nchunks * k, dtype=torch.float32,
                           device=scores.device)
-    u, t, v, part_m, part_s = torch.split(
-        scratch, [k, b, b, nchunks * k, nchunks * k])
+    u, part_m, part_s = torch.split(scratch, [k, nchunks * k, nchunks * k])
     _build.launch(
         KERNEL, "gk_sinkhorn_knopp",
         _build.ptr(scores), _build.ptr(r), _build.ptr(c), _build.ptr(q),
-        _build.ptr(u), _build.ptr(t), _build.ptr(v), _build.ptr(part_m),
-        _build.ptr(part_s), b, k, int(niters), float(1.0 / eps),
-        ROWS_PER_CHUNK, nchunks, _build.stream_of(scores),
+        _build.ptr(u), _build.ptr(part_m), _build.ptr(part_s), b, k,
+        int(niters), float(1.0 / eps), rows, nchunks, _build.stream_of(scores),
     )
     return q

@@ -1,4 +1,4 @@
-"""The index algebra and arithmetic of two CUDA kernels, mirrored in plain
+"""The index algebra and arithmetic of four CUDA kernels, mirrored in plain
 PyTorch on the CPU and held against the JAX package.
 
 The kernels run only on the card (tests/test_torch_gpu.py); these mirrors
@@ -11,7 +11,13 @@ here on every run. None of them is on a path of the port.
   package's ``styled_up_conv3x3_ref`` (the composed sub-pixel form) and
   ``styled_up_conv3x3_xla`` (conv_transpose + blur) at a ragged shape,
   1e-5 absolute (sums of 4 * Cin = 32 terms of O(0.1)).
-* the same kernel's 3xTF32 arithmetic: each fp32 operand split into a TF32
+* csrc/styled_conv.cu: the 'same' 3x3 conv as a GEMM over 9 taps, tap
+  (dy, dx) reading pixel (y + dy - 1, x + dx - 1) with zero fill, in
+  32-channel stages each summed from 0 and added to the running sum, then
+  the epilogue in the kernel's order; held against the JAX package's
+  ``styled_conv3x3_ref`` at a ragged shape, 1e-5 absolute (sums of
+  9 * Cin = 360 terms of O(0.1)).
+* the 3xTF32 arithmetic both StyledConvs share (csrc/tf32x3.cuh): each fp32 operand split into a TF32
   big part and a TF32 small part (round to nearest, ties away, as
   cvt.rna.tf32.f32: add half of the 13 dropped mantissa bits, then mask
   them), three products summed in fp32.
@@ -20,6 +26,12 @@ here on every run. None of them is on a path of the port.
   coefficient from the forward's geometry; held against ``_resample_pass_t``
   and the JAX Pallas ``resample_rows_t`` in interpret mode, 1e-5 absolute
   (sums of a few products of O(1), in another order).
+* csrc/sinkhorn.cu's fused schedule: one read of each row per pass, niters
+  + 1 passes; a pass's row potentials and its column log-sum-exp come from
+  the same read, per-chunk column partials are merged in chunk order, and
+  the last pass writes q. Held against the JAX package's fused Pallas
+  variant in interpret mode and the port's ``sinkhorn_knopp_ref``, 1e-4
+  absolute on codes in [0, 1] (tests/test_torch_sinkhorn.py's tolerance).
 """
 
 import jax.numpy as jnp
@@ -30,9 +42,13 @@ import torch.nn.functional as F
 
 from ganecdotes_tpu.ops import affine_warp_pallas as jawp
 from ganecdotes_tpu.ops import modulated_conv_pallas as jmc
+from ganecdotes_tpu.ops.sinkhorn_pallas import sinkhorn_knopp_pallas
 from ganecdotes_torch.ops import affine_warp as taw
+from ganecdotes_torch.ops.sinkhorn import sinkhorn_knopp_ref
 
 UP_TOL = dict(atol=1e-5, rtol=0)
+CONV3_TOL = dict(atol=1e-5, rtol=0)
+SINKHORN_TOL = dict(atol=1e-4, rtol=0)
 ADJ_TOL = dict(atol=1e-5, rtol=0)
 # the GPU tests' tolerance for the conv kernels against their plain
 # versions (tests/test_torch_gpu.py CONV_TOL)
@@ -108,6 +124,69 @@ def test_subpixel_up_conv_phases_match_jax(noise_b):
                                **UP_TOL)
     np.testing.assert_allclose(ours, np.asarray(jmc.styled_up_conv3x3_xla(*jargs)),
                                **UP_TOL)
+
+
+def _tap_gemm_conv(x, w, s, demod, noise, noise_weight, bias, nsplit=1,
+                   stage=32):
+    """What csrc/styled_conv.cu computes: out[m, n] = sum over the 9 taps and
+    the 32-channel stages of A_tap[m, c] * W_tap[n, c], each stage summed
+    from 0 and then added to the running sum; A_tap row m is pixel
+    (y + dy - 1, x + dx - 1) of x * s, zero outside the image; W_tap is the
+    tap's (Cout, Cin) slice of the (3, 3, Cout, Cin) weights. With the taps
+    split nsplit ways, each split's taps 9 z / nsplit .. 9 (z + 1) / nsplit
+    have their own running sum, and the splits are added in order. Then
+    demod, noise, bias, leaky-ReLU and sqrt(2), in that order."""
+    xm = x * s[:, None, None, :]
+    b, h, wd, cin = xm.shape
+    w_nk = w.permute(0, 1, 3, 2)
+    xp = F.pad(xm, (0, 0, 1, 1, 1, 1))  # xp[:, r, c] = xm[:, r - 1, c - 1]
+    parts = []
+    for z in range(nsplit):
+        acc = xm.new_zeros(b * h * wd, w.shape[3])
+        for tap in range(9 * z // nsplit, 9 * (z + 1) // nsplit):
+            dy, dx = divmod(tap, 3)
+            a = xp[:, dy:dy + h, dx:dx + wd].reshape(-1, cin)
+            for c0 in range(0, cin, stage):
+                acc = acc + a[:, c0:c0 + stage] @ w_nk[dy, dx, :, c0:c0 + stage].T
+        parts.append(acc)
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = acc + p
+    out = acc.reshape(b, h, wd, -1) * demod[:, None, None, :]
+    out = out + noise_weight * noise
+    out = out + bias
+    return torch.where(out >= 0, out, 0.2 * out) * np.sqrt(2.0)
+
+
+@pytest.mark.parametrize("nsplit", [1, 3, 9])
+@pytest.mark.parametrize("noise_b", [1, 3])
+def test_tap_gemm_conv_matches_jax(noise_b, nsplit):
+    """B * H * W = 105 rows (no multiple of the 128-row tile), Cout = 12,
+    Cin = 40: a full 32-channel stage and a partial one per tap; the taps
+    whole or split 3 or 9 ways."""
+    rng = np.random.RandomState(5)
+    b, h, wd, cin, cout = 3, 5, 7, 40, 12
+    args = [rng.randn(b, h, wd, cin), rng.randn(3, 3, cin, cout) * 0.05,
+            rng.rand(b, cin) + 0.5, rng.rand(b, cout) + 0.5,
+            rng.randn(noise_b, h, wd, 1), np.float32(0.3),
+            rng.randn(cout) * 0.1]
+    ours = _np(_tap_gemm_conv(*[_t(a) for a in args], nsplit=nsplit))
+    assert ours.shape == (b, h, wd, cout)
+    jargs = [jnp.asarray(np.asarray(a, np.float32)) for a in args]
+    np.testing.assert_allclose(ours, np.asarray(jmc.styled_conv3x3_ref(*jargs)),
+                               **CONV3_TOL)
+
+
+@pytest.mark.parametrize("m,cout,want", [
+    (8 * 4 * 4, 512, 9), (8 * 16 * 16, 512, 9), (1 * 32 * 32, 512, 3),
+    (20 * 8 * 8, 512, 3), (8 * 32 * 32, 512, 1), (8 * 256 * 256, 128, 1),
+    (99, 100, 9)])
+def test_tap_splits_only_split_an_underfilled_grid(m, cout, want):
+    """On 132 SMs: the ffhq layers 4x4 and 16x16 at B = 8, 32x32 at B = 1,
+    8x8 at B = 20, two layers that fill the card, and a ragged one."""
+    from ganecdotes_torch.ops.modulated_conv import tap_splits
+
+    assert tap_splits(m, cout, 132) == want
 
 
 def _tf32(x):
@@ -235,3 +314,76 @@ def test_gather_adjoint_window_and_membership_match_jax(alpha):
                                **ADJ_TOL)
     want = jawp.resample_rows_t(jnp.asarray(g), jnp.asarray(a), jnp.asarray(icpt), s_len)
     np.testing.assert_allclose(_np(ours), np.asarray(want), **ADJ_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the Sinkhorn codes, one read of the scores per iteration
+# ---------------------------------------------------------------------------
+
+NEG_INIT = -3e38  # csrc/sinkhorn.cu kNegInit
+
+
+def _merge(m, s, m2, s2):
+    """online_merge: (m, s) and (m2, s2) as one (max, sum of exp(z - max))."""
+    mx = torch.maximum(m, m2)
+    return mx, s * torch.exp(m - mx) + s2 * torch.exp(m2 - mx)
+
+
+def _fused_sinkhorn(scores, niters, eps, r, c, nchunks):
+    """What csrc/sinkhorn.cu computes. The rows fall into nchunks contiguous
+    chunks (one block each on the card); a pass reads each row once: pass 0
+    folds x / eps into the column accumulators, passes 1 .. niters - 1 first
+    take the row's t = lse_k(x / eps + u) and then fold x / eps + log c - t,
+    the last pass writes q = exp(x / eps + u - t). Each chunk's column
+    (max, sum) partials merge in chunk order into u = log r - lse."""
+    b, k = scores.shape
+    inv_eps = torch.tensor(1.0 / eps, dtype=torch.float32)
+    rows = -(-b // nchunks)
+    starts = range(0, b, rows)
+
+    def one_pass(u, kind):
+        m = torch.full((k,), NEG_INIT)
+        s = torch.zeros(k)
+        q = []
+        for b0 in starts:
+            z = scores[b0:b0 + rows] * inv_eps  # the chunk's one read
+            if kind == "first":
+                zc = z
+            else:
+                t = torch.logsumexp(z + u, dim=1, keepdim=True)
+                if kind == "last":
+                    q.append(torch.exp(z + u - t))
+                    continue
+                zc = z + (torch.log(c[b0:b0 + rows, None]) - t)
+            cm = zc.max(dim=0).values
+            m, s = _merge(m, s, cm, torch.exp(zc - cm).sum(dim=0))
+        if kind == "last":
+            return torch.cat(q)
+        return torch.log(r) - (m + torch.log(s))
+
+    u = torch.zeros(k)
+    if niters:
+        u = one_pass(u, "first")
+        for _ in range(1, niters):
+            u = one_pass(u, "mid")
+    return one_pass(u, "last")
+
+
+@pytest.mark.parametrize("niters", [0, 1, 3])
+def test_fused_sinkhorn_schedule_matches_jax(niters):
+    """B = 200 in 7 chunks of 29 rows (the last 26), K = 37 (no multiple of
+    4), eps = 0.05, non-uniform marginals."""
+    rng = np.random.RandomState(11 + niters)
+    b, k, eps = 200, 37, 0.05
+    scores = rng.randn(b, k).astype(np.float32)
+    r = rng.rand(k).astype(np.float32) + 0.1
+    c = rng.rand(b).astype(np.float32) + 0.1
+    r, c = r / r.sum(), c / c.sum()
+    ours = _fused_sinkhorn(_t(scores), niters, eps, _t(r), _t(c), nchunks=7)
+    assert ours.shape == (b, k)
+    want = sinkhorn_knopp_pallas(jnp.asarray(scores), niters, eps, jnp.asarray(r),
+                                 jnp.asarray(c), variant="fused")
+    np.testing.assert_allclose(_np(ours), np.asarray(want), **SINKHORN_TOL)
+    ref = sinkhorn_knopp_ref(_t(scores), niters, eps, _t(r), _t(c))
+    np.testing.assert_allclose(_np(ours), _np(ref), **SINKHORN_TOL)
+    np.testing.assert_allclose(_np(ours).sum(axis=1), 1.0, atol=1e-4)

@@ -185,6 +185,7 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT_DIR, "chip_smoke.py")
+    yield os.path.join(ROOT_DIR, "kernel_ab.py")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
