@@ -18,8 +18,10 @@ Phases (any failure exits non-zero before the last line):
      arithmetic the kernel runs in: 3xTF32 on the tensor cores for both
      StyledConvs' GEMMs, fp32 SIMT otherwise; the non-up conv's fp32 SIMT
      figure is printed beside it); the blur and the fused bias + leaky-ReLU
-     at the shapes BagGAN-HQ's discriminator gives them (measured only, not
-     summed per request); the Sinkhorn kernel at the pretraining path's
+     at the shapes BagGAN-HQ's discriminator gives them, and the FIR kernel
+     at BagGAN-HQ's other FIRs: ADA's four SYM6 passes, the PPL
+     composite's blur at each up layer and the to_rgb upsample's down-2
+     backward (all measured only, not summed per request); the Sinkhorn kernel at the pretraining path's
      (patch_size, nprototypes) scores, uniform and image marginals, a
      ragged shape, niters = 0 and the generic K = 8000, each launched twice
      and required equal bit for bit, within 1e-4 and 0.1/K of its plain
@@ -45,8 +47,10 @@ Phases (any failure exits non-zero before the last line):
      iteration 0, PPL at 4) with every kernel's launch counted per step
      kind, then again with every op on its plain version; iteration 0's
      gradients of each step kind and every iteration's losses held against
-     the plain run; one more iteration (all four step kinds) under
-     torch.profiler;
+     the plain run; the grouped (depthwise) F.conv2d calls on the card per
+     step kind, none with the kernels; one more iteration (all four step
+     kinds) under torch.profiler, with the FIR kernel's and cuDNN's
+     grouped-conv kernels' device time per range;
   8. one JSON line of the kernels, then the result line.
 
 ``--details PATH`` also writes every shape's numbers, the build record and
@@ -63,6 +67,7 @@ import sys
 import time
 import traceback
 import types
+from contextlib import contextmanager
 
 import torch
 
@@ -463,6 +468,135 @@ def check_gan_shapes(dev):
               f"lib {row['library_ms'] if lib is None else round(row['library_ms'], 4)} "
               f"bound {row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
         check(row["ok"], f"{name} {case}: max abs err {err} over tolerance {tol}")
+    return rows
+
+
+def fir_library(k, up, down, pad):
+    """One PyTorch call computing upfirdn2d(., k, up, down, pad) on NHWC x,
+    for the cases the paths give: a depthwise F.conv_transpose2d (stride up,
+    the taps as they are) where an axis upsamples, else a depthwise
+    F.conv2d (stride down, the taps flipped) on the image cropped by a
+    negative pad. Pads are symmetric per axis where no axis upsamples."""
+    import torch.nn.functional as F
+
+    (ux, uy), (dx, dy), (px0, px1, py0, py1) = up, down, pad
+    kh, kw = k.shape
+    if max(ux, uy) > 1:
+        check((dx, dy) == (1, 1), f"no library call for up {up} with down {down}")
+        pads = (kh - 1 - py0, kw - 1 - px0)
+        out_pad = (py1 - py0 + uy - 1, px1 - px0 + ux - 1)
+
+        def lib(x, w):
+            return F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=(uy, ux),
+                                      padding=pads, output_padding=out_pad,
+                                      groups=x.shape[3]).permute(0, 2, 3, 1)
+        return lib, torch.as_tensor(k.copy())
+    check(px0 == px1 and py0 == py1, f"no library call for the pad {pad}")
+    crop_y, crop_x = max(-py0, 0), max(-px0, 0)
+
+    def lib(x, w):
+        xn = x.permute(0, 3, 1, 2)[:, :, crop_y:x.shape[1] - crop_y,
+                                   crop_x:x.shape[2] - crop_x]
+        return F.conv2d(xn, w, stride=(dy, dx), padding=(max(py0, 0), max(px0, 0)),
+                        groups=x.shape[3]).permute(0, 2, 3, 1)
+    return lib, torch.as_tensor(k[::-1, ::-1].copy())
+
+
+def gan_fir_shapes():
+    """The FIR kernel's other calls in a BagGAN-HQ iteration at the pidray
+    config: (case, x shape, 2-D kernel, up, down, pad). ADA's four SYM6
+    passes at B = 20 (padded 256^2 image 2x up along x, then y; the warp's
+    output 2x down along x, then y); the PPL composite's blur (pad 1, gain
+    4) on each up layer's conv_transpose output at the PPL batch; the
+    to_rgb upsample's backward, a down-2 FIR of the gradient with the
+    flipped taps, at 64^2-256^2."""
+    import numpy as np
+
+    from ganecdotes_torch.gan.ada import SYM6, warp_geometry, wavelet_passes
+    from ganecdotes_torch.models.stylegan2.generator import channel_map
+    from ganecdotes_torch.ops import upfirdn2d as tup
+
+    cfg = pidray_config(os.path.join(ROOT, "build", "chip_smoke_gan"))
+    b, size = cfg.batch_size, cfg.image_size
+    out = []
+    k = np.asarray(SYM6, np.float32)
+    # the padded image is half the warp's 2x source; m the warp's output
+    _, (src, _), (m, _) = warp_geometry(torch.eye(3)[None], size, size)
+    shape = (b, src // 2, src // 2, 3)
+    for i, (kern, up, down, pad) in enumerate(wavelet_passes(k)):
+        up, down, pad = tup._normalize_args(up, down, pad)
+        if i == 2:
+            shape = (b, m, m, 3)
+        axis = "x" if kern.shape[0] == 1 else "y"
+        verb = "up" if max(up) > 1 else "down"
+        out.append((f"ADA {verb} {axis}", shape, kern, up, down, pad))
+        kh, kw = kern.shape
+        shape = (b, tup.out_size(shape[1], up[1], pad[2], pad[3], kh, down[1]),
+                 tup.out_size(shape[2], up[0], pad[0], pad[1], kw, down[0]), 3)
+    ch = channel_map(getattr(cfg, "chl_multiplier", 2), getattr(cfg, "res2chlmap", None))
+    blur = tup.make_kernel((1, 3, 3, 1), gain=4.0)
+    ppl_b = max(1, b // cfg.path_batch_shrink)
+    r = 8
+    while r <= size:
+        out.append((f"PPL blur {r}^2x{ch[r]}", (ppl_b, r + 1, r + 1, ch[r]), blur,
+                    (1, 1), (1, 1), (1, 1, 1, 1)))
+        r *= 2
+    flipped = np.ascontiguousarray(blur[::-1, ::-1])
+    for r in (64, 128, 256):
+        out.append((f"to_rgb bwd {r}^2", (b, r, r, 3), flipped, (1, 1), (2, 2), (1, 1, 1, 1)))
+    return out
+
+
+def check_fir_shapes(dev):
+    """The FIR kernel at gan_fir_shapes(), each against its plain version
+    with the time of kernel, plain version, one library call and the bytes
+    bound. Measured only (calls = 0)."""
+    from ganecdotes_torch.ops import upfirdn2d as tup
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for case, shape, k, up, down, pad in gan_fir_shapes():
+        x = torch.randn(*shape, generator=gen, device=dev)
+
+        def kern(x=x, k=k, up=up, down=down, pad=pad):
+            return tup.upfirdn2d(x, k, up=up, down=down, pad=pad)
+
+        def plain(x=x, k=k, up=up, down=down, pad=pad):
+            return tup.upfirdn2d_ref(x, k, up=up, down=down, pad=pad)
+
+        fn, w = fir_library(k, up, down, pad)
+        w = w.to(dev).expand(shape[3], 1, *k.shape)
+
+        def lib(x=x, fn=fn, w=w):
+            return fn(x, w)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err, rel, scale = errors(got, want)
+        tol = KERNEL_TOL * max(1.0, scale)
+        check(tuple(got.shape) == tuple(want.shape), f"FIR {case}: shape {tuple(got.shape)}")
+        kh, kw = k.shape
+        # the separable form's multiply-adds: the vertical taps at each
+        # intermediate (output rows x the columns the horizontal taps read),
+        # the horizontal taps at each output
+        mid_n = want.numel() * down[0]
+        flops = 2 * (mid_n * kh / up[1] + want.numel() * kw / up[0])
+        row = {
+            "kernel": "upfirdn2d", "case": case, "shape": list(shape), "pad": list(pad),
+            "up": list(up), "down": list(down), "taps": [kh, kw], "calls": 0,
+            "max_abs_err": err, "max_rel_err": rel, "tol": tol,
+            "max_abs_err_convT_blur": None, "ok": err <= tol,
+            "ms": time_ms(kern), "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
+            "library_err": errors(lib(), want)[0],
+            "bytes": nbytes(x, want), "flops": flops,
+        }
+        row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], [(flops, FP32)])
+        rows.append(row)
+        print(f"  upfirdn2d {case:22s} {str(tuple(shape)):22s} err {err:.3e} "
+              f"(tol {tol:.1e}) ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+              f"lib {row['library_ms']:.4f} (err {row['library_err']:.1e}) "
+              f"bound {row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+        check(row["ok"], f"upfirdn2d {case}: max abs err {err} over tolerance {tol}")
     return rows
 
 
@@ -969,6 +1103,11 @@ def check_resample(dev):
 # ---------------------------------------------------------------------------
 
 GAN_PROFILE_LABELS = ("gan.d_step", "gan.r1", "gan.g_step", "gan.ppl", "gan.ada")
+# the cuDNN kernel that ran the plain FIRs' depthwise convs, twice
+# differentiated in gan.r1 and gan.ppl; it runs ungrouped convs too, so the
+# evidence that no plain FIR runs is the grouped F.conv2d count
+# (grouped_convs_per_step), and its device time is only reported
+IMPLICIT_GEMM_INDEXED = "implicit_gemm_indexed"
 
 
 def pidray_config(out_dir):
@@ -992,9 +1131,46 @@ def gan_losses(gan, it):
     return {k: float(getattr(gan, "loss_" + k)) for k in keys}
 
 
+@contextmanager
+def grouped_convs_per_step(gan):
+    """Count the grouped (depthwise) F.conv2d calls on CUDA tensors in each
+    of ``gan``'s step kinds while the block runs: the plain FIR is one, and
+    the FIR kernel makes none. Yields {step kind: count}."""
+    import torch.nn.functional as F
+
+    from ganecdotes_torch.gan.train import STEP_KINDS
+
+    counts = dict.fromkeys(STEP_KINDS + ("outside",), 0)
+    kind = ["outside"]
+    conv2d, step = F.conv2d, gan._step
+
+    def counting(*args, **kwargs):
+        groups = kwargs.get("groups", args[6] if len(args) > 6 else 1)
+        if groups > 1 and args[0].is_cuda:
+            counts[kind[0]] += 1
+        return conv2d(*args, **kwargs)
+
+    @contextmanager
+    def tagged(k):
+        kind[0] = k
+        try:
+            with step(k):
+                yield
+        finally:
+            kind[0] = "outside"
+
+    F.conv2d, gan._step = counting, tagged
+    try:
+        yield counts
+    finally:
+        F.conv2d = conv2d
+        del gan._step
+
+
 def run_gan(dev, ops):
     """BagGANHQ at the full pidray config for GAN_ITERS iterations from seed
-    0; the trainer, per-iteration host ms and losses."""
+    0; the trainer, per-iteration host ms, losses and the grouped convs on
+    the card per step kind."""
     from ganecdotes_torch.gan.train import BagGANHQ
 
     cfg = pidray_config(os.path.join(ROOT, "build", "chip_smoke_gan"))
@@ -1005,16 +1181,18 @@ def run_gan(dev, ops):
     gen = torch.Generator(device=dev).manual_seed(11)
     size = cfg.image_size
     iter_ms, losses = [], []
-    for it in range(GAN_ITERS):
-        real = torch.rand(cfg.batch_size, size, size, cfg.num_channels,
-                          generator=gen, device=dev) * 2 - 1
-        gan.set_input(real, iter_no=it)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        gan.optimize_parameters()
-        torch.cuda.synchronize()
-        iter_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(gan_losses(gan, it))
+    with grouped_convs_per_step(gan) as grouped:
+        for it in range(GAN_ITERS):
+            real = torch.rand(cfg.batch_size, size, size, cfg.num_channels,
+                              generator=gen, device=dev) * 2 - 1
+            gan.set_input(real, iter_no=it)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gan.optimize_parameters()
+            torch.cuda.synchronize()
+            iter_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(gan_losses(gan, it))
+    gan.grouped_convs = grouped
     return gan, iter_ms, losses
 
 
@@ -1060,10 +1238,16 @@ def profile_iteration(gan):
         n, ms = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
     resample_ms = sum(ms for k, (_, ms) in by_name.items() if "resample_rows" in k)
+    # per range, the FIR kernel's device time and IMPLICIT_GEMM_INDEXED's
+    fir_ms = {label: sum(ms for k, ms in names.items() if "upfirdn2d_kernel" in k)
+              for label, names in in_range.items()}
+    indexed_ms = {label: sum(ms for k, ms in names.items() if IMPLICIT_GEMM_INDEXED in k)
+                  for label, names in in_range.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     return {
         "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
         "split_ms": split, "span_ms": span_ms, "resample_kernels_ms": resample_ms,
+        "fir_kernel_ms": fir_ms, "implicit_gemm_indexed_ms": indexed_ms,
         "top": [{"name": k[:90], "ms": ms, "count": n} for k, (n, ms) in top],
         "top_by_range": top_by_range,
     }
@@ -1150,21 +1334,40 @@ def train(dev):
     print(f"  launches {launches}", flush=True)
     for kind in STEP_KINDS:
         print(f"  launches in {kind} steps: {gan.step_launches[kind]}", flush=True)
+    print(f"  grouped F.conv2d calls on the card per step kind: {gan.grouped_convs}",
+          flush=True)
     print(f"  losses {json.dumps(losses)}", flush=True)
     for k in SERVING_KERNELS + RESAMPLE_KERNELS:
         check(launches[k] > 0, f"kernel {k} was not launched on the training path")
+    check(not any(gan.grouped_convs.values()),
+          f"a plain FIR (grouped conv) ran on the card: {gan.grouped_convs}")
+    # R1 ran once (iteration 0), PPL twice (0 and 4): each FIR's forward
+    # and backward launch the kernel (more in a double backward). R1: D's
+    # blurs (4 launches a blur, as before) and ADA's four passes; PPL: the
+    # to_rgb skip upsamples and the composite's blur at each up layer.
+    n_res = gan.config.image_size.bit_length() - 3  # resolutions 8 .. size
+    d_blurs = 2 * n_res  # per D forward: before each ResBlock's two convs
+    fir = {k: gan.step_launches[k]["upfirdn2d"] for k in STEP_KINDS}
+    check(fir["r1"] >= 4 * d_blurs + 2 * 4,
+          f"R1 launched the FIR kernel {fir['r1']} times: not D's blurs and ADA's passes")
+    check(fir["ppl"] >= 2 * (n_res + n_res),
+          f"PPL launched the FIR kernel {fir['ppl']} times: not the to_rgb "
+          "upsamples and the composite's blurs")
     check(all(math.isfinite(v) for l in losses for v in l.values()), "non-finite loss")
     # iteration 0's gradients leave the card before the plain run
     gan.first_grads = {k: [g.cpu() for g in v] for k, v in gan.first_grads.items()}
     _build.reset_launches()
     plain = run_gan(dev, PLAIN)
     check(all(v == 0 for v in _build.LAUNCHES.values()), "the plain run launched a kernel")
+    print(f"  plain ops: grouped F.conv2d calls on the card per step kind: "
+          f"{plain[0].grouped_convs}", flush=True)
     plain[0].first_grads = {k: [g.cpu() for g in v] for k, v in plain[0].first_grads.items()}
     agreement = check_gan_agreement(kern, plain)
     print(f"  plain ops: iteration ms {[round(t, 3) for t in plain[1]]}; ms per step kind "
           f"{ {k: round(statistics.median(v), 3) for k, v in plain[0].step_ms.items() if v} }; "
           f"{json.dumps(agreement)}", flush=True)
     plain_iter_ms, plain_step_ms, plain_losses = plain[1], plain[0].step_ms, plain[2]
+    plain_grouped = plain[0].grouped_convs
     del plain
     img = gan.test()
     check(tuple(img.shape) == (GAN_B, GAN_SIZE, GAN_SIZE, 3)
@@ -1177,6 +1380,7 @@ def train(dev):
         "iterations": GAN_ITERS, "iter_ms": iter_ms, "dg_iter_ms": dg_ms,
         "step_ms": gan.step_ms, "step_ms_median": step_ms, "peak_memory_bytes": peak,
         "launches": launches, "step_launches": gan.step_launches, "losses": losses,
+        "grouped_convs": gan.grouped_convs, "plain_grouped_convs": plain_grouped,
         "plain_iter_ms": plain_iter_ms, "plain_step_ms": plain_step_ms,
         "plain_losses": plain_losses, "agreement": agreement, "profile": prof,
     }
@@ -1251,6 +1455,9 @@ def main():
     print("blur and fused act at BagGAN-HQ's discriminator shapes (measured only):",
           flush=True)
     rows += check_gan_shapes(dev)
+    print("the FIR kernel at BagGAN-HQ's ADA, PPL and to_rgb-backward shapes "
+          "(measured only):", flush=True)
+    rows += check_fir_shapes(dev)
     print("serve (ffhq-256, hfc_with_swav, B = 8):", flush=True)
     served = serve(dev)
     print(f"  steady request {served['steady_request_ms']:.3f} ms, "

@@ -9,8 +9,10 @@ matrices; and the adaptive-p controller.
 
 The warp runs through ``ops.resample_rows`` ('shear_pallas', the default on
 every device: the CUDA pass with ``KERNELS``, its plain version with
-``PLAIN``); the four 12-tap wavelet passes are ``upfirdn2d_ref`` (the JAX
-package runs them outside any kernel too, as C = 3 matmuls). Random
+``PLAIN``), and the four 12-tap wavelet passes (2x up on each axis before
+it, 2x down after) through ``ops.upfirdn2d``: the FIR kernel with
+``KERNELS``, ``upfirdn2d_ref`` with ``PLAIN`` (the JAX package runs them
+through its ``upfirdn2d``, as C = 3 matmuls). Random
 matrices are drawn from an explicit ``torch.Generator`` on the CPU; the
 trainer draws them up front (``gan/train.py::draw_step_inputs``) and passes
 them in as ``transform_matrix=(G, C)``.
@@ -25,7 +27,6 @@ import torch.nn.functional as F
 from ganecdotes_torch.ops.affine_warp import affine_warp, norm_to_pixel_matrix
 from ganecdotes_torch.ops.grid_sample import grid_sample_bilinear
 from ganecdotes_torch.ops.opset import KERNELS
-from ganecdotes_torch.ops.upfirdn2d import upfirdn2d_ref
 
 SYM6 = (
     0.015404109327027373, 0.0034907120842174702, -0.11799011114819057,
@@ -226,6 +227,23 @@ def warp_geometry(G, h, w, len_k=len(SYM6), pad_frac=0.25):
     return G_inv, (src_h, src_w), (out_h, out_w)
 
 
+def wavelet_passes(k):
+    """ADA's four separable anti-aliasing passes for the 1-D float32 taps
+    ``k``, as (2-D kernel, up, down, pad) in ``upfirdn2d``'s terms, as
+    ganecdotes_tpu/gan/ada.py::random_apply_affine runs them: the 2x
+    upsample along x then y of the padded image, and the 2x downsample
+    along x then y of the warp's output with the flipped taps."""
+    len_k = len(k)
+    up_pad = ((len_k + 1) // 2, (len_k - 2) // 2)
+    k_flip = np.ascontiguousarray(k[::-1])
+    d_p = -(len_k // 4) * 2
+    down_pad = (d_p + (len_k - 1) // 2, d_p + (len_k - 2) // 2)
+    return [(k[None, :], (2, 1), 1, (up_pad[0], up_pad[1], 0, 0)),
+            (k[:, None], (1, 2), 1, (0, 0, up_pad[0], up_pad[1])),
+            (k_flip[None, :], 1, (2, 1), (down_pad[0], down_pad[1], 0, 0)),
+            (k_flip[:, None], 1, (1, 2), (0, 0, down_pad[0], down_pad[1]))]
+
+
 def random_apply_affine(img, p=None, generator=None, G=None,
                         antialiasing_kernel=SYM6, pad_frac=0.25,
                         warp_impl="shear_pallas", ops=KERNELS):
@@ -236,7 +254,8 @@ def random_apply_affine(img, p=None, generator=None, G=None,
     reflect pad of ``pad_frac`` of the size plus the kernel's margin
     replaces the reference's per-batch pad. ``warp_impl``: 'shear_pallas'
     (``ops.resample_rows``), 'shear' (the plain passes) or 'exact' (the
-    grid_sample oracle). Returns (img_out, G).
+    grid_sample oracle). ``ops`` also runs the four wavelet passes
+    (``ops.upfirdn2d``). Returns (img_out, G).
     """
     k = np.asarray(antialiasing_kernel, dtype=np.float32)
     len_k = len(k)
@@ -250,11 +269,10 @@ def random_apply_affine(img, p=None, generator=None, G=None,
     img_pad = F.pad(img.permute(0, 3, 1, 2), [pad_x, pad_x, pad_y, pad_y],
                     mode="reflect").permute(0, 2, 3, 1)
 
-    up_pad = ((len_k + 1) // 2, (len_k - 2) // 2)
-    img_2x = upfirdn2d_ref(img_pad, k[None, :], up=(2, 1), down=1,
-                           pad=(up_pad[0], up_pad[1], 0, 0))
-    img_2x = upfirdn2d_ref(img_2x, k[:, None], up=(1, 2), down=1,
-                           pad=(0, 0, up_pad[0], up_pad[1]))
+    passes = wavelet_passes(k)
+    img_2x = img_pad
+    for kern, up, down, pad in passes[:2]:
+        img_2x = ops.upfirdn2d(img_2x, kern, up=up, down=down, pad=pad)
 
     G_inv, src_hw, (out_h, out_w) = warp_geometry(G, h, w, len_k, pad_frac)
     if warp_impl == "exact":
@@ -265,13 +283,9 @@ def random_apply_affine(img, p=None, generator=None, G=None,
         img_affine = affine_warp(img_2x, M_pix, out_hw=(out_h, out_w),
                                  impl=warp_impl, ops=ops)
 
-    k_flip = np.ascontiguousarray(k[::-1])
-    d_p = -pad_k * 2
-    down_pad = (d_p + (len_k - 1) // 2, d_p + (len_k - 2) // 2)
-    img_down = upfirdn2d_ref(img_affine, k_flip[None, :], up=1, down=(2, 1),
-                             pad=(down_pad[0], down_pad[1], 0, 0))
-    img_down = upfirdn2d_ref(img_down, k_flip[:, None], up=1, down=(1, 2),
-                             pad=(0, 0, down_pad[0], down_pad[1]))
+    img_down = img_affine
+    for kern, up, down, pad in passes[2:]:
+        img_down = ops.upfirdn2d(img_down, kern, up=up, down=down, pad=pad)
     return img_down, G
 
 

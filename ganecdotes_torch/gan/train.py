@@ -18,8 +18,10 @@ the draws the JAX step makes from its keys.
 Every op runs through an op set: ``KERNELS`` (the CUDA kernels as autograd
 Functions) or ``PLAIN``. The PPL step takes gradients of gradients through
 the synthesis network, and the StyledConv kernels are first-order only, so
-its op set swaps those two for the plain composites (the JAX trainer
-refuses the Pallas StyledConvs under PPL, train.py:219-235); every other op
+its op set swaps those two for composites (the JAX trainer refuses the
+Pallas StyledConvs under PPL, train.py:219-235): ``styled_conv3x3_ref``,
+and ``styled_up_conv3x3_xla`` with its blur on the set's ``upfirdn2d`` (the
+FIR kernel with ``KERNELS``, so ``PLAIN`` stays all plain); every other op
 on that path keeps its kernel.
 
 Not ported (each raises ``NotImplementedError``): the fused multi-iteration
@@ -28,6 +30,7 @@ Not ported (each raises ``NotImplementedError``): the fused multi-iteration
 but recomputes nothing: the port keeps every D residual.
 """
 
+import functools
 import logging
 import math
 import os
@@ -331,8 +334,10 @@ class BagGANHQ(GANBaseModel):
                 and torch.cuda.device_count() > 1):
             raise NotImplementedError("data_parallel over more than one card is not ported yet")
         self.ops = ops
-        self.ppl_ops = ops._replace(styled_conv3x3=styled_conv3x3_ref,
-                                    styled_up_conv3x3=styled_up_conv3x3_xla)
+        self.ppl_ops = ops._replace(
+            styled_conv3x3=styled_conv3x3_ref,
+            styled_up_conv3x3=functools.partial(styled_up_conv3x3_xla,
+                                                fir=ops.upfirdn2d))
         self.loss_names = getattr(config, "losses_to_print", ["g_gan", "d"])
         self.model_names = {"netG": "G", "netD": "D"} if self.is_train else {"netG": "G"}
         self.generator = torch.Generator().manual_seed(seed)

@@ -52,21 +52,23 @@ BUILD_INFO = {}
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
-KMAX = 8  # largest FIR kernel side upfirdn2d takes (taps pass by value)
+KMAX = 16  # most taps per axis upfirdn2d takes (taps pass by value)
 
 
 class Taps(ctypes.Structure):
-    """FIR taps passed by value to the upfirdn2d kernel (row-major kh x kw)."""
+    """The separable FIR's 1-D taps, passed by value to the upfirdn2d
+    kernel: taps_y and taps_x (the first kh and kw of each are used)."""
 
-    _fields_ = [("k", ctypes.c_float * (KMAX * KMAX))]
+    _fields_ = [("ky", ctypes.c_float * KMAX), ("kx", ctypes.c_float * KMAX),
+                ("kh", ctypes.c_int), ("kw", ctypes.c_int)]
 
 
 _SIGNATURES = {
     # x, bias (or NULL), y, n, c, negative_slope, scale, stream
     "gk_fused_leaky_relu": [P, P, P, ctypes.c_longlong, I, F, F, P],
-    # x, y, B, H, W, C, OH, OW, up_x, up_y, pad_x0, pad_y0, taps, kh, kw,
-    # stream
-    "gk_upfirdn2d": [P, P] + [I] * 10 + [Taps, I, I, P],
+    # x, y, B, H, W, C, OH, OW, up_x, up_y, down_x, down_y, pad_x0, pad_y0,
+    # the tile (toh, tow, ct, ih, iw, vec, threads, vpass), taps, stream
+    "gk_upfirdn2d": [P, P] + [I] * 20 + [Taps, P],
     # xm, w (3, 3, Cout, Cin), demod, noise, noise batch stride, nw, bias,
     # out, split scratch (or NULL), tap splits, B, H, W, Cin, Cout, stream
     "gk_styled_conv3x3": [P, P, P, P, ctypes.c_longlong, P, P, P, P,

@@ -14,9 +14,11 @@ for tensors on the CPU, inside an autograd Function either way. Their
 backward is the VJP of the plain composite, as the JAX package's
 ``_bwd`` and ``_up_bwd`` are (modulated_conv_pallas.py:308-314, :554-561):
 ``styled_conv3x3_ref`` and ``styled_up_conv3x3_xla``, recomputed from the
-saved inputs. It is first order only (``once_differentiable``): a path that
-takes gradients of gradients through the generator (PPL) runs the plain
-composites instead. Plain versions:
+saved inputs, the latter with its blur on the FIR kernel
+(csrc/upfirdn2d.cu). It is first order only (``once_differentiable``): a
+path that takes gradients of gradients through the generator (PPL) runs
+the composites instead (``styled_up_conv3x3_xla`` with ``fir=upfirdn2d``).
+Plain versions:
 
 * ``styled_conv3x3_ref``: modulate -> conv3x3 -> epilogue;
 * ``styled_up_conv3x3_ref``: the composed sub-pixel form (four 3x3 phase
@@ -39,7 +41,7 @@ from torch.autograd.function import once_differentiable
 from ganecdotes_torch.nn.layers import conv2d_nhwc, conv2d_transpose_nhwc
 from ganecdotes_torch.ops import _build
 from ganecdotes_torch.ops.subpixel_upconv import upsampled_conv2x_blur
-from ganecdotes_torch.ops.upfirdn2d import blur_2d, upfirdn2d_ref
+from ganecdotes_torch.ops.upfirdn2d import blur_2d, upfirdn2d, upfirdn2d_ref
 
 SQRT2 = math.sqrt(2.0)
 
@@ -68,9 +70,11 @@ def styled_up_conv3x3_ref(x, w, s, demod, noise, noise_weight, bias,
 
 
 def styled_up_conv3x3_xla(x, w, s, demod, noise, noise_weight, bias,
-                          blur_kernel=(1, 3, 3, 1)):
+                          blur_kernel=(1, 3, 3, 1), fir=upfirdn2d_ref):
     """The up branch as conv_transpose + demod + 2-pass blur (same math as
-    the sub-pixel form, the JAX generator's default path)."""
+    the sub-pixel form, the JAX generator's default path). ``fir`` runs the
+    blur: ``upfirdn2d_ref`` (the default, a plain oracle) or the FIR kernel
+    ``upfirdn2d``."""
     kh = w.shape[0]
     xm = x * s[:, None, None, :].to(x.dtype)
     out = conv2d_transpose_nhwc(xm, w, stride=2)
@@ -78,7 +82,7 @@ def styled_up_conv3x3_xla(x, w, s, demod, noise, noise_weight, bias,
     # blur pad for upsample (ref model.py:293-299): p = (len(k)-2)-(ks-1)
     pk = len(blur_kernel) - 2 - (kh - 1)
     out = blur_2d(out, blur_kernel, pad=((pk + 1) // 2 + 1, pk // 2 + 1),
-                  upsample_factor=2, impl=upfirdn2d_ref)
+                  upsample_factor=2, impl=fir)
     out = out + noise_weight.to(out.dtype) * noise.to(out.dtype)
     out = out + bias.to(out.dtype)
     return torch.where(out >= 0, out, 0.2 * out) * SQRT2
@@ -203,6 +207,12 @@ def _composite_vjp(ctx, fn, g, *extra):
     return tuple(next(grads) if t.requires_grad else None for t in inputs)
 
 
+def _up_conv_composite(*args):
+    """``styled_up_conv3x3_xla`` with its blur on the FIR kernel (on CUDA
+    tensors): the composite the up kernel's backward differentiates."""
+    return styled_up_conv3x3_xla(*args, fir=upfirdn2d)
+
+
 class _StyledConv3x3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, s, demod, noise, noise_weight, bias):
@@ -226,7 +236,7 @@ class _StyledUpConv3x3(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        return _composite_vjp(ctx, styled_up_conv3x3_xla, g,
+        return _composite_vjp(ctx, _up_conv_composite, g,
                               ctx.blur_kernel) + (None,)
 
 

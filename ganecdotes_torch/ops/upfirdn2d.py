@@ -15,14 +15,19 @@ Pad order is the reference's (x0, x1, y0, y1). All functions are NHWC.
 ``upfirdn2d_ref`` is the plain PyTorch version (a depthwise conv);
 ``upfirdn2d`` launches the CUDA kernel (csrc/upfirdn2d.cu) on a CUDA tensor
 and takes the plain version only for a tensor on the CPU, inside one
-autograd Function either way. Its backward (the gradient algebra of the
-reference's ``UpFirDn2dBackward``): flipped taps and the "gradient padding"
-``k - pad0 - 1`` and ``in*up - out + pad0 - up + 1`` per axis. For the blur
-(up = 1) that is the same Function again, as the JAX package's backward is
-the same Pallas kernel (upfirdn2d_pallas.py:222-242), so it has derivatives
-of any order; for up = 2 it is the plain down-2 FIR in torch ops, which
-autograd differentiates further.
+autograd Function either way. The kernel takes a separable kernel (a
+rank-1 2-D kernel, factored into its 1-D taps as the JAX package's
+``_separable_taps`` does) of at most ``_build.KMAX`` taps per axis, and up
+and down of 1 or 2 per axis. The Function's backward is the same Function
+(the gradient algebra of the reference's ``UpFirDn2dBackward``): up and
+down swapped, the taps flipped, and per axis the "gradient padding"
+``(k - pad0 - 1, in*up - out*down + pad0 - up + 1)``, so every order of
+derivative runs on the kernel, as the JAX package's blur backward is the
+same Pallas kernel (upfirdn2d_pallas.py:222-242).
 """
+
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +36,9 @@ import torch.nn.functional as F
 from ganecdotes_torch.ops import _build
 
 KERNEL = "upfirdn2d"
+THREADS = 256  # a block's threads (fewer where the channel slice needs it)
+SMEM_MAX = 96 * 1024  # a block's shared memory: at least two blocks an SM
+GRID_MAX = 65535  # the grid's y and z extents
 
 
 def make_kernel(k, gain=1.0):
@@ -57,6 +65,40 @@ def out_size(n, up, pad0, pad1, k, down):
     return (n * up + pad0 + pad1 - k) // down + 1
 
 
+def _separable_taps(kernel):
+    """Recover 1-D taps (ky, kx) if ``kernel`` is an outer product, else None
+    (a copy of the JAX package's ``_separable_taps``).
+
+    Kernels from ``make_kernel`` are rank-1 by construction; detected
+    numerically so arbitrary kernels still work via the reference path.
+    """
+    k = np.asarray(kernel, dtype=np.float64)
+    if k.ndim != 2:
+        return None
+    u, s, vt = np.linalg.svd(k)
+    if s.shape[0] > 1 and s[1] > 1e-6 * max(s[0], 1e-30):
+        return None
+    ky = u[:, 0] * np.sqrt(s[0])
+    kx = vt[0] * np.sqrt(s[0])
+    # fix sign so taps are predominantly positive (blur kernels are)
+    if ky.sum() < 0:
+        ky, kx = -ky, -kx
+    return tuple(ky.tolist()), tuple(kx.tolist())
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_taps(shape, data):
+    taps = _separable_taps(np.frombuffer(data, np.float32).reshape(shape))
+    return None if taps is None else tuple(np.asarray(t, np.float32) for t in taps)
+
+
+def separable_taps(k):
+    """``_separable_taps`` of a float32 2-D kernel as float32 arrays, cached
+    by its bytes (the discriminator blurs with one kernel some hundred times
+    a step)."""
+    return _cached_taps(k.shape, k.tobytes())
+
+
 def upfirdn2d_ref(x, kernel, up=1, down=1, pad=(0, 0)):
     """Plain PyTorch version: zero insertion, F.pad, depthwise F.conv2d."""
     (up_x, up_y), (down_x, down_y), (px0, px1, py0, py1) = _normalize_args(
@@ -77,78 +119,188 @@ def upfirdn2d_ref(x, kernel, up=1, down=1, pad=(0, 0)):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def _forward(x, k, up, pad):
-    """The kernel's launch (CUDA) or the plain version (CPU), down = 1."""
-    (up_x, up_y), (px0, px1, py0, py1) = up, pad
-    if x.device.type == "cpu":
-        return upfirdn2d_ref(x, k, up, 1, pad)
-    _build.check_tensor(KERNEL, x, "x", ndim=4)
-    b, h, w, c = x.shape
-    kh, kw = k.shape
-    oh = out_size(h, up_y, py0, py1, kh, 1)
-    ow = out_size(w, up_x, px0, px1, kw, 1)
+class Plan(NamedTuple):
+    """A block of the kernel: toh output rows x tow output columns x ct
+    channels, staged from ih input rows x iw input columns; ``vec`` channels
+    a thread (4 when C % 4 == 0), ``threads`` a multiple of ct / vec;
+    ``vpass`` False for a single tap at up = down = 1 on y, which the
+    horizontal taps absorb."""
+
+    toh: int
+    tow: int
+    ct: int
+    ih: int
+    iw: int
+    vec: int
+    threads: int
+    vpass: bool
+    smem: int
+
+
+def _extent(n_out, k, up, down):
+    """Input samples a run of n_out outputs reads along one axis (at most)."""
+    return -(-((n_out - 1) * down + k) // up)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(c, kh, kw, up, down):
+    """The kernel's tile for C channels, kh x kw taps and (up, down) per axis
+    (x, y): a 32-channel slice (all of C when it is less), 8 output rows and
+    about 512 output (column, channel) pairs a row, halved while the two
+    shared buffers exceed ``SMEM_MAX``. (8 rows, not 16: on the H100 the
+    discriminator's blurs ran faster with four blocks an SM, which hide the
+    staging better than the smaller halo of 16 rows saves.)"""
+    (up_x, up_y), (down_x, down_y) = up, down
+    vec = 4 if c % 4 == 0 else 1
+    ct = min(c, 32)
+    threads = THREADS - THREADS % (ct // vec)
+    vpass = not (kh == 1 and up_y == 1 and down_y == 1)
+    toh, tow = 8, min(128, max(16, 1 << ((512 // ct).bit_length() - 1)))
+    while True:
+        ih = _extent(toh, kh, up_y, down_y) if vpass else toh
+        iw = _extent(tow, kw, up_x, down_x)
+        smem = (ih * iw + (toh * iw if vpass else 0)) * ct * 4
+        if smem <= SMEM_MAX:
+            return Plan(toh, tow, ct, ih, iw, vec, threads, vpass, smem)
+        if tow >= toh:
+            tow //= 2
+        else:
+            toh //= 2
+
+
+def launch_shape(shape, kw, up_x, down_x, pad_x):
+    """The (B, H, W, C) view the kernel runs on. With a single tap across and
+    no up, down or pad on x, each (column, channel) row is filtered down on
+    its own, so C % 4 != 0 (ADA's y passes, C = 3) runs as W*C/4 columns of
+    4 channels, with 16-byte copies."""
+    b, h, w, c = shape
+    if kw == 1 and up_x == down_x == 1 and tuple(pad_x) == (0, 0) and c % 4 and w * c % 4 == 0:
+        return b, h, w * c // 4, 4
+    return tuple(shape)
+
+
+class _Spec(NamedTuple):
+    """One upfirdn2d: the 2-D kernel (the plain version's), its 1-D taps
+    (taps_y, taps_x) or None where it is not separable (the kernel's), and
+    normalised up, down and pad."""
+
+    kernel: np.ndarray
+    taps: Optional[Tuple[np.ndarray, np.ndarray]]
+    up: tuple
+    down: tuple
+    pad: tuple
+
+    def adjoint(self, in_hw, out_hw):
+        """The upfirdn2d whose output is the input gradient: up and down
+        swapped, flipped taps, the gradient padding per axis."""
+        (h, w), (oh, ow) = in_hw, out_hw
+        kh, kw = self.kernel.shape
+        (up_x, up_y), (down_x, down_y), (px0, _, py0, _) = self.up, self.down, self.pad
+        pad = (kw - px0 - 1, w * up_x - ow * down_x + px0 - up_x + 1,
+               kh - py0 - 1, h * up_y - oh * down_y + py0 - up_y + 1)
+        taps = None if self.taps is None else tuple(
+            np.ascontiguousarray(t[::-1]) for t in self.taps)
+        return _Spec(np.ascontiguousarray(self.kernel[::-1, ::-1]), taps,
+                     self.down, self.up, pad)
+
+
+def launch_args(x, y, spec):
+    """The views of ``x`` and its output ``y`` the kernel runs on, and the
+    arguments of ``gk_upfirdn2d`` between the two pointers and the stream
+    (any device: the CPU tests feed them to a mirror of the kernel)."""
+    (up_x, up_y), (down_x, down_y), (px0, px1, py0, _) = spec.up, spec.down, spec.pad
+    taps_y, taps_x = spec.taps
+    kh, kw = len(taps_y), len(taps_x)
+    lb, lh, lw, lc = launch_shape(x.shape, kw, up_x, down_x, (px0, px1))
+    xl, yl = x.view(lb, lh, lw, lc), y.view(lb, y.shape[1], -1, lc)
+    p = plan(lc, kh, kw, spec.up, spec.down)
+    if -(-yl.shape[1] // p.toh) > GRID_MAX or lb * -(-lc // p.ct) > GRID_MAX:
+        raise ValueError(f"{KERNEL}: output {tuple(y.shape)} needs a grid over {GRID_MAX}")
+    taps = _build.Taps()
+    if p.vpass:
+        taps.ky[:kh] = taps_y.tolist()
+        taps.kx[:kw] = taps_x.tolist()
+    else:  # the single vertical tap folded into the horizontal ones
+        taps.ky[0] = 1.0
+        taps.kx[:kw] = (taps_x * taps_y[0]).tolist()
+    taps.kh, taps.kw = kh, kw
+    return xl, yl, (*xl.shape, *yl.shape[1:3], up_x, up_y, down_x, down_y, px0, py0,
+                    p.toh, p.tow, p.ct, p.ih, p.iw, p.vec, p.threads, int(p.vpass), taps)
+
+
+def output_shape(shape, spec):
+    """The kernel's (B, OH, OW, C) for an input of ``shape``. Raises for an
+    empty output and for one of 2**31 elements or more: the kernel's index
+    math is 32-bit, and ``_build.check_tensor`` bounds only the input,
+    which an up-2 FIR makes four times larger."""
+    (up_x, up_y), (down_x, down_y), (px0, px1, py0, py1) = spec.up, spec.down, spec.pad
+    b, h, w, c = shape
+    oh = out_size(h, up_y, py0, py1, len(spec.taps[0]), down_y)
+    ow = out_size(w, up_x, px0, px1, len(spec.taps[1]), down_x)
     if oh <= 0 or ow <= 0:
-        raise ValueError(f"{KERNEL}: empty output {oh}x{ow} for input {tuple(x.shape)}")
-    y = torch.empty((b, oh, ow, c), dtype=x.dtype, device=x.device)
+        raise ValueError(f"{KERNEL}: empty output {oh}x{ow} for input {tuple(shape)}")
+    if b * oh * ow * c >= 2**31:
+        raise ValueError(f"{KERNEL}: output {(b, oh, ow, c)} has {b * oh * ow * c} "
+                         "elements, over 2**31")
+    return b, oh, ow, c
+
+
+def _forward(x, spec):
+    """The kernel's launch (CUDA) or the plain version (CPU)."""
+    if x.device.type == "cpu":
+        return upfirdn2d_ref(x, spec.kernel, spec.up, spec.down, spec.pad)
+    x = x.contiguous()
+    _build.check_tensor(KERNEL, x, "x", ndim=4)
+    y = torch.empty(output_shape(x.shape, spec), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    taps = _build.Taps()
-    taps.k[: kh * kw] = k.ravel().tolist()
-    _build.launch(
-        KERNEL, "gk_upfirdn2d", _build.ptr(x), _build.ptr(y),
-        b, h, w, c, oh, ow, up_x, up_y, px0, py0,
-        taps, kh, kw, _build.stream_of(x),
-    )
+    xl, yl, args = launch_args(x, y, spec)
+    _build.launch(KERNEL, "gk_upfirdn2d", _build.ptr(xl), _build.ptr(yl), *args,
+                  _build.stream_of(x))
     return y
 
 
 class _UpFirDn2d(torch.autograd.Function):
-    """upfirdn2d at down = 1; ``k`` a float32 host array, ``up`` and ``pad``
-    normalised tuples (x and y)."""
+    """upfirdn2d as given by a ``_Spec``; its backward is this Function
+    again with ``spec.adjoint``, so it has derivatives of any order."""
 
     @staticmethod
-    def forward(ctx, x, k, up, pad):
-        ctx.k, ctx.up, ctx.pad, ctx.in_hw = k, up, pad, x.shape[1:3]
-        return _forward(x, k, up, pad)
+    def forward(ctx, x, spec):
+        ctx.spec, ctx.in_hw = spec, x.shape[1:3]
+        return _forward(x, spec)
 
     @staticmethod
     def backward(ctx, g):
-        (up_x, up_y), (px0, _, py0, _) = ctx.up, ctx.pad
-        kh, kw = ctx.k.shape
-        (h, w), (oh, ow) = ctx.in_hw, g.shape[1:3]
-        gpad = (kw - px0 - 1, w * up_x - ow + px0 - up_x + 1,
-                kh - py0 - 1, h * up_y - oh + py0 - up_y + 1)
-        kf = np.ascontiguousarray(ctx.k[::-1, ::-1])
-        if ctx.up == (1, 1):
-            return _UpFirDn2d.apply(g.contiguous(), kf, (1, 1), gpad), None, None, None
-        return upfirdn2d_ref(g, kf, 1, ctx.up, gpad), None, None, None
+        spec = ctx.spec.adjoint(ctx.in_hw, g.shape[1:3])
+        return _UpFirDn2d.apply(g.contiguous(), spec), None
 
 
 def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
     """Kernel on a CUDA tensor; plain version on a CPU tensor; differentiable.
 
-    ``kernel`` is a host array (e.g. from ``make_kernel``) of side <= 8; its
-    taps travel to the card by value with the launch. The kernel takes
-    up 1 or 2 per axis and down = 1: the subsampling passes (the
-    discriminator's strided convs follow a blur; ADA's wavelet passes) call
-    ``upfirdn2d_ref``.
+    ``kernel`` is a 2-D host array (e.g. from ``make_kernel``). On a CUDA
+    tensor it must be separable with at most ``_build.KMAX`` taps per axis,
+    and up and down 1 or 2 per axis; its 1-D taps travel to the card by
+    value with the launch. The plain version takes any case.
     """
     up, down, pad = _normalize_args(up, down, pad)
     if isinstance(kernel, torch.Tensor):
         raise TypeError(f"{KERNEL}: pass the FIR kernel as a host array")
     k = np.asarray(kernel, dtype=np.float32)
-    kernel_case = (k.ndim == 2 and 1 <= k.shape[0] <= _build.KMAX
-                   and 1 <= k.shape[1] <= _build.KMAX)
-    if kernel_case and (up[0] not in (1, 2) or up[1] not in (1, 2) or down != (1, 1)):
-        kernel_case = False
-    if not kernel_case:
-        if x.device.type == "cpu":  # the plain version takes any case
-            return upfirdn2d_ref(x, k, up, down, pad)
-        if k.ndim != 2 or max(k.shape) > _build.KMAX:
-            raise ValueError(f"{KERNEL}: kernel must be 2-D with sides <= {_build.KMAX}, got {k.shape}")
-        raise ValueError(f"{KERNEL}: the kernel takes up 1 or 2 and down 1, "
-                         f"got up {up}, down {down}")
-    return _UpFirDn2d.apply(x, k, up, pad)
+    if k.ndim != 2:
+        raise ValueError(f"{KERNEL}: kernel must be 2-D, got shape {k.shape}")
+    taps = separable_taps(k)
+    if x.device.type != "cpu":
+        if taps is None:
+            raise ValueError(f"{KERNEL}: the kernel takes a separable (rank-1) "
+                             f"FIR kernel, got a {k.shape} kernel of higher rank")
+        if max(k.shape) > _build.KMAX:
+            raise ValueError(f"{KERNEL}: at most {_build.KMAX} taps per axis, "
+                             f"got {k.shape}")
+        if not all(f in (1, 2) for f in up + down):
+            raise ValueError(f"{KERNEL}: the kernel takes up and down of 1 or 2, "
+                             f"got up {up}, down {down}")
+    return _UpFirDn2d.apply(x, _Spec(k, taps, up, down, pad))
 
 
 def upsample_2d(x, kernel_taps=(1, 3, 3, 1), factor=2, impl=upfirdn2d):
@@ -163,12 +315,11 @@ def upsample_2d(x, kernel_taps=(1, 3, 3, 1), factor=2, impl=upfirdn2d):
     return impl(x, k, up=factor, down=1, pad=(pad0, pad1))
 
 
-def downsample_2d(x, kernel_taps=(1, 3, 3, 1), factor=2):
-    """Downsample module semantics (ref models/stylegan2/model.py:145-163),
-    plain: no kernel subsamples."""
+def downsample_2d(x, kernel_taps=(1, 3, 3, 1), factor=2, impl=upfirdn2d):
+    """Downsample module semantics (ref models/stylegan2/model.py:145-163)."""
     k = make_kernel(kernel_taps)
     p = k.shape[0] - factor
-    return upfirdn2d_ref(x, k, up=1, down=factor, pad=((p + 1) // 2, p // 2))
+    return impl(x, k, up=1, down=factor, pad=((p + 1) // 2, p // 2))
 
 
 def blur_2d(x, kernel_taps=(1, 3, 3, 1), pad=(0, 0), upsample_factor=1,

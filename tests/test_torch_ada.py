@@ -262,6 +262,27 @@ def test_augment_matches_jax(ops):
     np.testing.assert_array_equal(_np(oG), G)
 
 
+@jax.jit
+def _j_affine(img, G):
+    return jada.random_apply_affine(img, 1.0, jax.random.PRNGKey(0), G=G)[0]
+
+
+@pytest.mark.parametrize("ops", [KERNELS, PLAIN], ids=["kernels", "plain"])
+def test_random_apply_affine_matches_jax(ops):
+    """The geometric part alone, with the JAX G passed in: the four SYM6
+    wavelet passes run through ``ops.upfirdn2d`` (the FIR Function with
+    ``KERNELS``, ``upfirdn2d_ref`` with ``PLAIN``) and the warp through
+    ``ops.resample_rows`` (the shear warp takes square images)."""
+    rng = np.random.RandomState(12)
+    img = rng.randn(2, 20, 20, 3).astype(np.float32)
+    G, _ = _affine_matrices(2, seed=12)
+    want = _j_affine(jnp.asarray(img), jnp.asarray(G))
+    ours, oG = tada.random_apply_affine(_t(img), G=_t(G), ops=ops)
+    assert ours.shape == want.shape == img.shape
+    np.testing.assert_allclose(_np(ours), np.asarray(want), **AUG_TOL)
+    np.testing.assert_array_equal(_np(oG), G)
+
+
 def test_augment_gradients_match_jax():
     """First and second order through augment: grad of <w, aug(x)> and the
     gradient of ||grad_x <w, aug(x)^2>||^2 (the R1 shape: a gradient of a

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from ganecdotes_torch.gan import ada
 from ganecdotes_torch.ops import _build
 from ganecdotes_torch.ops import fused_act as tfa
 from ganecdotes_torch.ops import modulated_conv as tmc
@@ -102,6 +103,47 @@ def test_upfirdn2d_matches_plain(cuda, kw):
                                tup.upfirdn2d_ref(x, k, **kw), atol=ATOL, rtol=0)
 
 
+SYM6 = np.asarray(ada.SYM6, np.float32)  # ADA's 12 wavelet taps
+FIR_AXES = {"1": (1, 1), "up2": (2, 1), "down2": (1, 2)}
+
+
+def _fir_kernel(name):
+    """A rank-1 2-D kernel: the 4-tap blur (gain 4), SYM6 x its reverse, or
+    the blur's taps down and SYM6's across."""
+    if name == "blur":
+        return tup.make_kernel((1, 3, 3, 1), gain=4.0)
+    if name == "sym6":
+        return np.outer(SYM6, SYM6[::-1])
+    return np.outer(np.float32([1, 3, 3, 1]) / 8, SYM6)
+
+
+@pytest.mark.parametrize("ax", FIR_AXES)
+@pytest.mark.parametrize("ay", FIR_AXES)
+@pytest.mark.parametrize("taps", ["blur", "sym6"])
+def test_upfirdn2d_every_case_matches_plain(cuda, ax, ay, taps):
+    """Every (up, down) pair the kernel is instantiated for, per axis, at
+    C = 3 and 5 (a channel a thread, the (column, channel) row flattened)
+    and C = 128 (four channels a thread, 32-channel slices), 4 and 12 taps,
+    ragged sizes and a crop: one launch a call, within 1e-5 of the largest
+    plain output (sums of at most 144 float32 products, in another order)."""
+    (ux, dx), (uy, dy) = FIR_AXES[ax], FIR_AXES[ay]
+    k = _fir_kernel(taps)
+    n = k.shape[0]
+    g = torch.Generator().manual_seed(n + 3 * ux + 5 * dy)
+    for c in (3, 5, 128):
+        for hw, pad in (((13, 21), (n // 2, n // 2 - 1, 1, 2)),
+                        ((37, 70), (n // 2, -1, -2, n // 2))):
+            x = torch.randn(2, *hw, c, generator=g).to(cuda)
+            kw = dict(up=(ux, uy), down=(dx, dy), pad=pad)
+            before = _build.LAUNCHES["upfirdn2d"]
+            got = tup.upfirdn2d(x, k, **kw)
+            want = tup.upfirdn2d_ref(x, k, **kw)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["upfirdn2d"] == before + 1
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=ATOL * max(1.0, want.abs().max().item()))
+
+
 @pytest.mark.parametrize("shape", [(8, 512), (3, 7, 6), (5, 3)])
 def test_fused_leaky_relu_matches_plain(cuda, shape):
     g = torch.Generator().manual_seed(1)
@@ -119,15 +161,17 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         tfa.fused_leaky_relu(x.double())
     with pytest.raises(ValueError):
         tfa.fused_leaky_relu(x.transpose(1, 2))
-    with pytest.raises(ValueError):
-        tup.upfirdn2d(x, np.ones((9, 9), np.float32))
+    with pytest.raises(ValueError):  # 17 taps on an axis
+        tup.upfirdn2d(x, np.ones((1, 17), np.float32), pad=(8, 8, 0, 0))
+    with pytest.raises(ValueError):  # not separable
+        tup.upfirdn2d(x, np.eye(3, dtype=np.float32), pad=(1, 1))
     with pytest.raises(TypeError):
         tup.upfirdn2d(x, torch.ones(4, 4, device=cuda))
     k = tup.make_kernel((1, 3, 3, 1))
-    with pytest.raises(ValueError):  # no path subsamples: down is 1
-        tup.upfirdn2d(x, k, down=2, pad=(1, 1))
     with pytest.raises(ValueError):
         tup.upfirdn2d(x, k, up=3, pad=(2, 1))
+    with pytest.raises(ValueError):
+        tup.upfirdn2d(x, k, down=3, pad=(1, 1))
     a = _styled_inputs(2, 4, 4, 6, 8, 1, False, cuda)  # Cin % 4 != 0
     with pytest.raises(ValueError):
         tmc.styled_conv3x3(*a)
@@ -358,6 +402,56 @@ def test_double_grad_through_kernels_matches_plain(cuda):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.parametrize("case", ["down2_sym6", "up2_blur", "up_down_mixed",
+                                  "ada_down_x"])
+def test_upfirdn2d_double_grad_matches_plain(cuda, case):
+    """R1's shape of derivative through the FIR Function at down = 2 and
+    with 12 taps: each backward is the kernel again with up and down
+    swapped, so all four FIRs in it launch the kernel; within 1e-5 of the
+    largest plain element (sums of products of O(1) through four FIRs)."""
+    k, up, down, pad = {
+        "down2_sym6": (np.outer(SYM6, SYM6), (1, 1), (2, 2), (5, 5, 5, 5)),
+        "up2_blur": (tup.make_kernel((1, 3, 3, 1), 4.0), (2, 2), (1, 1), (2, 1, 2, 1)),
+        "up_down_mixed": (_fir_kernel("mixed"), (2, 1), (1, 2), (6, 5, 2, 1)),
+        "ada_down_x": (SYM6[None, ::-1].copy(), (1, 1), (2, 1), (-1, -1, 0, 0)),
+    }[case]
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn(2, 13, 27, 5, generator=g).to(cuda)
+    y = tup.upfirdn2d_ref(x, k, up=up, down=down, pad=pad)
+    w = torch.randn(y.shape, generator=g).to(cuda)
+    before = _build.LAUNCHES["upfirdn2d"]
+    got = _second_order(lambda t: tup.upfirdn2d(t, k, up=up, down=down, pad=pad), x, w)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["upfirdn2d"] == before + 4
+    want = _second_order(lambda t: tup.upfirdn2d_ref(t, k, up=up, down=down, pad=pad), x, w)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=ATOL * max(1.0, want.abs().max().item()))
+
+
+def test_augment_kernels_match_plain_ops(cuda):
+    """ADA's augment (p = 1 draws: flips, rotations, scales, colour) with
+    KERNELS against PLAIN: the four SYM6 wavelet passes launch the FIR
+    kernel (4 launches a call), the warp its pass kernel; within 1e-5 of the
+    largest plain value (the pass kernel equals its plain version; the
+    wavelet passes sum 12 products in another order)."""
+    from ganecdotes_torch.gan.ada import augment, sample_transforms
+    from ganecdotes_torch.ops.opset import KERNELS
+
+    G, C = sample_transforms(torch.Generator().manual_seed(4), 1.0, 3, 32, 32, cuda)
+    img = torch.rand(3, 32, 32, 3, generator=torch.Generator().manual_seed(5)).to(cuda) * 2 - 1
+    before = dict(_build.LAUNCHES)
+    got = augment(img, transform_matrix=(G, C), ops=KERNELS)[0]
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["upfirdn2d"] == before["upfirdn2d"] + 4
+    assert _build.LAUNCHES["resample_rows"] == before["resample_rows"] + 2
+    before = dict(_build.LAUNCHES)
+    want = augment(img, transform_matrix=(G, C), ops=PLAIN)[0]
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == before
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=ATOL * max(1.0, want.abs().max().item()))
+
+
 @pytest.mark.parametrize("up", [False, True], ids=["conv", "up_conv"])
 def test_styled_conv_function_grads_match_plain(cuda, up):
     a = _styled_inputs(2, 8, 8, 64, 32, 1, up, cuda, seed=3)
@@ -400,19 +494,8 @@ def test_kernel_outputs_carry_the_graph(cuda):
     tsk.sinkhorn_knopp(scores.detach(), 2, 0.1, r, c)
 
 
-def test_baggan_iteration_kernels_match_plain_ops(cuda, tmp_path):
-    """One iteration with R1 and PPL of a 32x32 BagGAN (ADA at p = 0.6)
-    with KERNELS and with PLAIN from the same seed: every kernel launched,
-    both resample Functions included; equal draws. The learning rate is 0,
-    so every step kind sees equal weights (Adam's first step moves each
-    weight by about lr * sign(g), which flips with the rounding of a
-    gradient near zero) and the two runs differ only in float32 summation
-    order: losses within 1e-4 relative, each step kind's gradients within
-    1e-3 of its norm."""
-    from ganecdotes_torch.gan.train import STEP_KINDS, BagGANHQ
-    from ganecdotes_torch.ops.opset import KERNELS
-
-    cfg = SimpleNamespace(
+def _tiny_baggan_config(tmp_path):
+    return SimpleNamespace(
         out_dir=str(tmp_path), checkpoint_dir=str(tmp_path), is_train=True,
         image_size=32, latent_dim=64, num_channels=3, batch_size=4,
         gan_mode="wgangp", use_ppl=True, r1_lambda=10, ppl_lambda=2,
@@ -421,25 +504,97 @@ def test_baggan_iteration_kernels_match_plain_ops(cuda, tmp_path):
         g_reg_ratio=4 / 5, d_reg_ratio=16 / 17, augment=True, augment_p=0,
         ada_target=0.6, ada_length=500000, lr=0.0, beta1=0.0,
         generator_params=dict(mlp_layers=2), losses_to_print=["g_gan", "d", "g_ppl"])
+
+
+def test_baggan_iteration_runs_no_plain_fir_on_the_card(cuda, tmp_path, monkeypatch):
+    """One KERNELS iteration of a 32x32 BagGAN with R1 and PPL due runs no
+    grouped conv on a CUDA tensor: the plain FIR (``upfirdn2d_ref``, a
+    depthwise ``F.conv2d``) runs on none of ADA's four passes, the PPL
+    composite's blur, the up StyledConv's backward or the to_rgb
+    upsample's backward, and the FIR kernel launches in every step kind."""
+    import torch.nn.functional as F
+
+    from ganecdotes_torch.gan.train import STEP_KINDS, BagGANHQ
+    from ganecdotes_torch.ops.opset import KERNELS
+
+    conv2d = F.conv2d
+
+    def no_grouped_conv_on_the_card(*args, **kwargs):
+        groups = kwargs.get("groups", args[6] if len(args) > 6 else 1)
+        assert not (groups > 1 and args[0].is_cuda), "a plain FIR ran on the card"
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(F, "conv2d", no_grouped_conv_on_the_card)
     real = torch.rand(4, 32, 32, 3, generator=torch.Generator().manual_seed(3)) * 2 - 1
-    runs = []
-    for ops in (KERNELS, PLAIN):
+    gan = BagGANHQ(_tiny_baggan_config(tmp_path), seed=2, device=cuda, ops=KERNELS)
+    gan.ada_state["p"].fill_(0.6)
+    gan.set_input(real, iter_no=0)
+    gan.optimize_parameters()
+    torch.cuda.synchronize()
+    for kind in STEP_KINDS:
+        assert gan.step_launches[kind]["upfirdn2d"] > 0, (kind, gan.step_launches[kind])
+    with pytest.raises(AssertionError, match="plain FIR"):  # the guard is live
+        tup.upfirdn2d_ref(real.to(cuda), tup.make_kernel((1, 3, 3, 1)), pad=(1, 2))
+
+
+@pytest.mark.parametrize("cudnn_deterministic", [False, True],
+                         ids=["default_cudnn", "deterministic_cudnn"])
+def test_baggan_iteration_kernels_match_plain_ops(cuda, tmp_path, monkeypatch,
+                                                  cudnn_deterministic):
+    """One iteration with R1 and PPL of a 32x32 BagGAN (ADA at p = 0.6)
+    with PLAIN and with KERNELS from the same seed: every kernel launched,
+    both resample Functions included; equal draws. The learning rate is 0,
+    so every step kind sees equal weights (Adam's first step moves each
+    weight by about lr * sign(g), which flips with the rounding of a
+    gradient near zero) and the two runs differ only in float32 summation
+    order: losses within 1e-4 relative, each step kind's gradients within
+    1e-3 of its norm.
+
+    The PPL loss is a function of gradients through the StyledConv
+    composites' leaky ReLUs, whose slope jumps at 0. An input within
+    rounding of 0 falls on either side in two runs that sum in other
+    orders, and moves the loss by one kink's jump: 1.4e-4 relative for this
+    generator on an NVIDIA H100, from one such input, as far as a plain run
+    whose FIR outputs move by one rounding step moves it
+    (``gan_rounding.py``). So the kernel run's PPL step replays the plain
+    run's kink decisions, and each decision it changes must lie within
+    1e-5 of the tensor's largest |x| of 0. Both cases run cuDNN's default
+    algorithms, as the trainer does, or its deterministic ones."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", cudnn_deterministic)
+    from ganecdotes_torch.gan.train import STEP_KINDS, BagGANHQ
+    from ganecdotes_torch.ops.opset import KERNELS
+    from ganecdotes_torch.utils.kinks import KinkDecisions
+
+    cfg = _tiny_baggan_config(tmp_path)
+    real = torch.rand(4, 32, 32, 3, generator=torch.Generator().manual_seed(3)) * 2 - 1
+    runs, masks = [], None
+    for ops in (PLAIN, KERNELS):
         _build.reset_launches()
         gan = BagGANHQ(cfg, seed=2, device=cuda, ops=ops)
         gan.ada_state["p"].fill_(0.6)
         gan.keep_first_grads = True
+        kinks = KinkDecisions(masks)
+
+        def ppl_step(draws, step=gan.ppl_step, kinks=kinks):
+            with kinks:
+                return step(draws)
+
+        gan.ppl_step = ppl_step
         gan.set_input(real, iter_no=0)
         gan.optimize_parameters()
         torch.cuda.synchronize()
         runs.append((gan, dict(_build.LAUNCHES)))
-    (kern, launches), (plain, plain_launches) = runs
+        masks = kinks.masks
+    (plain, plain_launches), (kern, launches) = runs
     assert all(v > 0 for k, v in launches.items() if k != "sinkhorn_knopp"), launches
     assert all(v == 0 for v in plain_launches.values()), plain_launches
+    assert kinks.calls == len(masks) > 0, (kinks.calls, len(masks))
+    assert all(f <= 1e-5 for f in kinks.flips), kinks.flips
     for a, b in zip(kern.draws.g_aug, plain.draws.g_aug):
         assert torch.equal(a, b)
     for name in ("d", "d_r1", "g_gan", "g_ppl"):
         a, b = float(getattr(kern, "loss_" + name)), float(getattr(plain, "loss_" + name))
-        assert abs(a - b) <= 1e-4 * max(1.0, abs(b)), (name, a, b)
+        assert abs(a - b) <= 1e-4 * max(1.0, abs(b)), (name, a, b, kinks.flips)
     for kind in STEP_KINDS:
         diff = sum(float((u - v).square().sum())
                    for u, v in zip(kern.first_grads[kind], plain.first_grads[kind]))

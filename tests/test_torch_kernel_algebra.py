@@ -32,6 +32,15 @@ here on every run. None of them is on a path of the port.
   the last pass writes q. Held against the JAX package's fused Pallas
   variant in interpret mode and the port's ``sinkhorn_knopp_ref``, 1e-4
   absolute on codes in [0, 1] (tests/test_torch_sinkhorn.py's tolerance).
+* csrc/upfirdn2d.cu's tiles: each block stages its input footprint with
+  zero fill, runs the vertical pass into a second buffer (or folds a single
+  tap into the horizontal ones) and the horizontal pass to the outputs, the
+  live taps at up = 2 chosen by the phase of the row or column, every
+  staged index checked to lie inside its buffer; with the wrapper's tile
+  (``ops/upfirdn2d.py::plan``) and with small tiles, so that a small input
+  spans many ragged tiles. Held against the JAX package's
+  ``upfirdn2d_ref`` with the 2-D kernel outer(taps_y, taps_x), 1e-5
+  absolute (sums of at most 16 * 16 products of O(1)).
 """
 
 import jax.numpy as jnp
@@ -40,11 +49,18 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import importlib
+
 from ganecdotes_tpu.ops import affine_warp_pallas as jawp
 from ganecdotes_tpu.ops import modulated_conv_pallas as jmc
 from ganecdotes_tpu.ops.sinkhorn_pallas import sinkhorn_knopp_pallas
+from ganecdotes_torch.gan import ada
 from ganecdotes_torch.ops import affine_warp as taw
+from ganecdotes_torch.ops import upfirdn2d as tup
 from ganecdotes_torch.ops.sinkhorn import sinkhorn_knopp_ref
+
+# ganecdotes_tpu.ops re-exports a function named upfirdn2d over the module
+jup = importlib.import_module("ganecdotes_tpu.ops.upfirdn2d")
 
 UP_TOL = dict(atol=1e-5, rtol=0)
 CONV3_TOL = dict(atol=1e-5, rtol=0)
@@ -387,3 +403,160 @@ def test_fused_sinkhorn_schedule_matches_jax(niters):
     ref = sinkhorn_knopp_ref(_t(scores), niters, eps, _t(r), _t(c))
     np.testing.assert_allclose(_np(ours), _np(ref), **SINKHORN_TOL)
     np.testing.assert_allclose(_np(ours).sum(axis=1), 1.0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the FIR kernel: staged tiles, vertical then horizontal pass, polyphase taps
+# ---------------------------------------------------------------------------
+
+SYM6 = np.asarray(ada.SYM6, np.float32)  # ADA's 12 wavelet taps
+BLUR = np.array([1, 3, 3, 1], np.float32) / 8
+
+
+def _gk_upfirdn2d(x, y, B, H, W, C, OH, OW, ux, uy, dx, dy, px0, py0, toh, tow,
+                  ct, ih, iw, vec, threads, vpass, taps):
+    """csrc/upfirdn2d.cu's C entry, block by block: numpy x (B, H, W, C)
+    into y (B, OH, OW, C), every staged index checked to lie in its buffer."""
+    assert threads <= 256 and ct % vec == 0 and threads % (ct // vec) == 0
+    kh, kw = taps.kh, taps.kw
+    ky, kx = np.float32(taps.ky[:kh]), np.float32(taps.kx[:kw])
+
+    def at(buf, i, n):
+        assert 0 <= i < n, (i, n)
+        return buf[i]
+
+    for b in range(B):
+        for c0 in range(0, C, ct):
+            cs = slice(c0, min(c0 + ct, C))
+            for oy0 in range(0, OH, toh):
+                for ox0 in range(0, OW, tow):
+                    my0, mx0 = oy0 * dy - py0, ox0 * dx - px0
+                    ey, ex = (my0 & 1) * (uy == 2), (mx0 & 1) * (ux == 2)
+                    iy0 = (my0 + ey) >> 1 if uy == 2 else my0
+                    ix0 = (mx0 + ex) >> 1 if ux == 2 else mx0
+                    stage = np.zeros((ih, iw, cs.stop - c0), np.float32)
+                    for r in range(ih):
+                        for col in range(iw):
+                            iy, ix = iy0 + r, ix0 + col
+                            if 0 <= iy < H and 0 <= ix < W:
+                                stage[r, col] = x[b, iy, ix, cs]
+                    mid = stage
+                    if vpass:
+                        mid = np.zeros((toh, iw, stage.shape[2]), np.float32)
+                        for r in range(toh):
+                            if uy == 1:
+                                rows = [(t, r * dy + t) for t in range(kh)]
+                            else:
+                                t0 = (ey + r) & 1
+                                base = (r + t0 - ey) >> 1
+                                rows = [(t, base + j) for j, t in enumerate(range(t0, kh, 2))]
+                            for t, i in rows:
+                                mid[r] += ky[kh - 1 - t] * at(stage, i, ih)
+                    for r in range(min(toh, OH - oy0)):
+                        for col in range(min(tow, OW - ox0)):
+                            if ux == 1:
+                                cols = [(t, col * dx + t) for t in range(kw)]
+                            else:
+                                t0 = (ex + col) & 1
+                                base = (col + t0 - ex) >> 1
+                                cols = [(t, base + j) for j, t in enumerate(range(t0, kw, 2))]
+                            acc = np.zeros(stage.shape[2], np.float32)
+                            for t, i in cols:
+                                acc += kx[kw - 1 - t] * at(mid[r], i, iw)
+                            y[b, oy0 + r, ox0 + col, cs] = acc
+
+
+def _fir_kernel_mirror(x, taps_y, taps_x, up, down, pad):
+    """The wrapper's launch (``launch_args``: the view, the tile, the folded
+    taps) fed to the mirror of the C entry; returns the (B, OH, OW, C)
+    output."""
+    ty, tx = np.asarray(taps_y, np.float32), np.asarray(taps_x, np.float32)
+    spec = tup._Spec(np.outer(ty, tx), (ty, tx), *tup._normalize_args(up, down, pad))
+    (ux, uy), (dx, dy), (px0, px1, py0, py1) = spec.up, spec.down, spec.pad
+    b, h, w, c = x.shape
+    y = torch.full((b, tup.out_size(h, uy, py0, py1, len(ty), dy),
+                    tup.out_size(w, ux, px0, px1, len(tx), dx), c), float("nan"))
+    xl, yl, args = tup.launch_args(torch.from_numpy(x), y, spec)
+    _gk_upfirdn2d(xl.numpy(), yl.numpy(), *args)
+    return y.numpy()
+
+
+AXES = {"1": (1, 1), "up2": (2, 1), "down2": (1, 2)}
+
+
+@pytest.mark.parametrize("ax", AXES)
+@pytest.mark.parametrize("ay", AXES)
+@pytest.mark.parametrize("taps", ["blur", "sym6"])
+def test_fir_tiles_match_jax(ax, ay, taps, monkeypatch):
+    """Every instantiated (up, down) pair per axis, 4 and 12 taps, at C = 5
+    (one thread a channel) and C = 8 (four channels a thread), with a
+    negative pad on one side; 3 x 5 output tiles so the image spans ragged
+    tiles on both axes."""
+    (ux, dx), (uy, dy) = AXES[ax], AXES[ay]
+    t = BLUR if taps == "blur" else SYM6
+    ty, tx = t * 1.5, t[::-1].copy()
+    kh = kw = len(t)
+    pad = (kw // 2, -1, kh // 2 - 1, kh // 2)
+    plan = tup.plan
+
+    def small(c, kh, kw, up, down):
+        p = plan(c, kh, kw, up, down)
+        return p._replace(toh=3, tow=5, ih=tup._extent(3, kh, up[1], down[1]),
+                          iw=tup._extent(5, kw, up[0], down[0]))
+
+    monkeypatch.setattr(tup, "plan", small)
+    for c in (5, 8):
+        x = np.random.RandomState(c).randn(2, 9, 11, c).astype(np.float32)
+        ours = _fir_kernel_mirror(x, ty, tx, (ux, uy), (dx, dy), pad)
+        want = jup.upfirdn2d_ref(jnp.asarray(x), np.outer(ty, tx), up=(ux, uy),
+                                 down=(dx, dy), pad=pad)
+        assert ours.shape == want.shape
+        np.testing.assert_allclose(ours, np.asarray(want), **UP_TOL)
+
+
+@pytest.mark.parametrize("case", ["ada_up_x", "ada_up_y", "ada_down_x",
+                                  "ada_down_y", "to_rgb_up", "to_rgb_bwd", "d_blur"])
+def test_fir_tiles_at_the_paths_cases_match_jax(case):
+    """The paths' cases with the wrapper's own tile and view: ADA's four SYM6
+    passes (C = 3; the x passes fold their single vertical tap into taps_x,
+    the y passes run their rows as 4-channel columns), the to_rgb skip
+    upsample and its backward (down 2, flipped blur, C = 3) and the
+    discriminator's blur (C = 40: a 32-channel slice and a ragged one)."""
+    n = 12
+    blur = 2 * BLUR
+    cases = {
+        "ada_up_x": ((2, n, n, 3), [1.0], SYM6, (2, 1), (1, 1), (6, 5, 0, 0)),
+        "ada_up_y": ((2, n, 2 * n, 3), SYM6, [1.0], (1, 2), (1, 1), (0, 0, 6, 5)),
+        "ada_down_x": ((2, 2 * n, 2 * n, 3), [1.0], SYM6[::-1], (1, 1), (2, 1), (-1, -1, 0, 0)),
+        "ada_down_y": ((2, 2 * n, n, 3), SYM6[::-1], [1.0], (1, 1), (1, 2), (0, 0, -1, -1)),
+        "to_rgb_up": ((2, n, n, 3), blur, blur, (2, 2), (1, 1), (2, 1, 2, 1)),
+        "to_rgb_bwd": ((2, 2 * n, 2 * n, 3), blur[::-1], blur[::-1], (1, 1), (2, 2), (1, 1, 1, 1)),
+        "d_blur": ((1, 2 * n, 2 * n, 40), BLUR, BLUR, (1, 1), (1, 1), (2, 2, 2, 2)),
+    }
+    shape, ty, tx, up, down, pad = cases[case]
+    x = np.random.RandomState(len(case)).randn(*shape).astype(np.float32)
+    want = jup.upfirdn2d_ref(jnp.asarray(x), np.outer(ty, tx), up=up, down=down, pad=pad)
+    # the y passes' rows run as 4-channel columns
+    view = tup.launch_shape(shape, len(tx), up[0], down[0], pad[:2])
+    assert (view[3] == 4) == (case.startswith("ada") and case.endswith("_y"))
+    ours = _fir_kernel_mirror(x, ty, tx, up, down, pad)
+    np.testing.assert_allclose(ours, np.asarray(want), **UP_TOL)
+
+
+@pytest.mark.parametrize("c", [1, 3, 5, 8, 12, 40, 128, 512])
+def test_fir_plan_fits_a_block(c):
+    """For every tap count and (up, down) per axis the plan fits the shared
+    memory budget, its threads divide into whole channel groups, and its
+    staged footprint covers what the tile reads."""
+    for (ux, dx) in AXES.values():
+        for (uy, dy) in AXES.values():
+            for kh in (1, 4, 12, 16):
+                for kw in (1, 4, 12, 16):
+                    p = tup.plan(c, kh, kw, (ux, uy), (dx, dy))
+                    assert p.smem <= tup.SMEM_MAX
+                    assert p.threads <= tup.THREADS and p.threads % (p.ct // p.vec) == 0
+                    assert p.ct % p.vec == 0 and p.toh >= 1 and p.tow >= 1
+                    # the last output's last tap reads staged column iw - 1 at most
+                    assert ((p.tow - 1) * dx + kw - 1) // ux < p.iw
+                    if p.vpass:
+                        assert ((p.toh - 1) * dy + kh - 1) // uy < p.ih
