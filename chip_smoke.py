@@ -99,6 +99,10 @@ STEP_PARAM_TOL = 1e-6  # max |kernels - plain| <= STEP_PARAM_TOL * max(1, max |p
 KERNELS_TABLE = {
     "fused_leaky_relu": ("ganecdotes_torch/csrc/fused_act.cu",
                          "ganecdotes_tpu/ops/fused_act.py:72"),
+    # row 1's backward: the JAX package's custom_vjp backward _flr_bwd (jnp
+    # there), the same Function in the port, not a Pallas kernel of its own
+    "fused_leaky_relu_bwd": ("ganecdotes_torch/csrc/fused_act.cu",
+                             "ganecdotes_tpu/ops/fused_act.py:87"),
     "upfirdn2d": ("ganecdotes_torch/csrc/upfirdn2d.cu",
                   "ganecdotes_tpu/ops/upfirdn2d_pallas.py:132"),
     "styled_conv3x3": ("ganecdotes_torch/csrc/styled_conv.cu",
@@ -116,6 +120,8 @@ SERVING_KERNELS = ("fused_leaky_relu", "upfirdn2d", "styled_conv3x3",
                    "styled_up_conv3x3")
 PRETRAIN_KERNELS = SERVING_KERNELS + ("sinkhorn_knopp",)
 RESAMPLE_KERNELS = ("resample_rows", "resample_rows_t")
+KERNEL_NOTES = {"fused_leaky_relu_bwd": "row 1's backward (_flr_bwd, jnp in the "
+                                        "JAX package), not a separate Pallas kernel"}
 GAN_B = 20  # the pidray config's batch
 GAN_SIZE = 256  # and its image side
 GAN_ITERS = 5
@@ -404,11 +410,59 @@ def gan_d_shapes():
     return out
 
 
+def check_fused_act_bwd(x, bias, case, d_calls):
+    """The backward kernel (dx and db from g and the saved y) at one of
+    D's activations, against the plain backward (_flr_bwd in torch ops):
+    dx equal bit for bit, db within KERNEL_TOL and equal over two launches;
+    the time of kernel and plain version, and the bytes bound (g and y read,
+    dx written, 12 bytes an element). ``calls``: the backward's calls per
+    D forward, so the line's row sums one backward of every activation."""
+    from ganecdotes_torch.ops import fused_act
+
+    y = fused_act.fused_leaky_relu(x, bias)
+    g = torch.randn_like(y)
+
+    def kern():
+        return fused_act.fused_leaky_relu_bwd(g, y)
+
+    def plain():
+        return fused_act.fused_leaky_relu_bwd_ref(g, y)
+
+    (dx, db), (want_dx, want_db) = kern(), plain()
+    torch.cuda.synchronize()
+    dx_equal = torch.equal(dx, want_dx)
+    err, rel, scale = errors(db, want_db)
+    tol = KERNEL_TOL * max(1.0, scale)
+    repeat = torch.equal(kern()[1], db)
+    moved = nbytes(g, y, dx, db)
+    flops = 4 * g.numel()  # compare, select, scale, and db's add
+    row = {
+        "kernel": "fused_leaky_relu_bwd", "case": case.replace("act", "act bwd"),
+        "shape": list(x.shape), "pad": None, "calls": d_calls,
+        "calls_per_d_forward": d_calls,
+        "max_abs_err": max(err, errors(dx, want_dx)[0]), "max_rel_err": rel,
+        "db_max_abs_err": err, "tol": tol, "dx_bit_equal": dx_equal,
+        "db_repeats": repeat, "max_abs_err_convT_blur": None,
+        "ok": dx_equal and err <= tol and repeat,
+        "ms": time_ms(kern), "plain_ms": time_ms(plain), "library_ms": None,
+        "library_err": None, "bytes": moved, "flops": flops,
+    }
+    row["bound_ms"], row["bound_by"] = bound_ms(moved, [(flops, FP32)])
+    print(f"  {'fused_leaky_relu_bwd':18s} {row['case']:26s} {str(tuple(x.shape)):22s} "
+          f"dx equal {dx_equal}, db err {err:.3e} (tol {tol:.1e}), repeats {repeat} "
+          f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+          f"bound {row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+    check(row["ok"], f"fused_leaky_relu_bwd {case}: dx equal {dx_equal}, db err "
+                     f"{err} over tolerance {tol} or two launches differ ({repeat})")
+    return row
+
+
 def check_gan_shapes(dev):
     """The blur and the fused act at gan_d_shapes(), each against its plain
     version with the time of kernel, plain version and bytes bound; the
     blur's library call is the depthwise F.conv2d (groups = C). Measured
-    only: calls = 0, so no row joins a per-request sum."""
+    only: calls = 0, so no row joins a per-request sum. At each fused act
+    shape the backward kernel too (check_fused_act_bwd)."""
     import torch.nn.functional as F
 
     from ganecdotes_torch.ops import fused_act, upfirdn2d
@@ -468,6 +522,8 @@ def check_gan_shapes(dev):
               f"lib {row['library_ms'] if lib is None else round(row['library_ms'], 4)} "
               f"bound {row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
         check(row["ok"], f"{name} {case}: max abs err {err} over tolerance {tol}")
+        if name == "fused_leaky_relu":
+            rows.append(check_fused_act_bwd(x, bias, case, d_calls))
     return rows
 
 
@@ -1108,6 +1164,11 @@ GAN_PROFILE_LABELS = ("gan.d_step", "gan.r1", "gan.g_step", "gan.ppl", "gan.ada"
 # evidence that no plain FIR runs is the grouped F.conv2d count
 # (grouped_convs_per_step), and its device time is only reported
 IMPLICIT_GEMM_INDEXED = "implicit_gemm_indexed"
+# kernel-name fragments of the elementwise passes: the fused act's forward
+# and backward kernels (csrc/fused_act.cu), PyTorch's elementwise kernels
+# and its reductions (where a torch-op backward of the fused act would run)
+ELEMENTWISE_TAGS = {"fused_act": "fused_leaky_relu", "torch_elementwise": "elementwise_kernel",
+                    "torch_reduce": "reduce_kernel"}
 
 
 def pidray_config(out_dir):
@@ -1243,11 +1304,17 @@ def profile_iteration(gan):
               for label, names in in_range.items()}
     indexed_ms = {label: sum(ms for k, ms in names.items() if IMPLICIT_GEMM_INDEXED in k)
                   for label, names in in_range.items()}
+    # per range, the elementwise passes' device time: the fused act's two
+    # kernels, PyTorch's elementwise kernels and its reductions
+    elementwise_ms = {label: {kind: sum(ms for k, ms in names.items() if tag in k)
+                              for kind, tag in ELEMENTWISE_TAGS.items()}
+                      for label, names in in_range.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     return {
         "wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
         "split_ms": split, "span_ms": span_ms, "resample_kernels_ms": resample_ms,
         "fir_kernel_ms": fir_ms, "implicit_gemm_indexed_ms": indexed_ms,
+        "elementwise_ms": elementwise_ms,
         "top": [{"name": k[:90], "ms": ms, "count": n} for k, (n, ms) in top],
         "top_by_range": top_by_range,
     }
@@ -1337,8 +1404,13 @@ def train(dev):
     print(f"  grouped F.conv2d calls on the card per step kind: {gan.grouped_convs}",
           flush=True)
     print(f"  losses {json.dumps(losses)}", flush=True)
-    for k in SERVING_KERNELS + RESAMPLE_KERNELS:
+    for k in SERVING_KERNELS + RESAMPLE_KERNELS + ("fused_leaky_relu_bwd",):
         check(launches[k] > 0, f"kernel {k} was not launched on the training path")
+    # every step kind differentiates D's or G's activations: the backward
+    # kernel in each, and in R1's double backward the forward kernel again
+    for kind in STEP_KINDS:
+        check(gan.step_launches[kind]["fused_leaky_relu_bwd"] > 0,
+              f"the fused act's backward kernel did not run in the {kind} steps")
     check(not any(gan.grouped_convs.values()),
           f"a plain FIR (grouped conv) ran on the card: {gan.grouped_convs}")
     # R1 ran once (iteration 0), PPL twice (0 and 4): each FIR's forward
@@ -1413,6 +1485,7 @@ def kernels_line(rows, launches):
             "bound_ms": total("bound_ms"),
             "bound_by": max(share, key=share.get),
             "library_ms": total("library_ms"),
+            **({"note": KERNEL_NOTES[name]} if name in KERNEL_NOTES else {}),
         })
     return out
 
@@ -1473,10 +1546,13 @@ def main():
 
     # each kernel's launches from the path it belongs to; the serving
     # kernel rows are per request of 8, the Sinkhorn row per SwAV step, the
-    # resample rows per augment call (launches: the 5 training iterations)
+    # resample rows per augment call, the fused act's backward per backward
+    # of one D forward's activations at B = 20 (launches: the 5 training
+    # iterations)
     launches = dict(served["launches"],
                     sinkhorn_knopp=pretrained["launches"]["sinkhorn_knopp"],
-                    **{k: trained["launches"][k] for k in RESAMPLE_KERNELS})
+                    **{k: trained["launches"][k]
+                       for k in RESAMPLE_KERNELS + ("fused_leaky_relu_bwd",)})
     line = kernels_line(rows, launches)
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)

@@ -15,9 +15,11 @@
 //
 // The TPU kernel rolls each column by U with log2(S) conditional shifts and
 // selects the taps with one-hot matmuls, because the TPU has no cheap
-// gather; here each thread reads its three taps directly. Every float step
-// is a separately rounded _rn intrinsic, so nvcc contracts nothing into an
-// FMA and the result equals the plain torch pass bit for bit.
+// gather; here one thread per output (b, v, w), w across a warp, v and b on
+// the grid's y and z (no integer division), computes geometry() once and
+// reads the two live taps of each of the C channels directly. Every float
+// step is a separately rounded _rn intrinsic, so nvcc contracts nothing
+// into an FMA and the result equals the plain torch pass bit for bit.
 //
 // Bound: bytes. The forward reads each tap once from L2/L1 (neighbouring
 // threads hold neighbouring w, so a warp's loads of one tap row coalesce
@@ -73,30 +75,31 @@ __device__ __forceinline__ Geometry geometry(float alpha, float icpt, int v) {
   return g;
 }
 
+// One thread per output (b, v, w): w across a warp in x, v in y, b in z;
+// the geometry once, then every channel's two live taps and the lerp.
 __global__ void resample_rows_kernel(const float* __restrict__ x,
                                      const float* __restrict__ alpha,
                                      const float* __restrict__ icpt,
                                      float* __restrict__ out, int C, int S,
-                                     int W, int V, int64_t total) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const int w = (int)(i % W);
-    int64_t r = i / W;
-    const int v = (int)(r % V);
-    const int64_t plane = r / V;  // b * C + c
-    const int b = (int)(plane / C);
-    const Geometry g = geometry(alpha[b], icpt[(int64_t)b * W + w], v);
-    const float* col = x + plane * S * W + w;
-    float tap[3];
-#pragma unroll
-    for (int t = 0; t < 3; ++t) {
-      const int k = g.k0 + t;
-      tap[t] = (k >= 0 && k < S) ? col[(int64_t)k * W] : 0.f;
-    }
-    const float lo = g.e1 ? tap[1] : tap[0];
-    const float hi = g.e1 ? tap[2] : tap[1];
-    out[i] = __fadd_rn(__fmul_rn(__fsub_rn(1.f, g.f), lo), __fmul_rn(g.f, hi));
+                                     int W, int V) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  const int v = blockIdx.y * blockDim.y + threadIdx.y;
+  const int b = blockIdx.z;
+  if (w >= W || v >= V) return;
+  const Geometry g = geometry(alpha[b], icpt[(int64_t)b * W + w], v);
+  // the lerp reads taps (k0, k0 + 1), or (k0 + 1, k0 + 2) with the carry
+  const int klo = g.k0 + (g.e1 ? 1 : 0);
+  const bool lo_in = klo >= 0 && klo < S;
+  const bool hi_in = klo + 1 >= 0 && klo + 1 < S;
+  const float one_f = __fsub_rn(1.f, g.f);
+  const int64_t src_plane = (int64_t)S * W, out_plane = (int64_t)V * W;
+  const float* lo_p = x + (int64_t)b * C * src_plane + (int64_t)klo * W + w;
+  float* o = out + (int64_t)b * C * out_plane + (int64_t)v * W + w;
+#pragma unroll 4
+  for (int c = 0; c < C; ++c) {
+    const float lo = lo_in ? lo_p[c * src_plane] : 0.f;
+    const float hi = hi_in ? lo_p[c * src_plane + W] : 0.f;
+    o[c * out_plane] = __fadd_rn(__fmul_rn(one_f, lo), __fmul_rn(g.f, hi));
   }
 }
 
@@ -152,22 +155,18 @@ __global__ void resample_rows_t_kernel(const float* __restrict__ gout,
   }
 }
 
-unsigned grid_for(int64_t n, int threads) {
-  int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond ~32 blocks/SM
-  return (unsigned)(blocks > 0 ? blocks : 1);
-}
-
 }  // namespace
 
+// The forward's block is (tw, tv) threads, its grid (ceil(W / tw),
+// ceil(V / tv), B) (ops/resample.py::forward_plan).
 extern "C" int gk_resample_rows(const float* x, const float* alpha,
                                 const float* icpt, float* out, int B, int C,
-                                int S, int W, int V, void* stream) {
+                                int S, int W, int V, int tw, int tv,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const int64_t total = (int64_t)B * C * V * W;
-  resample_rows_kernel<<<grid_for(total, threads), threads, 0, s>>>(
-      x, alpha, icpt, out, C, S, W, V, total);
+  const dim3 grid((W + tw - 1) / tw, (V + tv - 1) / tv, B);
+  resample_rows_kernel<<<grid, dim3(tw, tv), 0, s>>>(x, alpha, icpt, out, C,
+                                                       S, W, V);
   return (int)cudaGetLastError();
 }
 

@@ -38,6 +38,7 @@ NVCC_FLAGS = [
 # kernel and nowhere else, so a run can show which kernels the path reached.
 LAUNCHES = {
     "fused_leaky_relu": 0,
+    "fused_leaky_relu_bwd": 0,
     "upfirdn2d": 0,
     "styled_conv3x3": 0,
     "styled_up_conv3x3": 0,
@@ -64,8 +65,12 @@ class Taps(ctypes.Structure):
 
 
 _SIGNATURES = {
-    # x, bias (or NULL), y, n, c, negative_slope, scale, stream
-    "gk_fused_leaky_relu": [P, P, P, ctypes.c_longlong, I, F, F, P],
+    # x, bias (or NULL), mask source (or NULL), y, rows, C, negative_slope,
+    # scale, the plan (vec, tx, ty, gx, gy), stream
+    "gk_fused_leaky_relu": [P, P, P, P, I, I, F, F] + [I] * 5 + [P],
+    # g, y, dx, partial sums (or NULL), db (or NULL), rows, C,
+    # negative_slope, scale, the plan, stream
+    "gk_fused_leaky_relu_bwd": [P] * 5 + [I, I, F, F] + [I] * 5 + [P],
     # x, y, B, H, W, C, OH, OW, up_x, up_y, down_x, down_y, pad_x0, pad_y0,
     # the tile (toh, tow, ct, ih, iw, vec, threads, vpass), taps, stream
     "gk_upfirdn2d": [P, P] + [I] * 20 + [Taps, P],
@@ -80,8 +85,9 @@ _SIGNATURES = {
     # scores, r, c, q, u, part_m, part_s, B, K, niters, inv_eps,
     # rows per chunk, chunks, stream
     "gk_sinkhorn_knopp": [P] * 7 + [I, I, I, F, I, I, P],
-    # x (or g), alpha, intercept, out (or dx), B, C, S, W, V, stream
-    "gk_resample_rows": [P] * 4 + [I] * 5 + [P],
+    # x, alpha, intercept, out, B, C, S, W, V, the block (tw, tv), stream
+    "gk_resample_rows": [P] * 4 + [I] * 7 + [P],
+    # g, alpha, intercept, dx, B, C, S, W, V, stream
     "gk_resample_rows_t": [P] * 4 + [I] * 5 + [P],
 }
 
@@ -200,8 +206,9 @@ def reset_launches():
 
 
 def stream_of(t):
-    """PyTorch's current stream on ``t``'s device, as a pointer."""
-    return P(torch.cuda.current_stream(t.device).cuda_stream)
+    """PyTorch's current stream on ``t``'s device, as an address (the raw
+    handle: ``torch.cuda.current_stream`` builds a Stream object per call)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def ptr(t):

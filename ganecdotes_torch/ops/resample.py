@@ -34,6 +34,19 @@ def resample_rows_t_ref(g, alpha, intercept, src_len):
     return _resample_pass_t(g, alpha, intercept, src_len)
 
 
+GRID_MAX = 65535  # the grid's y and z extents
+FWD_BLOCK = (32, 8)  # the forward's block: 32 columns w (one warp) x 8 rows v
+
+
+def forward_plan(b, v, w):
+    """The forward kernel's launch: block (tw, tv), grid (ceil(W / tw),
+    ceil(V / tv), B); thread (x, y) of block (i, j, k) computes output
+    (b, v, w) = (k, j*tv + y, i*tw + x) for every channel, where v < V and
+    w < W."""
+    tw, tv = FWD_BLOCK
+    return (tw, tv), (-(-w // tw), -(-v // tv), b)
+
+
 def _launch(kernel, entry, src, alpha, intercept, out_rows):
     """Checks and the launch shared by both kernels: ``src`` (B, C, R, W)
     in, (B, C, out_rows, W) out. The C entries take the forward's geometry
@@ -47,15 +60,23 @@ def _launch(kernel, entry, src, alpha, intercept, out_rows):
                          f"{tuple(intercept.shape)} do not match {tuple(src.shape)}")
     if out_rows <= 0:
         raise ValueError(f"{kernel}: {out_rows} output rows")
-    if kernel == "resample_rows_t" and (b > 65535 or out_rows > 8 * 65535):
+    if kernel == "resample_rows":
+        (tw, tv), (_, gy, gz) = forward_plan(b, out_rows, w)
+        if gy > GRID_MAX or gz > GRID_MAX:
+            raise ValueError(f"{kernel}: at most {GRID_MAX} images and "
+                             f"{tv * GRID_MAX} output rows")
+        geometry = [src.shape[2], w, out_rows, tw, tv]
+    else:
         # the adjoint's grid: one block row per 8 source rows, one z per image
-        raise ValueError(f"{kernel}: at most 65535 images and {8 * 65535} source rows")
+        if b > GRID_MAX or out_rows > 8 * GRID_MAX:
+            raise ValueError(f"{kernel}: at most {GRID_MAX} images and "
+                             f"{8 * GRID_MAX} source rows")
+        geometry = [out_rows, w, src.shape[2]]
     out = torch.empty((b, c, out_rows, w), dtype=src.dtype, device=src.device)
     if out.numel() == 0:
         return out
-    s, v = (src.shape[2], out_rows) if kernel == "resample_rows" else (out_rows, src.shape[2])
     _build.launch(kernel, entry, _build.ptr(src), _build.ptr(alpha),
-                  _build.ptr(intercept), _build.ptr(out), b, c, s, w, v,
+                  _build.ptr(intercept), _build.ptr(out), b, c, *geometry,
                   _build.stream_of(src))
     return out
 

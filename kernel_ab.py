@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's StyledConv, Sinkhorn and FIR kernels of two checkouts in
-turns on one GPU, so that a change is compared with its parent on the same
-card.
+"""Time the port's StyledConv, Sinkhorn, FIR, fused act and ADA resample
+kernels of two checkouts in turns on one GPU, so that a change is compared
+with its parent on the same card.
 
     python3 kernel_ab.py BASE_DIR NEW_DIR [--rounds N] [--out PATH]
 
@@ -19,6 +19,24 @@ iteration:
     shapes (this script's own checkout lists them), ms per call; a
     checkout whose wrapper refuses a case (an older kernel took down = 1
     and at most 8 taps) reports it as null. ``ms`` sums the D shapes.
+  * fused_leaky_relu at the discriminator's activation shapes: the forward
+    (``fused_act_fwd``) and the autograd backward of the Function
+    (``fused_act_bwd``: torch ops in a checkout without the backward
+    kernel), ms per call, ``ms`` summing the shapes; and
+    ``fused_act_host``: the wrapper's host time per call at the serving
+    path's (8, 512) under inference mode, in microseconds (the host clock
+    over 1000 calls enqueued without a sync; the card is faster than the
+    host there), beside the CUDA-event time per call;
+  * resample_rows at BagGAN-HQ's two pass shapes (this turn's checkout's
+    chip_smoke.py draws them from a fixed seed), ``ms`` per augment call.
+
+And one BagGAN-HQ iteration at the full pidray config (``gan``, ADA p
+0.6, iteration 0: D, R1, G and PPL steps) after a warm-up: ms per step
+kind (host clock, the card synced on both sides; ``ms`` is D + R1), then
+one more under torch.profiler with each range's kernel time and its
+elementwise kernels' time (the fused act's own, PyTorch's elementwise
+kernels and its reductions), each kernel in the innermost range it starts
+in (as chip_smoke.py splits them: ADA's forward in ``gan.ada``).
 
 The turns of a round run base, new, new, base. One JSON line per turn, then
 the medians per checkout and the ratio new / base.
@@ -75,6 +93,104 @@ def time_firs(cs, dev, cases):
     return out
 
 
+def time_fused_act(cs, dev):
+    import time
+
+    import torch
+
+    from ganecdotes_torch.ops import fused_act
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    fwd, bwd = {}, {}
+    for name, case, shape, _, _ in cs.gan_d_shapes():
+        if name != "fused_leaky_relu":
+            continue
+        x = torch.randn(*shape, generator=gen, device=dev)
+        b = torch.randn(shape[-1], generator=gen, device=dev)
+        fwd[case] = cs.time_ms(lambda x=x, b=b: fused_act.fused_leaky_relu(x, b))
+        xr, br = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        y = fused_act.fused_leaky_relu(xr, br)
+        g = torch.randn_like(y)
+        bwd[case] = cs.time_ms(lambda y=y, xr=xr, br=br, g=g: torch.autograd.grad(
+            y, (xr, br), g, retain_graph=True))
+        del xr, br, y, g
+    x = torch.randn(8, 512, generator=gen, device=dev)
+    b = torch.randn(512, generator=gen, device=dev)
+    calls = 1000
+    with torch.inference_mode():
+        for _ in range(50):
+            fused_act.fused_leaky_relu(x, b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fused_act.fused_leaky_relu(x, b)
+        host_us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        event_ms = cs.time_ms(lambda: fused_act.fused_leaky_relu(x, b))
+    return {"fused_act_fwd": {"ms": sum(fwd.values()), "cases_ms": fwd},
+            "fused_act_bwd": {"ms": sum(bwd.values()), "cases_ms": bwd},
+            "fused_act_host": {"ms": host_us, "event_ms_8x512": event_ms}}
+
+
+def time_resample(cs, dev):
+    from ganecdotes_torch.ops import resample
+
+    cases = {}
+    for case, x, alpha, icpt, out_len, calls in cs.resample_cases(dev):
+        if calls:
+            cases[case] = cs.time_ms(lambda x=x, a=alpha, i=icpt, n=out_len:
+                                     resample.resample_rows(x, a, i, n))
+    return {"resample_rows": {"ms": sum(cases.values()), "cases_ms": cases}}
+
+
+ELEMENTWISE_TAGS = {"fused_act": "fused_leaky_relu", "torch_elementwise": "elementwise_kernel",
+                    "torch_reduce": "reduce_kernel"}
+
+
+def gan_iteration(cs, dev):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ganecdotes_torch.gan.train import BagGANHQ
+    from ganecdotes_torch.ops.opset import KERNELS
+
+    cfg = cs.pidray_config(os.path.join(os.getcwd(), "build", "kernel_ab_gan"))
+    gan = BagGANHQ(cfg, seed=0, device=dev, ops=KERNELS)
+    gan.ada_state["p"].fill_(0.6)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    real = torch.rand(cfg.batch_size, cfg.image_size, cfg.image_size, cfg.num_channels,
+                      generator=gen, device=dev) * 2 - 1
+    gan.time_steps = True
+    for _ in range(3):  # a warm-up, then two timed iterations
+        gan.set_input(real, iter_no=0)
+        gan.optimize_parameters()
+        torch.cuda.synchronize()
+    steps = {k: statistics.median(v[1:]) for k, v in gan.step_ms.items() if len(v) > 1}
+    gan.time_steps = False
+    gan.set_input(real, iter_no=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gan.optimize_parameters()
+        torch.cuda.synchronize()
+    labels = ("gan.d_step", "gan.r1", "gan.g_step", "gan.ppl", "gan.ada")
+    device = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in device if e.name in labels]
+    ranges = {lb: {"kernel_ms": 0.0, **dict.fromkeys(ELEMENTWISE_TAGS, 0.0)}
+              for lb in labels}
+    for e in device:  # each kernel in the innermost range it starts in
+        inside = [(b - a, lb) for lb, a, b in spans if a <= e.time_range.start < b]
+        if e.name in labels or not inside:
+            continue
+        label = min(inside)[1]
+        ms = e.time_range.elapsed_us() / 1e3
+        ranges[label]["kernel_ms"] += ms
+        for kind, tag in ELEMENTWISE_TAGS.items():
+            if tag in e.name:
+                ranges[label][kind] += ms
+    return {"gan": {"ms": steps.get("d", 0.0) + steps.get("r1", 0.0), "step_ms": steps,
+                    "ranges": ranges}}
+
+
 def worker(root, cases):
     sys.path.insert(0, root)
     import torch
@@ -109,6 +225,9 @@ def worker(root, cases):
     firs = time_firs(cs, dev, cases)
     out["upfirdn2d"] = {"ms": sum(v for k, v in firs.items() if k.startswith("D ")),
                         "cases_ms": firs}
+    out.update(time_fused_act(cs, dev))
+    out.update(time_resample(cs, dev))
+    out.update(gan_iteration(cs, dev))
     print(json.dumps(out), flush=True)
 
 
@@ -131,22 +250,37 @@ def main():
             root = os.path.abspath(getattr(args, side))
             res = subprocess.run([sys.executable, os.path.abspath(__file__), "x", "x",
                                   "--worker", root, "--cases", cases], cwd=root,
-                                 capture_output=True, text=True, check=True)
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                sys.stderr.write(res.stderr[-8000:])
+                raise SystemExit(f"the {side} turn in {root} failed ({res.returncode})")
             turn = {"side": side, **json.loads(res.stdout.strip().splitlines()[-1])}
             print(json.dumps(turn), flush=True)
             turns.append(turn)
     summary = {}
-    for kernel in CONVS + ("sinkhorn_knopp", "upfirdn2d"):
+    for kernel in [k for k in turns[0] if k != "side"]:
         med = {side: statistics.median(t[kernel]["ms"] for t in turns if t["side"] == side)
                for side in ("base", "new")}
         summary[kernel] = {**med, "new_over_base": med["new"] / med["base"]}
-    cases_ms = {}
-    for case in turns[0]["upfirdn2d"]["cases_ms"]:
-        cases_ms[case] = {}
-        for side in ("base", "new"):
-            vals = [t["upfirdn2d"]["cases_ms"][case] for t in turns if t["side"] == side]
-            cases_ms[case][side] = None if None in vals else statistics.median(vals)
-    summary["upfirdn2d"]["cases_ms"] = cases_ms
+        if "cases_ms" not in turns[0][kernel]:
+            continue
+        cases_ms = {}
+        for case in turns[0][kernel]["cases_ms"]:
+            cases_ms[case] = {}
+            for side in ("base", "new"):
+                vals = [t[kernel]["cases_ms"][case] for t in turns if t["side"] == side]
+                cases_ms[case][side] = None if None in vals else statistics.median(vals)
+        summary[kernel]["cases_ms"] = cases_ms
+    summary["gan"]["step_ms"] = {
+        kind: {side: statistics.median(t["gan"]["step_ms"][kind] for t in turns
+                                       if t["side"] == side) for side in ("base", "new")}
+        for kind in turns[0]["gan"]["step_ms"]}
+    summary["gan"]["ranges"] = {
+        label: {key: {side: statistics.median(t["gan"]["ranges"][label][key] for t in turns
+                                              if t["side"] == side)
+                      for side in ("base", "new")}
+                for key in turns[0]["gan"]["ranges"][label]}
+        for label in turns[0]["gan"]["ranges"]}
     print(json.dumps({"summary": summary}))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

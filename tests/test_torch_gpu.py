@@ -144,15 +144,47 @@ def test_upfirdn2d_every_case_matches_plain(cuda, ax, ay, taps):
                                        atol=ATOL * max(1.0, want.abs().max().item()))
 
 
-@pytest.mark.parametrize("shape", [(8, 512), (3, 7, 6), (5, 3)])
+# the bias gradient against the plain sum: chip_smoke.py's kernel gate
+KERNEL_TOL = 1e-4  # max |kernel - plain| <= KERNEL_TOL * max(1, max |plain|)
+
+
+@pytest.mark.parametrize("shape", [(8, 512), (3, 7, 6), (5, 3), (37, 1),
+                                   (9, 3), (2, 5, 4), (20, 16, 16, 512),
+                                   (3, 1040), (0, 8)])
 def test_fused_leaky_relu_matches_plain(cuda, shape):
+    """The forward with and without a bias, and the backward kernel at C =
+    1, 3, 4, 6, 512 and 1040 (two block columns) and on an empty tensor:
+    forward and dx equal their plain versions bit for bit (the same rounded
+    steps), db within KERNEL_TOL of the plain sum (another order) and equal
+    over two launches (no atomics); one count per launch."""
     g = torch.Generator().manual_seed(1)
     x = torch.randn(*shape, generator=g).to(cuda)
     b = torch.randn(shape[-1], generator=g).to(cuda)
-    torch.testing.assert_close(tfa.fused_leaky_relu(x, b),
-                               tfa.fused_leaky_relu_ref(x, b), atol=ATOL, rtol=0)
-    torch.testing.assert_close(tfa.fused_leaky_relu(x),
-                               tfa.fused_leaky_relu_ref(x), atol=ATOL, rtol=0)
+    for bias in (b, None):
+        before = dict(_build.LAUNCHES)
+        y = tfa.fused_leaky_relu(x, bias)
+        want = tfa.fused_leaky_relu_ref(x, bias)
+        torch.testing.assert_close(y, want, atol=ATOL, rtol=0)
+        assert torch.equal(y, want)
+        gy = torch.randn(*shape, generator=g).to(cuda)
+        dx, db = tfa.fused_leaky_relu_bwd(gy, y, with_db=bias is not None)
+        want_dx, want_db = tfa.fused_leaky_relu_bwd_ref(gy, y, with_db=bias is not None)
+        torch.cuda.synchronize()
+        launched = 0 if x.numel() == 0 else 1
+        assert _build.LAUNCHES["fused_leaky_relu"] == before["fused_leaky_relu"] + launched
+        assert (_build.LAUNCHES["fused_leaky_relu_bwd"]
+                == before["fused_leaky_relu_bwd"] + launched)
+        assert torch.equal(dx, want_dx)
+        if bias is None:
+            assert db is None and want_db is None
+            continue
+        torch.testing.assert_close(db, want_db, rtol=0,
+                                   atol=KERNEL_TOL * max(1.0, want_db.abs().max().item()))
+        assert torch.equal(tfa.fused_leaky_relu_bwd(gy, y)[1], db)
+        # the Function's backward runs the same kernel
+        xr, br = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        gx, gb = torch.autograd.grad(tfa.fused_leaky_relu(xr, br), (xr, br), gy)
+        assert torch.equal(gx, dx) and torch.equal(gb, db)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -313,7 +345,7 @@ def _pass_case(b, c, s, w, v, negative, dev, seed=0, alpha=None):
 
 
 @pytest.mark.parametrize("shape", [(2, 3, 40, 36, 29), (3, 1, 101, 77, 59),
-                                   (1, 2, 9, 300, 120)])
+                                   (1, 2, 9, 300, 120), (2, 4, 33, 41, 70)])
 @pytest.mark.parametrize("negative,alpha", [(False, None), (True, None),
                                             (False, 0.0), (False, 0.05),
                                             (True, 0.05), (True, 1e-40)],
@@ -321,9 +353,10 @@ def _pass_case(b, c, s, w, v, negative, dev, seed=0, alpha=None):
                               "subnormal_neg"])
 def test_resample_kernels_match_plain(cuda, shape, negative, alpha):
     """Small, ragged (W and V no multiple of a warp) and flipped (alpha < 0)
-    passes, and alpha = 0, |alpha| = 0.05 and a subnormal alpha, whose
-    1/alpha overflows (the adjoint's widest candidate windows): the forward
-    kernel equals the plain pass (same rounded steps), the adjoint agrees to
+    passes at C = 1, 2, 3 and 4, and alpha = 0, |alpha| = 0.05 and a
+    subnormal alpha, whose 1/alpha overflows (the adjoint's widest candidate
+    windows): the forward kernel equals the plain pass bit for bit (same
+    rounded steps), the adjoint agrees to
     1e-5 * max(1, max |plain|) and repeats bit for bit (no atomics). The
     adjoint's scale matters at alpha = 0: every output row folds onto the
     same source rows, so each element sums all V products and reaches tens,
@@ -334,8 +367,9 @@ def test_resample_kernels_match_plain(cuda, shape, negative, alpha):
     x, alpha, icpt, v = _pass_case(*shape, negative, cuda, alpha=alpha)
     before = dict(_build.LAUNCHES)
     out = trs.resample_rows(x, alpha, icpt, v)
-    torch.testing.assert_close(out, trs.resample_rows_ref(x, alpha, icpt, v),
-                               atol=ATOL, rtol=0)
+    plain = trs.resample_rows_ref(x, alpha, icpt, v)
+    torch.testing.assert_close(out, plain, atol=ATOL, rtol=0)
+    assert torch.equal(out, plain)  # the same rounded steps
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(7)).to(cuda)
     dx = trs.resample_rows_t(g, alpha, icpt, x.shape[2])
     want = trs.resample_rows_t_ref(g, alpha, icpt, x.shape[2])
@@ -400,6 +434,28 @@ def test_double_grad_through_kernels_matches_plain(cuda):
     got = _second_order(lambda t: tfa.fused_leaky_relu(t, bias), xf, xf.cos())
     want = _second_order(lambda t: tfa.fused_leaky_relu_ref(t, bias), xf, xf.cos())
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+    # the fused act's second derivative in x and in its bias, at C = 1, 3,
+    # 4 and 512, with no torch-op backward: both backward passes on the
+    # kernels (R1's and WGAN-GP's shape)
+    for c in (1, 3, 4, 512):
+        xf = torch.randn(6, 5, c, device=cuda)
+        wf = torch.randn(6, 5, c, device=cuda)
+        for bias in (torch.randn(c, device=cuda), None):
+            grads = []
+            for fn in (tfa.fused_leaky_relu, tfa.fused_leaky_relu_ref):
+                xr = xf.clone().requires_grad_(True)
+                ins = (xr,) if bias is None else (xr, bias.clone().requires_grad_(True))
+                gs = torch.autograd.grad((wf * fn(*ins) ** 2).sum(), ins, create_graph=True)
+                h = gs[0].square().sum() + (gs[1].sin().sum() if len(gs) > 1 else 0)
+                before = dict(_build.LAUNCHES)
+                grads.append(torch.autograd.grad(h, ins))
+                launched = {k: _build.LAUNCHES[k] - before[k]
+                            for k in ("fused_leaky_relu", "fused_leaky_relu_bwd")}
+                if fn is tfa.fused_leaky_relu:  # the outer pass on both kernels
+                    assert launched["fused_leaky_relu"] >= 1
+                    assert launched["fused_leaky_relu_bwd"] >= 1
+            for u, v in zip(*grads):
+                torch.testing.assert_close(u, v, atol=1e-4, rtol=1e-5)
 
 
 @pytest.mark.parametrize("case", ["down2_sym6", "up2_blur", "up_down_mixed",

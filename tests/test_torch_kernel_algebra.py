@@ -1,5 +1,6 @@
-"""The index algebra and arithmetic of four CUDA kernels, mirrored in plain
-PyTorch on the CPU and held against the JAX package.
+"""The index algebra and arithmetic of six CUDA kernels, mirrored in plain
+PyTorch (numpy for the fused act) on the CPU and held against the JAX
+package.
 
 The kernels run only on the card (tests/test_torch_gpu.py); these mirrors
 compute what they compute, step for step, so that their algebra is checked
@@ -32,6 +33,18 @@ here on every run. None of them is on a path of the port.
   the last pass writes q. Held against the JAX package's fused Pallas
   variant in interpret mode and the port's ``sinkhorn_knopp_ref``, 1e-4
   absolute on codes in [0, 1] (tests/test_torch_sinkhorn.py's tolerance).
+* csrc/fused_act.cu's backward: the wrapper's launch plan
+  (``ops/fused_act.py::launch_plan``) run block by block, each thread's
+  channel group over its strided rows, the block's partial bias sums over
+  its rows of threads in increasing y, then each column of partials in 32
+  interleaved runs summed in increasing y; every element written once, dx
+  equal to the plain backward, db within 1e-5 of ``dx.sum`` (sums of at
+  most 300 terms of O(1)).
+* csrc/affine_warp.cu's forward pass: the wrapper's grid and block
+  (``ops/resample.py::forward_plan``), one thread per output (b, v, w) for
+  every channel, covering each output exactly once; the thread's two live
+  taps and lerp equal ``_resample_pass`` bit for bit and the JAX Pallas
+  ``resample_rows`` in interpret mode within 1e-5.
 * csrc/upfirdn2d.cu's tiles: each block stages its input footprint with
   zero fill, runs the vertical pass into a second buffer (or folds a single
   tap into the horizontal ones) and the horizontal pass to the outputs, the
@@ -56,6 +69,8 @@ from ganecdotes_tpu.ops import modulated_conv_pallas as jmc
 from ganecdotes_tpu.ops.sinkhorn_pallas import sinkhorn_knopp_pallas
 from ganecdotes_torch.gan import ada
 from ganecdotes_torch.ops import affine_warp as taw
+from ganecdotes_torch.ops import fused_act as tfa
+from ganecdotes_torch.ops import resample as trs
 from ganecdotes_torch.ops import upfirdn2d as tup
 from ganecdotes_torch.ops.sinkhorn import sinkhorn_knopp_ref
 
@@ -330,6 +345,147 @@ def test_gather_adjoint_window_and_membership_match_jax(alpha):
                                **ADJ_TOL)
     want = jawp.resample_rows_t(jnp.asarray(g), jnp.asarray(a), jnp.asarray(icpt), s_len)
     np.testing.assert_allclose(_np(ours), np.asarray(want), **ADJ_TOL)
+
+
+def _forward_pass(x, alpha, icpt, v_len):
+    """csrc/affine_warp.cu's forward at the wrapper's launch: every thread
+    of every block maps to (b, v, w) = (k, j*tv + y, i*tw + x), skips what
+    lies outside (V, W), and for each channel reads the two live taps (k0
+    or, with the carry, k0 + 1, and the next) and lerps them. Returns the
+    output and how often each (b, v, w) was computed."""
+    b, c, s_len, w = x.shape
+    (tw, tv), (gx, gy, gz) = trs.forward_plan(b, v_len, w)
+    assert gy <= trs.GRID_MAX and gz <= trs.GRID_MAX
+    # every thread of the grid at once: (gz, gy, tv, gx, tw)
+    bb = torch.arange(gz)[:, None, None, None, None]
+    vv = (torch.arange(gy)[:, None] * tv + torch.arange(tv))[None, :, :, None, None]
+    ww = (torch.arange(gx)[:, None] * tw + torch.arange(tw))[None, None, None]
+    bb, vv, ww = torch.broadcast_tensors(bb, vv, ww)
+    live = (vv < v_len) & (ww < w)
+    bb, vv, ww = bb[live], vv[live], ww[live]
+    hits = torch.zeros(b, v_len, w, dtype=torch.int64)
+    hits.index_put_((bb, vv, ww), torch.ones_like(bb), accumulate=True)
+    k0, e1, f = _geometry(alpha[bb], icpt[bb, ww], vv.to(torch.float32))
+    klo = k0 + e1.to(torch.int64)
+    out = torch.zeros(b, c, v_len, w)
+    for ch in range(c):
+        taps = []
+        for k in (klo, klo + 1):
+            inside = (k >= 0) & (k < s_len)
+            taps.append(torch.where(inside, x[bb, ch, k.clamp(0, s_len - 1), ww], 0.0))
+        out[bb, ch, vv, ww] = (1 - f) * taps[0] + f * taps[1]
+    return out, hits
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("alpha", [None, "neg", 0.0], ids=["pos", "neg", "zero"])
+def test_resample_forward_threads_cover_each_output_once(c, alpha):
+    """W and V no multiple of the block (32 x 8), intercepts off both ends
+    of the source column, C = 1, 3 (ADA) and 4."""
+    b, s_len, w, v_len = 2, 23, 37, 19
+    rng = np.random.RandomState(c)
+    x = rng.randn(b, c, s_len, w).astype(np.float32)
+    a = (rng.rand(b) * 0.6 + 0.7).astype(np.float32)
+    icpt = (rng.rand(b, w) * (s_len + 10) - 5).astype(np.float32)
+    if alpha == "neg":
+        a, icpt = -a, (icpt + 0.8 * s_len).astype(np.float32)
+    elif alpha is not None:
+        a = np.full(b, alpha, np.float32)
+    ours, hits = _forward_pass(_t(x), _t(a), _t(icpt), v_len)
+    assert bool((hits == 1).all())
+    plain = taw._resample_pass(_t(x), _t(a), _t(icpt), axis=2, out_len=v_len)
+    assert torch.equal(ours, plain)
+    want = jawp.resample_rows(jnp.asarray(x), jnp.asarray(a), jnp.asarray(icpt), v_len)
+    np.testing.assert_allclose(_np(ours), np.asarray(want), **ADJ_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the fused act's backward: strided rows, partial sums in a fixed order
+# ---------------------------------------------------------------------------
+
+
+SUM_ROWS = 32  # csrc/fused_act.cu: the column sum's rows of threads
+
+
+def _fused_act_bwd(g, y, sms, slope=0.2, scale=np.sqrt(2.0)):
+    """csrc/fused_act.cu's backward at the wrapper's launch plan, in float32
+    numpy: returns dx, db and how often each element was written."""
+    rows, c, p = tfa.launch_plan(tfa.KERNEL_BWD, torch.from_numpy(g), sms)
+    g2, y2 = g.reshape(rows, c), y.reshape(rows, c)
+    slope, scale = np.float32(slope), np.float32(scale)
+    dx = np.full((rows, c), np.nan, np.float32)
+    hits = np.zeros((rows, c), np.int64)
+    part = np.full((p.gx, c), np.nan, np.float32)
+    for bx in range(p.gx):
+        for by in range(p.gy):
+            # each thread's sums, then the block's, in increasing y
+            acc = np.zeros((p.ty, p.tx, p.vec), np.float32)
+            for j in range(p.ty):
+                for i in range(p.tx):
+                    c0 = (by * p.tx + i) * p.vec
+                    if c0 >= c:
+                        continue
+                    cs = slice(c0, c0 + p.vec)
+                    for r in range(bx * p.ty + j, rows, p.gx * p.ty):
+                        d = np.where(y2[r, cs] >= 0, g2[r, cs], g2[r, cs] * slope) * scale
+                        dx[r, cs] = d
+                        hits[r, cs] += 1
+                        acc[j, i] += d
+            for i in range(p.tx):
+                c0 = (by * p.tx + i) * p.vec
+                if c0 >= c:
+                    continue
+                s = acc[0, i].copy()
+                for j in range(1, p.ty):
+                    s += acc[j, i]
+                part[bx, c0:c0 + p.vec] = s
+    # the second launch: thread (x, y) sums rows y, y + 32, ... of its
+    # column, then those 32 sums in increasing y
+    rowsums = np.zeros((SUM_ROWS, c), np.float32)
+    for y_ in range(SUM_ROWS):
+        for k in range(y_, p.gx, SUM_ROWS):
+            rowsums[y_] += part[k]
+    db = rowsums[0].copy()
+    for y_ in range(1, SUM_ROWS):
+        db += rowsums[y_]
+    return dx.reshape(g.shape), db, hits, p
+
+
+@pytest.mark.parametrize("shape,sms", [((37, 1), 1), ((5, 7, 3), 1), ((33, 12), 2),
+                                       ((9, 40), 1), ((3, 1040), 1), ((2, 50, 512), 132)],
+                         ids=["c1", "c3", "c12", "c40", "c1040", "c512"])
+def test_fused_act_backward_blocks_and_partial_sums(shape, sms):
+    """C = 1 and 3 (a channel a thread), 12, 40 and 512 (float4 groups),
+    1040 (260 groups: a second block column); few SMs, so that blocks
+    stride over several rows and rows are no multiple of a block, and at
+    C = 512 one row block per 2 rows, 50 in all, so the column sum's 32
+    runs hold one or two partials each."""
+    rng = np.random.RandomState(len(shape) + shape[-1])
+    g = rng.randn(*shape).astype(np.float32)
+    y = rng.randn(*shape).astype(np.float32)
+    dx, db, hits, p = _fused_act_bwd(g, y, sms)
+    assert (hits == 1).all()
+    if shape[-1] == 1040:
+        assert p.gy == 2
+    if shape[-1] == 512:
+        assert p.gx == 50
+    want_dx, want_db = tfa.fused_leaky_relu_bwd_ref(torch.from_numpy(g), torch.from_numpy(y))
+    np.testing.assert_array_equal(dx, _np(want_dx))
+    np.testing.assert_allclose(db, _np(want_dx).reshape(-1, shape[-1]).sum(0), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(db, _np(want_db), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("c", [1, 3, 5, 8, 128, 512, 1040])
+def test_fused_act_plan_fits_a_block(c):
+    """Every plan's block holds at most 256 threads, covers a row's channel
+    groups with its gy block columns, and has at least one row block and
+    no more than the rows need."""
+    for rows in (1, 7, 300, 1 << 20):
+        for sms in (1, 132):
+            p = tfa.plan(rows, c, sms)
+            assert p.tx * p.ty <= tfa.THREADS and c % p.vec == 0
+            assert (p.gy - 1) * p.tx < c // p.vec <= p.gy * p.tx
+            assert 1 <= p.gx <= -(-rows // p.ty)
 
 
 # ---------------------------------------------------------------------------
