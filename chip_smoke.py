@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels and drive its serving, SwAV
-pretraining and BagGAN training paths on one GPU.
+pretraining, BagGAN training and one-shot evaluate paths on one GPU.
 
 Run from the repository root on a machine with one CUDA card and nvcc
 (found through CUDA_HOME, PATH or /usr/local/cuda):
@@ -27,9 +27,14 @@ Phases (any failure exits non-zero before the last line):
      and required equal bit for bit, within 1e-4 and 0.1/K of its plain
      version, and the kernel one iteration short required to miss 0.1/K;
   4. serve: OneShotServer (ffhq-256, hfc_with_swav, random weights from a
-     seed) answers 3 requests of 8 z with every kernel's launch counted;
-     then a server with every op on its plain version on the card, its mean
-     latent drawn anew from the same seed, answers the same requests;
+     seed) answers 3 requests of 8 z through the folded projection + head
+     with every kernel's launch counted; the folded requests are held
+     against the unfused ones (projection, then head: the image bit-equal,
+     logits within 1e-4, labels 99.9%) and both are timed, as is the
+     request's 64^2 polyphase conv by F.conv2d against the port's matmul
+     form; then a server
+     with every op on its plain version on the card, its mean latent drawn
+     anew from the same seed, answers the same requests;
   5. pretrain: SwAVClustering at the full hfc_with_swav ffhq config (random
      generator from a seed) takes 1 warm-up and 4 timed steps with every
      kernel's launch counted, saves and reloads swav_params.npz, and the same
@@ -51,14 +56,23 @@ Phases (any failure exits non-zero before the last line):
      step kind, none with the kernels; one more iteration (all four step
      kinds) under torch.profiler, with the FIR kernel's and cuDNN's
      grouped-conv kernels' device time per range;
-  8. one JSON line of the kernels, then the result line.
+  8. evaluate: cli/evaluate.py's path at ffhq-256 (OneShotPipeline,
+     hfc_with_swav_ffhq, the supervised trainer's 200 epochs, phase 5's
+     generator and swav_params.npz, 16 synthesised test samples + the
+     one-shot one): setup, the one-shot features, the fine-tune, prediction
+     (2 requests of 8, also timed unfused) and scoring, with the kernels and
+     again with every op on its plain version; the features, the fine-tune
+     losses, the test labels and the mean mask IoU held against the plain
+     run; 10 more fine-tune epochs under torch.profiler;
+  9. one JSON line of the kernels, then the result line.
 
 ``--details PATH`` also writes every shape's numbers, the build record and
-the serving, pretraining and training profiles to a JSON file.
+the serving, pretraining, training and evaluate records to a JSON file.
 """
 
 import argparse
 import json
+import logging
 import math
 import os
 import statistics
@@ -823,6 +837,7 @@ def serve(dev):
         check(0 <= int(z0.min()) and int(z0.max()) < server.nclasses, "z0 out of range")
 
     prof = profile_request(server, zs[-1])
+    unfused = check_folded(server, zs)
 
     # same seed, so the plain server draws the same 4096 z for its own mean
     # latent: the set-up's (4096, 512) fused_leaky_relu calls are checked too
@@ -858,8 +873,93 @@ def serve(dev):
         "launches": launches, "plain_request_ms": plain_times,
         "mean_latent_err": mean_err, "image_err": img_err,
         "label_agreement": lab_agree,
-        "z0_agreement": z0_agree, "profile": prof,
+        "z0_agreement": z0_agree, "profile": prof, "unfused": unfused,
     }
+
+
+def check_folded(server, zs):
+    """The folded request (``serve``: the head's first conv folded into the
+    pyramid) against the unfused one (projection, then head) on the same
+    requests: the image bit-equal, logits within
+    KERNEL_TOL * max(1, max |unfused|), labels on LABEL_AGREEMENT of the
+    pixels, sample 0's embedding (z0's) within the logits' tolerance; then
+    each form's request ms and peak memory, and one unfused request under
+    torch.profiler."""
+    logit_err, emb_err, lab_agree, z0_agree = 0.0, 0.0, 1.0, 1.0
+    for z in zs:
+        img, logits, emb0 = server.infer_folded(z)
+        u_img, u_logits, u_emb0 = server.infer(z)
+        check(torch.equal(img, u_img), "the folded request's image differs")
+        err, _, scale = errors(logits, u_logits)
+        logit_err = max(logit_err, err / max(1.0, scale))
+        lab_agree = min(lab_agree, (logits.argmax(-1) == u_logits.argmax(-1))
+                        .float().mean().item())
+        # z0: sample 0 projected alone, against its row of the batch's
+        # projection (another GEMM shape, another summation order)
+        err, _, scale = errors(emb0, u_emb0)
+        emb_err = max(emb_err, err / max(1.0, scale))
+        z0_agree = min(z0_agree, (emb0.argmax(-1) == u_emb0.argmax(-1))
+                       .float().mean().item())
+        del img, logits, emb0, u_img, u_logits, u_emb0
+    timing = {}
+    for name, fn in (("folded", server.serve), ("unfused", server.serve_unfused)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for z in zs:
+            t0 = time.perf_counter()
+            fn(z)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        timing[name] = {"request_ms": ms, "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    print(f"  folded vs unfused: logits err {logit_err:.3e}, z0 embedding err "
+          f"{emb_err:.3e} (tol {KERNEL_TOL}), label agreement {lab_agree:.6f}, "
+          f"z0 agreement {z0_agree:.6f}; request ms folded "
+          f"{[round(t, 3) for t in timing['folded']['request_ms']]}, unfused "
+          f"{[round(t, 3) for t in timing['unfused']['request_ms']]}; peak memory "
+          f"folded {timing['folded']['peak_memory_bytes'] / 2**30:.3f} GiB, unfused "
+          f"{timing['unfused']['peak_memory_bytes'] / 2**30:.3f} GiB", flush=True)
+    check(logit_err <= KERNEL_TOL, f"folded logits differ from the unfused: {logit_err}")
+    check(emb_err <= KERNEL_TOL, f"the z0 embedding differs from the unfused: {emb_err}")
+    check(lab_agree >= LABEL_AGREEMENT, f"folded label agreement {lab_agree}")
+    check(z0_agree >= LABEL_AGREEMENT, f"folded z0 agreement {z0_agree}")
+
+    prof = profile_request(types.SimpleNamespace(serve=server.serve_unfused), zs[-1])
+    print(f"  one unfused request profiled: {json.dumps(prof)}", flush=True)
+    return {"logit_err": logit_err, "z0_embedding_err": emb_err,
+            "label_agreement": lab_agree, "z0_agreement": z0_agree, **timing,
+            "profile": prof, "conv_choice": fold_conv_choice(server.device)}
+
+
+def fold_conv_choice(dev):
+    """The folded request's largest conv, the 64^2 polyphase conv (B = 8,
+    512 -> 192 channels), by F.conv2d as cuDNN's heuristic runs it against
+    the port's matmul form (``embed._conv3x3``): both within KERNEL_TOL of
+    each other, their ms (CUDA events) and peak memory above the inputs."""
+    from ganecdotes_torch.nn.layers import conv2d_dilated_nhwc
+    from ganecdotes_torch.selfsup.embed import _conv3x3
+
+    g = torch.Generator().manual_seed(5)
+    z = torch.randn(B, 64, 64, 512, generator=g).to(dev)
+    w = (torch.randn(3, 3, 512, 192, generator=g) * 0.01).to(dev)
+    forms = {"F.conv2d": lambda: conv2d_dilated_nhwc(z, w, dilation=1, padding=1),
+             "matmul": lambda: _conv3x3(z, w)}
+    err, _, scale = errors(forms["matmul"](), forms["F.conv2d"]())
+    check(err <= KERNEL_TOL * max(1.0, scale), f"the matmul conv differs: {err}")
+    out = {"err": err}
+    for name, fn in forms.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = time_ms(fn)
+        out[name] = {"ms": ms, "peak_above_inputs_bytes":
+                     torch.cuda.max_memory_allocated() - base}
+    print(f"  the 64^2 polyphase conv: F.conv2d {out['F.conv2d']['ms']:.4f} ms, "
+          f"{out['F.conv2d']['peak_above_inputs_bytes'] / 2**30:.3f} GiB; matmul "
+          f"form {out['matmul']['ms']:.4f} ms, "
+          f"{out['matmul']['peak_above_inputs_bytes'] / 2**30:.3f} GiB; err {err:.3e}",
+          flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1458,6 +1558,191 @@ def train(dev):
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the evaluate path (setup, one-shot fine-tune, test and scoring)
+# ---------------------------------------------------------------------------
+
+EVAL_TEST_SAMPLES = 16  # + the one-shot sample: 2 requests of 8
+FEATURE_TOL = IMAGE_TOL  # one-shot features, KERNELS vs PLAIN, the image gate
+FIRST_CHUNK_LOSS_RTOL = 1e-3  # the fine-tune loss after its first chunk
+LAST_LOSS_RTOL = GAN_DRIFT_TOL  # after all 200 epochs, the GAN's later-loss gate
+IOU_TOL = 1e-2  # mean mask IoU, absolute
+
+
+def _sync_ms(t0):
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def run_evaluate(gen, dev, ops, out_dir):
+    """``cli/evaluate.py``'s run at ffhq-256 (hfc_with_swav_ffhq, the
+    supervised trainer's 200 epochs, train_hfc False: swav_params.npz is
+    loaded), its blocks timed one by one on the host clock (synced), with
+    each block's peak memory: set-up, the SwAV preprocessor's set-up, the
+    one-shot features, the fine-tune, prediction (and the same requests
+    unfused), scoring."""
+    from ganecdotes_torch.ops import _build
+    from ganecdotes_torch.pipeline.one_shot_pipeline import OneShotPipeline
+
+    ms, peak = {}, {}
+
+    def block(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        ms[name] = _sync_ms(t0)
+        peak[name] = torch.cuda.max_memory_allocated()
+        return out
+
+    _build.reset_launches()
+    pipe = block("construct", lambda: OneShotPipeline(
+        out_dir, model="ffhq-256", segmentor="hfc_with_swav_ffhq",
+        num_test_samples=EVAL_TEST_SAMPLES, device=dev, ops=ops, gen=gen))
+    pipe.logger.setLevel(logging.WARNING)  # its per-chunk lines: details only
+    pipe.seg_config.train_hfc = False  # evaluate.py's settings
+    pipe.seg_config.hfc_prep_args["train"] = False
+    block("setup", pipe.setup)
+    pipe.preprocessor = block("swav_setup", pipe._build_ssl_preprocessor)
+    check(pipe.preprocessor.ssl_params is not None,
+          "swav_params.npz was not loaded")
+    feats = block("one_shot_features", pipe._extract_one_shot_features)
+    block("train", pipe.run_trainer)
+    check(pipe.preprocessor.pretrain_count == 0, "the evaluate run pretrained")
+    block("predict", pipe.predict_tests)
+    launches = dict(_build.LAUNCHES)
+    lat = [torch.as_tensor(pipe.test_latents[i : i + B])
+           for i in range(0, EVAL_TEST_SAMPLES, B)]
+    unfused_ms = []
+    for z in lat:
+        t0 = time.perf_counter()
+        pipe.server.serve_unfused(z, input_is_latent=True)
+        unfused_ms.append(_sync_ms(t0))
+    t0 = time.perf_counter()
+    pipe.score_tests()
+    ms["score"] = (time.perf_counter() - t0) * 1e3
+    epochs = [(e1 - e0, sec) for (e0, _, _), (e1, _, sec)
+              in zip([(0, 0, 0)] + pipe.finetune_log, pipe.finetune_log)]
+    return pipe, {
+        "block_ms": ms, "peak_memory_bytes": peak, "launches": launches,
+        "one_shot_features_shape": list(feats.shape),
+        "finetune_losses": [(e, loss) for e, loss, _ in pipe.finetune_log],
+        "epoch_ms": [sec * 1e3 / n for n, sec in epochs],
+        "finetune_wall_ms": sum(sec for _, _, sec in pipe.finetune_log) * 1e3,
+        "request_ms": [t * 1e3 for t in pipe.inference_times],
+        "unfused_request_ms": unfused_ms,
+        "score_ms_per_image": ms["score"] / pipe.num_test_samples,
+        "mean_mask_iou": pipe.mean_mask_iou,
+    }
+
+
+def profile_finetune(pipe, epochs=10):
+    """Device-busy share of ``epochs`` fine-tune epochs (torch.profiler),
+    from a copy of the trained head on the pipeline's features and label."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ganecdotes_torch.pipeline import losses
+    from ganecdotes_torch.pipeline.trainer import make_supervised_finetune
+    from ganecdotes_torch.selfsup.heads import one_shot_segmentor_apply
+
+    size = pipe.seg_size
+    optimizer, run_chunk = make_supervised_finetune(
+        lambda p, st, x: (one_shot_segmentor_apply(p, x, size), st),
+        [(1.0, losses.cross_entropy)], pipe.model_config.image_size, 1e-3)
+    params = [{k: v.detach().clone() for k, v in layer.items()}
+              for layer in pipe.segmentor_params]
+    opt = optimizer.init(params)
+    feats, label = pipe.one_shot_train_features, pipe.one_shot_label
+    run_chunk(params, opt, (), feats, label, 0, 2)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, _, loss = run_chunk(params, opt, (), feats, label, 2, epochs)
+        float(loss)
+        wall = _sync_ms(t0)
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"epochs": epochs, "wall_ms": wall, "device_busy_ms": busy,
+            "busy_share": busy / wall,
+            "top": [{"name": k[:90], "ms": t, "count": n} for k, (n, t) in top]}
+
+
+def evaluate(dev):
+    import shutil
+
+    import numpy as np
+
+    from ganecdotes_torch.models.stylegan2.generator import Generator
+    from ganecdotes_torch.ops.opset import KERNELS, PLAIN
+
+    mc, _, _, _ = swav_configs()
+    # phase 5's generator (the same seed), so phase 5's swav_params.npz
+    # describes its features
+    gen = Generator(**mc.gen_args, generator=torch.Generator().manual_seed(0)).to(dev)
+    params = os.path.join(ROOT, "build", "chip_smoke_swav", "swav_params.npz")
+    runs = {}
+    for name, ops in (("kernels", KERNELS), ("plain", PLAIN)):
+        out_dir = os.path.join(ROOT, "build", "chip_smoke_eval", name)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        shutil.copy(params, out_dir)
+        runs[name] = run_evaluate(gen, dev, ops, out_dir)
+        r = runs[name][1]
+        print(f"  {name}: block ms {json.dumps({k: round(v, 3) for k, v in r['block_ms'].items()})}; "
+              f"fine-tune median {statistics.median(r['epoch_ms']):.3f} ms an epoch, "
+              f"{r['finetune_wall_ms']:.3f} ms for {r['finetune_losses'][-1][0]}; "
+              f"request ms folded "
+              f"{[round(t, 3) for t in r['request_ms']]}, unfused "
+              f"{[round(t, 3) for t in r['unfused_request_ms']]}; scoring "
+              f"{r['score_ms_per_image']:.3f} host ms an image; mean mask IoU "
+              f"{r['mean_mask_iou']:.6f}; peak GiB "
+              f"{json.dumps({k: round(v / 2**30, 3) for k, v in r['peak_memory_bytes'].items()})}",
+              flush=True)
+    kern, kr = runs["kernels"]
+    plain, pr = runs["plain"]
+    for k in SERVING_KERNELS:
+        check(kr["launches"][k] > 0, f"kernel {k} was not launched on the evaluate path")
+    check(all(v == 0 for v in pr["launches"].values()),
+          f"the plain run launched kernels: {pr['launches']}")
+    kern_prof = profile_finetune(kern)
+    print(f"  10 fine-tune epochs under torch.profiler: {json.dumps(kern_prof)}",
+          flush=True)
+
+    preds = kern.pred_labels
+    check(preds.shape == (EVAL_TEST_SAMPLES, mc.image_size, mc.image_size),
+          f"labels shape {preds.shape}")
+    check(bool(np.isfinite(kern.test_images).all()), "non-finite test images")
+    check(0.0 <= kern.mean_mask_iou <= 1.0, f"mean mask IoU {kern.mean_mask_iou}")
+    feat_err, _, feat_scale = errors(kern.one_shot_train_features,
+                                     plain.one_shot_train_features)
+    feat_err /= max(1.0, feat_scale)
+    (e1, k1), (_, kl) = kr["finetune_losses"][0], kr["finetune_losses"][-1]
+    (_, p1), (_, pl) = pr["finetune_losses"][0], pr["finetune_losses"][-1]
+    first_rel = abs(k1 - p1) / max(abs(p1), 1e-30)
+    last_rel = abs(kl - pl) / max(abs(pl), 1e-30)
+    agree = float((kern.pred_labels == plain.pred_labels).mean())
+    iou_err = abs(kern.mean_mask_iou - plain.mean_mask_iou)
+    gates = {"feature_err": feat_err, "first_chunk_loss_rel": first_rel,
+             "last_loss_rel": last_rel, "label_agreement": agree,
+             "mean_mask_iou_err": iou_err}
+    print(f"  kernels vs plain: {json.dumps(gates)} (tols {FEATURE_TOL}, "
+          f"{FIRST_CHUNK_LOSS_RTOL}, {LAST_LOSS_RTOL}, >= {LABEL_AGREEMENT}, "
+          f"{IOU_TOL}); losses after epoch {e1}: {k1} / {p1}, after "
+          f"{kr['finetune_losses'][-1][0]}: {kl} / {pl}", flush=True)
+    check(feat_err <= FEATURE_TOL, f"one-shot features differ: {feat_err}")
+    check(first_rel <= FIRST_CHUNK_LOSS_RTOL, f"first-chunk loss differs: {first_rel}")
+    check(last_rel <= LAST_LOSS_RTOL, f"last loss differs: {last_rel}")
+    check(agree >= LABEL_AGREEMENT, f"test label agreement {agree}")
+    check(iou_err <= IOU_TOL, f"mean mask IoU differs: {iou_err}")
+    check(kl < k1, f"the fine-tune did not lower its loss: {k1} -> {kl}")
+    return {"kernels": kr, "plain": pr, "gates": gates, "finetune_profile": kern_prof}
+
+
 def kernels_line(rows, launches):
     out = []
     for name, (source, replaces) in KERNELS_TABLE.items():
@@ -1543,6 +1828,9 @@ def main():
     print(f"train (BagGAN-HQ pidray, 256^2, B = {GAN_B}, full width and depth):",
           flush=True)
     trained = train(dev)
+    print(f"evaluate (cli/evaluate.py's path: ffhq-256, hfc_with_swav_ffhq, "
+          f"{EVAL_TEST_SAMPLES} test samples):", flush=True)
+    evaluated = evaluate(dev)
 
     # each kernel's launches from the path it belongs to; the serving
     # kernel rows are per request of 8, the Sinkhorn row per SwAV step, the
@@ -1560,7 +1848,7 @@ def main():
             json.dump({"card": smi, "kind": kind, "build": info, "hmma": hmma,
                        "shapes": rows,
                        "serve": served, "pretrain": pretrained, "train": trained,
-                       "kernels": line}, f, indent=1)
+                       "evaluate": evaluated, "kernels": line}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

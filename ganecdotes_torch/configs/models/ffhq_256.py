@@ -18,6 +18,12 @@ gen_args = dict(size=image_size,
 
 is_baggan = False
 
+# the one-shot sample and the test set; none ships with the repo: with no
+# files there the pipeline synthesises its samples
+sample_latents = ROOT_DIR + '/checkpoints/standard/ffhq_256/latents.pt'
+sample_labels  = ROOT_DIR + '/checkpoints/standard/ffhq_256/labels.pt'
+sample_images  = ROOT_DIR + '/checkpoints/standard/ffhq_256/images/'
+
 one_shot_ind = 0
 
 classes = ['background',

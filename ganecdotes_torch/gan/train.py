@@ -31,10 +31,8 @@ but recomputes nothing: the port keeps every D residual.
 """
 
 import functools
-import logging
 import math
 import os
-import sys
 import time
 from contextlib import contextmanager
 from typing import List, NamedTuple, Optional, Tuple
@@ -64,7 +62,10 @@ from ganecdotes_torch.models.stylegan2.generator import (
 from ganecdotes_torch.ops import _build
 from ganecdotes_torch.ops.modulated_conv import styled_conv3x3_ref, styled_up_conv3x3_xla
 from ganecdotes_torch.ops.opset import KERNELS
+from ganecdotes_torch.pipeline.schedulers import plateau_lr
+from ganecdotes_torch.utils.optim import Adam
 from ganecdotes_torch.utils.serialization import load_pytree, save_pytree
+from ganecdotes_torch.utils.util import get_logger
 
 # the reference BagGAN generator's leaner width map (models/baggan/models.py:25-33)
 BAGGAN_RES_TO_CHANNEL_MAP = {
@@ -74,55 +75,6 @@ STEP_KINDS = ("d", "r1", "g", "ppl")
 # torch.profiler ranges of the steps; ADA's augment runs inside "gan.ada"
 PROFILE_RANGES = {"d": "gan.d_step", "r1": "gan.r1", "g": "gan.g_step",
                   "ppl": "gan.ppl"}
-
-
-def get_logger(name, logfile=None, level=logging.INFO):
-    """Logger with stdout and an optional file handler."""
-    logger = logging.getLogger(name)
-    logger.setLevel(level)
-    logger.propagate = False
-    logger.handlers = []
-    fmt = logging.Formatter("%(asctime)s %(name)s %(levelname)s: %(message)s")
-    sh = logging.StreamHandler(sys.stdout)
-    sh.setFormatter(fmt)
-    logger.addHandler(sh)
-    if logfile is not None:
-        os.makedirs(os.path.dirname(os.path.abspath(logfile)), exist_ok=True)
-        fh = logging.FileHandler(logfile)
-        fh.setFormatter(fmt)
-        logger.addHandler(fh)
-    return logger
-
-
-def plateau_lr(patience=10, factor=0.1, threshold=1e-4, cooldown=0,
-               min_lr_mult=0.0, eps=1e-8):
-    """Plateau multiplier with ``ReduceLROnPlateau`` semantics in mode 'min'
-    (relative threshold); ``.step(loss)`` per epoch returns the multiplier."""
-
-    class _Plateau:
-        def __init__(self):
-            self.best, self.bad, self.cooldown_counter, self.mult = float("inf"), 0, 0, 1.0
-
-        def step(self, loss):
-            loss = float(loss)
-            if loss < self.best * (1.0 - threshold):
-                self.best, self.bad = loss, 0
-            else:
-                self.bad += 1
-            if self.cooldown_counter > 0:
-                self.cooldown_counter -= 1
-                self.bad = 0
-            if self.bad > patience:
-                new_mult = max(self.mult * factor, min_lr_mult)
-                if self.mult - new_mult > eps:
-                    self.mult = new_mult
-                self.cooldown_counter, self.bad = cooldown, 0
-            return self.mult
-
-        def __call__(self, _epoch):
-            return self.mult
-
-    return _Plateau()
 
 
 def get_scheduler(lr_policy, epoch_count=None, n_epochs=None,
@@ -145,31 +97,6 @@ def get_scheduler(lr_policy, epoch_count=None, n_epochs=None,
     else:
         raise NotImplementedError(f"lr policy {lr_policy} not found")
     return sched
-
-
-class Adam:
-    """``optax.inject_hyperparams(optax.adam)`` over a list of tensors,
-    updated in place: m = (1-b1) g + b1 m, v = (1-b2) g^2 + b2 v, and
-    p += -lr * m_hat / (sqrt(v_hat) + eps) with the bias-corrected moments,
-    in optax's order of operations. ``lr`` may change between steps."""
-
-    def __init__(self, params, lr, b1=0.9, b2=0.999, eps=1e-8):
-        self.params = list(params)
-        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
-        self.count = 0
-        self.m = [torch.zeros_like(p) for p in self.params]
-        self.v = [torch.zeros_like(p) for p in self.params]
-
-    @torch.no_grad()
-    def step(self, grads):
-        self.count += 1
-        bc1 = 1.0 - self.b1**self.count
-        bc2 = 1.0 - self.b2**self.count
-        for p, g, m, v in zip(self.params, grads, self.m, self.v):
-            m.copy_((1 - self.b1) * g + self.b1 * m)
-            v.copy_((1 - self.b2) * g.square() + self.b2 * v)
-            u = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            p.add_(u * (-self.lr))
 
 
 class GANBaseModel:

@@ -1,19 +1,22 @@
-"""Batched generate -> embed -> segment serving for hfc_with_swav (port of the
-hfc_with_swav branch of ganecdotes_tpu OneShotPipeline._make_infer_fn,
+"""Batched generate -> embed -> segment serving for hfc_with_swav (port of
+the hfc_with_swav branch of ganecdotes_tpu OneShotPipeline._make_infer_fn,
 pipeline/one_shot_pipeline.py:563-631, and the request loop of run_tests,
 :933-950).
 
-A request is a batch of z (B, latent_dim). The server maps z to w, runs the
-StyleGAN2 synthesis with truncation toward the mean latent and the fixed
-noise buffers, projects the 13-level feature pyramid through the SwAV linear
-projection (level-decomposed, nearest interpolation), applies the one-shot
-FCN head, and returns ``(img, labels, z0)`` as the JAX ``infer`` does:
-``labels`` (B, H, W) is the argmax of the head's logits, ``z0`` (1, H, W) the
-argmax of the first sample's projection (its cluster map).
+A request is a batch of z (B, latent_dim), or of w with
+``input_is_latent=True`` (the pipeline's test latents). The server maps z
+to w, runs the StyleGAN2 synthesis with truncation toward the mean latent
+and the fixed noise buffers, and returns ``(img, labels, z0)`` as the JAX
+``infer`` does: ``labels`` (B, H, W) is the argmax of the head's logits,
+``z0`` (1, H, W) the argmax of the first sample's projection (its cluster
+map).
 
-The JAX program folds the head's first conv into the pyramid
-(``embed.project_segment_fcn``); that exact rewrite is not ported yet, so
-the server computes the unfused form, projection then head.
+``serve`` computes the logits as the JAX program does, with the head's
+first conv folded into the feature pyramid (``infer_folded``,
+``embed.project_segment_fcn``): the (B, H, W, nclasses) embedding is
+computed for sample 0 only, for ``z0``. ``infer`` keeps the unfused form,
+projection then head, as the oracle the folded form is held against
+(``serve_unfused`` is its argmax).
 """
 
 import torch
@@ -27,6 +30,7 @@ from ganecdotes_torch.models.stylegan2.generator import (
     mean_latent as _mean_latent,
 )
 from ganecdotes_torch.ops.opset import KERNELS
+from ganecdotes_torch.selfsup.embed import project_segment_fcn
 from ganecdotes_torch.selfsup.heads import (
     DILATIONS,
     init_one_shot_segmentor,
@@ -96,23 +100,45 @@ class OneShotServer:
                 self.nclasses, len(mc.classes), self.seg_size, generator=rng(3))
         self.seg_params = from_jax_params(seg_params, self.device)
 
-    def infer(self, z):
-        """(img (B,H,W,3), logits (B,H,W,C_out), embedding of sample 0
-        (1,H,W,nclasses)) for a batch of z."""
+    def _synthesize(self, z, input_is_latent):
+        z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
+        w = z if input_is_latent else mapping_apply(self.gen, z, self.ops)
+        return generator_forward(
+            self.gen, w, input_is_latent=True, truncation=self.truncation,
+            truncation_latent=self.mean_latent, ops=self.ops)
+
+    def _project(self, feats):
+        return swav_predict_from_features(
+            self.ssl_params, feats, self.hlen, self.nclasses, self.projn_nw,
+            self.interp)
+
+    def infer(self, z, input_is_latent=False):
+        """The unfused form: (img (B,H,W,3), logits (B,H,W,C_out), the
+        embedding of sample 0 (1,H,W,nclasses)) for a batch of z (or w)."""
         with torch.inference_mode():
-            z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
-            w = mapping_apply(self.gen, z, self.ops)
-            img, feats = generator_forward(
-                self.gen, w, input_is_latent=True, truncation=self.truncation,
-                truncation_latent=self.mean_latent, ops=self.ops)
-            emb = swav_predict_from_features(
-                self.ssl_params, feats, self.hlen, self.nclasses,
-                self.projn_nw, self.interp)
+            img, feats = self._synthesize(z, input_is_latent)
+            emb = self._project(feats)
             logits = one_shot_segmentor_apply(self.seg_params, emb,
                                               self.seg_size)
             return img, logits, emb[:1]
 
-    def serve(self, z):
-        """(img, labels, z0) for a batch of z, as the JAX ``infer`` returns."""
-        img, logits, emb0 = self.infer(z)
+    def serve_unfused(self, z, input_is_latent=False):
+        """``infer``'s (img, labels, z0)."""
+        img, logits, emb0 = self.infer(z, input_is_latent)
+        return img, logits.argmax(dim=-1), emb0.argmax(dim=-1)
+
+    def infer_folded(self, z, input_is_latent=False):
+        """``infer``'s outputs with the head's first conv folded into the
+        pyramid: only sample 0's embedding is computed."""
+        with torch.inference_mode():
+            img, feats = self._synthesize(z, input_is_latent)
+            logits = project_segment_fcn(
+                feats, self.ssl_params["projection"][0]["weight"],
+                self.seg_params, self.seg_size, hlen=self.hlen)
+            return img, logits, self._project([f[:1] for f in feats])
+
+    def serve(self, z, input_is_latent=False):
+        """(img, labels, z0) for a batch of z (or w), as the JAX ``infer``
+        computes them: ``infer_folded``'s argmaxes."""
+        img, logits, emb0 = self.infer_folded(z, input_is_latent)
         return img, logits.argmax(dim=-1), emb0.argmax(dim=-1)

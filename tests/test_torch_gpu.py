@@ -242,6 +242,92 @@ def test_server_kernels_match_plain_ops(cuda):
     assert (z0 == p_z0).float().mean().item() >= 0.999
 
 
+def test_folded_server_matches_unfused_server(cuda):
+    """The folded request against the unfused one on the card: the image
+    bit-equal, logits within 1e-4 * max(1, max |unfused|), labels on 99.9%
+    of the pixels, sample 0's embedding within the logits' gate
+    (chip_smoke.py's phase 4 gates)."""
+    from ganecdotes_torch.pipeline.serving import OneShotServer
+
+    mc = SimpleNamespace(truncation=0.7, num_latents_for_mean=256,
+                         gen_args=dict(size=64, style_dim=512, n_mlp=8),
+                         classes=["c%d" % i for i in range(8)])
+    for size, hlen in (("XXS", 1300), ("S", 3000)):
+        sc = SimpleNamespace(
+            hfc_prep_args=dict(swav_args=dict(hlen=hlen, nclasses=16,
+                                              nprototypes=32, projn_nw="linear",
+                                              hf_interp="nearest")),
+            seg_args=dict(size=size, in_ch=16))
+        server = OneShotServer(mc, sc, device=cuda, seed=3)
+        z = torch.randn(8, 512, generator=torch.Generator().manual_seed(4))
+        img, logits, emb0 = server.infer_folded(z)
+        u_img, u_logits, u_emb0 = server.infer(z)
+        assert torch.equal(img, u_img)
+        scale = max(1.0, u_logits.abs().max().item())
+        assert (logits - u_logits).abs().max().item() <= 1e-4 * scale
+        # z0: sample 0 projected alone against its row of the batch's
+        # projection (another GEMM shape), the logits' gate
+        assert (emb0 - u_emb0).abs().max().item() <= \
+            1e-4 * max(1.0, u_emb0.abs().max().item())
+        agree = (logits.argmax(-1) == u_logits.argmax(-1)).float().mean().item()
+        assert agree >= 0.999
+
+
+def test_pipeline_kernels_match_plain_ops(cuda, tmp_path):
+    """The tiny one-shot pipeline (tests/test_pipeline.py's configs, 3 test
+    samples, train_hfc False with one swav_params.npz) with KERNELS and with
+    PLAIN from the same seed, at chip_smoke.py's phase 8 gates: one-shot
+    features within 1e-3 * max(1, max |plain|), the fine-tune loss after its
+    first chunk within 1e-3 and after the last 2e-2 relative, the test labels
+    on 99.9% of the pixels, the mean mask IoU within 1e-2."""
+    import os
+    import shutil
+    import textwrap
+
+    from test_pipeline import TINY_MODEL, TINY_SWAV, TINY_TRAINER
+
+    from ganecdotes_torch.ops.opset import KERNELS
+    from ganecdotes_torch.pipeline.one_shot_pipeline import OneShotPipeline
+    from ganecdotes_torch.selfsup.swav import init_swav_params
+    from ganecdotes_torch.utils.serialization import save_pytree
+
+    cfg = {}
+    for name, body in [("model", TINY_MODEL), ("trainer", TINY_TRAINER),
+                       ("seg", TINY_SWAV)]:
+        cfg[name] = str(tmp_path / f"{name}_config.py")
+        with open(cfg[name], "w") as f:
+            f.write(textwrap.dedent(body))
+    params = str(tmp_path / "swav_params.npz")
+    save_pytree(params, init_swav_params(
+        3584, 16, 32, generator=torch.Generator().manual_seed(1)))
+    runs = []
+    for name, ops in (("kernels", KERNELS), ("plain", PLAIN)):
+        out = str(tmp_path / name)
+        os.makedirs(out)
+        shutil.copy(params, out)
+        _build.reset_launches()
+        pipe = OneShotPipeline(out, segmentor="hfc_with_swav", custom=cfg,
+                               num_test_samples=3, device=cuda, ops=ops, seed=2)
+        pipe.seg_config.train_hfc = False
+        pipe.seg_config.hfc_prep_args["train"] = False
+        pipe.run_pipeline()
+        torch.cuda.synchronize()
+        runs.append((pipe, dict(_build.LAUNCHES)))
+    (kern, launches), (plain, plain_launches) = runs
+    serving = ("fused_leaky_relu", "upfirdn2d", "styled_conv3x3",
+               "styled_up_conv3x3")
+    assert all(launches[k] > 0 for k in serving), launches
+    assert all(v == 0 for v in plain_launches.values()), plain_launches
+    assert kern.preprocessor.pretrain_count == plain.preprocessor.pretrain_count == 0
+    f, p = kern.one_shot_train_features, plain.one_shot_train_features
+    assert (f - p).abs().max().item() <= 1e-3 * max(1.0, p.abs().max().item())
+    (_, k1, _), (_, p1, _) = kern.finetune_log[0], plain.finetune_log[0]
+    (_, kl, _), (_, pl, _) = kern.finetune_log[-1], plain.finetune_log[-1]
+    assert abs(k1 - p1) <= 1e-3 * abs(p1) and abs(kl - pl) <= 2e-2 * abs(pl)
+    assert (kern.pred_labels == plain.pred_labels).mean() >= 0.999
+    assert abs(kern.mean_mask_iou - plain.mean_mask_iou) <= 1e-2
+
+
 @pytest.mark.parametrize("b,k,niters,eps", [
     (64, 128, 10, 0.005), (1999, 1237, 3, 0.05), (300, 256, 0, 0.05),
     (130, 7, 2, 0.5), (20000, 5000, 10, 0.05), (4000, 8000, 3, 0.05),

@@ -5,8 +5,8 @@ The JAX side is the body of the fused ``infer`` of
 pipeline/one_shot_pipeline.py:610-629 (generator_forward +
 project_segment_fcn + swav_predict_from_features on the first sample) at
 size 64 with a small nclasses and an hlen that cuts a pyramid level in the
-middle. The port's server computes the unfused form (projection, then
-head), which equals the folded one up to summation order. Tolerance: float32
+middle. The port's server computes the same folded form
+(``OneShotServer.infer_folded``, behind ``serve``). Tolerance: float32
 on both sides, 2e-4 absolute plus 1e-4 relative on values of order 1-10;
 argmax labels may differ only where two logits tie to that precision, so at
 least 99.9% of pixels must agree.
@@ -92,7 +92,7 @@ def test_server_matches_jax_serving_program():
         ssl_params=from_jax_params(ssl),
         seg_params=from_jax_params(seg), mean_latent=mean)
     _build.reset_launches()
-    img, logits, emb0 = server.infer(z)
+    img, logits, emb0 = server.infer_folded(z)
     _, labels, z0 = server.serve(z)
     assert all(v == 0 for v in _build.LAUNCHES.values())  # CPU: plain path
 
@@ -192,6 +192,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     banned = ("jax", "jaxlib", "ganecdotes_tpu", "optax", "flax")
     files = list(_port_files())
     assert len(files) > 10
+    for cli in ("evaluate.py", "pretrain.py"):  # the CLIs are covered too
+        assert os.path.join(ROOT_DIR, "ganecdotes_torch", "cli", cli) in files
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
