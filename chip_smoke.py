@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels and drive its serving, SwAV
-pretraining, BagGAN training and one-shot evaluate paths on one GPU.
+pretraining, BagGAN training and one-shot evaluate paths, and the other
+four segmentation methods' pretrain and evaluate paths, on one GPU.
 
 Run from the repository root on a machine with one CUDA card and nvcc
 (found through CUDA_HOME, PATH or /usr/local/cuda):
@@ -64,10 +65,25 @@ Phases (any failure exits non-zero before the last line):
      again with every op on its plain version; the features, the fine-tune
      losses, the test labels and the mean mask IoU held against the plain
      run; 10 more fine-tune epochs under torch.profiler;
-  9. one JSON line of the kernels, then the result line.
+  9. methods: RepurposeGAN, DatasetGAN, hfc_with_simclr and hfc_kmeans at
+     ffhq-256, each with the kernels and again with every op on its plain
+     version: SimCLR's pretraining (5 of its 100 steps; step losses held
+     to 1e-5) and the k-means fit at the shipped config (its block
+     features held to 1e-3; the plain fit runs on the kernels fit's
+     features with its k-means++ picks, centers held to 1e-3), then
+     cli/evaluate.py's path on the kernels run's pretrained files (16 test
+     samples, 200 fine-tune epochs) held with phase 8's gates (the one-shot
+     features of each run, k-means' one-hot ones by their agreement; the
+     plain run fine-tunes on the kernels run's features, since one
+     rounding step of them moves the 200 epochs past the loss and label
+     gates: method_rounding.py), the folded request against its unfused
+     oracle, 3 timed requests of each, and RepurposeGAN's fine-tune epoch
+     with the head's first conv by cuDNN and by the matmul form;
+ 10. one JSON line of the kernels, then the result line.
 
 ``--details PATH`` also writes every shape's numbers, the build record and
-the serving, pretraining, training and evaluate records to a JSON file.
+the serving, pretraining, training, evaluate and methods records to a JSON
+file.
 """
 
 import argparse
@@ -1743,6 +1759,373 @@ def evaluate(dev):
     return {"kernels": kr, "plain": pr, "gates": gates, "finetune_profile": kern_prof}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the other four methods (pretrain where they do, then evaluate)
+# ---------------------------------------------------------------------------
+
+METHODS = ("repurposegan", "datasetgan", "hfc_with_simclr", "hfc_kmeans")
+PRETRAINED = {"hfc_with_simclr": ["simclr_params.npz"],
+              "hfc_kmeans": [f"clusterer_layer_{n}.npz" for n in range(5)]
+              + ["model_stats.npz"]}
+SIMCLR_STEPS = 5  # of the shipped config's num_iters = 100
+CENTER_TOL = 1e-3  # k-means centers, KERNELS vs PLAIN, of max(1, max |plain|)
+TIMED_REQUESTS = 3  # folded and unfused, after prediction; median of 2-3
+
+
+class _Blocks:
+    """Host-clock ms (synced) and peak device memory of named blocks."""
+
+    def __init__(self):
+        self.ms, self.peak = {}, {}
+
+    def __call__(self, name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        self.ms[name] = _sync_ms(t0)
+        self.peak[name] = torch.cuda.max_memory_allocated()
+        return out
+
+
+def _method_pipeline(method, out_dir, dev, ops, gen, pretraining):
+    """OneShotPipeline for ``method`` at ffhq-256 with cli/pretrain.py's
+    settings (``pretraining``; SimCLR cut to SIMCLR_STEPS steps) or
+    cli/evaluate.py's."""
+    from ganecdotes_torch.pipeline.one_shot_pipeline import OneShotPipeline
+
+    pipe = OneShotPipeline(out_dir, model="ffhq-256", segmentor=method,
+                           num_test_samples=EVAL_TEST_SAMPLES, device=dev,
+                           ops=ops, gen=gen)
+    pipe.logger.setLevel(logging.WARNING)  # its per-chunk lines: details only
+    sc = pipe.seg_config
+    if method in PRETRAINED:
+        sc.train_hfc = pretraining
+        sc.hfc_prep_args["train"] = pretraining
+    if method == "hfc_kmeans":
+        sc.hfc_prep_args["hfc_args"]["base_args"]["presaved"] = not pretraining
+    if method == "hfc_with_simclr" and pretraining:
+        sc.hfc_prep_args["simclr_args"]["num_iters"] = SIMCLR_STEPS
+    return pipe
+
+
+def run_method_pretrain(method, gen, dev, ops, out_dir, replay=None):
+    """cli/pretrain.py's path up to the fitted preprocessor: SimCLR's steps
+    (each step's loss and host ms; ``pretrain`` = the pipeline's one-shot
+    features block, which pretrains), or the k-means fit's features
+    (``block_features``) and the fit (``fit``: ``HFCPreprocessor.
+    train_hfc_model`` in two blocks). ``replay`` = (k-means++ picks, block
+    features) of the kernels run: the plain run computes its own block
+    features, then fits on the kernels run's with the same picks (Lloyd's
+    300 iterations carry a rounding step of their input further than the
+    centers' gate, ``method_rounding.py``). Returns (pipeline, record, the
+    block features)."""
+    blocks = _Blocks()
+    pipe = blocks("construct", lambda: _method_pipeline(method, out_dir, dev,
+                                                        ops, gen, True))
+    blocks("setup", pipe.setup)
+    rec = {"block_ms": blocks.ms, "peak_memory_bytes": blocks.peak}
+    pre, hidden = pipe.preprocessor, None
+    if method == "hfc_with_simclr":
+        pipe.preprocessor = pre = blocks("simclr_setup", pipe._build_ssl_preprocessor)
+        pre.record_loss_history = True
+        blocks("pretrain", pipe._extract_one_shot_features)
+        check(pre.pretrain_count == 1 and len(pre.loss_history) == SIMCLR_STEPS,
+              "SimCLR did not take its steps")
+        rec.update(losses=pre.loss_history,
+                   step_ms=[t * 1e3 for t in pre.step_seconds])
+    else:
+        hidden = blocks("block_features",
+                        lambda: pre.block_features(pipe.one_shot_latent))
+        fit_on = hidden
+        if replay is not None:
+            pre.hfc_model.replay_seeds, fit_on = replay
+        blocks("fit", lambda: pre.hfc_model.fit(fit_on))
+        rec["fit_s"] = blocks.ms["fit"] / 1e3
+    for f in PRETRAINED[method]:
+        check(os.path.exists(os.path.join(out_dir, f)), f"{f} was not written")
+    return pipe, rec, hidden
+
+
+def run_method_evaluate(method, gen, dev, ops, out_dir, replay_features=None):
+    """cli/evaluate.py's path for ``method`` (the preprocessor's files loaded,
+    not refitted), block by block; then TIMED_REQUESTS folded and unfused
+    requests, and scoring. With ``replay_features`` (the kernels run's
+    one-shot features) the run computes its own, then fine-tunes on those:
+    200 epochs of Adam carry a rounding step of the features further than
+    the loss and label gates (``method_rounding.py``). Returns (pipeline,
+    record, its own one-shot features)."""
+    from ganecdotes_torch.ops import _build
+
+    blocks = _Blocks()
+    pipe = blocks("construct", lambda: _method_pipeline(method, out_dir, dev,
+                                                        ops, gen, False))
+    blocks("setup", pipe.setup)
+    if method == "hfc_with_simclr":
+        pipe.preprocessor = blocks("simclr_setup", pipe._build_ssl_preprocessor)
+        check(pipe.preprocessor.params is not None,
+              "simclr_params.npz was not loaded")
+    feats = blocks("one_shot_features", pipe._extract_one_shot_features)
+    if replay_features is not None:
+        pipe._extract_one_shot_features = lambda: replay_features
+    blocks("train", pipe.run_trainer)
+    if method == "hfc_with_simclr":
+        check(pipe.preprocessor.pretrain_count == 0, "the evaluate run pretrained")
+    blocks("predict", pipe.predict_tests)
+    launches = dict(_build.LAUNCHES)
+    lat = [torch.as_tensor(pipe.test_latents[i : i + B])
+           for i in (0, B, 0)[:TIMED_REQUESTS]]
+    req = {}
+    for name, fn in (("folded", pipe.server.serve),
+                     ("unfused", pipe.server.serve_unfused)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for z in lat:
+            t0 = time.perf_counter()
+            fn(z, input_is_latent=True)
+            ms.append(_sync_ms(t0))
+        steady = statistics.median(ms[1:])
+        req[name] = {"request_ms": ms, "steady_ms": steady,
+                     "img_per_s": B / steady * 1e3,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    t0 = time.perf_counter()
+    pipe.score_tests()
+    blocks.ms["score"] = (time.perf_counter() - t0) * 1e3
+    epochs = [(e1 - e0, sec) for (e0, _, _), (e1, _, sec)
+              in zip([(0, 0, 0)] + pipe.finetune_log, pipe.finetune_log)]
+    return pipe, {
+        "block_ms": blocks.ms, "peak_memory_bytes": blocks.peak,
+        "launches": launches, "one_shot_features_shape": list(feats.shape),
+        "finetune_conv": pipe.finetune_conv,
+        "finetune_losses": [(e, loss) for e, loss, _ in pipe.finetune_log],
+        "epoch_ms": [sec * 1e3 / n for n, sec in epochs],
+        "finetune_wall_ms": sum(sec for _, _, sec in pipe.finetune_log) * 1e3,
+        "predict_request_ms": [t * 1e3 for t in pipe.inference_times],
+        "requests": req, "score_ms_per_image": blocks.ms["score"] / pipe.num_test_samples,
+        "mean_mask_iou": pipe.mean_mask_iou,
+    }, feats
+
+
+def check_method_folded(pipe):
+    """One request (the first B test latents) folded against its unfused
+    oracle: the image bit-equal, logits within KERNEL_TOL * max(1, max
+    |unfused|), labels on LABEL_AGREEMENT of the pixels; SimCLR's z0
+    embedding within the logits' tolerance."""
+    z = torch.as_tensor(pipe.test_latents[:B])
+    img, logits, emb0 = pipe.server.infer_folded(z, input_is_latent=True)
+    u_img, u_logits, u_emb0 = pipe.server.infer(z, input_is_latent=True)
+    check(torch.equal(img, u_img), "the folded request's image differs")
+    err, _, scale = errors(logits, u_logits)
+    out = {"logit_err": err / max(1.0, scale),
+           "label_agreement": (logits.argmax(-1) == u_logits.argmax(-1))
+           .float().mean().item()}
+    if emb0 is not None:
+        err, _, scale = errors(emb0, u_emb0)
+        out["z0_embedding_err"] = err / max(1.0, scale)
+    check(out["logit_err"] <= KERNEL_TOL, f"folded logits differ: {out}")
+    check(out.get("z0_embedding_err", 0.0) <= KERNEL_TOL, f"z0 differs: {out}")
+    check(out["label_agreement"] >= LABEL_AGREEMENT, f"folded labels: {out}")
+    return out
+
+
+def finetune_conv_choice(pipe, epochs=10):
+    """The fine-tune's epoch with the head's first conv by F.conv2d (cuDNN)
+    and by the matmul form (``embed._conv3x3``), from a copy of the trained
+    head on the pipeline's features: ms an epoch, peak memory, the last
+    loss of each."""
+    from ganecdotes_torch.pipeline import losses
+    from ganecdotes_torch.pipeline.trainer import make_supervised_finetune
+    from ganecdotes_torch.selfsup.embed import _conv3x3
+    from ganecdotes_torch.selfsup.heads import one_shot_segmentor_apply
+
+    size, out = pipe.seg_size, {}
+    feats, label = pipe.one_shot_train_features, pipe.one_shot_label
+    for name, fc in (("cudnn", None), ("matmul", _conv3x3)):
+        optimizer, run_chunk = make_supervised_finetune(
+            lambda p, st, x, fc=fc: (one_shot_segmentor_apply(p, x, size, fc), st),
+            [(1.0, losses.cross_entropy)], pipe.model_config.image_size, 1e-3)
+        params = [{k: v.detach().clone() for k, v in layer.items()}
+                  for layer in pipe.segmentor_params]
+        opt = optimizer.init(params)
+        run_chunk(params, opt, (), feats, label, 0, 2)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, _, _, loss = run_chunk(params, opt, (), feats, label, 2, epochs)
+        out[name] = {"ms_per_epoch": _sync_ms(t0) / epochs, "loss": float(loss),
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    rel = abs(out["cudnn"]["loss"] - out["matmul"]["loss"]) / abs(out["cudnn"]["loss"])
+    check(rel <= FIRST_CHUNK_LOSS_RTOL, f"the two conv forms' losses differ: {out}")
+    return out
+
+
+def methods(dev):
+    """Phase 9: each of the four methods at ffhq-256, with KERNELS and with
+    PLAIN: the pretraining (SimCLR, k-means) held run against run, then the
+    evaluate path of both runs on the kernels run's pretrained files, held
+    against each other with phase 8's gates, and the kernels run's folded
+    request against its unfused oracle. Where a later stage would carry
+    float32 rounding past its gate (the k-means fit, the fine-tune), the
+    plain run gates its own input to the stage and replays the kernels
+    run's input through it."""
+    import shutil
+
+    import numpy as np
+
+    from ganecdotes_torch.models.stylegan2.generator import Generator
+    from ganecdotes_torch.ops import _build
+    from ganecdotes_torch.ops.opset import KERNELS, PLAIN
+
+    mc, _, _, _ = swav_configs()
+    gen = Generator(**mc.gen_args, generator=torch.Generator().manual_seed(0)).to(dev)
+    root = os.path.join(ROOT, "build", "chip_smoke_methods")
+    shutil.rmtree(root, ignore_errors=True)
+    out, failed = {}, []
+
+    def gate(cond, msg):  # every method runs; the phase fails at its end
+        if not cond:
+            failed.append(msg)
+
+    for method in METHODS:
+        rec = {"pretrain": {}, "evaluate": {}}
+        runs, hidden = {}, {}
+        if method in PRETRAINED:
+            replay = None
+            for name, ops in (("kernels", KERNELS), ("plain", PLAIN)):
+                _build.reset_launches()
+                d = os.path.join(root, method, name, "pretrain")
+                pipe, r, hidden[name] = run_method_pretrain(method, gen, dev, ops,
+                                                            d, replay)
+                r["launches"] = dict(_build.LAUNCHES)
+                runs[name] = pipe
+                rec["pretrain"][name] = r
+                if method == "hfc_kmeans":
+                    replay = (pipe.preprocessor.hfc_model.seed_indices, hidden[name])
+            kp, pp = (runs[k].preprocessor for k in ("kernels", "plain"))
+            if method == "hfc_with_simclr":
+                loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                               for a, b in zip(kp.loss_history, pp.loss_history))
+                pre_gates = {"step_loss_max_rel_err": loss_rel}
+                gate(loss_rel <= STEP_LOSS_RTOL,
+                     f"SimCLR step losses differ: {loss_rel} > {STEP_LOSS_RTOL}")
+            else:
+                center_err, fit_feature_err = 0.0, 0.0
+                for a, b in zip(kp.hfc_model.centers, pp.hfc_model.centers):
+                    err, _, scale = errors(a, b)
+                    center_err = max(center_err, err / max(1.0, scale))
+                for a, b in zip(hidden["kernels"], hidden["plain"]):
+                    err, _, scale = errors(a, b)
+                    fit_feature_err = max(fit_feature_err, err / max(1.0, scale))
+                pre_gates = {"fit_feature_err": fit_feature_err,
+                             "center_err": center_err}
+                gate(fit_feature_err <= FEATURE_TOL,
+                     f"the k-means fit's features differ: {fit_feature_err}")
+                gate(center_err <= CENTER_TOL,
+                     f"k-means centers differ: {center_err} > {CENTER_TOL}")
+            rec["pretrain"]["gates"] = pre_gates
+            for k in SERVING_KERNELS:
+                check(rec["pretrain"]["kernels"]["launches"][k] > 0,
+                      f"kernel {k} was not launched on {method}'s pretraining")
+            check(all(v == 0 for v in rec["pretrain"]["plain"]["launches"].values()),
+                  f"{method}'s plain pretraining launched kernels")
+            runs.clear()
+            hidden.clear()
+        own, replay_features = {}, None
+        for name, ops in (("kernels", KERNELS), ("plain", PLAIN)):
+            d = os.path.join(root, method, name, "eval")
+            os.makedirs(d)
+            for f in PRETRAINED.get(method, []):
+                shutil.copy(os.path.join(root, method, "kernels", "pretrain", f), d)
+            _build.reset_launches()
+            runs[name], rec["evaluate"][name], own[name] = run_method_evaluate(
+                method, gen, dev, ops, d, replay_features)
+            replay_features = own[name]
+        kern, kr = runs["kernels"], rec["evaluate"]["kernels"]
+        plain, pr = runs["plain"], rec["evaluate"]["plain"]
+        for k in SERVING_KERNELS:
+            check(kr["launches"][k] > 0, f"kernel {k} was not launched on {method}")
+        check(all(v == 0 for v in pr["launches"].values()),
+              f"{method}'s plain run launched kernels: {pr['launches']}")
+        preds = kern.pred_labels
+        check(preds.shape == (EVAL_TEST_SAMPLES, mc.image_size, mc.image_size),
+              f"{method} labels shape {preds.shape}")
+        check(bool(np.isfinite(kern.test_images).all()), "non-finite test images")
+        f, pf = own["kernels"], own["plain"]
+        if method == "hfc_kmeans":  # one-hot maps: the share of equal entries
+            feat_gate = ("feature_agreement", (f == pf).float().mean().item())
+            feat_ok = feat_gate[1] >= LABEL_AGREEMENT
+        else:
+            err, _, scale = errors(f, pf)
+            feat_gate = ("feature_err", err / max(1.0, scale))
+            feat_ok = feat_gate[1] <= FEATURE_TOL
+        (e1, k1), (_, kl) = kr["finetune_losses"][0], kr["finetune_losses"][-1]
+        (_, p1), (_, pl) = pr["finetune_losses"][0], pr["finetune_losses"][-1]
+        gates = {feat_gate[0]: feat_gate[1],
+                 "first_chunk_loss_rel": abs(k1 - p1) / max(abs(p1), 1e-30),
+                 "last_loss_rel": abs(kl - pl) / max(abs(pl), 1e-30),
+                 "label_agreement": float((kern.pred_labels == plain.pred_labels).mean()),
+                 "mean_mask_iou_err": abs(kern.mean_mask_iou - plain.mean_mask_iou)}
+        rec["evaluate"]["gates"] = gates
+        try:
+            rec["folded"] = check_method_folded(kern)
+        except SmokeFailure as e:
+            rec["folded"] = {"failed": str(e)}
+            gate(False, f"{method}: {e}")
+        if method == "repurposegan":
+            rec["finetune_conv_choice"] = finetune_conv_choice(kern)
+        pre = rec["pretrain"].get("kernels", {})
+        summary = {
+            "folded_ms": kr["requests"]["folded"]["steady_ms"],
+            "folded_img_per_s": kr["requests"]["folded"]["img_per_s"],
+            "unfused_ms": kr["requests"]["unfused"]["steady_ms"],
+            "unfused_img_per_s": kr["requests"]["unfused"]["img_per_s"],
+            "epoch_ms": statistics.median(kr["epoch_ms"]),
+            "finetune_wall_ms": kr["finetune_wall_ms"],
+            "pretrain_step_ms": (statistics.median(pre["step_ms"])
+                                 if "step_ms" in pre else None),
+            "fit_s": pre.get("fit_s"),
+            "plain_folded_ms": pr["requests"]["folded"]["steady_ms"],
+        }
+        rec["summary"] = summary
+        print(f"  {method}: {json.dumps({k: v for k, v in summary.items() if v is not None})}",
+              flush=True)
+        print(f"    gates {json.dumps(gates)}, pretraining {json.dumps(rec['pretrain'].get('gates', {}))}, "
+              f"folded vs unfused {json.dumps(rec['folded'])}", flush=True)
+        for name, r in rec["evaluate"].items():
+            if name == "gates":
+                continue
+            print(f"    {name}: block ms {json.dumps({k: round(v, 3) for k, v in r['block_ms'].items()})}; "
+                  f"peak GiB {json.dumps({k: round(v / 2**30, 3) for k, v in r['peak_memory_bytes'].items()})}; "
+                  f"requests peak GiB folded {r['requests']['folded']['peak_memory_bytes'] / 2**30:.3f}, "
+                  f"unfused {r['requests']['unfused']['peak_memory_bytes'] / 2**30:.3f}; "
+                  f"launches {json.dumps(r['launches'])}; fine-tune conv {r['finetune_conv']}; "
+                  f"mean mask IoU {r['mean_mask_iou']:.6f}", flush=True)
+        for name in ("kernels", "plain"):
+            r = rec["pretrain"].get(name)
+            if r:
+                print(f"    pretrain {name}: block ms {json.dumps({k: round(v, 3) for k, v in r['block_ms'].items()})}; "
+                      f"peak GiB {json.dumps({k: round(v / 2**30, 3) for k, v in r['peak_memory_bytes'].items()})}"
+                      + (f"; step ms {[round(t, 3) for t in r['step_ms']]}, losses {r['losses']}"
+                         if "step_ms" in r else ""), flush=True)
+        if "finetune_conv_choice" in rec:
+            print(f"    fine-tune first conv: {json.dumps(rec['finetune_conv_choice'])}",
+                  flush=True)
+        gate(feat_ok, f"{method} one-shot features differ: {feat_gate}")
+        gate(gates["first_chunk_loss_rel"] <= FIRST_CHUNK_LOSS_RTOL,
+             f"{method} first-chunk loss differs: {gates}")
+        gate(gates["last_loss_rel"] <= LAST_LOSS_RTOL, f"{method} last loss differs: {gates}")
+        gate(gates["label_agreement"] >= LABEL_AGREEMENT, f"{method} labels: {gates}")
+        gate(gates["mean_mask_iou_err"] <= IOU_TOL, f"{method} IoU: {gates}")
+        gate(kl < k1, f"{method}'s fine-tune did not lower its loss: {k1} -> {kl}")
+        check(0.0 <= kern.mean_mask_iou <= 1.0, f"mean mask IoU {kern.mean_mask_iou}")
+        out[method] = rec
+        # nothing of this method stays allocated into the next one's blocks
+        del runs, kern, plain, own, replay_features, f, pf
+    check(not failed, "phase 9 gates failed:\n  " + "\n  ".join(failed))
+    return out
+
+
 def kernels_line(rows, launches):
     out = []
     for name, (source, replaces) in KERNELS_TABLE.items():
@@ -1831,6 +2214,10 @@ def main():
     print(f"evaluate (cli/evaluate.py's path: ffhq-256, hfc_with_swav_ffhq, "
           f"{EVAL_TEST_SAMPLES} test samples):", flush=True)
     evaluated = evaluate(dev)
+    print(f"methods (ffhq-256: {', '.join(METHODS)}; {EVAL_TEST_SAMPLES} test "
+          f"samples; SimCLR {SIMCLR_STEPS} of its 100 steps; k-means at the "
+          "shipped config):", flush=True)
+    other_methods = methods(dev)
 
     # each kernel's launches from the path it belongs to; the serving
     # kernel rows are per request of 8, the Sinkhorn row per SwAV step, the
@@ -1848,7 +2235,8 @@ def main():
             json.dump({"card": smi, "kind": kind, "build": info, "hmma": hmma,
                        "shapes": rows,
                        "serve": served, "pretrain": pretrained, "train": trained,
-                       "evaluate": evaluated, "kernels": line}, f, indent=1)
+                       "evaluate": evaluated, "methods": other_methods,
+                       "kernels": line}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

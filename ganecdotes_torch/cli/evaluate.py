@@ -6,8 +6,11 @@ segmentation on the port (the flags of the top-level ``evaluate.py``, plus
         --method hfc_with_swav --out_dir results/evaluate_default/
 
 Runs on the CUDA card unless ``--device cpu`` is given; without a card and
-without ``--device`` it raises. The SwAV params are loaded from
-``<out_dir>/swav_params.npz`` (pretrained there first if missing).
+without ``--device`` it raises. The SwAV and SimCLR params are loaded from
+``<out_dir>/swav_params.npz`` / ``simclr_params.npz`` (pretrained there first
+if missing), the k-means clusterers from ``<out_dir>/clusterer_layer_{n}.npz``
+(written by ``cli/pretrain.py``; missing ones raise). RepurposeGAN and
+DatasetGAN need nothing saved.
 """
 
 import argparse
@@ -68,6 +71,8 @@ def main(argv=None):
     if args.method not in ["datasetgan", "repurposegan"]:
         pipe.seg_config.train_hfc = False
         pipe.seg_config.hfc_prep_args["train"] = False
+    if args.method == "hfc_kmeans":
+        pipe.seg_config.hfc_prep_args["hfc_args"]["base_args"]["presaved"] = True
     pipe.run_pipeline()
     return pipe
 

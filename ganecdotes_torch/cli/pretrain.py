@@ -5,6 +5,10 @@ then fine-tune and test the one-shot head.
     python -m ganecdotes_torch.cli.pretrain --model ffhq-256 \
         --method hfc_with_swav --out_dir results/pretrain_default_ffhq/
 
+``--method hfc_with_simclr`` writes ``simclr_params.npz`` and ``--method
+hfc_kmeans`` ``clusterer_layer_{n}.npz`` + ``model_stats.npz`` into
+``--out_dir``, where ``cli/evaluate.py`` loads them.
+
 Runs on the CUDA card unless ``--device cpu`` is given; without a card and
 without ``--device`` it raises. Training parameters are in the config files
 under ganecdotes_torch/configs/segmentors/.
@@ -47,6 +51,8 @@ def main(argv=None):
         device=args.device)
     pipe.seg_config.train_hfc = True
     pipe.seg_config.hfc_prep_args["train"] = True
+    if args.method == "hfc_kmeans":
+        pipe.seg_config.hfc_prep_args["hfc_args"]["base_args"]["presaved"] = False
     pipe.run_pipeline()
     return pipe
 

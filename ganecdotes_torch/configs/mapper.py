@@ -3,9 +3,11 @@ and the same model x method alias rules, with the losses and LR schedulers
 mapped to the port's callables.
 
 Every key resolves to a path in the port's ``configs/``. The port ships the
-files of ffhq-256, ``hfc_with_swav_ffhq`` and ``supervised`` only; the
-pipeline raises ``NotImplementedError`` for a key whose file is not there
-yet (``not_ported``).
+files of ffhq-256, the five methods' segmentor configs (``hfc_with_swav_ffhq``,
+``repurposegan``, ``datasetgan``, ``hfc_with_simclr``, ``hfc_kmeans``) and
+``supervised``; the pipeline raises ``NotImplementedError`` for a key whose
+file is not there yet (``not_ported``), and for a part of a shipped method
+that is not ported (``not_ported_part``).
 """
 
 import os
@@ -99,19 +101,28 @@ lr_scheduler = {
     "cosine": sched_lib.cosine_lr,
 }
 
-# the segmentor methods the port's pipeline does not run yet
-UNPORTED_METHODS = ("repurposegan", "datasetgan", "hfc_with_simclr", "hfc_kmeans")
+# the ROADMAP items that bring what the port does not run yet
+ITEMS = {
+    "config": "§1 item 9 (the other model configs)",
+    "loader": "§1 item 5 (the reference-format loaders)",
+    "hier_kmeans": "§1 item 10 (hierarchical k-means and belief encoding)",
+}
 
 
 def not_ported(kind, key, path):
     """Raise ``NotImplementedError`` naming the ROADMAP item that brings the
     ``kind`` ("model", "seg", "trainer") config ``key`` at ``path``."""
-    if kind == "seg" and key in UNPORTED_METHODS:
-        item = "§1 item 4 (the other segmentation methods)"
-    else:
-        item = "§1 item 9 (the other model configs)"
     raise NotImplementedError(
-        f"the port has no {kind} config {key!r} yet ({path}): ROADMAP {item}")
+        f"the port has no {kind} config {key!r} yet ({path}): ROADMAP "
+        f"{ITEMS['config']}")
+
+
+def not_ported_part(what, item):
+    """Raise ``NotImplementedError`` for ``what`` (a method's option or a
+    reference-format file), naming ROADMAP ``ITEMS[item]``: "loader" or
+    "hier_kmeans" (``hfc_algo='hfc_kmeans_hier'``, ``hier_encode=True``,
+    the legacy hierarchical clusterer, beliefs files)."""
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP {ITEMS[item]}")
 
 
 def resolve_method_alias(method, model):

@@ -1,13 +1,20 @@
 """One-shot segmentation pipeline: setup, train, test (port of
-ganecdotes_tpu/pipeline/one_shot_pipeline.py, the hfc_with_swav path).
+ganecdotes_tpu/pipeline/one_shot_pipeline.py) for the five methods:
+hfc_with_swav, hfc_with_simclr, hfc_kmeans (flat), RepurposeGAN and
+DatasetGAN.
 
 * setup: load the test latents and labels (``.pt``/``.npy``/``.npz``) or
   synthesise pseudo-labelled samples, then synthesise the one-shot sample;
-* train: the one-shot SwAV features (``SwAVClustering``, pretrained or
-  loaded from ``swav_params.npz``), then the supervised fine-tune of the
-  FCN head (``pipeline.trainer``);
+* train: the one-shot features of the method (the SwAV or SimCLR
+  projection, pretrained or loaded from ``swav_params.npz`` /
+  ``simclr_params.npz``; the k-means encoding of the clusterers fitted or
+  loaded from ``clusterer_layer_{n}.npz``; the raw nearest-up concat for
+  the two baselines), then the supervised fine-tune of the head
+  (``pipeline.trainer``): an FCN or ``Lin`` head, or DatasetGAN's pixel
+  classifier with its BatchNorm state;
 * test: serve the test set in requests of ``MAX_TEST_BATCH`` through the
-  folded projection + head (``OneShotServer.serve``), then score it with
+  method's folded form (``pipeline.serving``: ``OneShotServer`` and the
+  other methods' servers), then score it with
   ``metrics.segmentation``. ``run_tests`` runs three parts in turn:
   ``predict_tests`` (the device part), ``score_tests`` (numpy metrics, the
   CSVs, ``results.npz``) and ``save_test_figures`` (collages, the PD plot
@@ -15,9 +22,10 @@ ganecdotes_tpu/pipeline/one_shot_pipeline.py, the hfc_with_swav path).
 
 The artifacts and their layout are the JAX pipeline's. What the port does
 not run yet raises ``NotImplementedError`` naming its ROADMAP item: the
-other segmentation methods, the GUI labelling of online mode, the BagGAN
-generator, reference checkpoints, and the model configs not copied yet
-(the p-car / ``sample_noises`` family among them).
+hierarchical k-means and the belief encoding, the GUI labelling of online
+mode, the BagGAN generator, reference checkpoints and clusterers, and the
+model configs not copied yet (the p-car / ``sample_noises`` family among
+them).
 """
 
 import csv
@@ -51,13 +59,23 @@ from ganecdotes_torch.models.stylegan2.generator import (
 )
 from ganecdotes_torch.ops.interp import resize_nearest
 from ganecdotes_torch.ops.opset import KERNELS
-from ganecdotes_torch.pipeline.serving import OneShotServer
-from ganecdotes_torch.selfsup.heads import (
-    DILATIONS,
-    init_one_shot_segmentor,
-    one_shot_segmentor_apply,
+from ganecdotes_torch.pipeline.serving import (
+    ConcatServer,
+    KMeansServer,
+    OneShotServer,
+    PixelClassifierServer,
+    SimCLRServer,
 )
+from ganecdotes_torch.selfsup.embed import _conv3x3, pixel_feature_maps
+from ganecdotes_torch.selfsup.heads import (
+    init_one_shot_segmentor,
+    init_pixel_classifier,
+    one_shot_segmentor_apply,
+    pixel_classifier_apply,
+)
+from ganecdotes_torch.selfsup.kmeans import HFCPreprocessor
 from ganecdotes_torch.selfsup.lars import tree_map
+from ganecdotes_torch.selfsup.simclr import SimCLRClustering
 from ganecdotes_torch.selfsup.swav import SwAVClustering
 from ganecdotes_torch.utils.util import get_logger, load_config
 from ganecdotes_torch.utils.visualization import (
@@ -99,15 +117,25 @@ def _write_table_csv(path, table, classes):
 
 
 class OneShotPipeline:
-    """The JAX ``OneShotPipeline``'s blocks for hfc_with_swav.
+    """The JAX ``OneShotPipeline``'s blocks.
 
     ``device=None`` runs on ``cuda`` and raises without a card;
     ``device="cpu"`` runs every op's plain version. ``ops`` is ``KERNELS`` or
     ``PLAIN``. Random numbers (the generator's weights, the mean latent, the
     synthesised samples, the head's init) come in that order from one
     ``torch.Generator`` seeded with ``seed``; ``gen`` (a port ``Generator``)
-    and ``mean_latent`` may be carried in instead of drawn.
+    and ``mean_latent`` may be carried in instead of drawn, and
+    ``segmentor_init_params`` / ``segmentor_init_state`` (set before the
+    train block) start the fine-tune from given weights.
+
+    ``finetune_conv`` is how the fine-tune computes an FCN head's first conv:
+    "cudnn" (``F.conv2d``) or "matmul" (``embed._conv3x3``, one matmul over
+    the 9 taps and 9 shifted adds); the default is "matmul" for a head whose
+    input is wider than ``MATMUL_CONV_MIN_IN`` channels (RepurposeGAN's
+    5376-wide concat), "cudnn" otherwise.
     """
+
+    MATMUL_CONV_MIN_IN = 1024
 
     def __init__(self, out_dir, exp_name="", model="ffhq-256",
                  segmentor="hfc_kmeans", trainer="supervised", tester="all",
@@ -200,13 +228,19 @@ class OneShotPipeline:
         self.logger.info(f"Model Name: {self.model_str}")
 
     def load_segmentor(self):
+        """The segmentor config, and the k-means preprocessor for
+        hfc_kmeans (the SSL preprocessors are built by the train block)."""
         self.logger.info("Loading Segmentor Network ... ")
-        if "hfc_with_swav" not in self.seg_str:
-            raise NotImplementedError(
-                f"the {self.seg_str} method is not ported yet: ROADMAP §1 item 4")
         self.seg_config = load_config(self.configs["seg"], "seg_config")
         self.segmentor_params = None
+        self.segmentor_state = None
         self.preprocessor = None
+        self.finetune_conv = None
+        if self.seg_str == "hfc_kmeans":
+            self.preprocessor = HFCPreprocessor(
+                model=self.model, model_config=self.model_config,
+                out_dir=self.out_dir, logger=self.logger, device=self.device,
+                ops=self.ops, **self.seg_config.hfc_prep_args)
 
     def load_trainer(self):
         self.logger.info("Loading Trainer ... ")
@@ -217,8 +251,11 @@ class OneShotPipeline:
 
     # ------------------------------------------------------------------
 
+    def _ssl_class(self):
+        return SwAVClustering if "hfc_with_swav" in self.seg_str else SimCLRClustering
+
     def _build_ssl_preprocessor(self):
-        return SwAVClustering(
+        return self._ssl_class()(
             model=self.model, model_config=self.model_config,
             out_dir=self.out_dir, logger=self.logger, tb=self.summary_writer,
             device=self.device, ops=self.ops, **self.seg_config.hfc_prep_args)
@@ -328,13 +365,29 @@ class OneShotPipeline:
     # ------------------------------------------------------------------
 
     def _extract_one_shot_features(self):
-        """The one-shot sample's SwAV projection (the training features)."""
-        if not isinstance(self.preprocessor, SwAVClustering):
+        """The one-shot sample's training features, by method: the raw
+        nearest-up concat of the first ``n_layers`` maps (the baselines), the
+        k-means encoding (the clusterers fitted first with ``train_hfc``),
+        or the SwAV / SimCLR projection (pretrained first with
+        ``train_hfc``, or when no params were loaded)."""
+        if self.seg_str in ("repurposegan", "datasetgan"):
+            return pixel_feature_maps(self.one_shot_features,
+                                      n_layers=self.seg_config.n_layers)
+        if self.seg_str == "hfc_kmeans":
+            if self.seg_config.train_hfc:
+                self.preprocessor.train_hfc_model(self.one_shot_latent)
+            feats, _ = self.preprocessor.predict_hfc_vectors(self.one_shot_latent)
+            return feats
+        if not isinstance(self.preprocessor, self._ssl_class()):
             self.preprocessor = self._build_ssl_preprocessor()
-        if self.seg_config.train_hfc or self.preprocessor.ssl_params is None:
-            self.preprocessor.preprocess(self.one_shot_latent)
-        feats, _ = self.preprocessor.predict_swav_codes(self.one_shot_latent)
-        return feats
+        pre = self.preprocessor
+        if isinstance(pre, SwAVClustering):
+            if self.seg_config.train_hfc or pre.ssl_params is None:
+                pre.preprocess(self.one_shot_latent)
+            return pre.predict_swav_codes(self.one_shot_latent)[0]
+        if self.seg_config.train_hfc or pre.params is None:
+            pre.preprocess(self.one_shot_latent)
+        return pre.predict_simclr_codes(self.one_shot_latent)[0]
 
     def run_trainer(self):
         if self.train_str != "supervised":
@@ -345,17 +398,27 @@ class OneShotPipeline:
         n_class = len(self.model_config.classes)
         in_ch = int(self.one_shot_train_features.shape[-1])
         self.seg_size = self.seg_config.seg_args.get("size", "S")
-        if self.seg_size not in DILATIONS:
-            raise NotImplementedError(
-                f"the {self.seg_size!r} head is not ported yet: ROADMAP §1 item 4")
-        init = init_one_shot_segmentor(in_ch, n_class, self.seg_size,
-                                       generator=self.generator)
+        self._seg_is_mlp = self.seg_str == "datasetgan"
+        state = None
+        if self._seg_is_mlp:
+            init, state = init_pixel_classifier(in_ch, n_class,
+                                                generator=self.generator)
+        else:
+            init = init_one_shot_segmentor(in_ch, n_class, self.seg_size,
+                                           generator=self.generator)
         # start the fine-tune from explicit weights when given (a parity
-        # test carries the JAX head's init in here)
+        # test carries the JAX head's init, and the MLP's BN state, in here)
         if getattr(self, "segmentor_init_params", None) is not None:
             init = self.segmentor_init_params
+        if getattr(self, "segmentor_init_state", None) is not None:
+            state = self.segmentor_init_state
         self.segmentor_params = tree_map(lambda t: t.detach().clone(),
                                          from_jax_params(init, self.device))
+        self.segmentor_state = (None if state is None
+                                else from_jax_params(state, self.device))
+        if self.finetune_conv is None:
+            self.finetune_conv = ("matmul" if in_ch > self.MATMUL_CONV_MIN_IN
+                                  else "cudnn")
         self._train_segmentor()
 
     def _train_segmentor(self):
@@ -372,9 +435,17 @@ class OneShotPipeline:
             **tc.scheduler_args)
         stateful_sched = hasattr(sched, "step")
         size = self.seg_size
+        first_conv = _conv3x3 if self.finetune_conv == "matmul" else None
 
-        def apply_fn(params, state, x):
-            return one_shot_segmentor_apply(params, x, size), state
+        if self._seg_is_mlp:
+            # the BN running stats ride through every chunk; eval-mode
+            # serving normalises with the trained ones
+            def apply_fn(params, state, x):
+                return pixel_classifier_apply(params, state, x, train=True)
+        else:
+            def apply_fn(params, state, x):
+                return one_shot_segmentor_apply(params, x, size,
+                                                first_conv), state
 
         chunk = max(1, int(tc.print_freq))
         optimizer, run_chunk = make_supervised_finetune(
@@ -386,6 +457,7 @@ class OneShotPipeline:
 
         features = self.one_shot_train_features
         label = self.one_shot_label
+        state = self.segmentor_state if self._seg_is_mlp else ()
         # (epochs done, loss, host seconds of the chunk) per chunk
         self.finetune_log = []
         start = time.perf_counter()
@@ -393,8 +465,9 @@ class OneShotPipeline:
         while done < tc.num_epochs:
             n = min(chunk, tc.num_epochs - done)
             t0 = time.perf_counter()
-            self.segmentor_params, opt_state, _, loss = run_chunk(
-                self.segmentor_params, opt_state, (), features, label, done, n)
+            self.segmentor_params, opt_state, state, loss = run_chunk(
+                self.segmentor_params, opt_state, state, features, label,
+                done, n)
             loss = float(loss)
             done += n
             self.finetune_log.append((done, loss, time.perf_counter() - t0))
@@ -405,18 +478,41 @@ class OneShotPipeline:
                 f"time: {time.perf_counter() - start:6.1f}sec")
         for p in opt_state.params:
             p.requires_grad_(False)
+        if self._seg_is_mlp:
+            self.segmentor_state = state
         self.logger.info("******* Training Complete ********")
 
     # ------------------------------------------------------------------
 
     def _make_infer_fn(self):
-        """The test block's request: generate -> folded projection + head ->
-        argmax, on latents w; ``self.server`` holds the server."""
-        self.server = OneShotServer(
-            self.model_config, self.seg_config, device=self.device,
-            gen=self.model, ssl_params=self.preprocessor.ssl_params,
-            seg_params=self.segmentor_params, mean_latent=self.mean_latent,
-            ops=self.ops)
+        """The test block's request: generate -> the method's folded form
+        -> argmax, on latents w; ``self.server`` holds the method's server
+        (``pipeline.serving``)."""
+        if "hfc_with_swav" in self.seg_str:
+            self.server = OneShotServer(
+                self.model_config, self.seg_config, device=self.device,
+                gen=self.model, ssl_params=self.preprocessor.ssl_params,
+                seg_params=self.segmentor_params, mean_latent=self.mean_latent,
+                ops=self.ops)
+        else:
+            args = (self.model, self.mean_latent, self.model_config.truncation,
+                    self.segmentor_params, self.seg_size)
+            sc = self.seg_config
+            if self.seg_str == "repurposegan":
+                self.server = ConcatServer(*args, n_layers=sc.n_layers,
+                                           ops=self.ops)
+            elif self.seg_str == "datasetgan":
+                self.server = PixelClassifierServer(
+                    *args, state=self.segmentor_state, n_layers=sc.n_layers,
+                    ops=self.ops)
+            elif self.seg_str == "hfc_with_simclr":
+                sa = self.preprocessor.simclr_args
+                self.server = SimCLRServer(
+                    *args, params=self.preprocessor.params, hlen=sa["hlen"],
+                    interp=sa.get("hf_interp", "nearest"), ops=self.ops)
+            else:
+                self.server = KMeansServer(*args, pre=self.preprocessor,
+                                           ops=self.ops)
         return functools.partial(self.server.serve, input_is_latent=True)
 
     def run_tests(self):
@@ -436,7 +532,8 @@ class OneShotPipeline:
         infer = self._make_infer_fn()
         batch = MAX_TEST_BATCH
         pred_labels, test_images, inference_times = [], [], []
-        self._request_firsts = []  # (offset, img 0, cluster map 0, labels 0)
+        # (offset, img 0, cluster map 0 or None, labels 0)
+        self._request_firsts = []
         n = self.num_test_samples
         for bs in range(0, n, batch):
             t0 = time.perf_counter()
@@ -452,7 +549,8 @@ class OneShotPipeline:
             img = img.cpu()
             test_images.append(img.numpy())
             self._request_firsts.append(
-                (bs, img[0].numpy(), z0[0].cpu().numpy(), pred[0].numpy()))
+                (bs, img[0].numpy(), None if z0 is None else z0[0].cpu().numpy(),
+                 pred[0].numpy()))
 
         self.pred_labels = np.concatenate(pred_labels, axis=0)[:n]
         self.test_images = np.concatenate(test_images, axis=0)[:n]
@@ -556,15 +654,16 @@ class OneShotPipeline:
                                     "pictures that need it are not written")
         for bs, img0, cluster0, pred0 in self._request_firsts:
             img0 = img0 / max(float(np.abs(img0).max()), 1e-12)
-            cluster0 = cluster0.astype(np.float32)
-            cluster0 = cluster0 / max(float(cluster0.max()), 1e-12)
-            if have_mpl:
-                self._save_test_pred_figure(img0, cluster0, bs)
-            self.summary_writer.add_image(
-                "one_shot/test_image", np.clip(img0 * 0.5 + 0.5, 0, 1),
-                step=bs, dataformats="HWC")
-            self.summary_writer.add_image(
-                "one_shot/swav_output", cluster0, step=bs, dataformats="HW")
+            if cluster0 is not None:  # the SSL methods' cluster map
+                cluster0 = cluster0.astype(np.float32)
+                cluster0 = cluster0 / max(float(cluster0.max()), 1e-12)
+                if have_mpl:
+                    self._save_test_pred_figure(img0, cluster0, bs)
+                self.summary_writer.add_image(
+                    "one_shot/test_image", np.clip(img0 * 0.5 + 0.5, 0, 1),
+                    step=bs, dataformats="HWC")
+                self.summary_writer.add_image(
+                    "one_shot/swav_output", cluster0, step=bs, dataformats="HW")
             pred0 = pred0.astype(np.float32)
             self.summary_writer.add_image(
                 "one_shot/predictions", pred0 / max(float(pred0.max()), 1.0),

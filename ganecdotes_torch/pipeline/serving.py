@@ -1,7 +1,10 @@
-"""Batched generate -> embed -> segment serving for hfc_with_swav (port of
-the hfc_with_swav branch of ganecdotes_tpu OneShotPipeline._make_infer_fn,
-pipeline/one_shot_pipeline.py:563-631, and the request loop of run_tests,
-:933-950).
+"""Batched generate -> embed -> segment serving, one server per method (port
+of ganecdotes_tpu OneShotPipeline._make_infer_fn,
+pipeline/one_shot_pipeline.py:563-838, and the request loop of run_tests,
+:933-950): ``OneShotServer`` for hfc_with_swav, and ``ConcatServer``
+(RepurposeGAN), ``PixelClassifierServer`` (DatasetGAN), ``SimCLRServer``
+(hfc_with_simclr) and ``KMeansServer`` (hfc_kmeans), which the pipeline
+builds from its trained weights.
 
 A request is a batch of z (B, latent_dim), or of w with
 ``input_is_latent=True`` (the pipeline's test latents). The server maps z
@@ -16,7 +19,12 @@ first conv folded into the feature pyramid (``infer_folded``,
 ``embed.project_segment_fcn``): the (B, H, W, nclasses) embedding is
 computed for sample 0 only, for ``z0``. ``infer`` keeps the unfused form,
 projection then head, as the oracle the folded form is held against
-(``serve_unfused`` is its argmax).
+(``serve_unfused`` is its argmax). A ``Lin`` head has no conv to fold:
+its ``serve`` is the unfused form, as the JAX pipeline serves it.
+
+Every server's ``serve`` and ``serve_unfused`` return (img, labels, z0);
+z0 is None for the methods without a cluster map (RepurposeGAN, DatasetGAN,
+hfc_kmeans), as the JAX ``infer`` returns (img, labels) for them.
 """
 
 import torch
@@ -30,11 +38,24 @@ from ganecdotes_torch.models.stylegan2.generator import (
     mean_latent as _mean_latent,
 )
 from ganecdotes_torch.ops.opset import KERNELS
-from ganecdotes_torch.selfsup.embed import project_segment_fcn
+from ganecdotes_torch.selfsup.augmentor import group_features_by_block
+from ganecdotes_torch.selfsup.embed import (
+    concat_segment_fcn,
+    pixel_feature_maps,
+    project_feature_maps,
+    project_segment_fcn,
+)
 from ganecdotes_torch.selfsup.heads import (
     DILATIONS,
     init_one_shot_segmentor,
     one_shot_segmentor_apply,
+    pixel_classifier_apply,
+    pixel_classifier_from_first,
+)
+from ganecdotes_torch.selfsup.kmeans import hfc_predict_from_features, hfc_segment_fcn
+from ganecdotes_torch.selfsup.simclr import (
+    simclr_predict_from_features,
+    simclr_predict_segment,
 )
 from ganecdotes_torch.selfsup.swav import init_swav_params, swav_predict_from_features
 
@@ -71,12 +92,10 @@ class OneShotServer:
         self.projn_nw = sa["projn_nw"]
         self.interp = sa.get("hf_interp", "nearest")
         self.seg_size = dict(sc.seg_args).get("size", "S")
-        if (self.projn_nw != "linear" or self.interp != "nearest"
-                or self.seg_size not in DILATIONS):
+        if self.projn_nw != "linear" or self.interp != "nearest":
             raise NotImplementedError(
-                "serving is ported for the linear projection, nearest "
-                "interpolation and the FCN heads; got "
-                f"{self.projn_nw!r}, {self.interp!r}, {self.seg_size!r}")
+                "serving is ported for the linear projection and nearest "
+                f"interpolation; got {self.projn_nw!r}, {self.interp!r}")
         self.truncation = mc.truncation
 
         def rng(k):
@@ -129,7 +148,9 @@ class OneShotServer:
 
     def infer_folded(self, z, input_is_latent=False):
         """``infer``'s outputs with the head's first conv folded into the
-        pyramid: only sample 0's embedding is computed."""
+        pyramid: only sample 0's embedding is computed. A Lin head: ``infer``."""
+        if self.seg_size not in DILATIONS:
+            return self.infer(z, input_is_latent)
         with torch.inference_mode():
             img, feats = self._synthesize(z, input_is_latent)
             logits = project_segment_fcn(
@@ -142,3 +163,173 @@ class OneShotServer:
         computes them: ``infer_folded``'s argmaxes."""
         img, logits, emb0 = self.infer_folded(z, input_is_latent)
         return img, logits.argmax(dim=-1), emb0.argmax(dim=-1)
+
+
+class MethodServer:
+    """The request of one of the other methods, from the pipeline's trained
+    weights: ``gen`` (a port ``Generator``), the pipeline's ``mean_latent``,
+    the model config's ``truncation``, the head's ``seg_params`` and
+    ``seg_size``. A subclass computes (logits, z0 or None) from the
+    request's latents w in ``_folded`` and ``_unfused``."""
+
+    def __init__(self, gen, mean_latent, truncation, seg_params, seg_size,
+                 ops=KERNELS):
+        self.gen = gen
+        self.mean_latent = mean_latent
+        self.truncation = truncation
+        self.seg_params = seg_params
+        self.seg_size = seg_size
+        self.ops = ops
+        self.device = mean_latent.device
+
+    def _w(self, z, input_is_latent):
+        z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
+        return z if input_is_latent else mapping_apply(self.gen, z, self.ops)
+
+    def _synthesize(self, w):
+        return generator_forward(
+            self.gen, w, input_is_latent=True, truncation=self.truncation,
+            truncation_latent=self.mean_latent, ops=self.ops)
+
+    def infer(self, z, input_is_latent=False):
+        """The unfused form: (img (B,H,W,3), logits (B,H,W,C_out), z0's
+        embedding or None)."""
+        with torch.inference_mode():
+            w = self._w(z, input_is_latent)
+            return self._unfused(w)
+
+    def infer_folded(self, z, input_is_latent=False):
+        """``infer``'s outputs through the method's folded form."""
+        with torch.inference_mode():
+            w = self._w(z, input_is_latent)
+            return self._folded(w)
+
+    @staticmethod
+    def _argmax(img, logits, emb0):
+        return (img, logits.argmax(dim=-1),
+                None if emb0 is None else emb0.argmax(dim=-1))
+
+    def serve(self, z, input_is_latent=False):
+        """(img, labels, z0) for a batch of z (or w), the folded form."""
+        return self._argmax(*self.infer_folded(z, input_is_latent))
+
+    def serve_unfused(self, z, input_is_latent=False):
+        """``infer``'s (img, labels, z0): the oracle of ``serve``."""
+        return self._argmax(*self.infer(z, input_is_latent))
+
+
+class ConcatServer(MethodServer):
+    """RepurposeGAN: the head over the first ``n_layers`` feature maps'
+    nearest-up concat; folded, ``embed.concat_segment_fcn``."""
+
+    def __init__(self, *args, n_layers, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.n_layers = n_layers
+
+    def _unfused(self, w):
+        img, feats = self._synthesize(w)
+        x = pixel_feature_maps(feats, n_layers=self.n_layers)
+        return img, one_shot_segmentor_apply(self.seg_params, x, self.seg_size), None
+
+    def _folded(self, w):
+        img, feats = self._synthesize(w)
+        return img, concat_segment_fcn(feats, self.seg_params, self.seg_size,
+                                       n_layers=self.n_layers), None
+
+
+class PixelClassifierServer(MethodServer):
+    """DatasetGAN: the eval-mode pixel classifier (BN ``state``) over the
+    concat; folded, its first Linear projected level by level
+    (``embed.project_feature_maps``), then ``pixel_classifier_from_first``."""
+
+    def __init__(self, *args, state, n_layers, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.state = state
+        self.n_layers = n_layers
+
+    def _unfused(self, w):
+        img, feats = self._synthesize(w)
+        x = pixel_feature_maps(feats, n_layers=self.n_layers)
+        logits, _ = pixel_classifier_apply(self.seg_params, self.state, x,
+                                           train=False)
+        return img, logits, None
+
+    def _folded(self, w):
+        img, feats = self._synthesize(w)
+        first = self.seg_params[0]
+        v1 = project_feature_maps(feats[: self.n_layers], first["weight"])
+        v1 = v1 + first["bias"]
+        return img, pixel_classifier_from_first(self.seg_params, self.state,
+                                                v1), None
+
+
+class SimCLRServer(MethodServer):
+    """hfc_with_simclr: the projection (``params``, per-image BatchNorm
+    statistics) then the head; folded, ``simclr.simclr_predict_segment``.
+    z0 is sample 0's projection. The unfused form projects one image at a
+    time (the JAX package vmaps it), so the batch never couples samples."""
+
+    def __init__(self, *args, params, hlen, interp="nearest", **kwargs):
+        super().__init__(*args, **kwargs)
+        self.params = params
+        self.hlen = hlen
+        self.interp = interp
+
+    def _embed(self, feats):
+        return simclr_predict_from_features(self.params, feats, self.hlen,
+                                            self.interp)
+
+    def _unfused(self, w):
+        img, feats = self._synthesize(w)
+        embs = [self._embed([f[i : i + 1] for f in feats])
+                for i in range(w.shape[0])]
+        logits = torch.cat([one_shot_segmentor_apply(self.seg_params, e,
+                                                     self.seg_size)
+                            for e in embs])
+        return img, logits, embs[0]
+
+    def _folded(self, w):
+        img, feats = self._synthesize(w)
+        logits = simclr_predict_segment(self.params, feats, self.seg_params,
+                                        self.seg_size, self.hlen, self.interp)
+        return img, logits, self._embed([f[:1] for f in feats])
+
+
+class KMeansServer(MethodServer):
+    """hfc_kmeans: the features of the preprocessor's own mean latent and
+    truncation (``pre``, an ``HFCPreprocessor``; its latents truncated
+    there, then again in the synthesis, as the JAX program does), each
+    block's nearest center, the flat encoding and the head; folded,
+    ``kmeans.hfc_segment_fcn`` over the blocks' channel parts. The image is
+    a second synthesis at the model config's truncation."""
+
+    def __init__(self, *args, pre, **kwargs):
+        super().__init__(*args, **kwargs)
+        pre.ensure_loaded()
+        self.n_layers = pre.perturb_config["n_layers"]
+        self.p_trunc = pre.perturb_config["truncation"]
+        self.pre_mean = pre.mean_latent
+        self.centers = pre.hfc_model.centers[: self.n_layers]
+        self.cpl = list(pre.hfc_model.clusters_per_layer)
+        self.out_size = pre.hfc_model.out_size
+
+    def _groups(self, w, concat):
+        w = self.pre_mean + self.p_trunc * (w - self.pre_mean)
+        w_plus = w[:, None, :].expand(-1, self.gen.meta["n_latent"], -1)
+        _, feats = generator_forward(
+            self.gen, [w_plus], input_is_latent=True, truncation=self.p_trunc,
+            truncation_latent=self.pre_mean, ops=self.ops)
+        groups = group_features_by_block(feats, skip_const=True, concat=concat)
+        return groups[: self.n_layers]
+
+    def _unfused(self, w):
+        x, _ = hfc_predict_from_features(self._groups(w, True), self.centers,
+                                         self.cpl, self.out_size)
+        logits = one_shot_segmentor_apply(self.seg_params, x, self.seg_size)
+        return self._synthesize(w)[0], logits, None
+
+    def _folded(self, w):
+        logits, _ = hfc_segment_fcn(self._groups(w, False), self.centers,
+                                    self.cpl, self.out_size, self.seg_params,
+                                    self.seg_size)
+        return self._synthesize(w)[0], logits, None

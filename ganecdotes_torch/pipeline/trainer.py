@@ -6,7 +6,11 @@ resized bilinearly and the label by nearest to ``image_size``. The JAX
 package runs the epochs as ``lax.scan`` chunks; here an epoch is one pass of
 a Python loop (forward, ``torch.autograd.grad``, Adam). No kernel of the
 port runs here: the features are fixed, and the head's convs are
-``F.conv2d``.
+``F.conv2d``, which runs under cuDNN's deterministic algorithms: some of
+its default algorithms for the heads' convs and their gradients sum in a
+run-dependent order, and 200 epochs of Adam carry that difference into
+another head (two runs of the same fine-tune on the same features ended
+with losses 2-5% apart on an H100).
 """
 
 import torch
@@ -55,12 +59,17 @@ def make_supervised_finetune(apply_fn, loss_terms, image_size, lr,
         del start  # epochs are counted by opt_state.count
         features = features.detach()
         loss = None
-        for _ in range(length):
-            if sched is not None:
-                opt_state.lr = lr * sched(opt_state.count)
-            loss, state = loss_of(params, state, features, label)
-            grads = torch.autograd.grad(loss, opt_state.params)
-            opt_state.step(grads)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for _ in range(length):
+                if sched is not None:
+                    opt_state.lr = lr * sched(opt_state.count)
+                loss, state = loss_of(params, state, features, label)
+                grads = torch.autograd.grad(loss, opt_state.params)
+                opt_state.step(grads)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
         return params, opt_state, state, loss.detach()
 
     return _Optimizer(), run_chunk

@@ -1,4 +1,5 @@
-"""Latent-perturbation views and feature-space rotate/flip for SwAV (port of
+"""Latent-perturbation views, feature grouping by block and feature-space
+rotate/flip for SwAV, SimCLR and k-means (port of
 ganecdotes_tpu/selfsup/augmentor.py:23-151).
 
 A view lerps the w+ rows of one generator block toward a fresh
@@ -58,6 +59,18 @@ def perturbed_features(gen, w_plus, z_rand, layer_no, n_layers, perturb_std,
     return generator_forward(gen, [w_new], input_is_latent=True,
                              truncation=truncation,
                              truncation_latent=mean_latent_w, ops=ops)
+
+
+def group_features_by_block(features, skip_const=False, concat=True):
+    """Per-block feature groups: [f0, cat(f1, f2), cat(f3, f4), ...], the
+    pairs concatenated along channels (``skip_const`` drops f0). With
+    ``concat=False`` each pair stays a tuple of its two parts, for consumers
+    that distribute over the channel split (``kmeans.kmeans_predict_parts``)."""
+    n_blocks = len(features) // 2
+    pairs = [(features[2 * n + 1], features[2 * n + 2]) for n in range(n_blocks)]
+    if concat:
+        pairs = [torch.cat(p, dim=-1) for p in pairs]
+    return pairs if skip_const else [features[0]] + pairs
 
 
 # ---------------------------------------------------------------------------

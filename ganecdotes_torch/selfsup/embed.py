@@ -9,7 +9,9 @@ and only the nclasses-wide result is upsampled and summed
 upsample + concat form as the oracle.
 
 Serving folds the head's first conv into that sum as well
-(``project_segment_fcn``): the conv distributes over the levels and
+(``project_segment_fcn``; ``concat_segment_fcn`` for RepurposeGAN's raw
+concat features, where the conv's input-channel slices split by level): the
+conv distributes over the levels and
 composes with nearest up-f sampling into one polyphase conv per source
 resolution (``_polyphase_conv3x3_up``), so the (B, H, W, nclasses)
 embedding never exists. The projections are ``torch.matmul``, as the JAX
@@ -35,8 +37,11 @@ def layer_channel_dims(features):
     return [int(f.shape[-1]) for f in features]
 
 
-def pixel_feature_maps(features, hlen=None, interp="nearest"):
-    """Explicit upsample + concat (B, H, W, sum c)[..., :hlen]."""
+def pixel_feature_maps(features, hlen=None, interp="nearest", n_layers=None):
+    """Explicit upsample + concat (B, H, W, sum c)[..., :hlen] of the first
+    ``n_layers`` maps (all by default)."""
+    if n_layers is not None:
+        features = features[:n_layers]
     if interp != "nearest":
         raise NotImplementedError(f"interp={interp!r} is not ported yet")
     h = max(f.shape[1] for f in features)
@@ -276,6 +281,82 @@ def project_segment_fcn(features, weight, seg_params, size, hlen=None):
     out = project_segment_single_conv(
         features, weight, seg_params[0]["weight"], seg_params[0]["bias"],
         hlen=hlen)
+    for p, d in zip(seg_params[1:], DILATIONS[size][1:]):
+        out = leaky_relu(out)
+        out = conv2d_dilated_nhwc(out, p["weight"], dilation=d, padding=d)
+        out = out + p["bias"]
+    return out
+
+
+def narrow_first_conv(total_in, c_out):
+    """Whether the first conv should run on the materialised nearest-up
+    concat (a concat no wider than 2 * C_out moves fewer bytes than the
+    polyphase form's f^2 * C_out phase outputs) rather than level by level.
+    Shared by ``concat_segment_fcn`` and ``kmeans.hfc_segment_fcn``."""
+    return total_in <= 2 * c_out
+
+
+def concat_segment_fcn(features, seg_params, size, hlen=None, n_layers=None,
+                       out_hw=None):
+    """Logits of the head over the raw upsample + concat features, its first
+    conv folded into the level pyramid (RepurposeGAN's serving form, and
+    ``kmeans.hfc_segment_fcn``'s wide branch), so the (B, H, W, sum c)
+    concat never exists:
+
+        conv3x3(concat_l up_f(f_l), W) = sum_l conv3x3(up_f(f_l), W[:, :, s_l])
+
+    with ``s_l`` level l's input-channel slice. Full-resolution levels run
+    ``_conv3x3``; levels above the cutoff min(h // 4, 64) run their own
+    polyphase conv; levels at or below it are lifted to the cutoff
+    resolution, concatenated there and share one polyphase conv. A concat
+    no wider than 2 * C_out (``narrow_first_conv``) is materialised and
+    convolved directly. The other convs run as ``one_shot_segmentor_apply``
+    runs them. ``out_hw`` is the output resolution (default the finest
+    map's). A ``Lin`` head is a per-pixel Linear, so it folds into
+    ``project_feature_maps``.
+    """
+    from ganecdotes_torch.selfsup.heads import DILATIONS
+
+    if n_layers is not None:
+        features = features[:n_layers]
+    if out_hw is not None:
+        h, w = out_hw
+    else:
+        h = max(f.shape[1] for f in features)
+        w = max(f.shape[2] for f in features)
+    w0, b0 = seg_params[0]["weight"], seg_params[0]["bias"]
+    if size == "Lin":
+        z = resize_nearest(project_feature_maps(features, w0, hlen=hlen), (h, w))
+        return leaky_relu(z + b0)
+
+    total = hlen if hlen is not None else w0.shape[2]
+    chunks = _level_chunks(layer_channel_dims(features), total)
+    levels = [(f[..., :use], w0[:, :, off : off + use])
+              for f, (off, use) in zip(features, chunks) if use > 0]
+    if narrow_first_conv(total, w0.shape[3]):
+        out = conv2d_dilated_nhwc(
+            torch.cat([resize_nearest(f, (h, w)) for f, _ in levels], dim=-1),
+            torch.cat([wl for _, wl in levels], dim=2), dilation=1, padding=1)
+    else:
+        cutoff = min(h // 4, 64)
+        out = None
+        lift, lift_w = [], []  # the levels merged at the cutoff resolution
+        for f, wl in levels:
+            r = f.shape[1]
+            if r == h and f.shape[2] == w:
+                y = _conv3x3(f, wl)
+            elif r > cutoff:
+                y = _polyphase_conv3x3_up(f, wl, h // r)
+            else:
+                lift.append(resize_nearest(f, (cutoff, cutoff * w // h)))
+                lift_w.append(wl)
+                continue
+            out = y if out is None else out + y
+        if lift:
+            y = _polyphase_conv3x3_up(torch.cat(lift, dim=-1),
+                                      torch.cat(lift_w, dim=2), h // cutoff)
+            out = y if out is None else out + y
+    out = out + b0
     for p, d in zip(seg_params[1:], DILATIONS[size][1:]):
         out = leaky_relu(out)
         out = conv2d_dilated_nhwc(out, p["weight"], dilation=d, padding=d)

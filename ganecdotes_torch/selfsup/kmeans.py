@@ -1,0 +1,443 @@
+"""Hidden-feature k-means clustering, the flat path (port of
+ganecdotes_tpu/selfsup/kmeans.py: Lloyd's algorithm with k-means++ seeding,
+the flat clusterer, the flat encoding, its folded serving form and the
+preprocessor).
+
+Fit and predict stay on the device: k-means++ seeding, then a fixed number
+of Lloyd iterations (an empty cluster keeps its center), best of ``n_init``
+runs by inertia. The seeding keeps each point's squared distance to its
+nearest chosen center as a running minimum, updated with the distance to
+the newest center only: the same minimum over the same set as the JAX
+package's (N, k, D) difference tensor, without it (8.6 GB a step at the
+shipped config's 128^2 block). Each draw is the inverse CDF of the distances
+at a uniform drawn on the CPU from a ``torch.Generator``; the chosen indices
+are returned, and can be passed back in to replay a seeding.
+
+Checkpoints are the JAX package's: ``clusterer_layer_{n}.npz`` (``centers``)
+per layer and ``model_stats.npz`` in ``out_dir``. Not ported (ROADMAP §1
+item 10): the hierarchical clusterers, the belief encoding
+(``hier_encode=True``) and beliefs files; (item 5) the reference's pickled
+sklearn ``.sav`` clusterers.
+"""
+
+import os
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ganecdotes_torch import resolve_device
+from ganecdotes_torch.configs.mapper import not_ported_part
+from ganecdotes_torch.models.stylegan2.generator import (
+    generator_forward,
+    mean_latent as _mean_latent,
+)
+from ganecdotes_torch.ops.interp import _nearest_indices
+from ganecdotes_torch.ops.opset import KERNELS
+from ganecdotes_torch.selfsup.augmentor import (
+    block_row_std,
+    group_features_by_block,
+    perturb_latents,
+)
+from ganecdotes_torch.selfsup.embed import concat_segment_fcn, narrow_first_conv
+from ganecdotes_torch.selfsup.heads import one_shot_segmentor_apply
+
+# ---------------------------------------------------------------------------
+# Lloyd's algorithm
+# ---------------------------------------------------------------------------
+
+
+def _dist2(x, x_sq, centers):
+    """||x||^2 - 2 x.c + ||c||^2, (N, K)."""
+    return x_sq - 2.0 * (x @ centers.T) + (centers * centers).sum(dim=1)[None, :]
+
+
+def _lloyd_refine(x, centers, max_iter=300):
+    """``max_iter`` Lloyd iterations from ``centers`` -> (centers,
+    assignments, inertia); an empty cluster keeps its previous center."""
+    k = centers.shape[0]
+    x_sq = (x * x).sum(dim=1, keepdim=True)
+    for _ in range(max_iter):
+        onehot = F.one_hot(_dist2(x, x_sq, centers).argmin(dim=1), k).to(x.dtype)
+        counts = onehot.sum(dim=0)[:, None]
+        new = (onehot.T @ x) / torch.clamp(counts, min=1.0)
+        centers = torch.where(counts > 0, new, centers)
+    d2 = _dist2(x, x_sq, centers)
+    return centers, d2.argmin(dim=1), d2.min(dim=1).values.sum()
+
+
+def kmeans_pp_init(x, k, generator=None, indices=None, draws=None):
+    """k-means++ seeding of (N, D) ``x`` -> (centers (k, D), indices (k,)).
+
+    The first center is a uniform pick, each next one a pick in proportion
+    to the squared distance to the nearest center chosen so far: the
+    smallest index whose cumulative distance reaches u times the total, for
+    a uniform u in (0, 1] (``jax.random.choice``'s inverse CDF). ``draws``,
+    (the first index, the k - 1 uniforms), replaces the draws from
+    ``generator``; ``indices`` replays a seeding, drawing nothing."""
+    n = x.shape[0]
+    if indices is not None:
+        indices = torch.as_tensor(indices, device=x.device).reshape(-1)
+        chosen = [indices[:1]]
+    else:
+        if draws is None:
+            first = torch.randint(0, n, (1,), generator=generator)
+            u = 1.0 - torch.rand(max(k - 1, 0), generator=generator)
+        else:
+            first, u = torch.as_tensor(draws[0]).reshape(1), torch.as_tensor(draws[1])
+        chosen = [first.to(x.device)]
+        u = u.to(x.device, x.dtype)
+    d2 = (x - x[chosen[0]]).square().sum(dim=-1)
+    for i in range(1, k):
+        if indices is None:
+            cdf = torch.cumsum(d2 / torch.clamp(d2.sum(), min=1e-12), dim=0)
+            j = torch.searchsorted(cdf, (u[i - 1] * cdf[-1]).reshape(1))
+            j = torch.clamp(j, max=n - 1)
+        else:
+            j = indices[i : i + 1]
+        chosen.append(j)
+        d2 = torch.minimum(d2, (x - x[j]).square().sum(dim=-1))
+    idx = torch.cat(chosen)
+    return x[idx], idx
+
+
+def kmeans_fit_seeded(x, k, generator=None, n_init=10, max_iter=300,
+                      seeds=None):
+    """Best of ``n_init`` k-means runs by inertia -> (centers, the seeding
+    indices of every run). ``seeds``, a list of ``n_init`` index tensors,
+    replays a fit's seedings."""
+    best, best_inertia, used = None, np.inf, []
+    for i in range(n_init):
+        centers, idx = kmeans_pp_init(
+            x, k, generator, None if seeds is None else seeds[i])
+        used.append(idx)
+        centers, _, inertia = _lloyd_refine(x, centers, max_iter)
+        if float(inertia) < best_inertia:
+            best, best_inertia = centers, float(inertia)
+    return best, used
+
+
+def kmeans_fit(x, k, generator=None, n_init=10, max_iter=300,
+               init_centers=None):
+    """Best-of-``n_init`` k-means (sklearn's default semantics) -> centers;
+    with ``init_centers``, Lloyd's iterations from them only."""
+    if init_centers is not None:
+        return _lloyd_refine(x, init_centers[:k], max_iter)[0]
+    return kmeans_fit_seeded(x, k, generator, n_init, max_iter)[0]
+
+
+def _resize_labels(labels, out_size):
+    """Nearest-resize an integer (B, h, w) label map to (B, out, out): a
+    broadcast for integer factors, a gather otherwise."""
+    b, h, w = labels.shape
+    if (h, w) == (out_size, out_size):
+        return labels
+    if out_size % h == 0 and out_size % w == 0:
+        sh, sw = out_size // h, out_size // w
+        return labels[:, :, None, :, None].expand(b, h, sh, w, sw).reshape(
+            b, out_size, out_size)
+    ri = _nearest_indices(h, out_size, labels.device)
+    ci = _nearest_indices(w, out_size, labels.device)
+    return labels[:, ri][:, :, ci]
+
+
+def kmeans_predict(x, centers):
+    """Nearest center: argmin_k (||c_k||^2 - 2 x.c_k), ||x||^2 dropped."""
+    score = (centers * centers).sum(dim=1)[None, :] - 2.0 * (x @ centers.T)
+    return score.argmin(dim=1)
+
+
+def kmeans_predict_parts(parts, centers):
+    """``kmeans_predict`` of the channel concat of ``parts`` (N, c_i) without
+    the concat: the score's product splits over the channels."""
+    if sum(p.shape[-1] for p in parts) != centers.shape[1]:
+        raise ValueError(
+            f"parts widths {[p.shape[-1] for p in parts]} do not sum to "
+            f"the centers' feature dim {centers.shape[1]}")
+    score = (centers * centers).sum(dim=1)[None, :]
+    off = 0
+    for p in parts:
+        c = p.shape[-1]
+        score = score - 2.0 * (p @ centers[:, off : off + c].T)
+        off += c
+    return score.argmin(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the flat clusterer
+# ---------------------------------------------------------------------------
+
+
+class BaseHFCModel:
+    """Per-layer clusterers with the reference's checkpoint layout
+    (hfc_kmeans_clustering.py:11-124): ``fit`` writes one
+    ``clusterer_layer_{n}.npz`` per layer and ``model_stats.npz`` (the
+    per-layer feature means and standard deviations); ``ensure_centers``
+    loads them. ``n_init`` and ``max_iter`` come from ``kmeans_args`` (the
+    reference passes them to sklearn's KMeans), 10 and 300 by default.
+    ``seed_indices`` holds the last fit's k-means++ picks per layer;
+    ``replay_seeds`` (same layout) makes the next fit reuse them."""
+
+    def __init__(self, out_dir, n_layers=6, clusters_per_layer=(), out_size=128,
+                 presaved=False, logger=None, seed=42, kmeans_args=None,
+                 device=None):
+        self.out_dir = out_dir
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.n_layer = n_layers
+        self.clusters_per_layer = list(clusters_per_layer)
+        self.out_size = out_size
+        self.presaved = presaved
+        self.logger = logger
+        self.device = torch.device("cpu") if device is None else device
+        self.generator = torch.Generator().manual_seed(seed)
+        kmeans_args = dict(kmeans_args or {})
+        self.n_init = kmeans_args.get("n_init", 10)
+        self.max_iter = kmeans_args.get("max_iter", 300)
+        self.model_fpaths = [os.path.join(out_dir, f"clusterer_layer_{n}.npz")
+                             for n in range(n_layers)]
+        self.sav_fpaths = [os.path.join(out_dir, f"clusterer_layer_{n}.sav")
+                           for n in range(n_layers)]
+        self.stats_file = os.path.join(out_dir, "model_stats.npz")
+        self.means = [None] * len(self.clusters_per_layer)
+        self.stds = [None] * len(self.clusters_per_layer)
+        self.centers = [None] * n_layers
+        self.seed_indices = [None] * n_layers
+        self.replay_seeds = None
+        if presaved:
+            self.ensure_centers()
+
+    def _log(self, msg):
+        (self.logger.info if self.logger else print)(msg)
+
+    def fit(self, hidden_feat):
+        assert len(hidden_feat) == self.n_layer
+        for n in range(self.n_layer):
+            self.centers[n] = self._layerwise_fit(hidden_feat[n], n)
+            np.savez_compressed(self.model_fpaths[n],
+                                centers=self.centers[n].cpu().numpy())
+            self._log(f"Fitted model for Layer {n}")
+        # per-layer widths differ: object arrays, as the JAX package saves
+        means = np.empty(len(self.means), dtype=object)
+        stds = np.empty(len(self.stds), dtype=object)
+        for i, (m, s) in enumerate(zip(self.means, self.stds)):
+            means[i] = np.asarray(m if m is not None else 0)
+            stds[i] = np.asarray(s if s is not None else 0)
+        np.savez_compressed(self.stats_file, means=means, stds=stds)
+
+    def ensure_centers(self):
+        """Load the saved clusterers (``clusterer_layer_{n}.npz``) once."""
+        if not any(c is None for c in self.centers):
+            return
+        centers = []
+        for npz_fp, sav_fp in zip(self.model_fpaths, self.sav_fpaths):
+            if os.path.exists(npz_fp):
+                centers.append(torch.from_numpy(np.load(npz_fp)["centers"]).to(
+                    self.device, torch.float32))
+            elif os.path.exists(sav_fp):
+                not_ported_part(f"importing the reference's {sav_fp} (a "
+                                "pickled sklearn KMeans)", "loader")
+            else:
+                raise FileNotFoundError(
+                    "Models not found - use BaseHFCModel.fit() to create "
+                    "model first!")
+        self.centers = centers
+
+    def _layerwise_fit(self, feat, n):
+        x = feat.reshape(-1, feat.shape[-1])
+        self.means[n] = x.mean(dim=0).cpu().numpy()
+        self.stds[n] = x.std(dim=0, unbiased=False).cpu().numpy()
+        seeds = None if self.replay_seeds is None else self.replay_seeds[n]
+        centers, self.seed_indices[n] = kmeans_fit_seeded(
+            x, self.clusters_per_layer[n], self.generator, self.n_init,
+            self.max_iter, seeds)
+        return centers
+
+
+class FlatKMeansHFC(BaseHFCModel):
+    def __init__(self, kmeans_args, base_args, device=None):
+        self.kmeans_args = dict(kmeans_args)
+        super().__init__(**base_args, kmeans_args=kmeans_args, device=device)
+
+
+# ---------------------------------------------------------------------------
+# the flat encoding and its folded serving form
+# ---------------------------------------------------------------------------
+
+
+def _assign(groups, centers):
+    """Per-layer (B, h, w) labels; a group may be a tuple of channel parts."""
+    labels = []
+    for feat, c in zip(groups, centers):
+        parts = feat if isinstance(feat, (tuple, list)) else (feat,)
+        b, h, w, _ = parts[0].shape
+        labels.append(kmeans_predict_parts(
+            [p.reshape(-1, p.shape[-1]) for p in parts], c).reshape(b, h, w))
+    return labels
+
+
+def _dtype(groups):
+    first = groups[0]
+    return (first[0] if isinstance(first, (tuple, list)) else first).dtype
+
+
+def hfc_predict_from_features(groups, centers, clusters_per_layer, out_size,
+                              hier_encode=False):
+    """Grouped features -> (features (B, out, out, sum k) in {-1, 1}, the
+    per-layer (B, 1, h, w) labels): each layer's nearest center, its one-hot
+    map nearest-resized to ``out_size``, concatenated, times 2 minus 1 (ref
+    baseline/hfc_kmeans/segmentor.py:169-230, the flat encoding)."""
+    if hier_encode:
+        not_ported_part("hier_encode=True (the belief encoding)", "hier_kmeans")
+    dt = _dtype(groups)
+    labels = _assign(groups, centers)
+    maps = [F.one_hot(_resize_labels(lab, out_size), k).to(dt)
+            for lab, k in zip(labels, clusters_per_layer)]
+    return torch.cat(maps, dim=-1) * 2 - 1, [lab[:, None] for lab in labels]
+
+
+def hfc_segment_fcn(groups, centers, clusters_per_layer, out_size, seg_params,
+                    size):
+    """``one_shot_segmentor_apply(seg_params, hfc_predict_from_features(...)
+    [0], size)``, folded -> (logits, per-layer labels).
+
+    Where the one-hot concat is narrow (``embed.narrow_first_conv``) and the
+    head's first conv reads exactly sum k channels, the concat is built as
+    one multi-hot write over the upsampled label maps; otherwise each
+    layer's affine one-hot map enters ``embed.concat_segment_fcn`` at its
+    native resolution, and the (B, out, out, sum k) concat never exists."""
+    dt = _dtype(groups)
+    labels = _assign(groups, centers)
+    cluster_labels = [lab[:, None] for lab in labels]
+    total = sum(clusters_per_layer[: len(groups)])
+    w0 = seg_params[0]["weight"]
+    if (w0.dim() == 4 and w0.shape[2] == total
+            and narrow_first_conv(total, w0.shape[-1])):
+        ch = torch.arange(total, device=w0.device)
+        acc, off = None, 0
+        for lab, k in zip(labels, clusters_per_layer):
+            ind = _resize_labels(lab, out_size)[..., None] == (ch - off)
+            acc = ind if acc is None else acc | ind
+            off += k
+        z = 2 * acc.to(dt) - 1
+        return one_shot_segmentor_apply(seg_params, z, size), cluster_labels
+    maps = [F.one_hot(lab, k).to(dt) * 2 - 1
+            for lab, k in zip(labels, clusters_per_layer)]
+    logits = concat_segment_fcn(maps, seg_params, size,
+                                out_hw=(out_size, out_size))
+    return logits, cluster_labels
+
+
+# ---------------------------------------------------------------------------
+# the preprocessor
+# ---------------------------------------------------------------------------
+
+
+class HFCPreprocessor:
+    """The k-means front end of hfc_kmeans (ref
+    baseline/hfc_kmeans/segmentor.py:11-231), flat clusterers only: its own
+    mean latent, the perturbed-sample fit (``train_hfc_model``), the saved
+    clusterers' load (``ensure_loaded``) and the one-shot features
+    (``predict_hfc_vectors``).
+
+    ``device=None`` runs on ``cuda`` and raises without a card. Random
+    numbers (the mean latent's z, each layer's perturbation normals, then
+    the clusterers' seedings, from a second generator seeded alike) come
+    from ``torch.Generator``s seeded with ``seed``. ``hfc_algo=
+    'hfc_kmeans_hier'`` and ``hier_encode=True`` raise
+    ``NotImplementedError`` (ROADMAP §1 item 10).
+    """
+
+    def __init__(self, model, model_config, perturb_args, hfc_args,
+                 hfc_algo="hfc_kmeans", hier_encode=True, hle_samples=500,
+                 train=True, out_dir=None, logger=None, seed=42, device=None,
+                 ops=KERNELS):
+        if hfc_algo != "hfc_kmeans":
+            not_ported_part(f"hfc_algo={hfc_algo!r} (the hierarchical "
+                            "clusterer)", "hier_kmeans")
+        if hier_encode:
+            not_ported_part("hier_encode=True (the belief encoding)",
+                            "hier_kmeans")
+        self.device = resolve_device(device)
+        self.ops = ops
+        self.model_config = model_config
+        self.perturb_config = perturb_args
+        self.hfc_args = hfc_args
+        self.hier_encode = hier_encode
+        self.hfc_algo = hfc_algo
+        self.hle_samples = hle_samples
+        self.out_dir = out_dir
+        self.train = train
+        self.logger = logger
+        self.generator = torch.Generator().manual_seed(seed)
+        base_args = dict(hfc_args["base_args"], out_dir=out_dir, logger=logger,
+                         seed=seed)
+        self.hfc_model = FlatKMeansHFC(hfc_args.get("kmeans_args", {}),
+                                       base_args, device=self.device)
+        self.model = model.to(self.device)
+        with torch.no_grad():
+            self.mean_latent = _mean_latent(
+                self.model, getattr(model_config, "num_latents_for_mean", 4096),
+                self.generator, ops)
+
+    def _log(self, msg):
+        (self.logger.info if self.logger else print)(msg)
+
+    def _w_plus(self, input_latent):
+        lat = torch.as_tensor(input_latent, dtype=torch.float32, device=self.device)
+        if lat.dim() == 1:
+            lat = lat[None]
+        trunc = self.perturb_config["truncation"]
+        w = self.mean_latent + trunc * (lat - self.mean_latent)
+        return w[:, None, :].expand(-1, self.model.meta["n_latent"], -1)
+
+    def _grouped_features(self, w_plus, concat=True):
+        with torch.no_grad():
+            _, feats = generator_forward(
+                self.model, [w_plus], input_is_latent=True,
+                truncation=self.perturb_config["truncation"],
+                truncation_latent=self.mean_latent, ops=self.ops)
+        return group_features_by_block(feats, skip_const=True, concat=concat)
+
+    def block_features(self, input_latent, z_rands=None):
+        """The clusterers' training features: for block k, block k's
+        features of ``n_samples`` copies of the sample with block k's w+
+        rows perturbed (ref segmentor.py:68-167). ``z_rands``, one
+        (n_samples * n_latent, D) normals per block, replaces the
+        perturbations' draws."""
+        n_layers = self.perturb_config["n_layers"]
+        n_samples = self.perturb_config["n_samples"]
+        n_latent = self.model.meta["n_latent"]
+        d = self.model_config.latent_dim
+        w_rep = self._w_plus(input_latent).repeat(n_samples, 1, 1)
+        hidden = []
+        for k in range(n_layers):
+            row_std = block_row_std(k, n_layers, self.perturb_config["perturb_std"],
+                                    n_latent, device=self.device)
+            z_rand = (torch.randn(n_samples * n_latent, d, generator=self.generator)
+                      if z_rands is None else torch.as_tensor(z_rands[k]))
+            with torch.no_grad():
+                w_new = perturb_latents(self.model, w_rep, z_rand.to(self.device),
+                                        row_std, self.ops)
+            hidden.append(self._grouped_features(w_new)[k])
+            self._log(f"Generated features for Layer: {k}")
+        return hidden
+
+    def train_hfc_model(self, input_latent, z_rands=None):
+        """Fit the per-layer clusterers on ``block_features``; returns them."""
+        hidden = self.block_features(input_latent, z_rands)
+        self.hfc_model.fit(hidden)
+        return hidden
+
+    def ensure_loaded(self):
+        """The saved clusterers, loaded once."""
+        self.hfc_model.ensure_centers()
+
+    def predict_hfc_vectors(self, input_latent):
+        """(features (B, out, out, sum k) in {-1, 1}, per-layer labels)."""
+        groups = self._grouped_features(self._w_plus(input_latent))
+        n_layers = self.perturb_config["n_layers"]
+        self.ensure_loaded()
+        with torch.no_grad():
+            return hfc_predict_from_features(
+                groups[:n_layers], self.hfc_model.centers[:n_layers],
+                self.hfc_model.clusters_per_layer, self.hfc_model.out_size)

@@ -42,17 +42,9 @@ from ganecdotes_torch.selfsup.embed import (
     project_feature_maps,
     project_gathered,
 )
+from ganecdotes_torch.selfsup.heads import torch_linear_init
 from ganecdotes_torch.selfsup.lars import LARS, apply_updates, tree_leaves, tree_map
 from ganecdotes_torch.utils.serialization import load_pytree, save_pytree
-
-
-def _torch_linear_init(cin, cout, bias, generator):
-    # torch nn.Linear default init: U(-1/sqrt(in), 1/sqrt(in))
-    bound = 1.0 / cin**0.5
-    p = {"weight": (torch.rand(cin, cout, generator=generator) * 2 - 1) * bound}
-    if bias:
-        p["bias"] = (torch.rand(cout, generator=generator) * 2 - 1) * bound
-    return p
 
 
 def _bn_init(n):
@@ -65,17 +57,17 @@ def init_swav_params(hlen, nclasses, nprototypes, projn_nw="linear",
     """Projection (linear | 1-layer | 2-layer, swav_clustering.py:244-269)
     + prototype Linear(nclasses, nprototypes) (:270-271)."""
     if projn_nw in ("linear", "1-layer"):
-        projection = [_torch_linear_init(hlen, nclasses, False, generator)]
+        projection = [torch_linear_init(hlen, nclasses, False, generator)]
     elif projn_nw == "2-layer":
         projection = [
-            _torch_linear_init(hlen, nclasses, False, generator),
+            torch_linear_init(hlen, nclasses, False, generator),
             _bn_init(nclasses),
-            _torch_linear_init(nclasses, nclasses, False, generator),
+            torch_linear_init(nclasses, nclasses, False, generator),
             _bn_init(nclasses),
         ]
     else:
         raise ValueError(f"unknown projn_nw {projn_nw}")
-    prototype = _torch_linear_init(nclasses, nprototypes, True, generator)
+    prototype = torch_linear_init(nclasses, nprototypes, True, generator)
     return {"projection": projection, "prototype": prototype}
 
 

@@ -172,3 +172,66 @@ def test_folded_server_matches_unfused_server(size, hlen, nclasses):
         emb0, swav_predict_from_features(server.ssl_params,
                                          [f[:1] for f in feats], server.hlen,
                                          server.nclasses), atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# RepurposeGAN's folded form: the head over the raw concat
+# ---------------------------------------------------------------------------
+
+# tests/test_selfsup.py:711's mixed pyramid (concat 108 wide)
+PYRAMID_MIXED = [(4, 24), (8, 24), (8, 24), (16, 12), (16, 12), (32, 6), (32, 6)]
+
+
+@pytest.mark.parametrize("size", ["XS", "S", "Lin"])
+@pytest.mark.parametrize("pyramid,kwargs", [
+    (PYRAMID_MIXED, {}), (PYRAMID_MIXED, {"n_layers": 5}),
+    (PYRAMID_MIXED, {"hlen": 99}), (PYRAMID_64, {"n_layers": 7}),
+], ids=["all", "n_layers_5", "hlen_mid_level", "pyramid_64"])
+def test_concat_segment_fcn_matches_unfused_and_jax(size, pyramid, kwargs):
+    """XS (16 outputs) takes the level-by-level branch, S (128) the
+    materialised concat where the concat is at most 256 wide, Lin the
+    projection; the size-64 pyramid's 7 levels (3584 wide, cutoff 16^2)
+    lift 4^2 to 16^2 and fold 32^2 polyphase. Against the head over
+    ``pixel_feature_maps`` (2e-4 absolute + 1e-4 relative, as
+    tests/test_selfsup.py:711) and the JAX form (no Lin branch there)."""
+    rng = np.random.RandomState(len(pyramid) + len(kwargs))
+    feats = [rng.randn(2, r, r, c).astype(np.float32) for r, c in pyramid]
+    n_l, hlen = kwargs.get("n_layers"), kwargs.get("hlen")
+    in_ch = sum(c for _, c in pyramid[:n_l]) if hlen is None else hlen
+    seg = jax.tree.map(np.asarray, init_one_shot_segmentor(
+        jax.random.PRNGKey(4), in_ch, 5, size))
+    tf, tseg = [torch.from_numpy(f) for f in feats], from_jax_params(seg)
+    got = tembed.concat_segment_fcn(tf, tseg, size, **kwargs)
+    x = tembed.pixel_feature_maps(tf, hlen=hlen, n_layers=n_l)
+    want = theads.one_shot_segmentor_apply(tseg, x, size)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-4, rtol=1e-4)
+    jx = jembed.pixel_feature_maps([jnp.asarray(f) for f in feats], hlen=hlen,
+                                   n_layers=n_l)
+    np.testing.assert_array_equal(x.numpy(), np.asarray(jx))
+    if size != "Lin":
+        jgot = jembed.concat_segment_fcn(
+            [jnp.asarray(f) for f in feats], jax.tree.map(jnp.asarray, seg),
+            size, **kwargs)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jgot), atol=2e-4,
+                                   rtol=1e-4)
+
+
+def test_group_features_by_block_matches_jax():
+    from ganecdotes_tpu.selfsup.augmentor import group_features_by_block as jgroup
+    from ganecdotes_torch.selfsup.augmentor import group_features_by_block
+
+    rng = np.random.RandomState(9)
+    feats = [rng.randn(2, r, r, c).astype(np.float32)
+             for r, c in [(4, 3), (8, 2), (8, 4), (16, 5), (16, 1)]]
+    tf, jf = [torch.from_numpy(f) for f in feats], [jnp.asarray(f) for f in feats]
+    for skip in (False, True):
+        got, want = group_features_by_block(tf, skip), jgroup(jf, skip)
+        assert len(got) == len(want) == 3 - skip
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        parts, jparts = (group_features_by_block(tf, skip, concat=False),
+                         jgroup(jf, skip, concat=False))
+        for a, b in zip(parts[skip == 0:], jparts[skip == 0:]):
+            assert isinstance(a, tuple) and len(a) == 2
+            for pa, pb in zip(a, b):
+                np.testing.assert_array_equal(pa.numpy(), np.asarray(pb))

@@ -410,6 +410,132 @@ def test_swav_pretrain_kernels_match_plain_ops(cuda):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("size,in_ch", [("S", 124), ("XS", 512)])
+def test_finetune_repeats_bit_for_bit(cuda, size, in_ch):
+    """Two fine-tunes of a head from one init on the same features end with
+    equal params (cuDNN's deterministic algorithms: the default ones for
+    the heads' convs sum in a run-dependent order)."""
+    from ganecdotes_torch.pipeline import losses
+    from ganecdotes_torch.pipeline.trainer import make_supervised_finetune
+    from ganecdotes_torch.selfsup.heads import (
+        init_one_shot_segmentor,
+        one_shot_segmentor_apply,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 64, 64, in_ch, generator=g).to(cuda)
+    label = torch.randint(0, 4, (1, 64, 64), generator=g).to(cuda)
+    init = init_one_shot_segmentor(in_ch, 4, size, generator=g)
+    ends, before = [], torch.backends.cudnn.deterministic
+    for _ in range(2):
+        optimizer, run_chunk = make_supervised_finetune(
+            lambda p, st, f: (one_shot_segmentor_apply(p, f, size), st),
+            [(1.0, losses.cross_entropy)], 64, 1e-3)
+        params = [{k: v.clone().to(cuda) for k, v in layer.items()}
+                  for layer in init]
+        opt = optimizer.init(params)
+        run_chunk(params, opt, (), x, label, 0, 30)
+        ends.append([t.detach().clone() for layer in params for t in layer.values()])
+    assert torch.backends.cudnn.deterministic == before  # restored after
+    assert all(torch.equal(a, b) for a, b in zip(*ends))
+
+
+@pytest.mark.parametrize("method", ["repurposegan", "datasetgan",
+                                    "hfc_with_simclr", "hfc_kmeans"])
+def test_method_pipeline_kernels_match_plain_ops(cuda, tmp_path, method):
+    """The tiny pipeline of each other method (tests/test_pipeline.py's
+    configs; SimCLR and k-means fitted first, k-means cut to n_init 2 and
+    max_iter 10) with KERNELS and with PLAIN from the same seed, at
+    chip_smoke.py's phase 9 gates: kernels 1-4 launched on the kernels run
+    only; each run's one-shot features within 1e-3 * max(1, max |plain|)
+    (k-means' one-hot ones equal on 99.9%), as are the k-means fit's block
+    features; the plain run then fits on the kernels run's block features
+    with its k-means++ picks (centers within 1e-3 * max(1, max |plain|))
+    and fine-tunes on the kernels run's one-shot features (one rounding
+    step of them moves the fine-tune past the gates: method_rounding.py),
+    so the loss after the first chunk is within 1e-3 and after the last
+    2e-2 relative, and the test labels agree on 99.9% of the pixels; then
+    the kernels run's folded request against its unfused oracle on the
+    card: the image equal, logits within 1e-4 * max(1, max |unfused|),
+    labels on 99.9%."""
+    import textwrap
+
+    from test_pipeline import (
+        TINY_DG,
+        TINY_KMEANS,
+        TINY_MODEL,
+        TINY_RP,
+        TINY_SIMCLR,
+        TINY_TRAINER,
+    )
+
+    from ganecdotes_torch.ops.opset import KERNELS
+    from ganecdotes_torch.pipeline.one_shot_pipeline import OneShotPipeline
+
+    seg = {"repurposegan": TINY_RP, "datasetgan": TINY_DG,
+           "hfc_with_simclr": TINY_SIMCLR,
+           "hfc_kmeans": TINY_KMEANS.replace(
+               "kmeans_args=dict(verbose=0)",
+               "kmeans_args=dict(verbose=0, n_init=2, max_iter=10)")}[method]
+    cfg = {}
+    for name, body in [("model", TINY_MODEL), ("trainer", TINY_TRAINER),
+                       ("seg", seg)]:
+        cfg[name] = str(tmp_path / f"{name}_config.py")
+        with open(cfg[name], "w") as f:
+            f.write(textwrap.dedent(body))
+
+    def close(a, b):
+        return (a - b).abs().max().item() <= 1e-3 * max(1.0, b.abs().max().item())
+
+    runs, own = [], []
+    for name, ops in (("kernels", KERNELS), ("plain", PLAIN)):
+        _build.reset_launches()
+        pipe = OneShotPipeline(str(tmp_path / name), segmentor=method,
+                               custom=cfg, num_test_samples=3, device=cuda,
+                               ops=ops, seed=2)
+        pipe.run_pipeline(blocks_to_run=("setup",))
+        pre = pipe.preprocessor
+        if method == "hfc_kmeans":
+            hidden = pre.block_features(pipe.one_shot_latent)
+            if runs:
+                kern_pre, kern_hidden = runs[0][0].preprocessor, runs[0][2]
+                assert all(close(a, b) for a, b in zip(kern_hidden, hidden))
+                pre.hfc_model.replay_seeds = kern_pre.hfc_model.seed_indices
+                hidden = kern_hidden
+            pre.block_features = lambda latent, z_rands=None, h=hidden: h
+        own.append(pipe._extract_one_shot_features().detach())
+        # both runs fine-tune on the kernels run's features (and fit and
+        # pretrain once: the train block would extract them again)
+        pipe._extract_one_shot_features = lambda f=own[0]: f
+        pipe.run_pipeline(blocks_to_run=("train", "test"))
+        torch.cuda.synchronize()
+        runs.append((pipe, dict(_build.LAUNCHES),
+                     hidden if method == "hfc_kmeans" else None))
+    (kern, launches, _), (plain, plain_launches, _) = runs
+    serving = ("fused_leaky_relu", "upfirdn2d", "styled_conv3x3",
+               "styled_up_conv3x3")
+    assert all(launches[k] > 0 for k in serving), launches
+    assert all(v == 0 for v in plain_launches.values()), plain_launches
+    if method == "hfc_kmeans":
+        assert (own[0] == own[1]).float().mean().item() >= 0.999
+        for a, b in zip(kern.preprocessor.hfc_model.centers,
+                        plain.preprocessor.hfc_model.centers):
+            assert close(a, b)
+    else:
+        assert close(own[0], own[1])
+    (_, k1, _), (_, p1, _) = kern.finetune_log[0], plain.finetune_log[0]
+    (_, kl, _), (_, pl, _) = kern.finetune_log[-1], plain.finetune_log[-1]
+    assert abs(k1 - p1) <= 1e-3 * abs(p1) and abs(kl - pl) <= 2e-2 * abs(pl)
+    assert (kern.pred_labels == plain.pred_labels).mean() >= 0.999
+    w = torch.as_tensor(kern.test_latents[:3])
+    img, logits, _ = kern.server.infer_folded(w, input_is_latent=True)
+    u_img, u_logits, _ = kern.server.infer(w, input_is_latent=True)
+    assert torch.equal(img, u_img)
+    assert (logits - u_logits).abs().max().item() <= \
+        1e-4 * max(1.0, u_logits.abs().max().item())
+    assert (logits.argmax(-1) == u_logits.argmax(-1)).float().mean().item() >= 0.999
+
+
 # ---------------------------------------------------------------------------
 # the BagGAN slice: ADA's warp pass, the Functions' gradients, one iteration
 # ---------------------------------------------------------------------------

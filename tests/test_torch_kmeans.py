@@ -1,0 +1,283 @@
+"""The port's flat k-means (selfsup/kmeans.py) held against the JAX package
+on the CPU.
+
+The port cannot reproduce ``jax.random``'s draws, so they are passed in:
+the k-means++ seeding takes the JAX run's first index and uniforms (rebuilt
+from its key by ``_kmeans_single``'s split sequence, kmeans.py:71-86, and
+``jax.random.choice``'s inverse CDF at 1 - uniform), Lloyd's iterations and
+``kmeans_fit(init_centers=...)`` start from given centers, and the
+preprocessor's fit takes the JAX run's perturbation normals.
+
+Tolerances (float32 on both sides, sums in another order): centers and
+inertias 1e-4 absolute plus relative after Lloyd's iterations on O(1) data
+(assignments equal); labels equal; logits 1e-4 absolute plus relative
+(2e-4 for the folded forms, tests/test_selfsup.py:1080's tolerance).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ganecdotes_tpu.models.stylegan2.generator import Generator as JaxGenerator
+from ganecdotes_tpu.selfsup import heads as jheads
+from ganecdotes_tpu.selfsup import kmeans as jkm
+from ganecdotes_torch.models.stylegan2.convert import (
+    from_jax_generator_params,
+    from_jax_params,
+)
+from ganecdotes_torch.selfsup import heads as theads
+from ganecdotes_torch.selfsup import kmeans as tkm
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _blobs(n=300, d=6, k=4, seed=0):
+    rs = np.random.RandomState(seed)
+    means = rs.randn(k, d) * 3
+    return (means[rs.randint(0, k, n)] + rs.randn(n, d)).astype(np.float32)
+
+
+def _jax_seeding(x, key, k):
+    """The picks and the draws of ``jkm._kmeans_single``'s k-means++ loop,
+    replayed eagerly with its own key splits and ``jax.random.choice``."""
+    n = x.shape[0]
+    key, k0 = jax.random.split(key)
+    first = int(jax.random.randint(k0, (), 0, n))
+    picks, us = [first], []
+    for _ in range(1, k):
+        key, kc = jax.random.split(key)
+        c = x[np.array(picks)]
+        d2 = ((x[:, None, :] - c[None]) ** 2).sum(-1).min(axis=1)
+        probs = d2 / max(d2.sum(), 1e-12)
+        picks.append(int(jax.random.choice(kc, n, p=jnp.asarray(probs))))
+        us.append(1.0 - float(jax.random.uniform(kc, (), dtype=jnp.float32)))
+    return picks, (first, np.asarray(us, np.float32))
+
+
+def test_lloyd_refine_and_init_centers_fit_match_jax():
+    x = _blobs()
+    init = x[[0, 50, 100, 150]] + 0.1
+    jc, ja, ji = jkm._lloyd_refine(jnp.asarray(x), jnp.asarray(init), max_iter=8)
+    tc, ta, ti = tkm._lloyd_refine(_t(x), _t(init), max_iter=8)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **TOL)
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    np.testing.assert_allclose(ti.item(), float(ji), **TOL)
+    # an empty cluster keeps its center
+    far = np.concatenate([init, np.full((1, 6), 1e3, np.float32)])
+    tc, _, _ = tkm._lloyd_refine(_t(x), _t(far), max_iter=3)
+    np.testing.assert_array_equal(tc[-1].numpy(), far[-1])
+    got = tkm.kmeans_fit(_t(x), 3, init_centers=_t(init), max_iter=5)
+    want = jkm.kmeans_fit(x, 3, jax.random.PRNGKey(0), init_centers=init,
+                          max_iter=5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_kmeans_single_run_matches_jax_with_its_draws(seed):
+    """k-means++ with the JAX run's draws picks the JAX run's points (the
+    same distances to the nearest chosen center, the same inverse CDF), and
+    Lloyd's iterations from them give ``_kmeans_single``'s centers."""
+    x = _blobs(seed=seed)
+    key = jax.random.PRNGKey(seed)
+    picks, draws = _jax_seeding(x, key, 5)
+    centers, idx = tkm.kmeans_pp_init(_t(x), 5, draws=draws)
+    assert idx.tolist() == picks
+    np.testing.assert_array_equal(centers.numpy(), x[picks])
+    jc, _, ji = jkm._kmeans_single(jnp.asarray(x), key, 5, max_iter=10)
+    tc, _, ti = tkm._lloyd_refine(_t(x), centers, max_iter=10)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), **TOL)
+    np.testing.assert_allclose(ti.item(), float(ji), **TOL)
+    # replaying the picks draws nothing and gives the same centers
+    again, idx2 = tkm.kmeans_pp_init(_t(x), 5, indices=idx)
+    assert torch.equal(again, centers) and torch.equal(idx2, idx)
+
+
+def test_seeding_picks_one_point_per_separated_cluster():
+    """The seeding's distribution: with k tight clusters far apart, each
+    pick after the first lands in a cluster not chosen yet (probability
+    1 - O(1e-8) per pick), whatever the seed."""
+    rs = np.random.RandomState(3)
+    x = np.concatenate([c + rs.randn(40, 3) * 1e-3
+                        for c in np.eye(3) * 100]).astype(np.float32)
+    g = torch.Generator().manual_seed(0)
+    for _ in range(20):
+        _, idx = tkm.kmeans_pp_init(_t(x), 3, generator=g)
+        assert sorted(int(i) // 40 for i in idx) == [0, 1, 2]
+    centers, seeds = tkm.kmeans_fit_seeded(_t(x), 3, g, n_init=2, max_iter=3)
+    assert len(seeds) == 2
+    np.testing.assert_allclose(np.sort(centers.numpy().max(axis=1)), [100] * 3,
+                               atol=1e-2)
+
+
+def test_predict_parts_and_resize_labels_match_jax():
+    rs = np.random.RandomState(7)
+    x1 = rs.randn(300, 6).astype(np.float32)
+    x2 = rs.randn(300, 5).astype(np.float32)
+    c = rs.randn(4, 11).astype(np.float32)
+    want = np.asarray(jkm.kmeans_predict(jnp.concatenate([x1, x2], -1), c))
+    np.testing.assert_array_equal(
+        tkm.kmeans_predict_parts([_t(x1), _t(x2)], _t(c)).numpy(), want)
+    np.testing.assert_array_equal(
+        tkm.kmeans_predict(torch.cat([_t(x1), _t(x2)], -1), _t(c)).numpy(), want)
+    with pytest.raises(ValueError):
+        tkm.kmeans_predict_parts([_t(x1)], _t(c))
+    for h, w, out in [(4, 4, 256), (8, 8, 16), (5, 5, 16), (16, 16, 16), (3, 6, 12)]:
+        lab = rs.randint(0, 7, size=(2, h, w))
+        got = tkm._resize_labels(_t(lab), out)
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jkm._resize_labels(jnp.asarray(lab), out)))
+        assert got.dtype == torch.int64
+
+
+def _groups(rs, b=2):
+    return [rs.randn(b, 4, 4, 6).astype(np.float32),
+            rs.randn(b, 8, 8, 5).astype(np.float32),
+            rs.randn(b, 16, 16, 4).astype(np.float32)]
+
+
+@pytest.mark.parametrize("cpl,size,out_size", [
+    ([3, 5, 7], "S", 32),     # narrow: the multi-hot concat
+    ([3, 5, 7], "XS", 64),    # 15 <= 2 * 16: narrow, out_size above the maps
+    ([9, 9, 9], "XXS", 32),   # 27 > 2 * 12: the concat_segment_fcn branch
+    ([3, 5, 7], "Lin", 32),   # the Lin head through concat_segment_fcn
+])
+def test_hfc_segment_fcn_matches_unfused_and_jax(cpl, size, out_size):
+    rs = np.random.RandomState(0)
+    groups = _groups(rs)
+    centers = [rs.randn(k, g.shape[-1]).astype(np.float32)
+               for k, g in zip(cpl, groups)]
+    seg = jax.tree.map(np.asarray, jheads.init_one_shot_segmentor(
+        jax.random.PRNGKey(1), sum(cpl), 4, size))
+    tg, tc, tseg = [_t(g) for g in groups], [_t(c) for c in centers], from_jax_params(seg)
+    z, labels = tkm.hfc_predict_from_features(tg, tc, cpl, out_size)
+    jz, jlabels = jkm.hfc_predict_from_features(
+        [jnp.asarray(g) for g in groups], [jnp.asarray(c) for c in centers], cpl,
+        out_size, hier_encode=False)
+    np.testing.assert_array_equal(z.numpy(), np.asarray(jz))
+    for a, b in zip(labels, jlabels):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    want = theads.one_shot_segmentor_apply(tseg, z, size)
+    got, glabels = tkm.hfc_segment_fcn(tg, tc, cpl, out_size, tseg, size)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-4, rtol=2e-4)
+    for a, b in zip(glabels, labels):
+        assert torch.equal(a, b)
+    if size != "Lin":  # the JAX form has no Lin branch
+        jgot, _ = jkm.hfc_segment_fcn(
+            [jnp.asarray(g) for g in groups], [jnp.asarray(c) for c in centers],
+            cpl, out_size, jax.tree.map(jnp.asarray, seg), size)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jgot), atol=2e-4,
+                                   rtol=2e-4)
+    # channel parts (group_features_by_block(concat=False)) give the same
+    parts = [(g[..., :2], g[..., 2:]) for g in tg]
+    pgot, _ = tkm.hfc_segment_fcn(parts, tc, cpl, out_size, tseg, size)
+    np.testing.assert_allclose(pgot.numpy(), got.numpy(), atol=1e-5, rtol=1e-5)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tkm.hfc_predict_from_features(tg, tc, cpl, out_size, hier_encode=True)
+
+
+class _MC:
+    truncation = 0.7
+    latent_dim = 512
+    image_size = 16
+    num_latents_for_mean = 8
+
+
+def _prep_args(out_dir, presaved=False, **kmeans_args):
+    return dict(
+        perturb_args=dict(truncation=0.7, n_layers=2, n_samples=2,
+                          perturb_std=[1.0, 1.0]),
+        hfc_algo="hfc_kmeans",
+        hfc_args=dict(kmeans_args=dict(verbose=0, **kmeans_args),
+                      base_args=dict(out_dir=None, n_layers=2,
+                                     clusters_per_layer=[3, 4], out_size=16,
+                                     presaved=presaved)),
+        hier_encode=False, hle_samples=2, train=True, out_dir=out_dir)
+
+
+def test_preprocessor_fit_features_and_checkpoints_match_jax(tmp_path):
+    """The fit's perturbed features with the JAX run's normals, the flat
+    checkpoints in the JAX layout both ways, and the one-shot features."""
+    jgen = JaxGenerator(size=16, key=jax.random.PRNGKey(0))
+    gen = from_jax_generator_params(jax.tree.map(np.asarray, jgen.params))
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jpre = jkm.HFCPreprocessor(jgen, _MC(), **_prep_args(jdir))
+    tpre = tkm.HFCPreprocessor(gen, _MC(), device="cpu",
+                               **_prep_args(tdir, n_init=2, max_iter=10))
+    tpre.mean_latent = _t(jpre.mean_latent)
+    w = (np.random.RandomState(1).randn(1, 512) * 0.5).astype(np.float32)
+
+    # the JAX fit's perturbation normals: its key after the mean latent's split
+    key = jax.random.split(jax.random.PRNGKey(42))[0]
+    z_rands = []
+    for _ in range(2):
+        key, kp = jax.random.split(key)
+        z_rands.append(_t(jax.random.normal(kp, (2 * jgen.meta["n_latent"], 512))))
+    jhidden = jpre.train_hfc_model(w, return_aug=True)
+    thidden = tpre.train_hfc_model(w, z_rands=z_rands)
+    for a, b in zip(thidden, jhidden):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    names = sorted(os.listdir(tdir))
+    assert {"clusterer_layer_0.npz", "clusterer_layer_1.npz",
+            "model_stats.npz"} <= set(names)
+    for n in range(2):  # Lloyd's from the JAX centers over the port's features
+        refit = tkm.kmeans_fit(thidden[n].reshape(-1, thidden[n].shape[-1]),
+                               [3, 4][n], init_centers=_t(jpre.hfc_model.centers[n]),
+                               max_iter=10)
+        want = jkm.kmeans_fit(jhidden[n].reshape(-1, jhidden[n].shape[-1]), [3, 4][n],
+                              jax.random.PRNGKey(0),
+                              init_centers=jpre.hfc_model.centers[n], max_iter=10)
+        np.testing.assert_allclose(refit.numpy(), np.asarray(want), **TOL)
+    stats = np.load(os.path.join(tdir, "model_stats.npz"), allow_pickle=True)
+    np.testing.assert_allclose(stats["means"][1],
+                               thidden[1].flatten(0, 2).mean(0).numpy(), **TOL)
+
+    # each package loads the other's clusterers (presaved), same features
+    jload = jkm.HFCPreprocessor(jgen, _MC(), **dict(_prep_args(tdir, True),
+                                                    train=False))
+    tload = tkm.HFCPreprocessor(gen, _MC(), device="cpu",
+                                **dict(_prep_args(jdir, True), train=False))
+    tload.mean_latent = _t(jload.mean_latent)
+    jz, _ = jload.predict_hfc_vectors(w)
+    tz, _ = tload.predict_hfc_vectors(w)
+    for a, b in zip(jload.hfc_model.centers, tpre.hfc_model.centers):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    jpre.mean_latent = jload.mean_latent
+    jz2, _ = jpre.predict_hfc_vectors(w)  # the JAX centers, read by the port
+    np.testing.assert_array_equal(tz.numpy(), np.asarray(jz2))
+    assert jz.shape == tz.shape == (1, 16, 16, 7)
+
+
+def test_what_the_flat_port_leaves_out_raises(tmp_path):
+    gen = from_jax_generator_params(jax.tree.map(
+        np.asarray, JaxGenerator(size=16, key=jax.random.PRNGKey(0)).params))
+    for over in (dict(hfc_algo="hfc_kmeans_hier"), dict(hier_encode=True)):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            tkm.HFCPreprocessor(gen, _MC(), device="cpu",
+                                **dict(_prep_args(str(tmp_path)), **over))
+    sav = tmp_path / "sav"
+    os.makedirs(sav)
+    for n in range(2):
+        open(sav / f"clusterer_layer_{n}.sav", "wb").close()
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tkm.HFCPreprocessor(gen, _MC(), device="cpu",
+                            **dict(_prep_args(str(sav), True), train=False))
+    with pytest.raises(FileNotFoundError):
+        tkm.HFCPreprocessor(gen, _MC(), device="cpu",
+                            **dict(_prep_args(str(tmp_path / "none"), True),
+                                   train=False))

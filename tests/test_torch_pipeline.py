@@ -1,6 +1,7 @@
-"""The port's one-shot pipeline (hfc_with_swav) and its CLIs, on the CPU, at
-the tiny config of tests/test_pipeline.py (a 32^2 generator, n_mlp 2, 4
-classes, 6 fine-tune epochs in chunks of 3, 3 test samples).
+"""The port's one-shot pipeline (hfc_with_swav) and its CLIs, on the CPU,
+at the tiny config of tests/test_pipeline.py (a 32^2 generator, n_mlp 2, 4
+classes, 6 fine-tune epochs in chunks of 3, 3 test samples); the other
+four methods are in tests/test_torch_methods.py.
 
 (a) The whole pipeline against the JAX ``OneShotPipeline``: both read the
     same latent and label ``.npy`` files and the same ``swav_params.npz``
@@ -39,7 +40,13 @@ from ganecdotes_torch.metrics.segmentation import get_mask_iou
 from ganecdotes_torch.models.stylegan2.convert import from_jax_generator_params
 from ganecdotes_torch.ops import _build
 from ganecdotes_torch.pipeline.one_shot_pipeline import OneShotPipeline
-from test_pipeline import TINY_MODEL, TINY_SWAV, TINY_TRAINER
+from test_pipeline import (
+    TINY_KMEANS,
+    TINY_MODEL,
+    TINY_SIMCLR,
+    TINY_SWAV,
+    TINY_TRAINER,
+)
 
 N_TEST = 3
 SIZE = 32
@@ -56,14 +63,14 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _write_configs(d, latents=None, labels=None):
+def _write_configs(d, latents=None, labels=None, seg=TINY_SWAV):
     model = TINY_MODEL
     if latents is not None:
         model = model.replace("/nonexistent/latents.pt", latents).replace(
             "/nonexistent/labels.pt", labels)
     cfg = {}
     for name, body in [("model", model), ("trainer", TINY_TRAINER),
-                       ("seg", TINY_SWAV)]:
+                       ("seg", seg)]:
         p = os.path.join(d, f"{name}_config.py")
         with open(p, "w") as f:
             f.write(textwrap.dedent(body))
@@ -103,8 +110,10 @@ def _majority_class_mean_iou(pipe):
 
 
 def _evaluate_mode(pipe):
+    """evaluate.py's settings (the baselines have no preprocessor args)."""
     pipe.seg_config.train_hfc = False
-    pipe.seg_config.hfc_prep_args["train"] = False
+    if hasattr(pipe.seg_config, "hfc_prep_args"):
+        pipe.seg_config.hfc_prep_args["train"] = False
 
 
 # ---------------------------------------------------------------------------
@@ -112,8 +121,28 @@ def _evaluate_mode(pipe):
 # ---------------------------------------------------------------------------
 
 
-def test_pipeline_matches_jax_pipeline(tmp_path, monkeypatch):
+def _record_jax_losses(monkeypatch):
+    """The JAX pipeline keeps no loss: each chunk's, from its run_chunk."""
     from ganecdotes_tpu.pipeline import trainer as jtrainer
+
+    losses = []
+    make = jtrainer.make_supervised_finetune
+
+    def recording(*args, **kwargs):
+        optimizer, run_chunk = make(*args, **kwargs)
+
+        def run(*a):
+            out = run_chunk(*a)
+            losses.append(float(out[3]))
+            return out
+
+        return optimizer, run
+
+    monkeypatch.setattr(jtrainer, "make_supervised_finetune", recording)
+    return losses
+
+
+def test_pipeline_matches_jax_pipeline(tmp_path, monkeypatch):
     from ganecdotes_tpu.pipeline.one_shot_pipeline import (
         OneShotPipeline as JaxPipeline,
     )
@@ -128,21 +157,7 @@ def test_pipeline_matches_jax_pipeline(tmp_path, monkeypatch):
         os.makedirs(d)
         jax_save_pytree(os.path.join(d, "swav_params.npz"), ssl)
 
-    # the JAX pipeline keeps no loss: record each chunk's from its run_chunk
-    jax_losses = []
-    make = jtrainer.make_supervised_finetune
-
-    def recording(*args, **kwargs):
-        optimizer, run_chunk = make(*args, **kwargs)
-
-        def run(*a):
-            out = run_chunk(*a)
-            jax_losses.append(float(out[3]))
-            return out
-
-        return optimizer, run
-
-    monkeypatch.setattr(jtrainer, "make_supervised_finetune", recording)
+    jax_losses = _record_jax_losses(monkeypatch)
     jpipe = JaxPipeline(out_dir=outs["jax"], model="ffhq-256",
                         segmentor="hfc_with_swav", num_test_samples=N_TEST,
                         custom=cfg)
@@ -320,14 +335,32 @@ def test_pipeline_needs_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(segmentor="repurposegan"), "item 4"),
-    (dict(segmentor="hfc_kmeans"), "item 4"),
+    (dict(segmentor="hfc_kmeans", seg_edit=("hfc_algo='hfc_kmeans'",
+                                            "hfc_algo='hfc_kmeans_hier'")),
+     "item 10"),
+    (dict(segmentor="hfc_kmeans", seg_edit=("hier_encode=False",
+                                            "hier_encode=True")), "item 10"),
+    (dict(segmentor="hfc_with_simclr", projection_pt=True), "item 5"),
     (dict(model="cat-256", segmentor="hfc_with_swav_cat"), "item 9"),
     (dict(model="p-car-512", segmentor="hfc_with_swav"), "item 9"),
 ])
 def test_what_is_not_ported_raises_with_its_roadmap_item(tmp_path, kwargs, item):
+    """Configs not copied (item 9); the hierarchical k-means and the belief
+    encoding in the tiny hfc_kmeans config (item 10); the reference's
+    projection.pt as the only SimCLR params of an evaluate run (item 5)."""
+    kwargs = dict(kwargs)
+    edit, projection_pt = kwargs.pop("seg_edit", None), kwargs.pop("projection_pt", False)
+    out = str(tmp_path / "o")
+    if edit or projection_pt:
+        body = TINY_KMEANS if edit else TINY_SIMCLR
+        assert not edit or body.count(edit[0]) == 1
+        cfg = _write_configs(str(tmp_path), seg=body.replace(*edit) if edit else body)
+        kwargs["custom"] = cfg
     with pytest.raises(NotImplementedError, match=item):
-        OneShotPipeline(str(tmp_path / "o"), device="cpu", **kwargs)
+        pipe = OneShotPipeline(out, device="cpu", **kwargs)
+        open(os.path.join(out, "projection.pt"), "wb").close()
+        _evaluate_mode(pipe)
+        pipe.run_pipeline()
 
 
 def test_online_gui_and_sample_noises_raise(tmp_path):

@@ -194,6 +194,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 10
     for cli in ("evaluate.py", "pretrain.py"):  # the CLIs are covered too
         assert os.path.join(ROOT_DIR, "ganecdotes_torch", "cli", cli) in files
+    # and the other methods' modules and configs
+    for rel in ("selfsup/simclr.py", "selfsup/kmeans.py", "selfsup/heads.py",
+                "configs/segmentors/repurposegan_config.py",
+                "configs/segmentors/datasetgan_config.py",
+                "configs/segmentors/hfc_with_simclr_config.py",
+                "configs/segmentors/hfc_kmeans_config.py"):
+        assert os.path.join(ROOT_DIR, "ganecdotes_torch", *rel.split("/")) in files
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
