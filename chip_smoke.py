@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port's kernels and drive its serving, SwAV
-pretraining, BagGAN training and one-shot evaluate paths, and the other
-four segmentation methods' pretrain and evaluate paths, on one GPU.
+pretraining, BagGAN training and one-shot evaluate paths, the other four
+segmentation methods' pretrain and evaluate paths, and the evaluate path
+of other model configs from reference-format checkpoints, on one GPU.
 
 Run from the repository root on a machine with one CUDA card and nvcc
 (found through CUDA_HOME, PATH or /usr/local/cuda):
@@ -27,6 +28,10 @@ Phases (any failure exits non-zero before the last line):
      ragged shape, niters = 0 and the generic K = 8000, each launched twice
      and required equal bit for bit, within 1e-4 and 0.1/K of its plain
      version, and the kernel one iteration short required to miss 0.1/K;
+     the four serving kernels also at the shapes the BagGAN generator's
+     lean width map gives them (16 channels at 256^2, 32 at 128^2), at
+     B = 1 and B = 8, the StyledConvs' noise broadcast and (the narrowest
+     layers) one map per sample: gated, measured, not summed per request;
   4. serve: OneShotServer (ffhq-256, hfc_with_swav, random weights from a
      seed) answers 3 requests of 8 z through the folded projection + head
      with every kernel's launch counted; the folded requests are held
@@ -79,11 +84,26 @@ Phases (any failure exits non-zero before the last line):
      gates: method_rounding.py), the folded request against its unfused
      oracle, 3 timed requests of each, and RepurposeGAN's fine-tune epoch
      with the head's first conv by cuDNN and by the matmul form;
- 10. one JSON line of the kernels, then the result line.
+ 10. configs: (a) a rosinality g_ema .pt written from a seeded full-width
+     generator loads through cat-256's model_path, and with the kernels its
+     pipeline's one-shot image, features and mean latent equal, bit for
+     bit, those of a pipeline given the source generator; phase 5's SwAV
+     params written as the reference's prototypes.pt / projection.pt
+     import bit-equal; (b) p-horse-256 (a g_ema .pt, per-layer NCHW noise
+     .pt files at sample_noises, the generic hfc_with_swav config's SwAV
+     params from the reference's files) and (c) pidray-256 (a lean-map
+     BagGAN latest_net_G.pth written by save_baggan_torch_checkpoint, a
+     run config with res2chlmap = "baggan", hfc_with_swav_pidray's SwAV
+     params from the reference's files) through cli/evaluate.py's path
+     with the kernels and the plain ops, with phase 9's gates and replay;
+     (b) checks that the fed noise reached the untruncated one-shot
+     synthesis, (c) that a latest_net_G.npz of the same generator loads
+     bit-equal and a lean random init is hlen wide;
+ 11. one JSON line of the kernels, then the result line.
 
 ``--details PATH`` also writes every shape's numbers, the build record and
-the serving, pretraining, training, evaluate and methods records to a JSON
-file.
+the serving, pretraining, training, evaluate, methods and configs records
+to a JSON file.
 """
 
 import argparse
@@ -262,14 +282,51 @@ def path_shapes():
             "styled_conv3x3": conv, "styled_up_conv3x3": up}
 
 
-def styled_inputs(shape, up, gen, dev):
+def lean_shapes():
+    """Per kernel, the (shape, noise batch) the BagGAN generator at the
+    reference's lean width map (16 channels at 256^2, 32 at 128^2) gives it
+    on the pidray path, at B = 1 (the one-shot synthesis) and B = 8 (a
+    request), the noise broadcast over the batch as served; the two
+    narrowest layers and the up layer between them also with one noise map
+    per sample. Measured and gated, not summed into a request."""
+    from ganecdotes_torch.models.baggan.convert import BAGGAN_RES_TO_CHANNEL_MAP as ch
+
+    res = [2**k for k in range(2, GAN_SIZE.bit_length())]  # 4 .. 256
+    out = {"fused_leaky_relu": [((1, 512), 1)],
+           "upfirdn2d": [((1, r, r, 3), 1) for r in res[:-1]],
+           "styled_conv3x3": [], "styled_up_conv3x3": []}
+    for b in (1, B):
+        out["styled_conv3x3"] += [((b, r, r, ch[r], ch[r]), 1) for r in res]
+        out["styled_up_conv3x3"] += [((b, r // 2, r // 2, ch[r // 2], ch[r]), 1)
+                                     for r in res[1:]]
+    out["styled_conv3x3"] += [((B, r, r, ch[r], ch[r]), B) for r in (128, 256)]
+    out["styled_up_conv3x3"].append(((B, 128, 128, ch[128], ch[256]), B))
+    return out
+
+
+def kernel_cases():
+    """(path, kernel, shape, calls per request, noise batch): the ffhq-256
+    serving path's shapes, then the lean map's that it has not (calls 0:
+    measured only)."""
+    seen = set()
+    for name, shapes in path_shapes().items():
+        for shape, calls in shapes:
+            seen.add((name, shape, 1))
+            yield "ffhq-256", name, shape, calls, 1
+    for name, shapes in lean_shapes().items():
+        for shape, noise_b in shapes:
+            if (name, shape, noise_b) not in seen:
+                yield "baggan-lean", name, shape, 0, noise_b
+
+
+def styled_inputs(shape, up, gen, dev, noise_b=1):
     b, h, w, ci, co = shape
     f = 2 if up else 1
     x = torch.randn(b, h, w, ci, generator=gen, device=dev)
     wt = torch.randn(3, 3, ci, co, generator=gen, device=dev) / (9 * ci) ** 0.5
     s = 1.0 + 0.3 * torch.randn(b, ci, generator=gen, device=dev)
     demod = torch.rsqrt(s.square() @ wt.square().sum((0, 1)) + 1e-8)
-    noise = torch.randn(1, f * h, f * w, 1, generator=gen, device=dev)
+    noise = torch.randn(noise_b, f * h, f * w, 1, generator=gen, device=dev)
     nw = torch.full((), 0.3, device=dev)
     bias = 0.1 * torch.randn(co, generator=gen, device=dev)
     return [x, wt, s, demod, noise, nw, bias]
@@ -282,128 +339,130 @@ def check_kernels(dev):
 
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for name, shapes in path_shapes().items():
-        for shape, calls in shapes:
-            lib = None  # one PyTorch call as a yardstick, where there is one
-            other = None  # a second plain form, where the path has one
-            simt = None  # a StyledConv's bound at fp32 SIMT rates
-            if name == "fused_leaky_relu":
-                x = torch.randn(*shape, generator=gen, device=dev)
-                bias = torch.randn(shape[-1], generator=gen, device=dev)
+    for path, name, shape, calls, noise_b in kernel_cases():
+        lib = None  # one PyTorch call as a yardstick, where there is one
+        other = None  # a second plain form, where the path has one
+        simt = None  # a StyledConv's bound at fp32 SIMT rates
+        if name == "fused_leaky_relu":
+            x = torch.randn(*shape, generator=gen, device=dev)
+            bias = torch.randn(shape[-1], generator=gen, device=dev)
 
-                def kern(x=x, bias=bias):
-                    return fused_act.fused_leaky_relu(x, bias)
+            def kern(x=x, bias=bias):
+                return fused_act.fused_leaky_relu(x, bias)
 
-                def plain(x=x, bias=bias):
-                    return fused_act.fused_leaky_relu_ref(x, bias)
+            def plain(x=x, bias=bias):
+                return fused_act.fused_leaky_relu_ref(x, bias)
 
-                moved = nbytes(x, bias, x)
-                flops = 3 * x.numel()
-                ops = [(flops, FP32)]
-            elif name == "upfirdn2d":
-                x = torch.randn(*shape, generator=gen, device=dev)
+            moved = nbytes(x, bias, x)
+            flops = 3 * x.numel()
+            ops = [(flops, FP32)]
+        elif name == "upfirdn2d":
+            x = torch.randn(*shape, generator=gen, device=dev)
 
-                def kern(x=x):
-                    return upfirdn2d.upsample_2d(x)
+            def kern(x=x):
+                return upfirdn2d.upsample_2d(x)
 
-                def plain(x=x):
-                    return upfirdn2d.upsample_2d(x, impl=upfirdn2d.upfirdn2d_ref)
+            def plain(x=x):
+                return upfirdn2d.upsample_2d(x, impl=upfirdn2d.upfirdn2d_ref)
 
-                wk = torch.as_tensor(upfirdn2d.make_kernel((1, 3, 3, 1), gain=4.0),
-                                     device=dev).expand(shape[3], 1, 4, 4)
+            wk = torch.as_tensor(upfirdn2d.make_kernel((1, 3, 3, 1), gain=4.0),
+                                 device=dev).expand(shape[3], 1, 4, 4)
 
-                def lib(x=x, wk=wk):  # the same function in one call
-                    return F.conv_transpose2d(
-                        x.permute(0, 3, 1, 2), wk, stride=2, padding=1,
-                        groups=x.shape[3]).permute(0, 2, 3, 1)
+            def lib(x=x, wk=wk):  # the same function in one call
+                return F.conv_transpose2d(
+                    x.permute(0, 3, 1, 2), wk, stride=2, padding=1,
+                    groups=x.shape[3]).permute(0, 2, 3, 1)
 
-                out_n = x.numel() * 4
-                moved = nbytes(x) + out_n * 4
-                flops = 2 * out_n * 16 // 4  # 4 of the 16 taps see data
-                ops = [(flops, FP32)]
+            out_n = x.numel() * 4
+            moved = nbytes(x) + out_n * 4
+            flops = 2 * out_n * 16 // 4  # 4 of the 16 taps see data
+            ops = [(flops, FP32)]
+        else:
+            up = name == "styled_up_conv3x3"
+            args = styled_inputs(shape, up, gen, dev, noise_b)
+            fn = getattr(modulated_conv, name)
+            ref = getattr(modulated_conv, name + "_ref")
+
+            def kern(fn=fn, args=args):
+                return fn(*args)
+
+            def plain(ref=ref, args=args):
+                return ref(*args)
+
+            if up:  # conv_transpose + blur, independent of the phase taps
+                other = modulated_conv.styled_up_conv3x3_xla(*args)
+            b, h, w, ci, co = shape
+            f = 2 if up else 1
+            moved = nbytes(*args) + b * f * h * f * w * co * 4
+            # the least work for the function: the conv at its own
+            # resolution (9 MACs per input pixel and channel pair); for
+            # the up branch conv_transpose + 4x4 blur, which needs a
+            # quarter of the MACs of the four composed phase filters.
+            # Both GEMMs run in 3xTF32: three tensor-core products per
+            # multiply-add.
+            flops = 2 * b * h * w * 9 * ci * co
+            ops = [(3 * flops, TF32X3)]
+            # the same work at fp32 SIMT rates, for comparison
+            simt = bound_ms(moved, [(flops, FP32)])[0]
+            if up:
+                # the 4x4 blur is separable: 4 taps across the 2H + 1
+                # scratch rows, then 4 down, per output channel
+                blur = 2 * b * co * 4 * (2 * w) * ((2 * h + 1) + 2 * h)
+                ops.append((blur, FP32))
+                flops += 2 * b * (2 * h) * (2 * w) * co * 16  # as a 2-D filter
+            xm = (args[0] * args[2][:, None, None, :]).permute(0, 3, 1, 2)
+            if up:
+                wl = args[1].permute(2, 3, 0, 1).contiguous()
+
+                def lib(xm=xm, wl=wl):  # the conv part only
+                    return F.conv_transpose2d(xm, wl, stride=2)
             else:
-                up = name == "styled_up_conv3x3"
-                args = styled_inputs(shape, up, gen, dev)
-                fn = getattr(modulated_conv, name)
-                ref = getattr(modulated_conv, name + "_ref")
+                wl = args[1].permute(3, 2, 0, 1).contiguous()
 
-                def kern(fn=fn, args=args):
-                    return fn(*args)
-
-                def plain(ref=ref, args=args):
-                    return ref(*args)
-
-                if up:  # conv_transpose + blur, independent of the phase taps
-                    other = modulated_conv.styled_up_conv3x3_xla(*args)
-                b, h, w, ci, co = shape
-                f = 2 if up else 1
-                moved = nbytes(*args) + b * f * h * f * w * co * 4
-                # the least work for the function: the conv at its own
-                # resolution (9 MACs per input pixel and channel pair); for
-                # the up branch conv_transpose + 4x4 blur, which needs a
-                # quarter of the MACs of the four composed phase filters.
-                # Both GEMMs run in 3xTF32: three tensor-core products per
-                # multiply-add.
-                flops = 2 * b * h * w * 9 * ci * co
-                ops = [(3 * flops, TF32X3)]
-                # the same work at fp32 SIMT rates, for comparison
-                simt = bound_ms(moved, [(flops, FP32)])[0]
-                if up:
-                    # the 4x4 blur is separable: 4 taps across the 2H + 1
-                    # scratch rows, then 4 down, per output channel
-                    blur = 2 * b * co * 4 * (2 * w) * ((2 * h + 1) + 2 * h)
-                    ops.append((blur, FP32))
-                    flops += 2 * b * (2 * h) * (2 * w) * co * 16  # as a 2-D filter
-                xm = (args[0] * args[2][:, None, None, :]).permute(0, 3, 1, 2)
-                if up:
-                    wl = args[1].permute(2, 3, 0, 1).contiguous()
-
-                    def lib(xm=xm, wl=wl):  # the conv part only
-                        return F.conv_transpose2d(xm, wl, stride=2)
-                else:
-                    wl = args[1].permute(3, 2, 0, 1).contiguous()
-
-                    def lib(xm=xm, wl=wl):  # the conv part only
-                        return F.conv2d(xm, wl, padding=1)
-            got = kern()
-            want = plain()
-            torch.cuda.synchronize()
-            err, rel, scale = errors(got, want)
-            tol = KERNEL_TOL * max(1.0, scale)
-            other_err = None if other is None else errors(got, other)[0]
-            ok = err <= tol and (other_err is None or other_err <= tol)
-            row = {
-                "kernel": name, "shape": list(shape), "calls": calls,
-                "max_abs_err": err, "max_rel_err": rel, "tol": tol,
-                "max_abs_err_convT_blur": other_err, "ok": ok,
-                "ms": time_ms(kern),
-                "plain_ms": time_ms(plain),
-                "library_ms": None, "library_err": None,
-            }
-            if lib is not None:
-                if name == "upfirdn2d":
-                    row["library_err"] = errors(lib(), want)[0]
-                row["library_ms"] = time_ms(lib)
-            row["bound_ms"], row["bound_by"] = bound_ms(moved, ops)
-            row["bound_fp32_simt_ms"] = simt
-            if name == "styled_conv3x3":  # how many ways the kernel split its taps
-                b, h, w, _, co = shape
-                row["tap_splits"] = modulated_conv.tap_splits(
-                    b * h * w, co, torch.cuda.get_device_properties(dev).multi_processor_count)
-            row["bytes"], row["flops"] = moved, flops
-            rows.append(row)
-            print(f"  {name:18s} {str(tuple(shape)):26s} err {err:.3e} "
-                  f"(rel {rel:.2e}, tol {tol:.1e}"
-                  + ("" if other_err is None else f"; vs convT+blur {other_err:.3e}")
-                  + ") "
-                  f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
-                  f"lib {row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} "
-                  f"bound {row['bound_ms']:.4f} ({row['bound_by']})"
-                  + ("" if simt is None else f" [fp32 SIMT {simt:.4f}]")
-                  + (f" taps split {row['tap_splits']}" if "tap_splits" in row else ""),
-                  flush=True)
-            check(ok, f"{name} {shape}: max abs err {err} (vs convT+blur "
-                      f"{other_err}) over tolerance {tol}")
+                def lib(xm=xm, wl=wl):  # the conv part only
+                    return F.conv2d(xm, wl, padding=1)
+        got = kern()
+        want = plain()
+        torch.cuda.synchronize()
+        err, rel, scale = errors(got, want)
+        tol = KERNEL_TOL * max(1.0, scale)
+        other_err = None if other is None else errors(got, other)[0]
+        ok = err <= tol and (other_err is None or other_err <= tol)
+        row = {
+            "kernel": name, "path": path, "shape": list(shape),
+            "noise_b": noise_b, "calls": calls,
+            "max_abs_err": err, "max_rel_err": rel, "tol": tol,
+            "max_abs_err_convT_blur": other_err, "ok": ok,
+            "ms": time_ms(kern),
+            "plain_ms": time_ms(plain),
+            "library_ms": None, "library_err": None,
+        }
+        if lib is not None:
+            if name == "upfirdn2d":
+                row["library_err"] = errors(lib(), want)[0]
+            row["library_ms"] = time_ms(lib)
+        row["bound_ms"], row["bound_by"] = bound_ms(moved, ops)
+        row["bound_fp32_simt_ms"] = simt
+        if name == "styled_conv3x3":  # how many ways the kernel split its taps
+            b, h, w, _, co = shape
+            row["tap_splits"] = modulated_conv.tap_splits(
+                b * h * w, co, torch.cuda.get_device_properties(dev).multi_processor_count)
+        row["bytes"], row["flops"] = moved, flops
+        rows.append(row)
+        print(f"  {name:18s} {str(tuple(shape)):26s}"
+              + ("" if path == "ffhq-256" else f" [{path}, noise_b {noise_b}]")
+              + f" err {err:.3e} "
+              f"(rel {rel:.2e}, tol {tol:.1e}"
+              + ("" if other_err is None else f"; vs convT+blur {other_err:.3e}")
+              + ") "
+              f"ms {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+              f"lib {row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 4)} "
+              f"bound {row['bound_ms']:.4f} ({row['bound_by']})"
+              + ("" if simt is None else f" [fp32 SIMT {simt:.4f}]")
+              + (f" taps split {row['tap_splits']}" if "tap_splits" in row else ""),
+              flush=True)
+        check(ok, f"{name} {shape}: max abs err {err} (vs convT+blur "
+                  f"{other_err}) over tolerance {tol}")
     return rows
 
 
@@ -1773,33 +1832,41 @@ TIMED_REQUESTS = 3  # folded and unfused, after prediction; median of 2-3
 
 
 class _Blocks:
-    """Host-clock ms (synced) and peak device memory of named blocks."""
+    """Host-clock ms (synced), peak device memory and kernel launches of
+    named blocks."""
 
     def __init__(self):
-        self.ms, self.peak = {}, {}
+        self.ms, self.peak, self.launches = {}, {}, {}
 
     def __call__(self, name, fn):
+        from ganecdotes_torch.ops import _build
+
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        before = dict(_build.LAUNCHES)
         t0 = time.perf_counter()
         out = fn()
         self.ms[name] = _sync_ms(t0)
         self.peak[name] = torch.cuda.max_memory_allocated()
+        self.launches[name] = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                               if v != before[k]}
         return out
 
 
-def _method_pipeline(method, out_dir, dev, ops, gen, pretraining):
-    """OneShotPipeline for ``method`` at ffhq-256 with cli/pretrain.py's
-    settings (``pretraining``; SimCLR cut to SIMCLR_STEPS steps) or
-    cli/evaluate.py's."""
+def _method_pipeline(method, out_dir, dev, ops, gen, pretraining,
+                     model="ffhq-256", custom=None):
+    """OneShotPipeline for ``method`` at ``model`` (ffhq-256; ``custom``
+    configs as the pipeline takes them) with cli/pretrain.py's settings
+    (``pretraining``; SimCLR cut to SIMCLR_STEPS steps) or
+    cli/evaluate.py's. ``gen`` None: the model config's generator."""
     from ganecdotes_torch.pipeline.one_shot_pipeline import OneShotPipeline
 
-    pipe = OneShotPipeline(out_dir, model="ffhq-256", segmentor=method,
+    pipe = OneShotPipeline(out_dir, model=model, segmentor=method,
                            num_test_samples=EVAL_TEST_SAMPLES, device=dev,
-                           ops=ops, gen=gen)
+                           ops=ops, gen=gen, custom=custom)
     pipe.logger.setLevel(logging.WARNING)  # its per-chunk lines: details only
     sc = pipe.seg_config
-    if method in PRETRAINED:
+    if method in PRETRAINED or "hfc_with_swav" in method:
         sc.train_hfc = pretraining
         sc.hfc_prep_args["train"] = pretraining
     if method == "hfc_kmeans":
@@ -1847,29 +1914,34 @@ def run_method_pretrain(method, gen, dev, ops, out_dir, replay=None):
     return pipe, rec, hidden
 
 
-def run_method_evaluate(method, gen, dev, ops, out_dir, replay_features=None):
-    """cli/evaluate.py's path for ``method`` (the preprocessor's files loaded,
-    not refitted), block by block; then TIMED_REQUESTS folded and unfused
-    requests, and scoring. With ``replay_features`` (the kernels run's
-    one-shot features) the run computes its own, then fine-tunes on those:
-    200 epochs of Adam carry a rounding step of the features further than
-    the loss and label gates (``method_rounding.py``). Returns (pipeline,
-    record, its own one-shot features)."""
+def run_method_evaluate(method, gen, dev, ops, out_dir, replay_features=None,
+                        model="ffhq-256", custom=None):
+    """cli/evaluate.py's path for ``method`` at ``model`` (the preprocessor's
+    files loaded, not refitted), block by block; then TIMED_REQUESTS folded
+    and unfused requests, and scoring. With ``replay_features`` (the kernels
+    run's one-shot features) the run computes its own, then fine-tunes on
+    those: 200 epochs of Adam carry a rounding step of the features further
+    than the loss and label gates (``method_rounding.py``). Returns
+    (pipeline, record, its own one-shot features)."""
     from ganecdotes_torch.ops import _build
 
     blocks = _Blocks()
-    pipe = blocks("construct", lambda: _method_pipeline(method, out_dir, dev,
-                                                        ops, gen, False))
+    pipe = blocks("construct", lambda: _method_pipeline(
+        method, out_dir, dev, ops, gen, False, model, custom))
     blocks("setup", pipe.setup)
     if method == "hfc_with_simclr":
         pipe.preprocessor = blocks("simclr_setup", pipe._build_ssl_preprocessor)
         check(pipe.preprocessor.params is not None,
               "simclr_params.npz was not loaded")
+    elif "hfc_with_swav" in method:
+        pipe.preprocessor = blocks("swav_setup", pipe._build_ssl_preprocessor)
+        check(pipe.preprocessor.ssl_params is not None,
+              "the SwAV params were not loaded")
     feats = blocks("one_shot_features", pipe._extract_one_shot_features)
     if replay_features is not None:
         pipe._extract_one_shot_features = lambda: replay_features
     blocks("train", pipe.run_trainer)
-    if method == "hfc_with_simclr":
+    if method == "hfc_with_simclr" or "hfc_with_swav" in method:
         check(pipe.preprocessor.pretrain_count == 0, "the evaluate run pretrained")
     blocks("predict", pipe.predict_tests)
     launches = dict(_build.LAUNCHES)
@@ -1896,6 +1968,7 @@ def run_method_evaluate(method, gen, dev, ops, out_dir, replay_features=None):
               in zip([(0, 0, 0)] + pipe.finetune_log, pipe.finetune_log)]
     return pipe, {
         "block_ms": blocks.ms, "peak_memory_bytes": blocks.peak,
+        "block_launches": blocks.launches,
         "launches": launches, "one_shot_features_shape": list(feats.shape),
         "finetune_conv": pipe.finetune_conv,
         "finetune_losses": [(e, loss) for e, loss, _ in pipe.finetune_log],
@@ -2126,6 +2199,462 @@ def methods(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: reference checkpoints and the other model configs
+# ---------------------------------------------------------------------------
+
+CONFIG_PATHS = {  # (model key, segmentor, its config file)
+    "cat": ("cat-256", "hfc_with_swav_cat", "lsun_cat_256"),
+    "p-horse": ("p-horse-256", "hfc_with_swav", "pascal_horse_256"),
+    # the same model at all of its 34 classes, through a head as wide
+    "p-horse-34": ("p-horse-256", "datasetgan", "pascal_horse_256"),
+    "pidray": ("pidray-256", "hfc_with_swav_pidray", "pidray_bag_256"),
+}
+
+
+def seeded_generator(seed, noise_strength=True, **gen_args):
+    """A full-width port Generator with random weights from ``seed`` (on the
+    CPU) and, with ``noise_strength``, a random noise strength per layer
+    (the init's is 0, which would hide any noise)."""
+    from ganecdotes_torch.models.stylegan2.generator import Generator
+
+    g = torch.Generator().manual_seed(seed)
+    gen = Generator(**gen_args, generator=g)
+    if noise_strength:
+        with torch.no_grad():
+            for conv in [gen.conv1, *gen.convs]:
+                conv.noise_weight.fill_(0.1 + 0.4 * torch.rand((), generator=g).item())
+    return gen
+
+
+def rosinality_state(gen):
+    """A port Generator as a rosinality ``g_ema`` state_dict (CPU tensors):
+    the inverse of the layout transposes ``convert.torch_generator_tree``
+    applies (HWIO -> (1, out, in, kh, kw), (in, out) -> (out, in), NHWC ->
+    NCHW)."""
+    from ganecdotes_torch.models.stylegan2.convert import module_tree
+
+    tree, sd = module_tree(gen), {}
+
+    def lin(prefix, p):
+        sd[prefix + ".weight"] = p["weight"].T.contiguous()
+        if "bias" in p:
+            sd[prefix + ".bias"] = p["bias"].clone()
+
+    def modconv(prefix, p):
+        sd[prefix + ".weight"] = p["weight"].permute(3, 2, 0, 1)[None].contiguous()
+        lin(prefix + ".modulation", p["modulation"])
+
+    def styled(prefix, p):
+        modconv(prefix + ".conv", p["conv"])
+        sd[prefix + ".noise.weight"] = p["noise_weight"].reshape(1).clone()
+        sd[prefix + ".activate.bias"] = p["bias"].clone()
+
+    def to_rgb(prefix, p):
+        modconv(prefix + ".conv", p["conv"])
+        sd[prefix + ".bias"] = p["bias"].reshape(1, 3, 1, 1).clone()
+
+    for i, p in enumerate(tree["style"]):
+        lin(f"style.{i + 1}", p)
+    sd["input.input"] = tree["input"].permute(0, 3, 1, 2).contiguous()
+    styled("conv1", tree["conv1"])
+    to_rgb("to_rgb1", tree["to_rgb1"])
+    for i, p in enumerate(tree["convs"]):
+        styled(f"convs.{i}", p)
+    for i, p in enumerate(tree["to_rgbs"]):
+        to_rgb(f"to_rgbs.{i}", p)
+    for i, n in enumerate(tree["noises"]):
+        sd[f"noises.noise_{i}"] = n.permute(0, 3, 1, 2).contiguous()
+    return sd
+
+
+def write_swav_reference_files(params, out_dir):
+    """SwAV params (linear projection) as the reference saves them:
+    ``torch.save`` of its prototype Linear and projection Sequential."""
+    import torch.nn as nn
+
+    w = params["projection"][0]["weight"].detach().cpu()  # (hlen, nclasses)
+    proto = params["prototype"]
+    pw, pb = proto["weight"].detach().cpu(), proto["bias"].detach().cpu()
+    projection = nn.Sequential(nn.Linear(w.shape[0], w.shape[1], bias=False))
+    prototype = nn.Linear(pw.shape[0], pw.shape[1])
+    with torch.no_grad():
+        projection[0].weight.copy_(w.T)
+        prototype.weight.copy_(pw.T)
+        prototype.bias.copy_(pb)
+    os.makedirs(out_dir, exist_ok=True)
+    torch.save(prototype, os.path.join(out_dir, "prototypes.pt"))
+    torch.save(projection, os.path.join(out_dir, "projection.pt"))
+
+
+def config_copy(name, kind, extra, out_dir):
+    """The port's ``configs/<kind>/<name>.py`` with assignments appended
+    (later assignments win), written under ``out_dir``."""
+    from ganecdotes_torch import CONFIGS_DIR
+
+    with open(os.path.join(CONFIGS_DIR, kind, name + ".py")) as f:
+        body = f.read()
+    path = os.path.join(out_dir, f"{name}.py")
+    with open(path, "w") as f:
+        f.write(body + "\n# chip_smoke.py's overrides\n" + extra)
+    return path
+
+
+def _trees_equal(a, b):
+    from ganecdotes_torch.selfsup.lars import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x.detach().cpu(), y.detach().cpu()) for x, y in zip(la, lb))
+
+
+def round_trip(dev, root):
+    """(a) cat-256: a rosinality ``g_ema`` .pt written from a seeded
+    full-width generator loads through the model config's ``model_path``;
+    with the kernels its pipeline's one-shot image and features, and its
+    mean latent, equal those of a pipeline given the source generator, bit
+    for bit (the same float32 values meet the same ops). Phase 5's SwAV
+    params written as the reference's prototypes.pt / projection.pt import
+    to the same params, bit for bit, through the cat pipeline's SwAV
+    set-up."""
+    from ganecdotes_torch.ops import _build
+    from ganecdotes_torch.ops.opset import KERNELS
+    from ganecdotes_torch.pipeline.one_shot_pipeline import OneShotPipeline
+    from ganecdotes_torch.selfsup.swav import import_torch_swav_modules
+    from ganecdotes_torch.utils.serialization import load_pytree
+
+    model, seg, cfg_name = CONFIG_PATHS["cat"]
+    d = os.path.join(root, "cat")
+    os.makedirs(d)
+    ckpt = os.path.join(d, "stylegan2-cat-config-f.pt")
+    from ganecdotes_torch.configs.models import lsun_cat_256 as mc
+
+    source = seeded_generator(20, **mc.gen_args)
+    blocks = _Blocks()
+    torch.save({"g_ema": rosinality_state(source)}, ckpt)
+    cfg = {"model": config_copy(cfg_name, "models", f"model_path = {ckpt!r}\n", d)}
+    _build.reset_launches()
+    loaded = blocks("construct_from_checkpoint", lambda: OneShotPipeline(
+        os.path.join(d, "loaded"), model=model, segmentor=seg,
+        num_test_samples=EVAL_TEST_SAMPLES, custom=cfg, device=dev, ops=KERNELS))
+    blocks("setup", loaded.setup)
+    launches = dict(_build.LAUNCHES)
+    for k in SERVING_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched loading cat-256")
+    given = OneShotPipeline(os.path.join(d, "given"), model=model, segmentor=seg,
+                            num_test_samples=EVAL_TEST_SAMPLES, custom=cfg,
+                            device=dev, ops=KERNELS, gen=source)
+    given.setup()
+    same = {
+        "mean_latent": torch.equal(loaded.mean_latent, given.mean_latent),
+        "one_shot_image": torch.equal(loaded.one_shot_img, given.one_shot_img),
+        "one_shot_features": all(torch.equal(a, b) for a, b in zip(
+            loaded.one_shot_features, given.one_shot_features)),
+        "state": all(torch.equal(a, b) for a, b in zip(
+            loaded.model.state_dict().values(), given.model.state_dict().values())),
+    }
+    npz = os.path.join(ROOT, "build", "chip_smoke_swav", "swav_params.npz")
+    swav_dir = os.path.join(d, "loaded")
+    write_swav_reference_files(load_pytree(npz), swav_dir)
+    loaded.seg_config.hfc_prep_args["train"] = False
+    pre = blocks("swav_import", loaded._build_ssl_preprocessor)
+    want = load_pytree(npz)
+    same["swav_params"] = (_trees_equal(pre.ssl_params, want) and _trees_equal(
+        import_torch_swav_modules(os.path.join(swav_dir, "prototypes.pt"),
+                                  os.path.join(swav_dir, "projection.pt"),
+                                  "linear"), want))
+    check(all(same.values()), f"the cat-256 round trip is not bit-equal: {same}")
+    return {"bit_equal": same, "block_ms": blocks.ms,
+            "peak_memory_bytes": blocks.peak, "block_launches": blocks.launches,
+            "checkpoint_bytes": os.path.getsize(ckpt)}
+
+
+P_HORSE_XXS_CLASSES = 12  # the generic hfc_with_swav config's XXS head's outputs
+
+
+def p_horse_test_set(gen, dev, d, n, k):
+    """``n`` test samples for p-horse as the reference ships them, a
+    latents.pt (w) and a labels.pt: each image labelled by its own
+    luminance quantiles in the first ``k`` of the config's 34 classes, so
+    that the one-shot label reaches class k - 1. The generic hfc_with_swav config's XXS head
+    outputs 12 channels whatever the class count, and a one-shot label past
+    them is refused (ROADMAP §3); DatasetGAN's pixel classifier outputs all
+    34."""
+    import numpy as np
+
+    from ganecdotes_torch.models.stylegan2.generator import (
+        generator_forward,
+        mapping_apply,
+    )
+    from ganecdotes_torch.ops.opset import PLAIN
+
+    z = torch.randn(n, 512, generator=torch.Generator().manual_seed(26)).to(dev)
+    g = gen.to(dev)
+    with torch.no_grad():
+        w = mapping_apply(g, z, PLAIN)
+        img = torch.cat([generator_forward(g, w[i : i + B], input_is_latent=True,
+                                           ops=PLAIN)[0]
+                         for i in range(0, n, B)]).cpu().numpy()
+    gen.cpu()
+    lum = img.mean(axis=-1)
+    labels = np.stack([np.digitize(x, np.quantile(x, np.linspace(0, 1, k + 1)[1:-1]))
+                       for x in lum])
+    paths = os.path.join(d, "latents.pt"), os.path.join(d, f"labels_{k}.pt")
+    torch.save(w.cpu(), paths[0])
+    torch.save(torch.from_numpy(labels.astype(np.int64)), paths[1])
+    return paths
+
+
+def p_horse_files(dev, root):
+    """(b)'s files: the g_ema .pt of a seeded generator, its per-layer NCHW
+    noise maps as .pt files, one test set (``p_horse_test_set``) in the XXS
+    head's 12 classes and one in all 34, the generic hfc_with_swav SwAV
+    params (hlen 4864, 8000 prototypes) as the reference's files, and a
+    model config pointing at them for each test set. Returns ({"p-horse":
+    custom configs, "p-horse-34": ...}, SwAV files' dir, noise maps)."""
+    from ganecdotes_torch.configs.models import pascal_horse_256 as mc
+    from ganecdotes_torch.configs.segmentors import hfc_with_swav_config as sc
+    from ganecdotes_torch.models.stylegan2.generator import make_noise
+    from ganecdotes_torch.selfsup.swav import init_swav_params
+
+    _, _, cfg_name = CONFIG_PATHS["p-horse"]
+    d = os.path.join(root, "p-horse", "files")
+    noise_dir = os.path.join(d, "noises")
+    os.makedirs(noise_dir)
+    gen = seeded_generator(21, **mc.gen_args)
+    ckpt = os.path.join(d, "stylegan2-horse-config-f.pt")
+    torch.save({"g_ema": rosinality_state(gen)}, ckpt)
+    noises = make_noise(gen.meta, generator=torch.Generator().manual_seed(22))
+    for i, n in enumerate(noises):
+        torch.save(n.permute(0, 3, 1, 2).contiguous(),
+                   os.path.join(noise_dir, f"noise_{i}.pt"))
+    sa = sc.hfc_prep_args["swav_args"]
+    write_swav_reference_files(init_swav_params(
+        sa["hlen"], sa["nclasses"], sa["nprototypes"], sa["projn_nw"],
+        generator=torch.Generator().manual_seed(23)), d)
+    cfgs = {}
+    for name, k in (("p-horse", P_HORSE_XXS_CLASSES), ("p-horse-34", len(mc.classes))):
+        lat, lbl = p_horse_test_set(gen, dev, d, EVAL_TEST_SAMPLES + 1, k)
+        os.makedirs(os.path.join(d, name))
+        cfgs[name] = {"model": config_copy(
+            cfg_name, "models",
+            f"model_path = {ckpt!r}\nsample_noises = {noise_dir!r}\n"
+            f"sample_latents = {lat!r}\nsample_labels = {lbl!r}\n",
+            os.path.join(d, name))}
+    return cfgs, d, noises
+
+
+def pidray_files(dev, root):
+    """(c)'s files: a seeded BagGAN generator at the reference's lean width
+    map as a reference ``latest_net_G.pth`` (save_baggan_torch_checkpoint)
+    in the checkpoint_dir of a copy of the BagGAN run config that also sets
+    res2chlmap = "baggan"; the pidray SwAV params (hlen 2528, 4000
+    prototypes) as the reference's files; the model config naming the run
+    config. Returns (custom configs, SwAV files' dir, the generator)."""
+    from ganecdotes_torch.configs.models import pidray_bag_256 as mc
+    from ganecdotes_torch.configs.segmentors import hfc_with_swav_pidray_config as sc
+    from ganecdotes_torch.models.baggan.convert import (
+        BAGGAN_RES_TO_CHANNEL_MAP,
+        save_baggan_torch_checkpoint,
+    )
+    from ganecdotes_torch.selfsup.swav import init_swav_params
+
+    _, _, cfg_name = CONFIG_PATHS["pidray"]
+    d = os.path.join(root, "pidray", "files")
+    ckpt_dir = os.path.join(d, "models")
+    os.makedirs(ckpt_dir)
+    ga = mc.gen_args
+    gen = seeded_generator(24, size=ga["size"], style_dim=ga["style_dim"],
+                           n_mlp=ga["n_mlp"], res2chlmap=BAGGAN_RES_TO_CHANNEL_MAP)
+    save_baggan_torch_checkpoint(os.path.join(ckpt_dir, "latest_net_G.pth"), gen)
+    run = config_copy("config_pidray_unlabeled", os.path.join("models", "baggan"),
+                      f"checkpoint_dir = {ckpt_dir!r}\nres2chlmap = 'baggan'\n", d)
+    sa = sc.hfc_prep_args["swav_args"]
+    write_swav_reference_files(init_swav_params(
+        sa["hlen"], sa["nclasses"], sa["nprototypes"], sa["projn_nw"],
+        generator=torch.Generator().manual_seed(25)), d)
+    cfg = {"model": config_copy(cfg_name, "models", f"config_path = {run!r}\n", d)}
+    return cfg, d, gen
+
+
+def check_pidray_loaders(dev, root, gen):
+    """The BagGAN loader's other two paths: the trainers' latest_net_G.npz of
+    the same generator loads to the .pth's weights bit for bit, and a run
+    config with res2chlmap = "baggan" and no checkpoint initialises the lean
+    widths, whose feature pyramid is the pidray config's hlen wide."""
+    from types import SimpleNamespace
+
+    from ganecdotes_torch.configs.models import pidray_bag_256 as mc
+    from ganecdotes_torch.configs.segmentors import hfc_with_swav_pidray_config as sc
+    from ganecdotes_torch.models.baggan import load_baggan_generator
+    from ganecdotes_torch.models.stylegan2.convert import module_tree
+    from ganecdotes_torch.utils.serialization import save_pytree
+
+    out = {}
+    for name in ("npz", "none"):
+        ckpt_dir = os.path.join(root, "pidray", name)
+        os.makedirs(ckpt_dir)
+        if name == "npz":
+            save_pytree(os.path.join(ckpt_dir, "latest_net_G.npz"), module_tree(gen))
+        run = config_copy("config_pidray_unlabeled", os.path.join("models", "baggan"),
+                          f"checkpoint_dir = {ckpt_dir!r}\nres2chlmap = 'baggan'\n",
+                          ckpt_dir)
+        g = load_baggan_generator(SimpleNamespace(gen_args=mc.gen_args, config_path=run),
+                                  generator=torch.Generator().manual_seed(0))
+        if name == "npz":
+            out["npz_bit_equal"] = all(torch.equal(a, b) for a, b in zip(
+                g.state_dict().values(), gen.state_dict().values()))
+        else:
+            widths = [g.conv1.bias.shape[0]] + [c.bias.shape[0] for c in g.convs]
+            out["random_init_width"] = sum(widths)
+    check(out["npz_bit_equal"], "latest_net_G.npz did not load bit-equal")
+    check(out["random_init_width"] == sc.hlen,
+          f"the lean random init is {out['random_init_width']} wide, hlen {sc.hlen}")
+    return out
+
+
+def config_evaluate(name, dev, custom, files_dir, root, gates):
+    """cli/evaluate.py's path for one model config (phase 10 (b), (c)), with
+    the kernels, then with every op on its plain version fine-tuning on the
+    kernels run's one-shot features; the SwAV params imported from the
+    reference's files in each run's out_dir. Gated as phase 8 / 9:
+    features, the replayed fine-tune's losses, test labels, mean IoU; the
+    kernels run's folded request against its unfused oracle."""
+    import shutil
+
+    import numpy as np
+
+    from ganecdotes_torch.ops import _build
+    from ganecdotes_torch.ops.opset import KERNELS, PLAIN
+
+    model, seg, _ = CONFIG_PATHS[name]
+    runs, rec, own, replay = {}, {}, {}, None
+    for run, ops in (("kernels", KERNELS), ("plain", PLAIN)):
+        d = os.path.join(root, name, run)
+        os.makedirs(d)
+        for f in ("prototypes.pt", "projection.pt") if "hfc_with_swav" in seg else ():
+            shutil.copy(os.path.join(files_dir, f), d)
+        _build.reset_launches()
+        runs[run], rec[run], own[run] = run_method_evaluate(
+            seg, None, dev, ops, d, replay, model=model, custom=custom)
+        replay = own[run]
+    kern, kr = runs["kernels"], rec["kernels"]
+    plain, pr = runs["plain"], rec["plain"]
+    for k in SERVING_KERNELS:
+        check(kr["launches"][k] > 0, f"kernel {k} was not launched on {name}")
+    check(all(v == 0 for v in pr["launches"].values()),
+          f"{name}'s plain run launched kernels: {pr['launches']}")
+    mc = kern.model_config
+    check(kern.pred_labels.shape == (EVAL_TEST_SAMPLES, mc.image_size, mc.image_size),
+          f"{name} labels shape {kern.pred_labels.shape}")
+    check(bool(np.isfinite(kern.test_images).all()), f"{name}: non-finite test images")
+    check(0.0 <= kern.mean_mask_iou <= 1.0, f"{name} mean mask IoU {kern.mean_mask_iou}")
+    err, _, scale = errors(own["kernels"], own["plain"])
+    (e1, k1), (_, kl) = kr["finetune_losses"][0], kr["finetune_losses"][-1]
+    (_, p1), (_, pl) = pr["finetune_losses"][0], pr["finetune_losses"][-1]
+    g = {"feature_err": err / max(1.0, scale),
+         "first_chunk_loss_rel": abs(k1 - p1) / max(abs(p1), 1e-30),
+         "last_loss_rel": abs(kl - pl) / max(abs(pl), 1e-30),
+         "label_agreement": float((kern.pred_labels == plain.pred_labels).mean()),
+         "mean_mask_iou_err": abs(kern.mean_mask_iou - plain.mean_mask_iou)}
+    try:
+        folded = check_method_folded(kern)
+    except SmokeFailure as e:
+        folded = {"failed": str(e)}
+        gates.append(f"{name}: {e}")
+    widths = [int(c.bias.shape[0]) for c in [kern.model.conv1, *kern.model.convs]]
+    summary = {
+        "generator_widths": widths, "classes": len(mc.classes),
+        "one_shot_label_max": int(kern.one_shot_label.max()),
+        "hlen": (kern.preprocessor.swav_args["hlen"]
+                 if "hfc_with_swav" in seg else None),
+        "folded_ms": kr["requests"]["folded"]["steady_ms"],
+        "folded_img_per_s": kr["requests"]["folded"]["img_per_s"],
+        "unfused_ms": kr["requests"]["unfused"]["steady_ms"],
+        "unfused_img_per_s": kr["requests"]["unfused"]["img_per_s"],
+        "epoch_ms": statistics.median(kr["epoch_ms"]),
+        "finetune_wall_ms": kr["finetune_wall_ms"],
+        "score_ms_per_image": kr["score_ms_per_image"],
+        "plain_folded_ms": pr["requests"]["folded"]["steady_ms"],
+    }
+    print(f"  {name} ({model}, {seg}): {json.dumps(summary)}", flush=True)
+    print(f"    gates {json.dumps(g)}; folded vs unfused {json.dumps(folded)}",
+          flush=True)
+    for run, r in rec.items():
+        print(f"    {run}: block ms {json.dumps({k: round(v, 3) for k, v in r['block_ms'].items()})}; "
+              f"peak GiB {json.dumps({k: round(v / 2**30, 3) for k, v in r['peak_memory_bytes'].items()})}; "
+              f"requests peak GiB folded {r['requests']['folded']['peak_memory_bytes'] / 2**30:.3f}, "
+              f"unfused {r['requests']['unfused']['peak_memory_bytes'] / 2**30:.3f}; "
+              f"launches per block {json.dumps(r['block_launches'])}; "
+              f"mean mask IoU {r['mean_mask_iou']:.6f}", flush=True)
+    for ok, msg in ((g["feature_err"] <= FEATURE_TOL, "one-shot features differ"),
+                    (g["first_chunk_loss_rel"] <= FIRST_CHUNK_LOSS_RTOL,
+                     "first-chunk loss differs"),
+                    (g["last_loss_rel"] <= LAST_LOSS_RTOL, "last loss differs"),
+                    (g["label_agreement"] >= LABEL_AGREEMENT, "labels differ"),
+                    (g["mean_mask_iou_err"] <= IOU_TOL, "IoU differs"),
+                    (kl < k1, "the fine-tune did not lower its loss")):
+        if not ok:
+            gates.append(f"{name}: {msg}: {g}, losses {k1} -> {kl}")
+    return kern, {"kernels": kr, "plain": pr, "gates": g, "folded": folded,
+                  "summary": summary}
+
+
+def configs(dev):
+    """Phase 10: (a) the cat-256 reference checkpoint round trip; (b)
+    p-horse-256, the fed-noise family (DatasetGAN at all 34 classes, then
+    the generic hfc_with_swav config in its XXS head's 12), and (c)
+    pidray-256 with the BagGAN generator, each through cli/evaluate.py's
+    path with the kernels and the plain ops."""
+    import shutil
+
+    root = os.path.join(ROOT, "build", "chip_smoke_configs")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out, failed = {}, []
+    out["cat"] = round_trip(dev, root)
+    print(f"  cat (cat-256): bit-equal {json.dumps(out['cat']['bit_equal'])}; "
+          f"block ms {json.dumps({k: round(v, 3) for k, v in out['cat']['block_ms'].items()})}; "
+          f"launches per block {json.dumps(out['cat']['block_launches'])}", flush=True)
+
+    customs, files, noises = p_horse_files(dev, root)
+    kern, out["p-horse-34"] = config_evaluate("p-horse-34", dev, customs["p-horse-34"],
+                                              files, root, failed)
+    s34 = out["p-horse-34"]["summary"]
+    check(s34["one_shot_label_max"] == s34["classes"] - 1 == 33,
+          f"the one-shot label does not reach the last of p-horse's classes: {s34}")
+    del kern
+    kern, out["p-horse"] = config_evaluate("p-horse", dev, customs["p-horse"], files,
+                                           root, failed)
+    w = kern.one_shot_latent[None]
+    fed = [n.to(dev) for n in noises]
+    own_buffers = kern.get_image_from_latent(w, truncate=False)
+    refed = kern.get_image_from_latent(w, noise=fed, truncate=False)
+    truncated = kern.get_image_from_latent(w, noise=fed)
+    noise = {"fed_noise_image_bit_equal": torch.equal(kern.one_shot_img, refed),
+             "differs_from_own_buffers": not torch.equal(kern.one_shot_img, own_buffers),
+             "differs_from_truncated": not torch.equal(kern.one_shot_img, truncated),
+             "image_max_abs_diff_vs_own_buffers":
+                 (kern.one_shot_img - own_buffers).abs().max().item()}
+    out["p-horse"]["fed_noise"] = noise
+    print(f"    fed noise: {json.dumps(noise)}", flush=True)
+    check(noise["fed_noise_image_bit_equal"] and noise["differs_from_own_buffers"]
+          and noise["differs_from_truncated"],
+          f"the fed noises did not reach the untruncated synthesis: {noise}")
+    del kern
+
+    custom, files, gen = pidray_files(dev, root)
+    kern, out["pidray"] = config_evaluate("pidray", dev, custom, files, root, failed)
+    check(sum(out["pidray"]["summary"]["generator_widths"])
+          == out["pidray"]["summary"]["hlen"],
+          f"the pidray features are not hlen wide: {out['pidray']['summary']}")
+    del kern
+    out["pidray"]["loaders"] = check_pidray_loaders(dev, root, gen)
+    print(f"    BagGAN loaders: {json.dumps(out['pidray']['loaders'])}", flush=True)
+    check(not failed, "phase 10 gates failed:\n  " + "\n  ".join(failed))
+    return out
+
+
 def kernels_line(rows, launches):
     out = []
     for name, (source, replaces) in KERNELS_TABLE.items():
@@ -2218,6 +2747,11 @@ def main():
           f"samples; SimCLR {SIMCLR_STEPS} of its 100 steps; k-means at the "
           "shipped config):", flush=True)
     other_methods = methods(dev)
+    print("configs (a reference checkpoint round trip at cat-256; p-horse-256 "
+          "with fed noises (datasetgan at 34 classes, hfc_with_swav at 12) and "
+          "pidray-256 with the BagGAN generator through the evaluate path, "
+          f"{EVAL_TEST_SAMPLES} test samples):", flush=True)
+    other_configs = configs(dev)
 
     # each kernel's launches from the path it belongs to; the serving
     # kernel rows are per request of 8, the Sinkhorn row per SwAV step, the
@@ -2236,6 +2770,7 @@ def main():
                        "shapes": rows,
                        "serve": served, "pretrain": pretrained, "train": trained,
                        "evaluate": evaluated, "methods": other_methods,
+                       "configs": other_configs,
                        "kernels": line}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": line}))

@@ -1,16 +1,27 @@
 """Evaluate a saved self-supervised clustering model for one-shot
 segmentation on the port (the flags of the top-level ``evaluate.py``, plus
-``--device``).
+``--device`` and every model key whose config file ships).
 
     python -m ganecdotes_torch.cli.evaluate --model ffhq-256 \
         --method hfc_with_swav --out_dir results/evaluate_default/
 
 Runs on the CUDA card unless ``--device cpu`` is given; without a card and
-without ``--device`` it raises. The SwAV and SimCLR params are loaded from
-``<out_dir>/swav_params.npz`` / ``simclr_params.npz`` (pretrained there first
-if missing), the k-means clusterers from ``<out_dir>/clusterer_layer_{n}.npz``
+without ``--device`` it raises. The generator is the model config's
+reference checkpoint (``model_path``, a rosinality ``g_ema`` ``.pt``; for the
+PIDRay models the newest ``*_net_G.npz`` or ``*_net_G.pth`` in the BagGAN
+run config's ``checkpoint_dir``), random from the seed where none is there.
+The SwAV params are loaded from ``<out_dir>/swav_params.npz``, else from
+the reference's ``prototypes.pt`` and ``projection.pt`` there; the SimCLR
+params from ``simclr_params.npz``, else the reference's ``projection.pt``
+(either is pretrained first when none of its files is there); the k-means
+clusterers from ``<out_dir>/clusterer_layer_{n}.npz``
 (written by ``cli/pretrain.py``; missing ones raise). RepurposeGAN and
 DatasetGAN need nothing saved.
+
+``--method hfc_with_swav`` on ``p-horse-256`` (34 classes) and ``p-car-512``
+(60) resolves to the generic config, whose XXS head outputs 12 channels: a
+one-shot label past class 11 raises a ``ValueError`` before the fine-tune.
+``--method datasetgan`` runs those models at every class.
 """
 
 import argparse
@@ -18,9 +29,13 @@ import argparse
 from ganecdotes_torch.configs.mapper import resolve_method_alias
 from ganecdotes_torch.pipeline.one_shot_pipeline import OneShotPipeline
 
+# the top-level evaluate.py's choices, then every other model key whose
+# config file ships
 MODELS = ["ffhq-256", "cat-256", "afhq-256", "horse-256", "car-512",
           "pidray-256", "pidray-pliers-256", "pidray-hammer-256",
-          "pidray-powerbank-256", "pidray-wrench-256", "pidray-handcuffs-256"]
+          "pidray-powerbank-256", "pidray-wrench-256", "pidray-handcuffs-256",
+          "ffhq-256-eg", "horse-256-rp", "church-256", "p-horse-256",
+          "p-car-512"]
 
 
 def build_parser():

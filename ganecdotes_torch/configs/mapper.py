@@ -2,12 +2,12 @@
 and the same model x method alias rules, with the losses and LR schedulers
 mapped to the port's callables.
 
-Every key resolves to a path in the port's ``configs/``. The port ships the
-files of ffhq-256, the five methods' segmentor configs (``hfc_with_swav_ffhq``,
-``repurposegan``, ``datasetgan``, ``hfc_with_simclr``, ``hfc_kmeans``) and
-``supervised``; the pipeline raises ``NotImplementedError`` for a key whose
-file is not there yet (``not_ported``), and for a part of a shipped method
-that is not ported (``not_ported_part``).
+Every key resolves to a path in the port's ``configs/``, which holds a copy
+of every config file the JAX package ships. Three model keys name a file
+that neither package has ('ffhq-256-er', 'church-512', 'celeba-256', kept
+for key-level parity with the reference): the pipeline raises
+``NotImplementedError`` for them (``not_ported``), and for a part of a
+shipped method that is not ported (``not_ported_part``).
 """
 
 import os
@@ -103,25 +103,26 @@ lr_scheduler = {
 
 # the ROADMAP items that bring what the port does not run yet
 ITEMS = {
-    "config": "§1 item 9 (the other model configs)",
-    "loader": "§1 item 5 (the reference-format loaders)",
+    "loader": "§1 item 5 (the reference's pickled sklearn clusterers)",
     "hier_kmeans": "§1 item 10 (hierarchical k-means and belief encoding)",
 }
 
 
 def not_ported(kind, key, path):
-    """Raise ``NotImplementedError`` naming the ROADMAP item that brings the
-    ``kind`` ("model", "seg", "trainer") config ``key`` at ``path``."""
+    """Raise ``NotImplementedError`` for the ``kind`` ("model", "seg",
+    "trainer") config ``key`` whose file at ``path`` is missing: the JAX
+    package ships no such file either."""
     raise NotImplementedError(
-        f"the port has no {kind} config {key!r} yet ({path}): ROADMAP "
-        f"{ITEMS['config']}")
+        f"no {kind} config {key!r} ({path}): the JAX package ships no such "
+        "file either, so there is nothing to port")
 
 
 def not_ported_part(what, item):
     """Raise ``NotImplementedError`` for ``what`` (a method's option or a
-    reference-format file), naming ROADMAP ``ITEMS[item]``: "loader" or
-    "hier_kmeans" (``hfc_algo='hfc_kmeans_hier'``, ``hier_encode=True``,
-    the legacy hierarchical clusterer, beliefs files)."""
+    reference-format file), naming ROADMAP ``ITEMS[item]``: "loader" (the
+    pickled sklearn ``.sav`` clusterers) or "hier_kmeans"
+    (``hfc_algo='hfc_kmeans_hier'``, ``hier_encode=True``, the legacy
+    hierarchical clusterer, beliefs files)."""
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP {ITEMS[item]}")
 
 

@@ -6,7 +6,7 @@ n_hfc_layers = 6
 
 train_hfc = True
 layer_hf_dim = [512, 1024, 1024, 1024, 1024, 512, 256]
-hlen = sum(layer_hf_dim)  # 4864
+hlen = sum(layer_hf_dim)  # 5376, all 13 levels of a rosinality 256^2 generator
 nclasses = 512
 
 hfc_prep_args = dict(

@@ -48,6 +48,7 @@ from ganecdotes_torch.gan.losses import (
     path_length_penalty,
     r1_penalty,
 )
+from ganecdotes_torch.models.baggan.convert import BAGGAN_RES_TO_CHANNEL_MAP
 from ganecdotes_torch.models.stylegan2.convert import module_tree, tree_to_state
 from ganecdotes_torch.models.stylegan2.discriminator import (
     Discriminator,
@@ -67,10 +68,6 @@ from ganecdotes_torch.utils.optim import Adam
 from ganecdotes_torch.utils.serialization import load_pytree, save_pytree
 from ganecdotes_torch.utils.util import get_logger
 
-# the reference BagGAN generator's leaner width map (models/baggan/models.py:25-33)
-BAGGAN_RES_TO_CHANNEL_MAP = {
-    4: 512, 8: 512, 16: 256, 32: 128, 64: 64, 128: 32, 256: 16, 512: 8,
-}
 STEP_KINDS = ("d", "r1", "g", "ppl")
 # torch.profiler ranges of the steps; ADA's augment runs inside "gan.ada"
 PROFILE_RANGES = {"d": "gan.d_step", "r1": "gan.r1", "g": "gan.g_step",

@@ -3,8 +3,13 @@ ganecdotes_tpu/pipeline/one_shot_pipeline.py) for the five methods:
 hfc_with_swav, hfc_with_simclr, hfc_kmeans (flat), RepurposeGAN and
 DatasetGAN.
 
+* load: the StyleGAN2 generator from the reference checkpoint at the model
+  config's ``model_path`` (rosinality ``g_ema``), the BagGAN generator of a
+  BagGAN config (``models.baggan``), or random weights from the seed;
 * setup: load the test latents and labels (``.pt``/``.npy``/``.npz``) or
-  synthesise pseudo-labelled samples, then synthesise the one-shot sample;
+  synthesise pseudo-labelled samples, then synthesise the one-shot sample
+  (the p-car / p-horse family: with the per-layer noises at the config's
+  ``sample_noises`` and without truncation);
 * train: the one-shot features of the method (the SwAV or SimCLR
   projection, pretrained or loaded from ``swav_params.npz`` /
   ``simclr_params.npz``; the k-means encoding of the clusterers fitted or
@@ -23,9 +28,7 @@ DatasetGAN.
 The artifacts and their layout are the JAX pipeline's. What the port does
 not run yet raises ``NotImplementedError`` naming its ROADMAP item: the
 hierarchical k-means and the belief encoding, the GUI labelling of online
-mode, the BagGAN generator, reference checkpoints and clusterers, and the
-model configs not copied yet (the p-car / ``sample_noises`` family among
-them).
+mode and the reference's pickled sklearn clusterers.
 """
 
 import csv
@@ -49,7 +52,11 @@ from ganecdotes_torch.metrics.segmentation import (
     get_weighted_iou,
     plot_iou_vs_pd_curve,
 )
-from ganecdotes_torch.models.stylegan2.convert import from_jax_params
+from ganecdotes_torch.models.baggan import load_baggan_generator
+from ganecdotes_torch.models.stylegan2.convert import (
+    from_jax_params,
+    load_torch_checkpoint,
+)
 from ganecdotes_torch.models.stylegan2.generator import (
     Generator,
     generator_forward,
@@ -72,6 +79,7 @@ from ganecdotes_torch.selfsup.heads import (
     init_pixel_classifier,
     one_shot_segmentor_apply,
     pixel_classifier_apply,
+    segmentor_out_channels,
 )
 from ganecdotes_torch.selfsup.kmeans import HFCPreprocessor
 from ganecdotes_torch.selfsup.lars import tree_map
@@ -195,28 +203,27 @@ class OneShotPipeline:
     # ------------------------------------------------------------------
 
     def load_model(self, gen=None, mean_latent=None):
-        """The StyleGAN2 generator (random from the seed, or carried in) and
-        the pipeline's mean latent."""
+        """The generator (carried in as ``gen``; else loaded from the model
+        config's reference checkpoint, or its BagGAN run's; else random from
+        the seed) and the pipeline's mean latent. A loaded generator has the
+        widths of its file and draws nothing from the seed."""
         self.logger.info("Loading Pretrained StyleGAN2 Model ... ")
         self.model_config = mc = load_config(self.configs["model"], "model_config")
-        if mc.is_baggan:
-            raise NotImplementedError(
-                "the BagGAN generator in the one-shot pipeline is not ported "
-                "yet: ROADMAP §1 item 6")
-        if hasattr(mc, "sample_noises") or "p-car" in self.model_str:
-            raise NotImplementedError(
-                "the p-car / sample_noises model family is not ported yet: "
-                "ROADMAP §1 item 9")
-        path = mc.model_path
-        if path and os.path.exists(path):
-            raise NotImplementedError(
-                f"loading the reference checkpoint {path} is not ported yet: "
-                "ROADMAP §1 item 5")
-        if gen is None:
-            self.logger.warning(
-                f"Checkpoint not found at {path} - using randomly "
-                "initialized generator weights")
-            gen = Generator(**mc.gen_args, generator=self.generator)
+        if gen is None and mc.is_baggan:
+            gen = load_baggan_generator(mc, generator=self.generator,
+                                        logger=self.logger)
+        elif gen is None:
+            path = mc.model_path
+            ga = mc.gen_args
+            if path and os.path.exists(path):
+                gen = load_torch_checkpoint(path, ga["size"],
+                                            n_mlp=ga.get("n_mlp", 8))
+                self.logger.info(f"Loaded checkpoint: {path}")
+            else:
+                self.logger.warning(
+                    f"Checkpoint not found at {path} - using randomly "
+                    "initialized generator weights")
+                gen = Generator(**ga, generator=self.generator)
         self.model = gen.to(self.device)
 
         self.color_map = sample_label_colors(len(mc.classes))
@@ -260,12 +267,19 @@ class OneShotPipeline:
             out_dir=self.out_dir, logger=self.logger, tb=self.summary_writer,
             device=self.device, ops=self.ops, **self.seg_config.hfc_prep_args)
 
-    def get_image_from_latent(self, latent, return_features=False, noise=None):
+    def get_image_from_latent(self, latent, return_features=False, noise=None,
+                              truncate=True):
+        """The synthesis of latents w: truncated toward the mean latent
+        unless ``truncate`` is False, with ``noise`` (per-layer maps) or the
+        generator's fixed buffers."""
+        trunc = {}
+        if truncate:
+            trunc = dict(truncation=self.model_config.truncation,
+                         truncation_latent=self.mean_latent)
         with torch.no_grad():
             img, feat = generator_forward(
                 self.model, [torch.as_tensor(latent, device=self.device)],
-                input_is_latent=True, truncation=self.model_config.truncation,
-                truncation_latent=self.mean_latent, noise=noise, ops=self.ops)
+                input_is_latent=True, noise=noise, ops=self.ops, **trunc)
         return (img, feat) if return_features else img
 
     # ------------------------------------------------------------------
@@ -315,10 +329,11 @@ class OneShotPipeline:
                 "GUI labelling in online mode is not ported yet: ROADMAP §1 "
                 "item 7")
 
+        fed_noise_family = hasattr(mc, "sample_noises")  # p-car, p-horse
         lat_path, lbl_path = mc.sample_latents, mc.sample_labels
         if os.path.exists(lat_path) and os.path.exists(lbl_path):
             lat = _load_tensor(lat_path)
-            if isinstance(lat, tuple):
+            if isinstance(lat, tuple) and not fed_noise_family:
                 lat = lat[0]
             self.test_latents = np.asarray(lat)
             self.test_labels = np.asarray(_load_tensor(lbl_path))
@@ -331,10 +346,15 @@ class OneShotPipeline:
             self.test_latents[ind, :], dtype=torch.float32, device=self.device)
         if self.test_labels.max() < 1:
             self.test_labels = self.test_labels * 255
+        if "p-car" in self.model_str:
+            # the LSUN car labels (rows 64..448 of 512): padded to a square
+            n, _, w = self.test_labels.shape
+            lbl = np.zeros((n, w, w))
+            lbl[:, 256 - 192 : 256 + 192, :] = self.test_labels
+            self.test_labels = lbl
         self.one_shot_label = torch.as_tensor(
             self.test_labels[ind : ind + 1].astype(np.int64), device=self.device)
 
-        self.one_shot_noise = None
         if input_latent is not None:  # online mode, a fed latent
             self.one_shot_latent = torch.as_tensor(
                 input_latent, dtype=torch.float32, device=self.device)
@@ -344,12 +364,16 @@ class OneShotPipeline:
             self.one_shot_noise = [
                 torch.as_tensor(n, dtype=torch.float32, device=self.device)
                 for n in input_noises]
+        else:
+            self.one_shot_noise = self._load_sample_noises()
 
         one_shot_in = self.one_shot_latent
         if one_shot_in.dim() == 1:
             one_shot_in = one_shot_in[None]
+        # the fed-noise family skips truncation here (the test block keeps it)
         self.one_shot_img, self.one_shot_features = self.get_image_from_latent(
-            one_shot_in, return_features=True, noise=self.one_shot_noise)
+            one_shot_in, return_features=True, noise=self.one_shot_noise,
+            truncate=not fed_noise_family)
 
         if input_latent is None:  # the one-shot sample leaves the test set
             self.test_latents = np.concatenate(
@@ -361,6 +385,39 @@ class OneShotPipeline:
             self.num_test_samples = self.test_labels.shape[0]
         self.num_test_samples = min(self.num_test_samples,
                                     self.test_labels.shape[0])
+
+    def _load_sample_noises(self):
+        """The one-shot synthesis's per-layer noises from the model config's
+        ``sample_noises``: a file (a list of per-layer maps) or a directory of
+        per-layer ``.pt``/``.npy``/``.npz`` files, taken in (length, name)
+        order (noise_2 before noise_10); NCHW (B, 1, H, W) maps become NHWC.
+        None (the generator's fixed buffers) when the config has no such
+        path or nothing is there."""
+        path = getattr(self.model_config, "sample_noises", None)
+        if not path or not os.path.exists(path):
+            if path:
+                self.logger.warning(
+                    f"sample_noises path not found: {path} - using the "
+                    "generator's fixed noise buffers")
+            return None
+        if os.path.isdir(path):
+            files = sorted((f for f in os.listdir(path)
+                            if f.endswith((".pt", ".npy", ".npz"))),
+                           key=lambda f: (len(f), f))
+            arrs = [_load_tensor(os.path.join(path, f)) for f in files]
+        else:
+            loaded = _load_tensor(path)
+            arrs = list(loaded) if isinstance(loaded, (tuple, list)) else [
+                np.asarray(a) for a in loaded]
+        noises = []
+        for a in arrs:
+            a = np.asarray(a, dtype=np.float32)
+            if a.ndim == 3:
+                a = a[None]
+            if a.ndim == 4 and a.shape[1] == 1 and a.shape[-1] != 1:
+                a = a.transpose(0, 2, 3, 1)  # NCHW -> NHWC
+            noises.append(torch.as_tensor(a, device=self.device))
+        return noises or None
 
     # ------------------------------------------------------------------
 
@@ -399,6 +456,16 @@ class OneShotPipeline:
         in_ch = int(self.one_shot_train_features.shape[-1])
         self.seg_size = self.seg_config.seg_args.get("size", "S")
         self._seg_is_mlp = self.seg_str == "datasetgan"
+        n_out = (n_class if self._seg_is_mlp
+                 else segmentor_out_channels(n_class, self.seg_size))
+        top = int(self.one_shot_label.max())
+        if top >= n_out:
+            # the reference's cross entropy refuses such a target; the JAX
+            # package's reports a NaN loss and trains on the others
+            raise ValueError(
+                f"the one-shot label reaches class {top}, but the "
+                f"{self.seg_size!r} head outputs {n_out} channels for the "
+                f"model's {n_class} classes")
         state = None
         if self._seg_is_mlp:
             init, state = init_pixel_classifier(in_ch, n_class,

@@ -28,7 +28,6 @@ from typing import NamedTuple
 import torch
 
 from ganecdotes_torch import resolve_device
-from ganecdotes_torch.configs.mapper import not_ported_part
 from ganecdotes_torch.models.stylegan2.convert import from_jax_params
 from ganecdotes_torch.models.stylegan2.generator import (
     generator_forward,
@@ -44,7 +43,7 @@ from ganecdotes_torch.selfsup.augmentor import (
 from ganecdotes_torch.selfsup.embed import pixel_feature_gather, project_feature_maps
 from ganecdotes_torch.selfsup.heads import one_shot_segmentor_apply
 from ganecdotes_torch.selfsup.lars import LARS, apply_updates, tree_leaves, tree_map
-from ganecdotes_torch.selfsup.swav import feature_norm_map
+from ganecdotes_torch.selfsup.swav import _torch_state, feature_norm_map
 from ganecdotes_torch.utils.serialization import load_pytree, save_pytree
 
 
@@ -65,6 +64,23 @@ def init_simclr_params(hlen, nclasses, generator=None):
 def _bn_leaky(params, z, mu, var, eps=1e-5):
     h = (z - mu) * torch.rsqrt(var + eps) * params["bn"]["gamma"] + params["bn"]["beta"]
     return torch.where(h >= 0, h, 0.01 * h)  # nn.LeakyReLU's default slope
+
+
+def import_torch_simclr_projection(path):
+    """The reference's ``projection.pt`` (its whole Sequential(Linear(hlen,
+    ncls, no bias), BatchNorm1d, LeakyReLU, Linear(ncls, ncls, no bias)), or a
+    bare state_dict, with Sequential indices or lin1/bn/lin2 names) ->
+    params; torch (out, in) Linear weights become (in, out)."""
+    sd = _torch_state(path)
+    prefix = "0." if "0.weight" in sd else ""
+    bn = "1." if prefix else "bn."
+    lin2 = "3." if prefix else "lin2."
+    return {
+        "lin1": {"weight": sd[f"{prefix}weight"].T.contiguous()},
+        "bn": {"gamma": sd[f"{bn}weight"], "beta": sd[f"{bn}bias"],
+               "mean": sd[f"{bn}running_mean"], "var": sd[f"{bn}running_var"]},
+        "lin2": {"weight": sd[f"{lin2}weight"].T.contiguous()},
+    }
 
 
 def simclr_projection(params, z, eps=1e-5):
@@ -240,7 +256,8 @@ class SimCLRClustering:
     """The SimCLR 'preprocessor' of hfc_with_simclr: ``preprocess`` /
     ``pretrain`` / ``predict_simclr_codes`` over a port ``Generator``
     (``model``), saving and loading ``simclr_params.npz`` in ``out_dir`` (the
-    JAX package's format).
+    JAX package's format); with ``train`` False and no such file it imports
+    the reference's ``projection.pt`` from there.
 
     ``device=None`` runs on ``cuda`` and raises without a card;
     ``device="cpu"`` runs every op's plain version. Random numbers (the mean
@@ -288,8 +305,11 @@ class SimCLRClustering:
             self.params = from_jax_params(load_pytree(self.params_file), self.device)
         elif not self.train and out_dir is not None and os.path.exists(
                 os.path.join(out_dir, "projection.pt")):
-            not_ported_part("importing the reference's projection.pt "
-                            "(simclr_clustering.py:62-67)", "loader")
+            # the reference's artifact (its torch.save'd projection)
+            self.params = from_jax_params(import_torch_simclr_projection(
+                os.path.join(out_dir, "projection.pt")), self.device)
+            if self.logger:
+                self.logger.info("Imported reference projection.pt")
         elif not self.train and self.logger:
             self.logger.info("Projection File not found - pretraining ...")
         self._image_hw = (model_config.image_size, model_config.image_size)

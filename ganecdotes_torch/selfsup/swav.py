@@ -71,6 +71,45 @@ def init_swav_params(hlen, nclasses, nprototypes, projn_nw="linear",
     return {"projection": projection, "prototype": prototype}
 
 
+def _torch_state(path):
+    """A reference ``torch.save``: a pickled module or a bare state_dict ->
+    {key: float32 CPU tensor}."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
+    return {k: v.detach().to("cpu", torch.float32) for k, v in sd.items()}
+
+
+def import_torch_swav_modules(prototypes_path, projection_path, projn_nw):
+    """The reference's ``prototypes.pt`` / ``projection.pt`` (its whole
+    ``nn`` modules, or bare state_dicts) -> SwAV params; torch Linear
+    (out, in) weights become (in, out)."""
+    proj_sd = _torch_state(projection_path)
+    proto_sd = _torch_state(prototypes_path)
+
+    def lin(sd, prefix, bias):
+        p = {"weight": sd[f"{prefix}weight"].T.contiguous()}
+        if bias:
+            p["bias"] = sd[f"{prefix}bias"]
+        return p
+
+    def bn(sd, prefix):
+        return {"gamma": sd[f"{prefix}weight"], "beta": sd[f"{prefix}bias"],
+                "mean": sd[f"{prefix}running_mean"],
+                "var": sd[f"{prefix}running_var"]}
+
+    if projn_nw in ("linear", "1-layer"):
+        # a bare Linear's save has no Sequential index prefix
+        prefix = "0." if "0.weight" in proj_sd else ""
+        projection = [lin(proj_sd, prefix, bias=False)]
+    elif projn_nw == "2-layer":
+        projection = [lin(proj_sd, "0.", False), bn(proj_sd, "1."),
+                      lin(proj_sd, "3.", False), bn(proj_sd, "4.")]
+    else:
+        raise ValueError(f"unknown projn_nw {projn_nw}")
+    return {"projection": projection,
+            "prototype": lin(proto_sd, "", bias="bias" in proto_sd)}
+
+
 def projection_tail(params, z, projn_nw, train=True, eps=1e-5):
     """Everything after the (level-decomposed) first linear layer.
 
@@ -384,7 +423,9 @@ def make_swav_train_step(gen_meta, model_config, perturb_args, swav_args,
 class SwAVClustering:
     """The SwAV 'preprocessor' of hfc_with_swav: ``preprocess``/``pretrain``/
     ``predict_swav_codes`` over a port ``Generator`` (``model``), saving and
-    loading ``swav_params.npz`` in ``out_dir`` (the JAX package's format).
+    loading ``swav_params.npz`` in ``out_dir`` (the JAX package's format);
+    with ``train`` False and no such file it imports the reference's
+    ``prototypes.pt`` and ``projection.pt`` from there.
 
     ``device=None`` runs on ``cuda`` and raises without a card;
     ``device="cpu"`` runs every op's plain version. Random numbers (the mean
@@ -436,6 +477,17 @@ class SwAVClustering:
         if not self.train and self.params_file and os.path.exists(self.params_file):
             self.ssl_params = from_jax_params(load_pytree(self.params_file),
                                               self.device)
+        elif not self.train and out_dir is not None and all(
+                os.path.exists(os.path.join(out_dir, f))
+                for f in ("prototypes.pt", "projection.pt")):
+            # the reference's artifacts (its torch.save'd modules)
+            self.ssl_params = from_jax_params(import_torch_swav_modules(
+                os.path.join(out_dir, "prototypes.pt"),
+                os.path.join(out_dir, "projection.pt"),
+                swav_args["projn_nw"]), self.device)
+            if self.logger:
+                self.logger.info("Imported reference SwAV modules "
+                                 "(prototypes.pt/projection.pt)")
         elif not self.train and self.logger:
             self.logger.info("SwAV params not found - pretraining ...")
 

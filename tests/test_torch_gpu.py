@@ -93,6 +93,64 @@ def test_styled_convs_match_plain(cuda, shape, noise_b):
     assert _build.LAUNCHES["styled_up_conv3x3"] == before["styled_up_conv3x3"] + 1
 
 
+@pytest.mark.parametrize("shape", [(8, 256, 256, 16, 16), (1, 256, 256, 16, 16),
+                                   (8, 128, 128, 32, 32), (1, 128, 128, 32, 32)])
+@pytest.mark.parametrize("noise_b", ["one", "batch"])
+def test_styled_convs_match_plain_at_the_lean_map(cuda, shape, noise_b):
+    """The BagGAN generator's lean width map (16 channels at 256^2, 32 at
+    128^2): the narrowest layers any path gives the kernels, one N tile of
+    Cout = 16 or 32 against a 128-wide tile, many M tiles. The non-up conv
+    at (B, r, r, C, C), the up conv from the level below, (B, r/2, r/2, 2C)
+    to C channels, as the pidray generator runs them; B = 1 (the one-shot
+    synthesis) and 8 (a request), the noise broadcast or per sample."""
+    B, H, W, Ci, Co = shape
+    nb = 1 if noise_b == "one" else B
+    before = dict(_build.LAUNCHES)
+    a = _styled_inputs(B, H, W, Ci, Co, nb, False, cuda)
+    torch.testing.assert_close(tmc.styled_conv3x3(*a),
+                               tmc.styled_conv3x3_ref(*a), **CONV_TOL)
+    a = _styled_inputs(B, H // 2, W // 2, 2 * Ci, Co, nb, True, cuda)
+    out = tmc.styled_up_conv3x3(*a)
+    torch.testing.assert_close(out, tmc.styled_up_conv3x3_ref(*a), **CONV_TOL)
+    torch.testing.assert_close(out, tmc.styled_up_conv3x3_xla(*a), **CONV_TOL)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["styled_conv3x3"] == before["styled_conv3x3"] + 1
+    assert _build.LAUNCHES["styled_up_conv3x3"] == before["styled_up_conv3x3"] + 1
+
+
+def test_loaded_reference_checkpoint_is_bit_equal_on_the_card(cuda, tmp_path):
+    """A rosinality {'g_ema': sd} .pt (seeded numpy, noise strengths set)
+    loads to a generator whose image and features on the card, through the
+    kernels, equal those of the generator converted from the same state
+    dict in memory, bit for bit."""
+    from torch_reference_files import N_MLP, STYLE_DIM, rosinality_g_ema
+
+    from ganecdotes_torch.models.stylegan2.convert import (
+        convert_torch_generator_state,
+        load_torch_checkpoint,
+    )
+    from ganecdotes_torch.models.stylegan2.generator import generator_forward
+
+    sd = {k: torch.from_numpy(v) for k, v in rosinality_g_ema(64, seed=5).items()}
+    path = str(tmp_path / "g.pt")
+    torch.save({"g_ema": sd}, path)
+    loaded = load_torch_checkpoint(path, 64, n_mlp=N_MLP).to(cuda)
+    source = convert_torch_generator_state(sd, 64, n_mlp=N_MLP).to(cuda)
+    w = torch.randn(8, STYLE_DIM, generator=torch.Generator().manual_seed(6)).to(cuda)
+    mean = torch.randn(1, STYLE_DIM,
+                       generator=torch.Generator().manual_seed(7)).to(cuda)
+    before = dict(_build.LAUNCHES)
+    with torch.no_grad():
+        img_a, feats_a = generator_forward(loaded, [w], input_is_latent=True,
+                                           truncation=0.7, truncation_latent=mean)
+        img_b, feats_b = generator_forward(source, [w], input_is_latent=True,
+                                           truncation=0.7, truncation_latent=mean)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["styled_conv3x3"] > before["styled_conv3x3"]
+    assert torch.equal(img_a, img_b)
+    assert all(torch.equal(a, b) for a, b in zip(feats_a, feats_b))
+
+
 @pytest.mark.parametrize("kw", [dict(up=2, pad=(2, 1)), dict(pad=(1, 1)),
                                 dict(pad=(-1, 2, 0, 1)), dict(up=2, pad=(1, -1)),
                                 dict(up=(2, 1), pad=(2, 1, 0, 0))])

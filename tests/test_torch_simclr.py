@@ -230,9 +230,25 @@ def test_simclr_clustering_pretrains_saves_loads_and_predicts(tmp_path):
 
 def test_simclr_clustering_raises_for_projection_pt_and_without_a_card(
         tmp_path, monkeypatch):
-    open(os.path.join(str(tmp_path), "projection.pt"), "wb").close()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        _clustering(tmp_path, train=False, device="cpu")
+    """The reference's projection.pt (its pickled projection module) in
+    out_dir no longer raises: with train False and no simclr_params.npz it
+    is imported as the JAX package imports it, and never pretrained. Without
+    a card and without a device the clustering raises."""
+    torch.manual_seed(0)
+    path = os.path.join(str(tmp_path), "projection.pt")
+    torch.save(torch.nn.Sequential(
+        torch.nn.Linear(HLEN, NCLASSES, bias=False),
+        torch.nn.BatchNorm1d(NCLASSES), torch.nn.LeakyReLU(inplace=True),
+        torch.nn.Linear(NCLASSES, NCLASSES, bias=False)), path)
+    sim = _clustering(tmp_path, train=False, device="cpu")
+    sim.preprocess(None)
+    assert sim.pretrain_count == 0
+    want = jax.tree.leaves(jax.tree.map(np.asarray,
+                                        jsim.import_torch_simclr_projection(path)))
+    got = tlars.tree_leaves(sim.params)
+    assert len(got) == len(want) == 6
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         _clustering(tmp_path)
