@@ -6,7 +6,10 @@ penalties through the discriminator (and ADA, for R1), the path-length
 penalty through the synthesis network.
 """
 
+import math
+
 import torch
+import torch.nn.functional as F
 
 # ---------------------------------------------------------------------------
 # adversarial objectives
@@ -36,6 +39,15 @@ def gan_loss(mode):
     else:
         raise NotImplementedError(f"gan mode {mode} not implemented")
     return f
+
+
+def logistic_loss(pred_real, pred_fake):
+    """softplus(-D(x)) + softplus(D(G(z))) (ref bagganhq.py:299-312)."""
+    return F.softplus(-pred_real).mean() + F.softplus(pred_fake).mean()
+
+
+def nonsaturating_loss(pred_fake):
+    return F.softplus(-pred_fake).mean()
 
 
 # ---------------------------------------------------------------------------
@@ -100,3 +112,26 @@ def gradient_penalty(disc_fn, real_data, fake_data, alpha=None, kind="mixed",
     flat = grads.reshape(real_data.shape[0], -1)
     norm = torch.linalg.vector_norm(flat + 1e-16, dim=1)
     return torch.mean((norm - constant) ** 2) * lambda_gp, grads
+
+
+# ---------------------------------------------------------------------------
+# auxiliary losses
+# ---------------------------------------------------------------------------
+
+
+def normal_nll_loss(x, mu, var):
+    """Factored-Gaussian NLL for InfoGAN continuous codes (ref gan_util.py
+    :395-413)."""
+    logli = (-0.5 * torch.log(var * (2 * math.pi) + 1e-6)
+             - (x - mu) ** 2 / (var * 2.0 + 1e-6))
+    return -torch.mean(torch.sum(logli, dim=1))
+
+
+def dice_loss(input_soft, target_soft, eps=1e-6):
+    """Soft Dice over (B, H, W, C) maps (ref DiceLoss gan_util.py:494-534,
+    NHWC here)."""
+    dims = (1, 2, 3)
+    intersection = torch.sum(input_soft * target_soft, dim=dims)
+    cardinality = torch.sum(input_soft + target_soft, dim=dims)
+    dice = 2.0 * intersection / (cardinality + eps)
+    return torch.mean(1.0 - dice)

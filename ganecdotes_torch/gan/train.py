@@ -24,10 +24,15 @@ and ``styled_up_conv3x3_xla`` with its blur on the set's ``upfirdn2d`` (the
 FIR kernel with ``KERNELS``, so ``PLAIN`` stays all plain); every other op
 on that path keeps its kernel.
 
+Under ``gan_mode='wgangp'`` the D step recomputes as the JAX trainer does
+(``wgangp_remat``, :360-368, :431-470): the gradient-penalty branch always
+runs under ``torch.utils.checkpoint``, and ``'all'`` (the default) also
+checkpoints the step's two D forwards, so their activations are recomputed
+in the backward instead of kept; ``'gp'`` keeps them.
+
 Not ported (each raises ``NotImplementedError``): the fused multi-iteration
 ``optimize_parameters_chunk``, ``compute_dtype='bfloat16'`` and
-``data_parallel`` over more than one card. ``wgangp_remat`` is validated
-but recomputes nothing: the port keeps every D residual.
+``data_parallel`` over more than one card.
 """
 
 import functools
@@ -39,6 +44,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from ganecdotes_torch import resolve_device
 from ganecdotes_torch.gan.ada import ada_init_state, ada_update, augment, sample_transforms
@@ -72,6 +78,47 @@ STEP_KINDS = ("d", "r1", "g", "ppl")
 # torch.profiler ranges of the steps; ADA's augment runs inside "gan.ada"
 PROFILE_RANGES = {"d": "gan.d_step", "r1": "gan.r1", "g": "gan.g_step",
                   "ppl": "gan.ppl"}
+
+
+def initialize_params(params, generator, init_type="normal", init_gain=0.02):
+    """Re-initialise every conv / linear weight of a params tree (nested
+    dicts and lists of tensors; HWIO and (in, out) layouts): zeros for 1-D
+    leaves (biases), else normal, xavier, kaiming or orthogonal draws from
+    the ``torch.Generator`` (the reference's ``initialize_net``,
+    gan_util.py:129-166). Leaves are drawn in sorted-key order, as the
+    JAX package flattens its tree. Returns a new tree."""
+
+    def init_leaf(leaf):
+        if leaf.dim() == 1:
+            return torch.zeros_like(leaf)
+        fan_in, fan_out = math.prod(leaf.shape[:-1]), leaf.shape[-1]
+
+        def normal(shape):
+            return torch.randn(shape, generator=generator).to(leaf)
+
+        if init_type == "normal":
+            return init_gain * normal(leaf.shape)
+        if init_type == "xavier":
+            return init_gain * math.sqrt(2.0 / (fan_in + fan_out)) * normal(leaf.shape)
+        if init_type == "kaiming":
+            return math.sqrt(2.0 / fan_in) * normal(leaf.shape)
+        if init_type == "orthogonal":
+            flat = torch.randn(fan_in, fan_out, generator=generator)
+            q, r = torch.linalg.qr(flat if fan_in >= fan_out else flat.T)
+            q = q * torch.sign(torch.diagonal(r))[None, :]
+            if fan_in < fan_out:
+                q = q.T
+            return (init_gain * q.reshape(leaf.shape)).to(leaf)
+        raise NotImplementedError(f"init type {init_type} not found")
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return init_leaf(node)
+
+    return walk(params)
 
 
 def get_scheduler(lr_policy, epoch_count=None, n_epochs=None,
@@ -250,9 +297,10 @@ class BagGANHQ(GANBaseModel):
             raise NotImplementedError(
                 f"compute_dtype={config.compute_dtype!r}: expected None, "
                 "'float32' or 'bfloat16'")
-        wgangp_remat = getattr(config, "wgangp_remat", "all")
-        if wgangp_remat not in ("all", "gp"):
-            raise NotImplementedError(f"wgangp_remat={wgangp_remat!r}: expected 'all' or 'gp'")
+        self.wgangp_remat = getattr(config, "wgangp_remat", "all")
+        if self.wgangp_remat not in ("all", "gp"):
+            raise NotImplementedError(
+                f"wgangp_remat={self.wgangp_remat!r}: expected 'all' or 'gp'")
         self.device = resolve_device(device)
         if (getattr(config, "data_parallel", False) and self.device.type == "cuda"
                 and torch.cuda.device_count() > 1):
@@ -360,6 +408,14 @@ class BagGANHQ(GANBaseModel):
     def _disc(self, x):
         return discriminator_forward(self.netD, x, self.ops)
 
+    def _disc_remat(self, x):
+        """``_disc`` under activation checkpointing: its activations are
+        recomputed in the backward, also when that backward builds a graph
+        (the gradient penalty's). D draws no random numbers, so the RNG
+        state is not stashed."""
+        return checkpoint(self._disc, x, use_reentrant=False,
+                          preserve_rng_state=False)
+
     def _synth(self, z, noise, inject_index):
         """Style-mixed synthesis from z (mapping each z) with the noise
         maps passed in."""
@@ -371,17 +427,22 @@ class BagGANHQ(GANBaseModel):
 
     def d_step(self, real, draws):
         """D step: WGAN-GP mixed penalty under 'wgangp' (the 0.25/0.25/0.5
-        combination of the JAX trainer), the ADA controller after it."""
+        combination of the JAX trainer; the penalty branch checkpointed, and
+        the two D forwards too under ``wgangp_remat='all'``), the ADA
+        controller after it."""
         with self._step("d"):
             with torch.no_grad():
                 fake = self._synth(draws.z, draws.d_noise, draws.inject_index)
                 d_fake = self._augment(fake, draws.d_fake_aug)
                 d_real = self._augment(real, draws.d_real_aug)
-            pred_fake, pred_real = self._disc(d_fake), self._disc(d_real)
+            wgangp = self.config.gan_mode == "wgangp"
+            fwd = self._disc_remat if wgangp and self.wgangp_remat == "all" else self._disc
+            pred_fake, pred_real = fwd(d_fake), fwd(d_real)
             loss_out = self.adversarial_loss(pred_fake, False)
             loss_ref = self.adversarial_loss(pred_real, True)
-            if self.config.gan_mode == "wgangp":
-                gp, _ = gradient_penalty(self._disc, d_real, d_fake, draws.gp_alpha)
+            if wgangp:
+                gp, _ = gradient_penalty(self._disc_remat, d_real, d_fake,
+                                         draws.gp_alpha)
                 loss = (loss_out + loss_ref) * 0.25 + gp * 0.5
             else:
                 loss = loss_out + loss_ref

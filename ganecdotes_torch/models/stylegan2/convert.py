@@ -20,7 +20,7 @@ import math
 import numpy as np
 import torch
 
-from ganecdotes_torch.models.stylegan2.discriminator import Discriminator
+from ganecdotes_torch.models.stylegan2.discriminator import Discriminator, DiscriminatorQ
 from ganecdotes_torch.models.stylegan2.generator import Generator
 
 
@@ -81,6 +81,25 @@ def from_jax_discriminator_params(tree, blur_kernel=(1, 3, 3, 1), device=None):
     d = Discriminator(size, in_channels=in_ch, blur_kernel=blur_kernel,
                       res2chlmap=res2chlmap,
                       generator=torch.Generator().manual_seed(0))
+    d.load_state_dict(tree_to_state(tree), strict=True)
+    return d.to(device) if device is not None else d
+
+
+def from_jax_discriminator_q_params(tree, meta, device=None):
+    """A port ``DiscriminatorQ`` computing the same function as the JAX
+    params of ``init_discriminator_q``; ``meta`` is its meta dict (the
+    code counts and the blur). Widths are read off the tree."""
+    blocks = list(tree["blocks_adv"]) + list(tree["d"]["blocks"])
+    size = 4 * 2 ** len(blocks)
+    in_ch = np.shape(tree["conv_in"]["weight"])[2]
+    res2chlmap = {size: np.shape(tree["conv_in"]["weight"])[3],
+                  4: np.shape(tree["d"]["final_conv"]["weight"])[3]}
+    for i, blk in enumerate(blocks):
+        res2chlmap[size // 2 ** (i + 1)] = np.shape(blk["conv2"]["weight"])[3]
+    d = DiscriminatorQ(size, len(tree["d"]["blocks"]), meta["n_cat_c"],
+                       meta["n_classes"], meta["n_cont_c"], in_channels=in_ch,
+                       blur_kernel=tuple(meta["blur_kernel"]), res2chlmap=res2chlmap,
+                       generator=torch.Generator().manual_seed(0))
     d.load_state_dict(tree_to_state(tree), strict=True)
     return d.to(device) if device is not None else d
 

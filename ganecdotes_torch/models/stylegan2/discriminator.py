@@ -7,10 +7,12 @@ The module tree mirrors the JAX parameter pytree key for key ("conv_in",
 through ``ops.upfirdn2d`` and every biased activation through
 ``ops.fused_leaky_relu``, where ``ops`` is ``KERNELS`` (CUDA kernels, as
 autograd Functions that R1 and WGAN-GP differentiate twice) or ``PLAIN``.
-The stride-2 convs and the 1x1 skips are ``F.conv2d``. The InfoGAN Q heads
-are not ported yet.
+The stride-2 convs and the 1x1 skips are ``F.conv2d``. ``DiscriminatorQ``
+is BagGAN's InfoGAN variant (``discriminator_forward_q``), its tree the JAX
+Q tree's ("conv_in", "blocks_adv", "d", "q_cat", "q_cont").
 """
 
+import copy
 import math
 
 import torch
@@ -128,3 +130,93 @@ def discriminator_forward(d, x, ops=KERNELS):
     out = out.permute(0, 3, 1, 2).reshape(b, -1)
     out = d.final_lin1(out, activation="fused_lrelu", act=ops.fused_leaky_relu)
     return d.final_lin2(out)
+
+
+# ---------------------------------------------------------------------------
+# InfoGAN variant (BagGAN's `with_q` discriminator)
+# ---------------------------------------------------------------------------
+
+
+class QHead(nn.Module):
+    """One head of ``DiscriminatorQ``: its own copies of the trunk's last
+    ResBlocks, then stddev, final conv and a 2-layer equalized MLP."""
+
+    def __init__(self, blocks, final_conv, lin1, lin2):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+        self.final_conv = final_conv
+        self.lin1 = lin1
+        self.lin2 = lin2
+
+
+class DiscriminatorQ(nn.Module):
+    """Discriminator with InfoGAN Q heads (ref models/baggan/models.py
+    :393-498; JAX ``init_discriminator_q``). The trunk's last ``q_layers``
+    ResBlocks and the stddev / conv / MLP tail are copied per head: the
+    adversarial head ``d`` (the base discriminator's MLP), the categorical
+    head ``q_cat`` (``n_cat_c * n_classes`` outputs, softmax) and the
+    continuous head ``q_cont`` (``n_cont_c * 2``, tanh); a head with no
+    codes is None. Initialised from a ``torch.Generator`` on the CPU."""
+
+    def __init__(self, size, q_layers, n_cat_c, n_classes, n_cont_c,
+                 channel_multiplier=2, in_channels=3, blur_kernel=(1, 3, 3, 1),
+                 res2chlmap=None, generator=None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        base = Discriminator(size, channel_multiplier, in_channels, blur_kernel,
+                             res2chlmap, generator)
+        n_blocks = len(base.blocks)
+        q_layers = min(q_layers, n_blocks)
+        c4 = channel_map(channel_multiplier, res2chlmap)[4]
+        self.meta = dict(base.meta, q_layers=q_layers, n_cat_c=n_cat_c,
+                         n_classes=n_classes, n_cont_c=n_cont_c)
+        self.conv_in = base.conv_in
+        self.blocks_adv = nn.ModuleList(base.blocks[:n_blocks - q_layers])
+
+        def tail():
+            return ([copy.deepcopy(b) for b in base.blocks[n_blocks - q_layers:]],
+                    copy.deepcopy(base.final_conv))
+
+        self.d = QHead(*tail(), base.final_lin1, base.final_lin2)
+        self.q_cat = self.q_cont = None
+        if n_cat_c > 0:
+            self.q_cat = QHead(*tail(), EqualLinear(c4 * 16, c4, generator=generator),
+                               EqualLinear(c4, n_cat_c * n_classes, generator=generator))
+        if n_cont_c > 0:
+            self.q_cont = QHead(*tail(), EqualLinear(c4 * 16, c4, generator=generator),
+                                EqualLinear(c4, n_cont_c * 2, generator=generator))
+
+    def forward(self, x, ops=KERNELS):
+        return discriminator_forward_q(self, x, ops)
+
+
+def _head_apply(head, meta, x, out_act=None, ops=KERNELS):
+    bk = meta["blur_kernel"]
+    out = x
+    for blk in head.blocks:
+        out = blk(out, blur_kernel=bk, ops=ops)
+    out = minibatch_stddev(out, meta["stddev_group"], meta["stddev_feat"])
+    out = conv_layer_apply(head.final_conv, out, blur_kernel=bk, ops=ops)
+    b = out.shape[0]
+    out = out.permute(0, 3, 1, 2).reshape(b, -1)
+    out = head.lin1(out, activation="fused_lrelu", act=ops.fused_leaky_relu)
+    out = head.lin2(out)
+    if out_act == "softmax":
+        out = torch.softmax(out, dim=-1)
+    elif out_act == "tanh":
+        out = torch.tanh(out)
+    return out
+
+
+def discriminator_forward_q(d, x, ops=KERNELS):
+    """(B, H, W, C) -> (d_logits, q_cat or None, q_cont or None): the shared
+    adversarial trunk, then each head's own tail (ref models.py:500-574)."""
+    bk = d.meta["blur_kernel"]
+    out = conv_layer_apply(d.conv_in, x, blur_kernel=bk, ops=ops)
+    for blk in d.blocks_adv:
+        out = blk(out, blur_kernel=bk, ops=ops)
+    logits = _head_apply(d.d, d.meta, out, ops=ops)
+    q_cat = None if d.q_cat is None else _head_apply(d.q_cat, d.meta, out, "softmax", ops)
+    q_cont = None if d.q_cont is None else _head_apply(d.q_cont, d.meta, out, "tanh", ops)
+    return logits, q_cat, q_cont

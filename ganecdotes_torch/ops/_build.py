@@ -82,6 +82,11 @@ _SIGNATURES = {
     # scratch, out, B, H, W, Cin, Cout, the four 1-D blur taps, stream
     "gk_styled_up_conv3x3": [P, P, P, P, ctypes.c_longlong, P, P, P, P,
                              I, I, I, I, I, F, F, F, F, P],
+    # x, w (3, 3, Cin, Cout), s, demod, noise, noise batch stride, nw, bias,
+    # out, the up body's T scratch (or NULL), splits, B, H, W, Cin, Cout,
+    # up, the four 1-D blur taps, stream
+    "gk_styled_conv3x3_narrow": [P] * 5 + [ctypes.c_longlong] + [P] * 4
+                                + [I] * 7 + [F] * 4 + [P],
     # scores, r, c, q, u, part_m, part_s, B, K, niters, inv_eps,
     # rows per chunk, chunks, stream
     "gk_sinkhorn_knopp": [P] * 7 + [I, I, I, F, I, I, P],
@@ -212,11 +217,19 @@ def stream_of(t):
 
 
 def ptr(t):
-    return P(t.data_ptr())
+    """``t``'s address as an int (every signature declares it c_void_p)."""
+    return t.data_ptr()
 
 
 def check_tensor(kernel, t, name, ndim=None, device=None):
     """Raise unless ``t`` is a contiguous float32 CUDA tensor (of ``ndim``)."""
+    # the common case in one expression: the wrappers run this for every
+    # argument of every launch, and at B = 1 their host time is the call's
+    if (isinstance(t, torch.Tensor) and t.is_cuda and t.dtype is torch.float32
+            and (device is None or t.device == device)
+            and (ndim is None or t.dim() == ndim) and t.is_contiguous()
+            and not t.data_ptr() % 16 and t.numel() < 2**31):
+        return
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{kernel}: {name} must be a tensor, got {type(t)}")
     if t.device.type != "cuda":

@@ -3,14 +3,26 @@
 
     out = lrelu(demod * conv3x3(x * s, W) + nw * noise + bias, 0.2) * sqrt(2)
 
-``styled_conv3x3`` (non-up) launches the CUDA kernel of csrc/styled_conv.cu:
-a 9-tap implicit GEMM on tensor cores in 3xTF32 with the epilogue in
-registers; ``styled_up_conv3x3`` (2x up) the two kernels of
-csrc/styled_up_conv.cu: the stride-2 transposed conv as a sub-pixel GEMM
-with only the 9 taps that see data, on the same main loop
-(csrc/tf32x3.cuh), into a scratch tensor, then the blur and the epilogue.
-Both run on CUDA tensors at every shape and take their plain versions only
-for tensors on the CPU, inside an autograd Function either way. Their
+Each body has two variants on the card, picked from the shape alone
+(``variant``; no fallback between them):
+
+* ``"tf32x3"`` (Cout not in ``NARROW_COUTS``: the ffhq widths):
+  ``styled_conv3x3`` launches the CUDA kernel of csrc/styled_conv.cu, a
+  9-tap implicit GEMM on tensor cores in 3xTF32 with the epilogue in
+  registers; ``styled_up_conv3x3`` the two kernels of
+  csrc/styled_up_conv.cu, the stride-2 transposed conv as a sub-pixel GEMM
+  with only the 9 taps that see data, on the same main loop
+  (csrc/tf32x3.cuh), into a scratch tensor, then the blur and the epilogue.
+* ``"narrow"`` (Cout of 16, 32 or 64: BagGAN's lean width map; the up
+  body at 64 only on small inputs, ``variant``):
+  csrc/styled_conv_narrow.cu on the fp32 SIMT units, x * s applied while
+  staging, W read as HWIO: the non-up body in one launch, the up body as
+  the transposed conv's four phase classes into a scratch tensor, then the
+  blur and the epilogue.
+
+Both take their plain versions only for tensors on the CPU. Where a
+gradient can flow they run inside an autograd Function; where none can
+(serving, no-grad synthesis) the forward is called directly. Their
 backward is the VJP of the plain composite, as the JAX package's
 ``_bwd`` and ``_up_bwd`` are (modulated_conv_pallas.py:308-314, :554-561):
 ``styled_conv3x3_ref`` and ``styled_up_conv3x3_xla``, recomputed from the
@@ -89,29 +101,43 @@ def styled_up_conv3x3_xla(x, w, s, demod, noise, noise_weight, bias,
 
 
 def _check(kernel, x, w, s, demod, noise, noise_weight, bias, up):
-    """Checks shared by both kernels; the output's (B, OH, OW, Cout)."""
-    for name, t, nd in (("x", x, 4), ("w", w, 4), ("s", s, 2), ("demod", demod, 2),
-                        ("noise", noise, 4), ("bias", bias, 1)):
-        _build.check_tensor(kernel, t, name, ndim=nd, device=x.device)
-    b, h, wd, cin = x.shape
-    cout = w.shape[3]
+    """Checks shared by both kernels; the output's (B, OH, OW, Cout). At
+    B = 1 a call's host time is its time on the card, so the common case
+    tests each tensor in one expression (a CUDA tensor on x's card:
+    ``get_device`` is -1 on the CPU) and ``_build.check_tensor`` runs only
+    to name what failed."""
+    idx = x.get_device() if x.is_cuda else -2  # -2: no tensor passes
+    for t in (x, w, s, demod, noise, noise_weight, bias):
+        if not (isinstance(t, torch.Tensor) and t.get_device() == idx
+                and t.dtype is torch.float32 and t.is_contiguous()
+                and not t.data_ptr() % 16):
+            for name, u in zip(("x", "w", "s", "demod", "noise", "noise_weight", "bias"),
+                               (x, w, s, demod, noise, noise_weight, bias)):
+                _build.check_tensor(kernel, u, name, device=x.device)
+    xs, ws = x.shape, w.shape
+    if len(xs) != 4 or len(ws) != 4:
+        raise ValueError(f"{kernel}: x and w must be 4-D, got {tuple(xs)}, {tuple(ws)}")
+    b, h, wd, cin = xs
+    cout = ws[3]
     oh, ow = (2 * h, 2 * wd) if up else (h, wd)
-    if tuple(w.shape[:3]) != (3, 3, cin):
-        raise ValueError(f"{kernel}: w has shape {tuple(w.shape)}, expected (3, 3, {cin}, Cout)")
+    if ws[0] != 3 or ws[1] != 3 or ws[2] != cin:
+        raise ValueError(f"{kernel}: w has shape {tuple(ws)}, expected (3, 3, {cin}, Cout)")
     if cin % 4 or cout % 4:
         raise ValueError(f"{kernel}: channels must be multiples of 4, got {cin}->{cout}")
-    if tuple(s.shape) != (b, cin):
+    if s.shape != (b, cin):
         raise ValueError(f"{kernel}: s has shape {tuple(s.shape)}, expected {(b, cin)}")
-    if tuple(demod.shape) != (b, cout):
+    if demod.shape != (b, cout):
         raise ValueError(f"{kernel}: demod has shape {tuple(demod.shape)}, expected {(b, cout)}")
-    if tuple(bias.shape) != (cout,):
+    if bias.shape != (cout,):
         raise ValueError(f"{kernel}: bias has shape {tuple(bias.shape)}, expected {(cout,)}")
-    if noise.shape[0] not in (1, b) or tuple(noise.shape[1:]) != (oh, ow, 1):
+    ns = noise.shape
+    if len(ns) != 4 or ns[0] not in (1, b) or ns[1] != oh or ns[2] != ow or ns[3] != 1:
         raise ValueError(
-            f"{kernel}: noise has shape {tuple(noise.shape)}, expected (1 or {b}, {oh}, {ow}, 1)")
-    _build.check_tensor(kernel, noise_weight, "noise_weight", device=x.device)
+            f"{kernel}: noise has shape {tuple(ns)}, expected (1 or {b}, {oh}, {ow}, 1)")
     if noise_weight.numel() != 1:
         raise ValueError(f"{kernel}: noise_weight must be a scalar")
+    if b * h * wd * cin >= 2**31 or b * oh * ow * cout >= 2**31:
+        raise ValueError(f"{kernel}: x or the output has 2**31 elements or more")
     return b, oh, ow, cout
 
 
@@ -127,21 +153,111 @@ def tap_splits(m, cout, sms):
     return min((1, 3, 9), key=lambda n: -(-tiles * n // sms) / n)
 
 
+# Output widths the narrow variant (csrc/styled_conv_narrow.cu) takes.
+NARROW_COUTS = (16, 32, 64)
+# launches per (kernel, variant), beside _build.LAUNCHES' per-kernel counts
+VARIANT_LAUNCHES = {(k, v): 0 for k in ("styled_conv3x3", "styled_up_conv3x3")
+                    for v in ("tf32x3", "narrow")}
+NARROW_THREADS = 256  # per block, as the kernel's NT
+NARROW_MAX_SPLITS = 8  # the kernel's MAX_SPLITS, a portable cluster
+_SMS = {}
+
+
+def variant(cout, up=False, pixels=0, sms=132):
+    """The variant a CUDA call runs for ``cout`` output channels and
+    ``pixels`` = B * H * W input pixels on ``sms`` SMs: "narrow" for Cout
+    in NARROW_COUTS, else "tf32x3"; but the up body at Cout 64 runs the
+    3xTF32 GEMMs where their four phase classes of 128-row tiles fill a
+    wave of the SMs, which they then do faster (kernel_ab.py --variants)."""
+    if cout not in NARROW_COUTS:
+        return "tf32x3"
+    if up and cout == 64 and 4 * pixels >= 128 * sms:
+        return "tf32x3"
+    return "narrow"
+
+
+_SPLITS = {}  # narrow_splits' arguments -> its splits
+
+
+def narrow_splits(b, h, w, cin, cout, up, sms):
+    """How many ways the narrow variant splits its 16-channel chunks for
+    input (b, h, w, cin): not at all where its blocks (256 threads of 8
+    output channels by 4 pixels, a tile 32 columns wide) fill the SMs;
+    else (B = 1) over as many blocks as bring the grid to two per SM, at
+    most one chunk a split and NARROW_MAX_SPLITS (a tile's splits form
+    one cluster)."""
+    rows = 4 * (NARROW_THREADS // (cout // 8) // 32)
+    if up:  # the transposed conv's four classes over (h + 1) x (w + 1)
+        h, w = h + 1, w + 1
+    blocks = b * -(-h // rows) * -(-w // 32) * (4 if up else 1)
+    if blocks >= sms:
+        return 1
+    return min(-(-cin // 16), NARROW_MAX_SPLITS, -(-2 * sms // blocks))
+
+
+def _sm_count(device):
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
+
+
+def _narrow_forward(kernel, x, w, s, demod, noise, noise_weight, bias, up,
+                    taps=(0.0, 0.0, 0.0, 0.0), nsplit=None):
+    """csrc/styled_conv_narrow.cu's C entry (one launch, the up body two);
+    ``nsplit`` overrides ``narrow_splits`` (for measuring the choice)."""
+    b, h, wd, cin = x.shape
+    cout = w.shape[3]
+    f = 2 if up else 1
+    if b * h * wd * cout == 0:
+        return x.new_empty((b, f * h, f * wd, cout))
+    if nsplit is None:
+        key = (b, h, wd, cin, cout, up, x.device)
+        nsplit = _SPLITS.get(key)
+        if nsplit is None:
+            nsplit = _SPLITS[key] = narrow_splits(b, h, wd, cin, cout, up,
+                                                  _sm_count(x.device))
+    if up:  # one allocation: the output, then the transposed conv's T
+        n_out = b * 2 * h * 2 * wd * cout
+        buf = x.new_empty(n_out + b * (2 * h + 1) * (2 * wd + 1) * cout)
+        out = buf[:n_out].view(b, 2 * h, 2 * wd, cout)
+        t = buf.data_ptr() + 4 * n_out
+    else:
+        out, t = x.new_empty((b, h, wd, cout)), None
+    _build.launch(
+        kernel, "gk_styled_conv3x3_narrow",
+        x.data_ptr(), w.data_ptr(), s.data_ptr(), demod.data_ptr(),
+        noise.data_ptr(), 0 if noise.shape[0] == 1 else f * h * f * wd,
+        noise_weight.data_ptr(), bias.data_ptr(), out.data_ptr(), t, nsplit,
+        b, h, wd, cin, cout, int(up), *taps, _build.stream_of(x),
+    )
+    VARIANT_LAUNCHES[(kernel, "narrow")] += 1
+    return out
+
+
 def _conv_forward(x, w, s, demod, noise, noise_weight, bias):
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return styled_conv3x3_ref(x, w, s, demod, noise, noise_weight, bias)
     kernel = "styled_conv3x3"
     b, oh, ow, cout = _check(kernel, x, w, s, demod, noise, noise_weight,
                              bias, up=False)
-    out = torch.empty((b, oh, ow, cout), dtype=x.dtype, device=x.device)
+    if variant(cout) == "narrow":
+        return _narrow_forward(kernel, x, w, s, demod, noise, noise_weight,
+                               bias, up=False)
+    return _tf32x3_conv_forward(x, w, s, demod, noise, noise_weight, bias,
+                                (b, oh, ow, cout))
+
+
+def _tf32x3_conv_forward(x, w, s, demod, noise, noise_weight, bias, out_shape):
+    kernel = "styled_conv3x3"
+    b, oh, ow, cout = out_shape
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     # the modulation x * s is materialised here, as the JAX kernel does
     xm = x * s[:, None, None, :]
     w_nk = w.permute(0, 1, 3, 2).contiguous()  # per tap Cout x Cin, k contiguous
     m = b * oh * ow
-    nsplit = tap_splits(m, cout, torch.cuda.get_device_properties(x.device)
-                        .multi_processor_count)
+    nsplit = tap_splits(m, cout, _sm_count(x.device))
     part = None
     if nsplit > 1:
         part = torch.empty((nsplit, m, cout), dtype=x.dtype, device=x.device)
@@ -154,27 +270,47 @@ def _conv_forward(x, w, s, demod, noise, noise_weight, bias):
         None if part is None else _build.ptr(part), nsplit, *x.shape, cout,
         _build.stream_of(x),
     )
+    VARIANT_LAUNCHES[(kernel, "tf32x3")] += 1
     return out
+
+
+_TAPS = {}  # 1-D blur -> its taps: numpy costs microseconds a call
 
 
 def _blur_taps(kernel, blur_kernel):
     """The separable 1-D taps of ``make_kernel(blur_kernel, gain=4)``:
     2 * k / sum(k), float32."""
-    k = np.asarray(blur_kernel, np.float32)
-    if k.shape != (4,):
-        raise ValueError(f"{kernel}: the kernel takes a 1-D blur of 4 taps, got {blur_kernel}")
-    return [float(t) for t in np.float32(2.0) * k / k.sum()]
+    key = tuple(blur_kernel)
+    taps = _TAPS.get(key)
+    if taps is None:
+        k = np.asarray(key, np.float32)
+        if k.shape != (4,):
+            raise ValueError(
+                f"{kernel}: the kernel takes a 1-D blur of 4 taps, got {blur_kernel}")
+        taps = _TAPS[key] = [float(t) for t in np.float32(2.0) * k / k.sum()]
+    return taps
 
 
 def _up_conv_forward(x, w, s, demod, noise, noise_weight, bias, blur_kernel):
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return styled_up_conv3x3_ref(x, w, s, demod, noise, noise_weight,
                                      bias, blur_kernel)
     kernel = "styled_up_conv3x3"
     taps = _blur_taps(kernel, blur_kernel)
     b, oh, ow, cout = _check(kernel, x, w, s, demod, noise, noise_weight,
                              bias, up=True)
-    out = torch.empty((b, oh, ow, cout), dtype=x.dtype, device=x.device)
+    if variant(cout, True, b * oh * ow // 4, _sm_count(x.device)) == "narrow":
+        return _narrow_forward(kernel, x, w, s, demod, noise, noise_weight,
+                               bias, up=True, taps=taps)
+    return _tf32x3_up_conv_forward(x, w, s, demod, noise, noise_weight, bias,
+                                   taps, (b, oh, ow, cout))
+
+
+def _tf32x3_up_conv_forward(x, w, s, demod, noise, noise_weight, bias, taps,
+                            out_shape):
+    kernel = "styled_up_conv3x3"
+    b, oh, ow, cout = out_shape
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     # demod * conv_transpose, (B, 2H+1, 2W+1, Cout), before the blur
@@ -190,6 +326,7 @@ def _up_conv_forward(x, w, s, demod, noise, noise_weight, bias, blur_kernel):
         _build.ptr(bias), _build.ptr(scratch), _build.ptr(out), *x.shape,
         cout, *taps, _build.stream_of(x),
     )
+    VARIANT_LAUNCHES[(kernel, "tf32x3")] += 1
     return out
 
 
@@ -240,10 +377,18 @@ class _StyledUpConv3x3(torch.autograd.Function):
                               ctx.blur_kernel) + (None,)
 
 
+def _needs_graph(x, w, s, demod, noise, noise_weight, bias):
+    return torch.is_grad_enabled() and (
+        x.requires_grad or w.requires_grad or s.requires_grad or demod.requires_grad
+        or noise.requires_grad or noise_weight.requires_grad or bias.requires_grad)
+
+
 def styled_conv3x3(x, w, s, demod, noise, noise_weight, bias):
     """Non-up StyledConv body: the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors; first-order differentiable."""
-    return _StyledConv3x3.apply(x, w, s, demod, noise, noise_weight, bias)
+    if _needs_graph(x, w, s, demod, noise, noise_weight, bias):
+        return _StyledConv3x3.apply(x, w, s, demod, noise, noise_weight, bias)
+    return _conv_forward(x, w, s, demod, noise, noise_weight, bias)
 
 
 def styled_up_conv3x3(x, w, s, demod, noise, noise_weight, bias,
@@ -251,5 +396,8 @@ def styled_up_conv3x3(x, w, s, demod, noise, noise_weight, bias,
     """Upsampling StyledConv body (2x): the CUDA kernels on CUDA tensors
     (a 1-D ``blur_kernel`` of 4 taps), the plain sub-pixel version on CPU
     tensors; first-order differentiable."""
-    return _StyledUpConv3x3.apply(x, w, s, demod, noise, noise_weight, bias,
-                                  tuple(blur_kernel))
+    blur_kernel = tuple(blur_kernel)
+    if _needs_graph(x, w, s, demod, noise, noise_weight, bias):
+        return _StyledUpConv3x3.apply(x, w, s, demod, noise, noise_weight, bias,
+                                      blur_kernel)
+    return _up_conv_forward(x, w, s, demod, noise, noise_weight, bias, blur_kernel)

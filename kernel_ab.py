@@ -12,7 +12,11 @@ of the ffhq-256 serving request (B = 8), the SwAV step and the BagGAN-HQ
 iteration:
 
   * styled_conv3x3 and styled_up_conv3x3, ms per request (each layer's time
-    summed over the request's calls), and per layer;
+    summed over the request's calls), and per layer; and the same two at
+    the BagGAN generator's lean width map (``styled_conv3x3_lean``,
+    ``styled_up_conv3x3_lean``: every lean row of chip_smoke.py's phase 3
+    with Cout <= 64, B = 1 and 8, noise broadcast and per sample, ms per
+    call; ``ms`` sums them);
   * sinkhorn_knopp at (patch_size, nprototypes) = (20000, 5000), niters 10,
     ms per call;
   * upfirdn2d at the discriminator's blur shapes and ADA's four SYM6 pass
@@ -40,6 +44,19 @@ in (as chip_smoke.py splits them: ADA's forward in ``gan.ada``).
 
 The turns of a round run base, new, new, base. One JSON line per turn, then
 the medians per checkout and the ratio new / base.
+
+    python3 kernel_ab.py --variants DIR [--out PATH]
+
+times, in one checkout, every lean row (Cout <= 64) of kernels 3 and 4
+with each variant forced (the 3xTF32 GEMMs, and the narrow kernel with its
+channel chunks whole and split 2, 4 and 8 ways), beside the wrapper's own
+choice and the library call
+(F.conv2d / F.conv_transpose2d, the conv part only), each with its host
+time per call (the host clock over 200 calls enqueued under no_grad
+without a sync) and its error against the plain version, the wrapper's
+and the library call's device time under torch.profiler: the
+measurement the wrapper's choice (``variant``,
+``narrow_splits``) is read from.
 """
 
 import argparse
@@ -191,6 +208,128 @@ def gan_iteration(cs, dev):
                     "ranges": ranges}}
 
 
+def lean_conv_cases(cs):
+    """chip_smoke.py's lean rows of kernels 3 and 4 with Cout <= 64:
+    (kernel, shape, noise batch)."""
+    return [(name, shape, noise_b) for path, name, shape, _, noise_b in cs.kernel_cases()
+            if path == "baggan-lean" and name in CONVS and shape[4] <= 64]
+
+
+def time_lean_convs(cs, dev):
+    import torch
+
+    from ganecdotes_torch.ops import modulated_conv
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {name: {} for name in CONVS}
+    for name, shape, noise_b in lean_conv_cases(cs):
+        fn = getattr(modulated_conv, name)
+        args = cs.styled_inputs(shape, name == "styled_up_conv3x3", gen, dev, noise_b)
+        out[name][f"{tuple(shape)} noise_b {noise_b}"] = cs.time_ms(lambda: fn(*args))
+    return {f"{name}_lean": {"ms": sum(v.values()), "cases_ms": v}
+            for name, v in out.items()}
+
+
+def host_us(fn, calls=200):
+    """``fn``'s host time a call in microseconds: the host clock over
+    ``calls`` calls enqueued under no_grad without a sync (after 20 more),
+    then one sync outside the clock."""
+    import time
+
+    import torch
+
+    with torch.no_grad():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    return us
+
+
+def device_us(fn, calls=20):
+    """``fn``'s kernels' device time a call in microseconds, under
+    torch.profiler (the sum of the kernels' spans over ``calls`` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type.name == "CUDA") / calls
+
+
+def lean_variants(root, out_path):
+    """The ``--variants`` table (see the module docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    from ganecdotes_torch import resolve_device
+    from ganecdotes_torch.ops import modulated_conv as mc
+    from ganecdotes_torch.ops._build import load
+
+    dev = resolve_device("cuda")
+    load()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(smi, flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for name, shape, noise_b in lean_conv_cases(cs):
+        up = name == "styled_up_conv3x3"
+        args = cs.styled_inputs(shape, up, gen, dev, noise_b)
+        want = getattr(mc, name + "_ref")(*args)
+        b, h, w, ci, co = shape
+        f = 2 if up else 1
+        taps = mc._blur_taps(name, (1, 3, 3, 1))
+        out_shape = (b, f * h, f * w, co)
+        wrapper = getattr(mc, name)
+        cands = {"wrapper": lambda: wrapper(*args)}
+        if up:
+            cands["tf32x3"] = lambda: mc._tf32x3_up_conv_forward(*args, taps, out_shape)
+        else:
+            cands["tf32x3"] = lambda: mc._tf32x3_conv_forward(*args, out_shape)
+        for n in (1, 2, 4, 8):
+            if n <= -(-ci // 16):
+                cands[f"narrow_s{n}"] = lambda n=n: mc._narrow_forward(
+                    name, *args, up=up, taps=taps, nsplit=n)
+        xm = (args[0] * args[2][:, None, None, :]).permute(0, 3, 1, 2)
+        if up:
+            wl = args[1].permute(2, 3, 0, 1).contiguous()
+            cands["library"] = lambda: F.conv_transpose2d(xm, wl, stride=2)
+        else:
+            wl = args[1].permute(3, 2, 0, 1).contiguous()
+            cands["library"] = lambda: F.conv2d(xm, wl, padding=1)
+        row = {"kernel": name, "shape": list(shape), "noise_b": noise_b,
+               "variant": mc.variant(co, up, b * h * w, sms),
+               "narrow_splits": mc.narrow_splits(b, h, w, ci, co, up, sms)}
+        for key, fn in cands.items():
+            got = fn()
+            torch.cuda.synchronize()
+            err = None if key == "library" else cs.errors(got, want)[0]
+            row[key] = {"ms": cs.time_ms(fn), "err": err, "host_us": host_us(fn)}
+        for key in ("wrapper", "library"):
+            row[key]["device_us"] = device_us(cands[key])
+        row["wrapper_host_us"] = row["wrapper"]["host_us"]
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump({"card": smi, "rows": rows}, f, indent=1)
+
+
 def worker(root, cases):
     sys.path.insert(0, root)
     import torch
@@ -222,6 +361,7 @@ def worker(root, cases):
     r, c = torch.ones(k, device=dev) / k, torch.ones(b, device=dev) / b
     out["sinkhorn_knopp"] = {"ms": cs.time_ms(
         lambda: sinkhorn.sinkhorn_knopp(x, sk["niters"], sk["eps"], r, c))}
+    out.update(time_lean_convs(cs, dev))
     firs = time_firs(cs, dev, cases)
     out["upfirdn2d"] = {"ms": sum(v for k, v in firs.items() if k.startswith("D ")),
                         "cases_ms": firs}
@@ -233,13 +373,20 @@ def worker(root, cases):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("base")
-    parser.add_argument("new")
+    parser.add_argument("base", nargs="?")
+    parser.add_argument("new", nargs="?")
     parser.add_argument("--rounds", type=int, default=1)
     parser.add_argument("--out", help="write the turns and the summary to this JSON file")
+    parser.add_argument("--variants", metavar="DIR",
+                        help="time every lean StyledConv variant in this checkout")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     parser.add_argument("--cases", help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.variants:
+        lean_variants(os.path.abspath(args.variants), args.out)
+        return 0
+    if not (args.base and args.new):
+        parser.error("give BASE_DIR and NEW_DIR, or --variants DIR")
     if args.worker:
         worker(os.path.abspath(args.worker), json.loads(args.cases))
         return 0

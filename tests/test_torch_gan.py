@@ -222,9 +222,13 @@ def _assert_grads_close(names, ours, want_tree, kind):
                                    err_msg=f"{kind}: {name}")
 
 
-@pytest.mark.parametrize("kind,mixed,augment", [
-    ("d", True, False), ("r1", True, True), ("g", False, True), ("ppl", True, True)])
-def test_step_gradients_match_jax(tmp_path, kind, mixed, augment):
+@pytest.mark.parametrize("kind,mixed,augment,remat", [
+    pytest.param("d", True, False, "all", id="d-True-False"),
+    pytest.param("d", True, False, "gp", id="d-True-False-gp"),
+    pytest.param("r1", True, True, "all", id="r1-True-True"),
+    pytest.param("g", False, True, "all", id="g-False-True"),
+    pytest.param("ppl", True, True, "all", id="ppl-True-True")])
+def test_step_gradients_match_jax(tmp_path, kind, mixed, augment, remat):
     """Each step kind's gradients from the same weights and draws as the
     JAX step's, per parameter tensor (the G tree's fixed noise maps too:
     the JAX PPL step differentiates them). R1 takes a gradient of a
@@ -232,7 +236,11 @@ def test_step_gradients_match_jax(tmp_path, kind, mixed, augment):
     through the mixed-free synthesis and ADA, the D step the WGAN-GP
     gradient of a gradient with style-mixed fakes (without ADA, whose
     forward the D step does not differentiate: tests/test_torch_ada.py
-    holds it), PPL a gradient of a gradient through the synthesis."""
+    holds it), PPL a gradient of a gradient through the synthesis. The D
+    step under both ``wgangp_remat`` values: 'all' (the default)
+    recomputes its two D forwards and the penalty branch in the backward,
+    'gp' only the penalty branch, the gradient of a gradient through the
+    checkpoint either way."""
     g_params, meta = _jax_generator()
     d_tree = disc_tree(seed=4, widths=WIDTHS)
     rng = np.random.RandomState(5)
@@ -257,7 +265,8 @@ def test_step_gradients_match_jax(tmp_path, kind, mixed, augment):
     else:
         loss, want = jax.jit(jax.value_and_grad(ppl_loss))(g_params, keys[3])
 
-    gan = _trainer(tmp_path, g_params, d_tree, augment=augment)
+    gan = _trainer(tmp_path, g_params, d_tree, augment=augment, wgangp_remat=remat)
+    assert gan.wgangp_remat == remat
     gan.keep_first_grads = True
     draws = _jax_draws(keys, zs, inject, ppl_z)
     real_t = _t(real)
@@ -277,6 +286,31 @@ def test_step_gradients_match_jax(tmp_path, kind, mixed, augment):
         names += [f"noises.{i}" for i in range(len(gan.netG.noises))]
     np.testing.assert_allclose(float(ours), float(loss), **LOSS_TOL)
     _assert_grads_close(names, gan.first_grads[kind], want, kind)
+
+
+def test_wgangp_remat_recomputes_the_d_forwards(tmp_path, monkeypatch):
+    """The D forwards one D step runs: three without recomputation (fake,
+    real, the penalty's interpolate); the penalty branch recomputed under
+    both values, and the two adversarial forwards too under 'all'."""
+    g_params, _ = _jax_generator(seed=4)
+    rng = np.random.RandomState(9)
+    real = _t(rng.randn(B, SIZE, SIZE, 3))
+    calls = {}
+    forward = tt.discriminator_forward
+
+    def counted(*args, **kw):
+        calls[remat] += 1
+        return forward(*args, **kw)
+
+    monkeypatch.setattr(tt, "discriminator_forward", counted)
+    for remat in ("all", "gp"):
+        calls[remat] = 0
+        gan = _trainer(tmp_path, g_params, disc_tree(seed=4, widths=WIDTHS),
+                       augment=False, wgangp_remat=remat)
+        gan.set_input(real, iter_no=1)
+        gan.d_step(gan.ref_image, gan.draws)
+    assert calls["gp"] > 3, calls
+    assert calls["all"] == calls["gp"] + 2, calls
 
 
 def test_style_mixed_synthesis_with_noise_matches_jax():

@@ -98,11 +98,11 @@ def test_styled_convs_match_plain(cuda, shape, noise_b):
 @pytest.mark.parametrize("noise_b", ["one", "batch"])
 def test_styled_convs_match_plain_at_the_lean_map(cuda, shape, noise_b):
     """The BagGAN generator's lean width map (16 channels at 256^2, 32 at
-    128^2): the narrowest layers any path gives the kernels, one N tile of
-    Cout = 16 or 32 against a 128-wide tile, many M tiles. The non-up conv
-    at (B, r, r, C, C), the up conv from the level below, (B, r/2, r/2, 2C)
-    to C channels, as the pidray generator runs them; B = 1 (the one-shot
-    synthesis) and 8 (a request), the noise broadcast or per sample."""
+    128^2): the narrowest layers any path gives the kernels (the narrow
+    variant at these widths). The non-up conv at (B, r, r, C, C), the up
+    conv from the level below, (B, r/2, r/2, 2C) to C channels, as the
+    pidray generator runs them; B = 1 (the one-shot synthesis) and 8 (a
+    request), the noise broadcast or per sample."""
     B, H, W, Ci, Co = shape
     nb = 1 if noise_b == "one" else B
     before = dict(_build.LAUNCHES)
@@ -243,6 +243,63 @@ def test_fused_leaky_relu_matches_plain(cuda, shape):
         xr, br = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
         gx, gb = torch.autograd.grad(tfa.fused_leaky_relu(xr, br), (xr, br), gy)
         assert torch.equal(gx, dx) and torch.equal(gb, db)
+
+
+# B = 1 (the one-shot synthesis), 8 (a request), 20 (the training CLI's
+# G step and D step synthesis)
+LEAN_NARROW = [(b, r, r, c, c) for b in (1, 8, 20)
+               for r, c in ((64, 64), (128, 32), (256, 16))]
+LEAN_NARROW_UP = [(b, r // 2, r // 2, 2 * c, c) for b in (1, 8, 20)
+                  for r, c in ((64, 64), (128, 32), (256, 16))]
+
+
+@pytest.mark.parametrize("up,shape", [(False, s) for s in LEAN_NARROW]
+                         + [(True, s) for s in LEAN_NARROW_UP])
+@pytest.mark.parametrize("noise_b", ["one", "batch"])
+def test_lean_rows_run_their_variant_and_repeat(cuda, up, shape, noise_b):
+    """Every lean-map row of kernels 3 and 4 with Cout <= 64 (B = 1, 8 and
+    20, the noise broadcast and per sample): the wrapper launches the variant
+    ``variant`` names for the shape, once, within the tolerance of the
+    plain version, and two launches agree bit for bit."""
+    B, H, W, Ci, Co = shape
+    nb = 1 if noise_b == "one" else B
+    a = _styled_inputs(B, H, W, Ci, Co, nb, up, cuda, seed=5)
+    name = "styled_up_conv3x3" if up else "styled_conv3x3"
+    fn, ref = getattr(tmc, name), getattr(tmc, name + "_ref")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want = tmc.variant(Co, up, B * H * W, sms)
+    before = dict(tmc.VARIANT_LAUNCHES)
+    out = fn(*a)
+    torch.cuda.synchronize()
+    ran = [k for k, n in tmc.VARIANT_LAUNCHES.items() if n != before[k]]
+    assert ran == [(name, want)], ran
+    torch.testing.assert_close(out, ref(*a), **CONV_TOL)
+    assert torch.equal(fn(*a), out)
+
+
+@pytest.mark.parametrize("cout", [16, 32, 64])
+@pytest.mark.parametrize("up", [False, True], ids=["conv", "up_conv"])
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 8])
+def test_narrow_kernel_at_every_split_matches_plain(cuda, cout, up, nsplit):
+    """The narrow kernel with its channel chunks whole and split 2, 3 and
+    8 ways (a cluster of as many blocks), on ragged shapes: H and W not
+    multiples of the tile, Cin not a multiple of the 16-channel chunk (36:
+    3 chunks, the last mostly zero; 8 splits at 120 channels), per-sample
+    noise; against the plain version (for the up body the composed
+    sub-pixel form, as the kernel computes) and, for the up body,
+    conv_transpose + blur; two launches bit for bit."""
+    name = "styled_up_conv3x3" if up else "styled_conv3x3"
+    taps = tmc._blur_taps(name, (1, 3, 3, 1))
+    cin = 120 if nsplit > 3 else 36
+    for B, H, W in ((3, 13, 37), (1, 6, 70)):
+        a = _styled_inputs(B, H, W, cin, cout, B, up, cuda, seed=nsplit)
+        out = tmc._narrow_forward(name, *a, up=up, taps=taps, nsplit=nsplit)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, getattr(tmc, name + "_ref")(*a), **CONV_TOL)
+        if up:
+            torch.testing.assert_close(out, tmc.styled_up_conv3x3_xla(*a), **CONV_TOL)
+        assert torch.equal(tmc._narrow_forward(name, *a, up=up, taps=taps, nsplit=nsplit),
+                           out)
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
@@ -926,3 +983,38 @@ def test_baggan_iteration_kernels_match_plain_ops(cuda, tmp_path, monkeypatch,
                    for u, v in zip(kern.first_grads[kind], plain.first_grads[kind]))
         norm = sum(float(v.square().sum()) for v in plain.first_grads[kind])
         assert diff <= (1e-3) ** 2 * norm, (kind, (diff / norm) ** 0.5)
+
+
+def test_wgangp_remat_modes_agree(cuda, tmp_path):
+    """The D step of a 32x32 BagGAN with the kernels under
+    ``wgangp_remat='all'`` (both D forwards and the penalty branch
+    recomputed in the backward) and ``'gp'`` (only the penalty branch),
+    from the same seed and draws: the same losses within 1e-5 relative and
+    D gradients within chip_smoke.py's D-step gate, 2e-3 of the norm (the
+    recomputation runs the same kernels; cuDNN's convs may sum in another
+    order), and 'all' holds less memory at its peak."""
+    from ganecdotes_torch.gan.train import BagGANHQ
+    from ganecdotes_torch.ops.opset import KERNELS
+
+    real = torch.rand(4, 32, 32, 3, generator=torch.Generator().manual_seed(3)) * 2 - 1
+    runs = {}
+    for remat in ("all", "gp"):
+        cfg = _tiny_baggan_config(tmp_path)
+        cfg.wgangp_remat = remat
+        gan = BagGANHQ(cfg, seed=2, device=cuda, ops=KERNELS)
+        gan.ada_state["p"].fill_(0.6)
+        gan.keep_first_grads = True
+        gan.set_input(real, iter_no=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = gan.d_step(gan.ref_image, gan.draws)[0]
+        torch.cuda.synchronize()
+        runs[remat] = (float(loss), gan.first_grads["d"],
+                       torch.cuda.max_memory_allocated() - base)
+    (la, ga, ma), (lg, gg, mg) = runs["all"], runs["gp"]
+    assert abs(la - lg) <= 1e-5 * max(1.0, abs(lg)), (la, lg)
+    diff = sum(float((u - v).square().sum()) for u, v in zip(ga, gg))
+    norm = sum(float(v.square().sum()) for v in gg)
+    assert diff <= (2e-3) ** 2 * norm, (diff / norm) ** 0.5
+    assert ma < mg, (ma, mg)

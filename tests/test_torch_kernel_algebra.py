@@ -1,4 +1,4 @@
-"""The index algebra and arithmetic of six CUDA kernels, mirrored in plain
+"""The index algebra and arithmetic of seven CUDA kernels, mirrored in plain
 PyTorch (numpy for the fused act) on the CPU and held against the JAX
 package.
 
@@ -12,6 +12,16 @@ here on every run. None of them is on a path of the port.
   package's ``styled_up_conv3x3_ref`` (the composed sub-pixel form) and
   ``styled_up_conv3x3_xla`` (conv_transpose + blur) at a ragged shape,
   1e-5 absolute (sums of 4 * Cin = 32 terms of O(0.1)).
+* csrc/styled_conv_narrow.cu (both bodies at Cout 16-64): x * s staged in
+  16-channel chunks with zero fill past Cin, each output the sum over the
+  chunks' channels, then the live taps dx, then dy; the up body as the
+  transposed conv's four phase classes over the (H+1) x (W+1) class
+  positions (4, 2, 2 and 1 live taps), then the blur and the epilogue
+  with demod after the blur; held against the JAX package's
+  ``styled_conv3x3_ref``, ``styled_up_conv3x3_ref`` and
+  ``styled_up_conv3x3_xla`` at a ragged shape with Cin = 20 (one full
+  chunk and one mostly zero), 1e-5 absolute (sums of 9 * Cin = 180 terms
+  of O(0.1)).
 * csrc/styled_conv.cu: the 'same' 3x3 conv as a GEMM over 9 taps, tap
   (dy, dx) reading pixel (y + dy - 1, x + dx - 1) with zero fill, in
   32-channel stages each summed from 0 and added to the running sum, then
@@ -155,6 +165,77 @@ def test_subpixel_up_conv_phases_match_jax(noise_b):
                                **UP_TOL)
     np.testing.assert_allclose(ours, np.asarray(jmc.styled_up_conv3x3_xla(*jargs)),
                                **UP_TOL)
+
+
+# the kernel row (or column) each tap offset d (0, 1, 2: offset d - 1)
+# carries in the transposed conv's phase class p, for the live taps only
+CONVT_TAPS = {0: {0: 2, 1: 0}, 1: {1: 1}}
+
+
+def _narrow_conv(x, w, s, demod, noise, noise_weight, bias, up=False, chunk=16):
+    """What csrc/styled_conv_narrow.cu computes. x * s in 16-channel chunks
+    (zero past Cin); per output (non-up) or class position (up) the sum
+    over the chunks' channels, each channel's live taps dx, then dy, of
+    x[y + dy - 1][x + dx - 1] times the tap. Non-up: all 9 taps, then
+    demod, noise, bias, leaky-ReLU and sqrt(2). Up: per class (py, px) of
+    the transposed conv, over the (H+1) x (W+1) class positions, its live
+    taps (CONVT_TAPS), written to T[2m + py][2n + px] inside (2H+1, 2W+1);
+    then the blur (true convolution, pad 1) and the epilogue with demod
+    after the blur."""
+    xm = x * s[:, None, None, :]
+    b, h, wd, cin = xm.shape
+    cout = w.shape[3]
+    cpad = -(-cin // chunk) * chunk
+    xp = F.pad(xm, (0, cpad - cin, 1, 2, 1, 2))  # rows / columns -1 .. H + 1
+    wp = F.pad(w, (0, 0, 0, cpad - cin))
+    if not up:
+        acc = xm.new_zeros(b, h, wd, cout)
+        for c in range(cpad):
+            for dx in range(3):
+                for dy in range(3):
+                    acc = acc + xp[:, dy:dy + h, dx:dx + wd, c, None] * wp[dy, dx, c]
+        out = acc * demod[:, None, None, :]
+    else:
+        t = xm.new_zeros(b, 2 * h + 1, 2 * wd + 1, cout)
+        for py in (0, 1):
+            for px in (0, 1):
+                acc = xm.new_zeros(b, h + 1, wd + 1, cout)
+                for c in range(cpad):
+                    for dx, kx in sorted(CONVT_TAPS[px].items()):
+                        for dy, ky in sorted(CONVT_TAPS[py].items()):
+                            acc = acc + (xp[:, dy:dy + h + 1, dx:dx + wd + 1, c, None]
+                                         * wp[ky, kx, c])
+                t[:, py::2, px::2] = acc[:, :h + 1 - py, :wd + 1 - px]
+        k = np.asarray((1, 3, 3, 1), np.float32)
+        k1 = (np.float32(2.0) * k / k.sum())[::-1]  # flipped: true convolution
+        tp = F.pad(t, (0, 0, 1, 1, 1, 1))
+        hz = sum(float(k1[i]) * tp[:, :, i:i + 2 * wd] for i in range(4))
+        out = sum(float(k1[i]) * hz[:, i:i + 2 * h] for i in range(4))
+        out = out * demod[:, None, None, :]
+    out = out + noise_weight * noise
+    out = out + bias
+    return torch.where(out >= 0, out, 0.2 * out) * np.sqrt(2.0)
+
+
+@pytest.mark.parametrize("up", [False, True], ids=["conv", "up_conv"])
+@pytest.mark.parametrize("noise_b", [1, 2])
+def test_narrow_conv_chunks_and_phase_filters_match_jax(up, noise_b):
+    rng = np.random.RandomState(6)
+    b, h, wd, cin, cout = 2, 5, 7, 20, 16
+    f = 2 if up else 1
+    args = [rng.randn(b, h, wd, cin), rng.randn(3, 3, cin, cout) * 0.05,
+            rng.rand(b, cin) + 0.5, rng.rand(b, cout) + 0.5,
+            rng.randn(noise_b, f * h, f * wd, 1), np.float32(0.3),
+            rng.randn(cout) * 0.1]
+    ours = _np(_narrow_conv(*[_t(a) for a in args], up=up))
+    assert ours.shape == (b, f * h, f * wd, cout)
+    jargs = [jnp.asarray(np.asarray(a, np.float32)) for a in args]
+    if up:
+        for ref in (jmc.styled_up_conv3x3_ref, jmc.styled_up_conv3x3_xla):
+            np.testing.assert_allclose(ours, np.asarray(ref(*jargs)), **UP_TOL)
+    else:
+        np.testing.assert_allclose(ours, np.asarray(jmc.styled_conv3x3_ref(*jargs)),
+                                   **CONV3_TOL)
 
 
 def _tap_gemm_conv(x, w, s, demod, noise, noise_weight, bias, nsplit=1,
