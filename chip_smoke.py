@@ -2,8 +2,10 @@
 """Build the PyTorch/CUDA port's kernels and drive its serving, SwAV
 pretraining, BagGAN training and one-shot evaluate paths, the other four
 segmentation methods' pretrain and evaluate paths, the evaluate path of
-other model configs from reference-format checkpoints, and the BagGAN
-training CLI into the pidray evaluate path, on one GPU.
+other model configs from reference-format checkpoints, the BagGAN
+training CLI into the pidray evaluate path, the labelling GUI's session,
+and serving with non-linear projections and bilinear features, SwAV's
+local loss and its snapshots, on one GPU.
 
 Run from the repository root on a machine with one CUDA card and nvcc
 (found through CUDA_HOME, PATH or /usr/local/cuda):
@@ -110,7 +112,7 @@ Phases (any failure exits non-zero before the last line):
      synthesis, (c) that a latest_net_G.npz of the same generator loads
      bit-equal and a lean random init is hlen wide;
  11. one JSON line of the kernels, then the result line: printed last,
-     after phase 12;
+     after phase 14;
  12. train -> evaluate: cli/train_baggan.py's run (``run`` with the op set
      as an argument) at the pidray config on the lean width map
      (res2chlmap = "baggan", ADA p 0.6, B = 20, full depth) on 60 .npy
@@ -121,14 +123,32 @@ Phases (any failure exits non-zero before the last line):
      them, one iteration profiled; the plain ops on the same first batch
      for one iteration (phase 7's loss gates); then the pidray-256 evaluate
      path on the kernels run's latest_net_G.npz, loaded bit-equal, with the
-     kernels and the plain ops under phase 10 (c)'s gates and replay.
+     kernels and the plain ops under phase 10 (c)'s gates and replay;
+ 13. gui: cli/gui.py's pipeline at ffhq-256 (the generic hfc_with_swav
+     config, 8 test samples, 100 fine-tune epochs, a seeded
+     swav_params.npz in its shapes) and the GUI's headless session: the
+     one-shot mask painted into the painter's labels, Update/Train, a grid
+     refresh, Regenerate from a seeded generator, a second refresh, Save;
+     with the kernels (every launch counted) and with the plain ops on the
+     kernels run's one-shot features and mask; the refreshes' images
+     within 1e-3 and mask colours on 99.9%, the saved latents bit-equal;
+ 14. item 5: requests of 8 at ffhq-256 through 1-layer and 2-layer SwAV
+     projections and bilinear features (unfused), each image's features
+     projected alone against the request (logits within 1e-4, labels
+     equal) and the request against plain (image 1e-3, labels 99.9%); 5
+     SwAV steps with the local loss, kernels against plain under phase 5's
+     gates (4 Sinkhorn launches a patch); a snapshot run stopped after
+     epoch 2 and resumed, bit-equal to an unbroken run.
+Phases 13 and 14 run with matplotlib, cv2, sklearn and PIL unimportable
+(``host_only_refused``): their paths need none of them.
 
 ``--details PATH`` also writes every shape's numbers, the build record and
-the serving, pretraining, training, evaluate, methods, configs and
-train -> evaluate records to a JSON file.
+the serving, pretraining, training, evaluate, methods, configs,
+train -> evaluate, GUI and item-5 records to a JSON file.
 """
 
 import argparse
+import importlib.util
 import json
 import logging
 import math
@@ -1135,13 +1155,14 @@ def profile_step(swav):
     }
 
 
-def run_pretrain(gen, dev, ops, out_dir=None):
-    """SwAVClustering(...).pretrain() at the shipped config for 1 + PRETRAIN_STEPS
-    steps; the swav and the per-step host-clock ms."""
+def run_pretrain(gen, dev, ops, out_dir=None, **swav_over):
+    """SwAVClustering(...).pretrain() at the shipped config (its swav_args
+    updated by ``swav_over``) for 1 + PRETRAIN_STEPS steps; the swav and the
+    per-step host-clock ms."""
     from ganecdotes_torch.selfsup.swav import SwAVClustering
 
     mc, pa, sa, sk = swav_configs()
-    sa = dict(sa, num_epochs=1 + PRETRAIN_STEPS, num_samples=1)
+    sa = dict(sa, num_epochs=1 + PRETRAIN_STEPS, num_samples=1, **swav_over)
     swav = SwAVClustering(gen, mc, pa, sa, sk, out_dir=out_dir, device=dev,
                           seed=42, ops=ops)
     swav.record_loss_history = True
@@ -2915,6 +2936,344 @@ def train_evaluate(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the GUI session (cli/gui.py's pipeline, driven headless)
+# ---------------------------------------------------------------------------
+
+GUI_SWAV_SEED = 13  # the seeded swav_params.npz the GUI's pipeline loads
+GUI_Z_SEED = 14  # the z that Regenerate maps
+# what the GUI's widget layer, the figures and the .sav importer use
+HOST_ONLY = ("matplotlib", "cv2", "sklearn", "PIL")
+
+
+@contextmanager
+def host_only_refused():
+    """Inside, importing a HOST_ONLY module raises ImportError (and those
+    already imported are hidden from ``sys.modules``), as on a machine
+    without them: phases 13 and 14 run inside, so they show that their
+    paths need none of them."""
+    import importlib.abc
+
+    def host_only(name):
+        return name.split(".")[0] in HOST_ONLY
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path, target=None):
+            if host_only(name):
+                raise ImportError(f"{name} is refused in this phase")
+            return None
+
+    hidden = {k: sys.modules.pop(k) for k in list(sys.modules) if host_only(k)}
+    finder = Refuse()
+    sys.meta_path.insert(0, finder)
+    try:
+        yield
+    finally:
+        sys.meta_path.remove(finder)
+        sys.modules.update(hidden)
+
+
+def gui_swav_params(out_dir):
+    """A seeded ``swav_params.npz`` in the generic hfc_with_swav config's
+    shapes (XXS head, nprototypes 8000), so that the GUI's ``train_hfc``
+    False loads it instead of pretraining."""
+    from ganecdotes_torch.configs.segmentors import hfc_with_swav_config as sc
+    from ganecdotes_torch.selfsup.swav import init_swav_params
+    from ganecdotes_torch.utils.serialization import save_pytree
+
+    sa = sc.hfc_prep_args["swav_args"]
+    save_pytree(os.path.join(out_dir, "swav_params.npz"), init_swav_params(
+        sa["hlen"], sa["nclasses"], sa["nprototypes"], sa["projn_nw"],
+        generator=torch.Generator().manual_seed(GUI_SWAV_SEED)))
+
+
+def run_gui_session(dev, ops, out_dir, paint=None, replay_features=None):
+    """cli/gui.py's pipeline at ffhq-256 (``build_pipeline``: the generic
+    hfc_with_swav config, 8 test samples, 100 fine-tune epochs, set-up run)
+    and its headless session, driven as a user drives the window: the
+    one-shot mask painted into the painter's label array (``paint``, else
+    the one-shot image's luminance-quantile labels, as the set-up makes
+    them), Update/Train, a grid refresh, Regenerate on a seeded z, a second
+    refresh, Save. Without ``replay_features`` Update/Train runs unpatched
+    and its features are the train block's own; with them the run computes
+    its own one-shot features first, then fine-tunes on those given. Every
+    kernel's launches are counted from 0 over the whole run. Returns
+    (session, record, its own one-shot features)."""
+    import shutil
+
+    import numpy as np
+
+    from ganecdotes_torch.cli.gui import build_pipeline
+    from ganecdotes_torch.gui.interactive_labeller import InteractiveSession
+    from ganecdotes_torch.ops import _build
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    gui_swav_params(out_dir)
+    blocks = _Blocks()
+    _build.reset_launches()
+    pipe = blocks("setup", lambda: build_pipeline("ffhq-256", out_dir,
+                                                  device=dev, ops=ops))
+    pipe.logger.setLevel(logging.WARNING)  # its per-chunk lines: details only
+    session = blocks("session", lambda: InteractiveSession(pipe))
+    if paint is None:
+        paint = pipe.one_shot_label[0].cpu().numpy()
+    session.labels[0] = paint.astype(np.uint8)
+    if replay_features is None:
+        # the click as a user makes it: the SwAV set-up, the one-shot
+        # synthesis and its projection all inside the timed block
+        blocks("update_or_train", session.update_or_train)
+        feats = pipe.one_shot_train_features
+    else:
+        feats = blocks("one_shot_features", pipe._extract_one_shot_features)
+        pipe._extract_one_shot_features = lambda: replay_features
+        blocks("update_or_train", session.update_or_train)
+    check(pipe.preprocessor.ssl_params is not None,
+          "swav_params.npz was not loaded")
+    check(pipe.preprocessor.pretrain_count == 0, "the GUI session pretrained")
+    grids = [blocks("refresh", session.refresh_grid)]
+    z = torch.randn(session.num_outs, pipe.model_config.latent_dim,
+                    generator=torch.Generator().manual_seed(GUI_Z_SEED))
+    blocks("regenerate", lambda: session.regenerate(z=z))
+    grids.append(blocks("refresh_2", session.refresh_grid))
+    stamp = session.save()
+    launches = dict(_build.LAUNCHES)
+    saved = np.load(os.path.join(session.snap_dir, f"latents_{stamp}.npy"))
+    check(np.array_equal(saved, session.out_latents), "Save wrote other latents")
+    return session, {
+        "block_ms": blocks.ms, "peak_memory_bytes": blocks.peak,
+        "launches": launches, "grids": grids, "saved_latents": saved,
+        "paint": paint, "finetune_losses": [(e, loss) for e, loss, _
+                                            in pipe.finetune_log],
+    }, feats
+
+
+def _grid_tiles(grid, size):
+    """(images, masks) of a session grid: its (n, H, W, 3) tiles."""
+    rows = grid.shape[0] // size
+    t = grid.reshape(rows, size, 4, size, 3).transpose(0, 2, 1, 3, 4)
+    t = t.reshape(rows * 4, size, size, 3)
+    return t[0::2], t[1::2]
+
+
+def gui(dev):
+    """Phase 13: ``run_gui_session`` with the kernels, then with every op
+    on its plain version fine-tuning on the kernels run's one-shot
+    features and painting its mask; both grid refreshes held against the
+    plain run's (images within IMAGE_TOL, mask colours on LABEL_AGREEMENT
+    of the pixels) and the saved latents bit for bit."""
+    import numpy as np
+
+    from ganecdotes_torch.ops.opset import KERNELS, PLAIN
+
+    root = os.path.join(ROOT, "build", "chip_smoke_gui")
+    kern, kr, kfeats = run_gui_session(dev, KERNELS, os.path.join(root, "kernels"))
+    plain, pr, pfeats = run_gui_session(dev, PLAIN, os.path.join(root, "plain"),
+                                        paint=kr["paint"], replay_features=kfeats)
+    for name, r in (("kernels", kr), ("plain", pr)):
+        print(f"  {name}: block ms {json.dumps({k: round(v, 3) for k, v in r['block_ms'].items()})}; "
+              f"fine-tune loss {r['finetune_losses'][0][1]:.5f} -> "
+              f"{r['finetune_losses'][-1][1]:.5f}; peak GiB "
+              f"{json.dumps({k: round(v / 2**30, 3) for k, v in r['peak_memory_bytes'].items()})}",
+              flush=True)
+    print(f"  launches over the kernels run: {json.dumps(kr['launches'])}",
+          flush=True)
+    for k in SERVING_KERNELS:
+        check(kr["launches"][k] > 0, f"kernel {k} was not launched by the GUI session")
+    check(all(v == 0 for v in pr["launches"].values()),
+          f"the plain run launched kernels: {pr['launches']}")
+    size = kern.one_shot_learner.model_config.image_size
+    gates = {}
+    for i, (kg, pg) in enumerate(zip(kr["grids"], pr["grids"])):
+        check(kg.shape == (4 * size, 4 * size, 3) and bool(np.isfinite(kg).all()),
+              f"grid {i}: shape {kg.shape}")
+        (ki, km), (pi, pm) = _grid_tiles(kg, size), _grid_tiles(pg, size)
+        img_err = float(np.abs(ki - pi).max())
+        agree = float((km == pm).all(axis=-1).mean())
+        gates[f"refresh_{i}"] = {"image_err": img_err, "label_agreement": agree,
+                                 "shown_classes": int(len(np.unique(
+                                     km.reshape(-1, 3), axis=0)))}
+        check(img_err <= IMAGE_TOL, f"grid {i} images differ: {img_err}")
+        check(agree >= LABEL_AGREEMENT, f"grid {i} label agreement {agree}")
+    feat_err, _, feat_scale = errors(kfeats, pfeats)
+    gates["feature_err"] = feat_err / max(1.0, feat_scale)
+    gates["saved_latents_equal"] = bool(np.array_equal(kr["saved_latents"],
+                                                       pr["saved_latents"]))
+    print(f"  kernels vs plain: {json.dumps(gates)} (tols {IMAGE_TOL}, >= "
+          f"{LABEL_AGREEMENT}, features {FEATURE_TOL}, latents bit-equal)",
+          flush=True)
+    check(gates["feature_err"] <= FEATURE_TOL,
+          f"one-shot features differ: {gates['feature_err']}")
+    check(gates["saved_latents_equal"], "the saved latents differ")
+    (_, l0), (_, l1) = kr["finetune_losses"][0], kr["finetune_losses"][-1]
+    check(l1 < l0, f"the fine-tune did not lower its loss: {l0} -> {l1}")
+    for r in (kr, pr):
+        r.pop("grids")
+        r["saved_latents"] = r["saved_latents"].shape
+        r["paint"] = r["paint"].shape
+    return {"kernels": kr, "plain": pr, "gates": gates}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: ROADMAP item 5 on the card: non-linear projections, bilinear
+# features, SwAV's local loss and snapshots
+# ---------------------------------------------------------------------------
+
+UNFOLDED = (("1-layer", "nearest"), ("2-layer", "nearest"), ("linear", "bilinear"))
+SNAPSHOT_EPOCHS = 3
+
+
+def unfolded_request(dev, gen, projn_nw, interp):
+    """OneShotServer at ffhq-256 (hfc_with_swav_ffhq with ``projn_nw`` and
+    ``hf_interp``, seeded weights), which serves unfused: 1 + 3 requests of
+    8 z with the kernels (launches counted from 0), each image's features
+    projected alone against the request (logits within KERNEL_TOL * max(1,
+    max |logits|), labels equal), and the request against a plain server's
+    (image within IMAGE_TOL, labels on LABEL_AGREEMENT)."""
+    from types import SimpleNamespace
+
+    from ganecdotes_torch.configs.models import ffhq_256 as mc
+    from ganecdotes_torch.configs.segmentors import hfc_with_swav_ffhq_config as sc
+    from ganecdotes_torch.ops import _build
+    from ganecdotes_torch.ops.opset import KERNELS, PLAIN
+    from ganecdotes_torch.pipeline.serving import OneShotServer
+    from ganecdotes_torch.selfsup.heads import one_shot_segmentor_apply
+
+    seg = SimpleNamespace(
+        hfc_prep_args=dict(swav_args=dict(sc.hfc_prep_args["swav_args"],
+                                          projn_nw=projn_nw, hf_interp=interp)),
+        seg_args=sc.seg_args)
+    z = torch.randn(B, 512, generator=torch.Generator().manual_seed(15))
+    _build.reset_launches()
+    server = OneShotServer(mc, seg, device=dev, seed=16, gen=gen, ops=KERNELS)
+    check(not server.foldable, f"{projn_nw}, {interp} took the folded form")
+    ms = []
+    for _ in range(1 + N_REQUESTS):
+        t0 = time.perf_counter()
+        img, labels, z0 = server.serve(z)
+        ms.append(_sync_ms(t0))
+    launches = dict(_build.LAUNCHES)
+    with torch.inference_mode():
+        _, feats = server._synthesize(z, False)
+        emb = server._project(feats)
+        logits = one_shot_segmentor_apply(server.seg_params, emb, server.seg_size)
+        scale = max(1.0, logits.abs().max().item())
+        per_image_err, per_image_equal = 0.0, True
+        for i in range(B):
+            logits_i = one_shot_segmentor_apply(
+                server.seg_params, server._project([f[i : i + 1] for f in feats]),
+                server.seg_size)
+            per_image_err = max(per_image_err,
+                                (logits[i : i + 1] - logits_i).abs().max().item())
+            per_image_equal &= torch.equal(labels[i : i + 1], logits_i.argmax(-1))
+        served_is_unfused = (torch.equal(labels, logits.argmax(-1))
+                             and torch.equal(z0, emb[:1].argmax(-1)))
+    del feats, emb, logits
+    plain = OneShotServer(mc, seg, device=dev, seed=16, gen=gen,
+                          ssl_params=server.ssl_params,
+                          seg_params=server.seg_params, ops=PLAIN)
+    p_img, p_labels, _ = plain.serve(z)
+    img_err, _, img_scale = errors(img, p_img)
+    gates = {"per_image_logits_err": per_image_err / scale,
+             "per_image_labels_equal": per_image_equal,
+             "served_is_unfused": served_is_unfused,
+             "image_err": img_err / max(1.0, img_scale),
+             "label_agreement": (labels == p_labels).float().mean().item()}
+    steady = statistics.median(ms[1:])
+    print(f"  {projn_nw}, {interp}: request ms {[round(t, 3) for t in ms]} "
+          f"(first: warm-up), median {steady:.3f}; launches {json.dumps(launches)}; "
+          f"{json.dumps(gates)}", flush=True)
+    check(served_is_unfused, "serve did not return the unfused request's argmax")
+    check(gates["per_image_logits_err"] <= KERNEL_TOL,
+          f"a request of {B} differs from {B} requests of 1: {per_image_err}")
+    check(per_image_equal, f"a request of {B} labels otherwise than {B} of 1")
+    check(gates["image_err"] <= IMAGE_TOL, f"image differs from plain: {img_err}")
+    check(gates["label_agreement"] >= LABEL_AGREEMENT,
+          f"labels agree with plain on {gates['label_agreement']}")
+    for k in SERVING_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched by the request")
+    return {"request_ms": ms, "steady_ms": steady, "launches": launches,
+            "gates": gates}
+
+
+def snapshot_resume(dev, gen):
+    """SwAV at the full ffhq config for SNAPSHOT_EPOCHS one-step epochs with
+    ``checkpoint_every`` 1: unbroken, and stopped after epoch 2 by the
+    fault-injection hook, then resumed from its snapshot in a new
+    SwAVClustering; the two end bit for bit equal and leave no snapshot."""
+    import shutil
+
+    from ganecdotes_torch.selfsup.lars import tree_leaves
+    from ganecdotes_torch.selfsup.swav import SwAVClustering, _SimulatedPreemption
+
+    mc, pa, sa, sk = swav_configs()
+    sa = dict(sa, num_epochs=SNAPSHOT_EPOCHS, num_samples=1, checkpoint_every=1)
+    root = os.path.join(ROOT, "build", "chip_smoke_snapshots")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def swav(name):
+        return SwAVClustering(gen, mc, pa, sa, sk, out_dir=os.path.join(root, name),
+                              device=dev, seed=42)
+
+    t0 = time.perf_counter()
+    whole = swav("whole")
+    whole.pretrain()
+    broken = swav("broken")
+    broken._abort_after_epoch = SNAPSHOT_EPOCHS - 1
+    try:
+        broken.pretrain()
+        check(False, "the fault-injection hook did not stop the run")
+    except _SimulatedPreemption:
+        pass
+    snap = os.path.join(root, "broken", "swav_pretrain_state.npz")
+    check(os.path.exists(snap), "no snapshot after the stopped run")
+    resumed = swav("broken")
+    resumed.pretrain()
+    wall = _sync_ms(t0)
+    equal = all(torch.equal(a, b) for a, b in zip(tree_leaves(whole.ssl_params),
+                                                  tree_leaves(resumed.ssl_params)))
+    left = [n for n in ("whole", "broken")
+            if os.path.exists(os.path.join(root, n, "swav_pretrain_state.npz"))]
+    print(f"  snapshots: resumed run bit-equal to the unbroken one: {equal}; "
+          f"snapshots left: {left}; {wall:.1f} ms for the three runs", flush=True)
+    check(equal, "the resumed run differs from the unbroken one")
+    check(not left, f"snapshots left behind in {left}")
+    return {"bit_equal": equal, "wall_ms": wall}
+
+
+def item5(dev):
+    """Phase 14: the unfolded requests, SwAV's local loss (phase 5's steps
+    with ``add_local_loss``, kernels against plain under phase 5's gates)
+    and the snapshot resume."""
+    from ganecdotes_torch.models.stylegan2.generator import Generator
+    from ganecdotes_torch.ops import _build
+    from ganecdotes_torch.ops.opset import KERNELS, PLAIN
+
+    mc, _, sa, _ = swav_configs()
+    gen = Generator(**mc.gen_args, generator=torch.Generator().manual_seed(0)).to(dev)
+    out = {"requests": {f"{p}, {i}": unfolded_request(dev, gen, p, i)
+                        for p, i in UNFOLDED}}
+
+    _build.reset_launches()
+    kern, kern_ms = run_pretrain(gen, dev, KERNELS, add_local_loss=True)
+    launches = dict(_build.LAUNCHES)
+    plain, plain_ms = run_pretrain(gen, dev, PLAIN, add_local_loss=True)
+    steps = 1 + PRETRAIN_STEPS
+    agreement = check_pretrain_agreement(kern, plain)
+    print(f"  local loss: step ms {[round(t, 3) for t in kern_ms]} (first: "
+          f"warm-up), median {statistics.median(kern_ms[1:]):.3f}; plain "
+          f"{[round(t, 3) for t in plain_ms]}; launches {json.dumps(launches)}; "
+          f"{json.dumps(agreement)}", flush=True)
+    per_step = 4 * sa["num_patches"]
+    check(launches["sinkhorn_knopp"] == per_step * steps,
+          f"sinkhorn launched {launches['sinkhorn_knopp']} times in {steps} "
+          f"steps, expected {per_step} per step")
+    out["local_loss"] = {"step_ms": kern_ms, "plain_step_ms": plain_ms,
+                         "launches": launches, "agreement": agreement}
+    out["snapshots"] = snapshot_resume(dev, gen)
+    return out
+
+
 def kernels_line(rows, launches):
     out = []
     for name, (source, replaces) in KERNELS_TABLE.items():
@@ -2965,6 +3324,9 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
+    print("installed: " + ", ".join(
+        f"{m} {importlib.util.find_spec(m) is not None}" for m in HOST_ONLY),
+        flush=True)
 
     print("build:", flush=True)
     _build.load()
@@ -3029,6 +3391,16 @@ def main():
           f"B = {GAN_B}, on {TRAIN_FILES} .npy files; then the pidray-256 evaluate "
           "path on its checkpoint):", flush=True)
     trained_evaluated = train_evaluate(dev)
+    print("gui (cli/gui.py's pipeline: ffhq-256, the generic hfc_with_swav "
+          "config, 8 test samples, 100 fine-tune epochs; the headless session: "
+          "paint, Update/Train, refresh, Regenerate, refresh, Save):", flush=True)
+    with host_only_refused():
+        gui_run = gui(dev)
+    print("item 5 (ffhq-256: requests of 8 through 1-layer and 2-layer "
+          "projections and bilinear features; SwAV's local loss, "
+          f"{1 + PRETRAIN_STEPS} steps; snapshot resume):", flush=True)
+    with host_only_refused():
+        item5_run = item5(dev)
 
     # each kernel's launches from the path it belongs to; the serving
     # kernel rows are per request of 8, the Sinkhorn row per SwAV step, the
@@ -3048,7 +3420,8 @@ def main():
                        "serve": served, "pretrain": pretrained, "train": trained,
                        "evaluate": evaluated, "methods": other_methods,
                        "configs": other_configs, "train_evaluate": trained_evaluated,
-                       "kernels": line}, f, indent=1)
+                       "gui": gui_run, "item5": item5_run,
+                       "kernels": line}, f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -103,7 +103,6 @@ lr_scheduler = {
 
 # the ROADMAP items that bring what the port does not run yet
 ITEMS = {
-    "loader": "§1 item 5 (the reference's pickled sklearn clusterers)",
     "hier_kmeans": "§1 item 10 (hierarchical k-means and belief encoding)",
 }
 
@@ -119,8 +118,7 @@ def not_ported(kind, key, path):
 
 def not_ported_part(what, item):
     """Raise ``NotImplementedError`` for ``what`` (a method's option or a
-    reference-format file), naming ROADMAP ``ITEMS[item]``: "loader" (the
-    pickled sklearn ``.sav`` clusterers) or "hier_kmeans"
+    reference-format file), naming ROADMAP ``ITEMS[item]``: "hier_kmeans"
     (``hfc_algo='hfc_kmeans_hier'``, ``hier_encode=True``, the legacy
     hierarchical clusterer, beliefs files)."""
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP {ITEMS[item]}")

@@ -9,7 +9,9 @@ DatasetGAN.
 * setup: load the test latents and labels (``.pt``/``.npy``/``.npz``) or
   synthesise pseudo-labelled samples, then synthesise the one-shot sample
   (the p-car / p-horse family: with the per-layer noises at the config's
-  ``sample_noises`` and without truncation);
+  ``sample_noises`` and without truncation); in online mode without a fed
+  latent, the one-shot label is painted in ``gui.labeller.OneShotLabellerGUI``
+  (matplotlib and cv2);
 * train: the one-shot features of the method (the SwAV or SimCLR
   projection, pretrained or loaded from ``swav_params.npz`` /
   ``simclr_params.npz``; the k-means encoding of the clusterers fitted or
@@ -27,8 +29,7 @@ DatasetGAN.
 
 The artifacts and their layout are the JAX pipeline's. What the port does
 not run yet raises ``NotImplementedError`` naming its ROADMAP item: the
-hierarchical k-means and the belief encoding, the GUI labelling of online
-mode and the reference's pickled sklearn clusterers.
+hierarchical k-means and the belief encoding.
 """
 
 import csv
@@ -324,10 +325,6 @@ class OneShotPipeline:
         mc = self.model_config
         if input_latent is not None and self.mode != "online":
             raise ValueError("Cannot feed input latents in offline mode!")
-        if self.mode == "online" and input_latent is None:
-            raise NotImplementedError(
-                "GUI labelling in online mode is not ported yet: ROADMAP §1 "
-                "item 7")
 
         fed_noise_family = hasattr(mc, "sample_noises")  # p-car, p-horse
         lat_path, lbl_path = mc.sample_latents, mc.sample_labels
@@ -374,6 +371,17 @@ class OneShotPipeline:
         self.one_shot_img, self.one_shot_features = self.get_image_from_latent(
             one_shot_in, return_features=True, noise=self.one_shot_noise,
             truncate=not fed_noise_family)
+
+        if self.mode == "online" and input_latent is None:
+            from ganecdotes_torch.gui.labeller import OneShotLabellerGUI
+
+            self.logger.info("Initializing GUI ...")
+            self.labeller = OneShotLabellerGUI(
+                self.transform_im_for_gui(self.one_shot_img), mc.classes)
+            # (1, 1, H, W) uint8, as the JAX pipeline takes it; a copy of
+            # the painter's labels, which later strokes change
+            self.one_shot_label = torch.tensor(
+                self.labeller.get_labels(), device=self.device)[None]
 
         if input_latent is None:  # the one-shot sample leaves the test set
             self.test_latents = np.concatenate(
@@ -550,6 +558,10 @@ class OneShotPipeline:
         self.logger.info("******* Training Complete ********")
 
     # ------------------------------------------------------------------
+
+    def transform_im_for_gui(self, im):
+        """Images in [-1, 1] (a tensor on any device) -> numpy in [0, 1]."""
+        return np.clip(im.detach().cpu().numpy(), -1.0, 1.0) * 0.5 + 0.5
 
     def _make_infer_fn(self):
         """The test block's request: generate -> the method's folded form

@@ -14,13 +14,18 @@ and the fixed noise buffers, and returns ``(img, labels, z0)`` as the JAX
 ``z0`` (1, H, W) the argmax of the first sample's projection (its cluster
 map).
 
-``serve`` computes the logits as the JAX program does, with the head's
-first conv folded into the feature pyramid (``infer_folded``,
+``serve`` computes the logits as the JAX program does. For a linear SwAV
+projection, nearest interpolation and an FCN head, the head's first conv is
+folded into the feature pyramid (``infer_folded``,
 ``embed.project_segment_fcn``): the (B, H, W, nclasses) embedding is
 computed for sample 0 only, for ``z0``. ``infer`` keeps the unfused form,
 projection then head, as the oracle the folded form is held against
-(``serve_unfused`` is its argmax). A ``Lin`` head has no conv to fold:
-its ``serve`` is the unfused form, as the JAX pipeline serves it.
+(``serve_unfused`` is its argmax). Every other case (a 1-layer or 2-layer
+projection, bilinear interpolation, a ``Lin`` head) has nothing to fold:
+its ``serve`` is the unfused form, as the JAX pipeline serves it, with the
+2-layer projection's BatchNorm statistics taken per image
+(``swav.projection_tail``), so a request of B gives what B requests of 1
+give.
 
 Every server's ``serve`` and ``serve_unfused`` return (img, labels, z0);
 z0 is None for the methods without a cluster map (RepurposeGAN, DatasetGAN,
@@ -92,10 +97,9 @@ class OneShotServer:
         self.projn_nw = sa["projn_nw"]
         self.interp = sa.get("hf_interp", "nearest")
         self.seg_size = dict(sc.seg_args).get("size", "S")
-        if self.projn_nw != "linear" or self.interp != "nearest":
-            raise NotImplementedError(
-                "serving is ported for the linear projection and nearest "
-                f"interpolation; got {self.projn_nw!r}, {self.interp!r}")
+        # the folded form: exactly the JAX pipeline's case
+        self.foldable = (self.seg_size in DILATIONS and self.projn_nw == "linear"
+                         and self.interp == "nearest")
         self.truncation = mc.truncation
 
         def rng(k):
@@ -148,8 +152,9 @@ class OneShotServer:
 
     def infer_folded(self, z, input_is_latent=False):
         """``infer``'s outputs with the head's first conv folded into the
-        pyramid: only sample 0's embedding is computed. A Lin head: ``infer``."""
-        if self.seg_size not in DILATIONS:
+        pyramid: only sample 0's embedding is computed. Where nothing folds
+        (``foldable`` False): ``infer``."""
+        if not self.foldable:
             return self.infer(z, input_is_latent)
         with torch.inference_mode():
             img, feats = self._synthesize(z, input_is_latent)

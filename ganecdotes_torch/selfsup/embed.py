@@ -1,12 +1,12 @@
-"""Per-pixel feature embedding (port of ganecdotes_tpu/selfsup/embed.py,
-nearest interpolation only).
+"""Per-pixel feature embedding (port of ganecdotes_tpu/selfsup/embed.py).
 
 The projection's first linear layer splits by pyramid level,
-``z(p) = sum_l W_l . f_l(src_l(p))``; nearest interpolation commutes with
-the channel-wise matmul, so each term is computed at its native resolution
-and only the nclasses-wide result is upsampled and summed
+``z(p) = sum_l W_l . f_l(src_l(p))``; nearest and bilinear interpolation
+both commute with the channel-wise matmul, so each term is computed at its
+native resolution and only the nclasses-wide result is upsampled and summed
 (``project_feature_maps``). ``pixel_feature_maps`` keeps the explicit
-upsample + concat form as the oracle.
+upsample + concat form as the oracle. The folded forms below are for
+nearest interpolation only, as in the JAX package.
 
 Serving folds the head's first conv into that sum as well
 (``project_segment_fcn``; ``concat_segment_fcn`` for RepurposeGAN's raw
@@ -30,7 +30,11 @@ weight's gradient is the dense product gᵀ·dz and no scatter-add is needed.
 import torch
 
 from ganecdotes_torch.nn.layers import conv2d_dilated_nhwc, leaky_relu
-from ganecdotes_torch.ops.interp import _nearest_indices, resize_nearest
+from ganecdotes_torch.ops.interp import (
+    _nearest_indices,
+    resize_bilinear,
+    resize_nearest,
+)
 
 
 def layer_channel_dims(features):
@@ -38,15 +42,15 @@ def layer_channel_dims(features):
 
 
 def pixel_feature_maps(features, hlen=None, interp="nearest", n_layers=None):
-    """Explicit upsample + concat (B, H, W, sum c)[..., :hlen] of the first
-    ``n_layers`` maps (all by default)."""
+    """Explicit upsample (``interp`` 'nearest' or 'bilinear') + concat
+    (B, H, W, sum c)[..., :hlen] of the first ``n_layers`` maps (all by
+    default)."""
     if n_layers is not None:
         features = features[:n_layers]
-    if interp != "nearest":
-        raise NotImplementedError(f"interp={interp!r} is not ported yet")
     h = max(f.shape[1] for f in features)
     w = max(f.shape[2] for f in features)
-    out = torch.cat([resize_nearest(f, (h, w)) for f in features], dim=-1)
+    resize = resize_nearest if interp == "nearest" else resize_bilinear
+    out = torch.cat([resize(f, (h, w)) for f in features], dim=-1)
     if hlen is not None:
         out = out[..., :hlen]
     return out
@@ -76,14 +80,23 @@ def project_feature_maps(features, weight, hlen=None, interp="nearest"):
     """pixel_feature_maps(features, hlen) @ weight, level-decomposed.
 
     features: list of (B, h, w, c) NHWC maps; weight: (sum c or hlen, out).
-    The accumulator is upsampled coarse to fine (integer-factor nearest
-    upsamples compose exactly), so only one full-resolution temporary exists.
+    Nearest: the accumulator is upsampled coarse to fine (integer-factor
+    nearest upsamples compose exactly), so only one full-resolution
+    temporary exists. Bilinear: each level's projection is upsampled to
+    full resolution and summed, as the JAX package sums them.
     """
-    if interp != "nearest":
-        raise NotImplementedError(f"interp={interp!r} is not ported yet")
     h = max(f.shape[1] for f in features)
     w = max(f.shape[2] for f in features)
     chunks = _split_weight_by_layer(weight, layer_channel_dims(features), hlen)
+    if interp != "nearest":
+        out = None
+        for f, (off, use) in zip(features, chunks):
+            if use == 0:
+                continue
+            z = resize_bilinear(f[..., :use] @ weight[off : off + use].to(f.dtype),
+                                (h, w))
+            out = z if out is None else out + z
+        return out
     acc = None
     for f, (off, use) in zip(features, chunks):
         if use == 0:

@@ -14,10 +14,11 @@ at a uniform drawn on the CPU from a ``torch.Generator``; the chosen indices
 are returned, and can be passed back in to replay a seeding.
 
 Checkpoints are the JAX package's: ``clusterer_layer_{n}.npz`` (``centers``)
-per layer and ``model_stats.npz`` in ``out_dir``. Not ported (ROADMAP §1
+per layer and ``model_stats.npz`` in ``out_dir``; where a layer has no
+``.npz``, the reference's pickled sklearn ``clusterer_layer_{n}.sav``
+(``import_sklearn_clusterer``, which needs sklearn). Not ported (ROADMAP §1
 item 10): the hierarchical clusterers, the belief encoding
-(``hier_encode=True``) and beliefs files; (item 5) the reference's pickled
-sklearn ``.sav`` clusterers.
+(``hier_encode=True``) and beliefs files.
 """
 
 import os
@@ -141,6 +142,29 @@ def _resize_labels(labels, out_size):
     return labels[:, ri][:, :, ci]
 
 
+def import_sklearn_clusterer(path):
+    """The reference's ``clusterer_layer_{n}.sav`` (a pickled sklearn
+    ``KMeans``) -> its (k, d) float32 centers on the CPU. sklearn's
+    ``predict`` is the argmin of squared distances to these centers, as
+    ``kmeans_predict`` computes it.
+
+    A ``.sav`` file is a pickle: loading one runs code from the file, so
+    load only files you made or trust, as the reference does. Unpickling
+    needs sklearn's classes; without sklearn this raises an ImportError
+    that says so and names the ``.npz`` alternative."""
+    import pickle
+
+    with open(path, "rb") as f:
+        try:
+            obj = pickle.load(f)
+        except ModuleNotFoundError as e:
+            raise ImportError(
+                f"importing {path!r} requires scikit-learn (the reference "
+                "pickled an sklearn KMeans object); install sklearn or "
+                f"provide a clusterer_layer_{{n}}.npz instead: {e}") from e
+    return torch.from_numpy(np.asarray(obj.cluster_centers_, dtype=np.float32))
+
+
 def kmeans_predict(x, centers):
     """Nearest center: argmin_k (||c_k||^2 - 2 x.c_k), ||x||^2 dropped."""
     score = (centers * centers).sum(dim=1)[None, :] - 2.0 * (x @ centers.T)
@@ -225,7 +249,8 @@ class BaseHFCModel:
         np.savez_compressed(self.stats_file, means=means, stds=stds)
 
     def ensure_centers(self):
-        """Load the saved clusterers (``clusterer_layer_{n}.npz``) once."""
+        """Load the saved clusterers once: ``clusterer_layer_{n}.npz``, else
+        the reference's ``clusterer_layer_{n}.sav``."""
         if not any(c is None for c in self.centers):
             return
         centers = []
@@ -234,8 +259,7 @@ class BaseHFCModel:
                 centers.append(torch.from_numpy(np.load(npz_fp)["centers"]).to(
                     self.device, torch.float32))
             elif os.path.exists(sav_fp):
-                not_ported_part(f"importing the reference's {sav_fp} (a "
-                                "pickled sklearn KMeans)", "loader")
+                centers.append(import_sklearn_clusterer(sav_fp).to(self.device))
             else:
                 raise FileNotFoundError(
                     "Models not found - use BaseHFCModel.fit() to create "

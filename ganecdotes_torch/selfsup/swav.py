@@ -8,17 +8,23 @@ prototypes, computes Sinkhorn-Knopp codes as constant targets (the
 ``sinkhorn_knopp`` op: a CUDA kernel on the card), and takes a LARS step on
 the swapped-prediction loss. The step's random numbers come in one
 ``SwAVDraws`` record, filled by ``draw_step_inputs`` from a
-``torch.Generator``, so a test can hand the port the JAX step's draws.
+``torch.Generator``, so a test can hand the port the JAX step's draws. With
+``add_local_loss`` each patch adds the swapped-prediction loss of the two
+views with their perturbed block's feature levels zeroed, scored against
+the same marginals (two more Sinkhorn calls a patch).
 
 Params: {"projection": [{"weight": (hlen, nclasses)}, ...],
 "prototype": {"weight": (nclasses, nprototypes), "bias": (nprototypes,)}}.
 """
 
+import importlib.util
 import math
 import os
 import time
+import zipfile
 from typing import List, NamedTuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -43,7 +49,13 @@ from ganecdotes_torch.selfsup.embed import (
     project_gathered,
 )
 from ganecdotes_torch.selfsup.heads import torch_linear_init
-from ganecdotes_torch.selfsup.lars import LARS, apply_updates, tree_leaves, tree_map
+from ganecdotes_torch.selfsup.lars import (
+    LARS,
+    LarsState,
+    apply_updates,
+    tree_leaves,
+    tree_map,
+)
 from ganecdotes_torch.utils.serialization import load_pytree, save_pytree
 
 
@@ -114,25 +126,31 @@ def projection_tail(params, z, projn_nw, train=True, eps=1e-5):
     """Everything after the (level-decomposed) first linear layer.
 
     nn.LeakyReLU's default slope is 0.01. The 2-layer head's BatchNorm uses
-    batch statistics in train mode.
+    batch statistics in train mode, taken per image: over (H, W) of each
+    image of a (B, H, W, C) ``z``, in one batched reduction, and over all
+    rows of an (N, C) ``z`` (the SwAV step's picked pixels of one sample,
+    or ``predict_swav_codes``' whole batch, flattened). So a request of B
+    gives what B requests of 1 give, as the JAX pipeline's ``jax.vmap``
+    over the batch does.
     """
     if projn_nw == "linear":
         return z
     if projn_nw == "1-layer":
         return torch.where(z >= 0, z, 0.01 * z)
     bn1, lin2, bn2 = params["projection"][1:4]
-    flat = z.reshape(-1, z.shape[-1])
-    if train:
-        mu, var = flat.mean(0), flat.var(0, unbiased=False)
-    else:
-        mu, var = bn1["mean"], bn1["var"]
+    b = z.shape[0] if z.dim() > 2 else 1
+    flat = z.reshape(b, -1, z.shape[-1])
+
+    def stats(x, bn):
+        if train:
+            return x.mean(1, keepdim=True), x.var(1, unbiased=False, keepdim=True)
+        return bn["mean"], bn["var"]
+
+    mu, var = stats(flat, bn1)
     h = (flat - mu) * torch.rsqrt(var + eps) * bn1["gamma"] + bn1["beta"]
     h = torch.where(h >= 0, h, 0.01 * h)
     h = h @ lin2["weight"]
-    if train:
-        mu2, var2 = h.mean(0), h.var(0, unbiased=False)
-    else:
-        mu2, var2 = bn2["mean"], bn2["var"]
+    mu2, var2 = stats(h, bn2)
     h = (h - mu2) * torch.rsqrt(var2 + eps) * bn2["gamma"] + bn2["beta"]
     return torch.tanh(h).reshape(z.shape)
 
@@ -143,7 +161,8 @@ def swav_predict_from_features(ssl_params, features, hlen, nclasses,
     are their argmax. Only the projection is applied (no prototypes).
 
     The reference never calls .eval() on the projection head, so its
-    BatchNorm keeps using batch statistics at predict time (train=True).
+    BatchNorm keeps using batch statistics at predict time (train=True),
+    each image's own (``projection_tail``).
     """
     z = project_feature_maps(features, ssl_params["projection"][0]["weight"],
                              hlen=hlen, interp=interp)
@@ -329,8 +348,6 @@ def make_swav_train_step(gen_meta, model_config, perturb_args, swav_args,
     step does. The generator runs under ``torch.no_grad()``: the features
     carry no gradient, but the projection's backward keeps them.
     """
-    if swav_args.get("add_local_loss", False):
-        raise NotImplementedError("add_local_loss is not ported yet")
     h, w = image_hw
     n_latent = gen_meta["n_latent"]
     n_layers = perturb_args["n_layers"]
@@ -340,6 +357,7 @@ def make_swav_train_step(gen_meta, model_config, perturb_args, swav_args,
     projn_nw = swav_args["projn_nw"]
     temperature = swav_args["temperature"]
     num_patches = swav_args["num_patches"]
+    add_local = swav_args.get("add_local_loss", False)
     niters, eps = sinkhorn_args["niters"], sinkhorn_args["eps"]
     source_pdf = sinkhorn_args.get("source_pdf", "uniform")
     device = mean_latent_w.device
@@ -381,20 +399,36 @@ def make_swav_train_step(gen_meta, model_config, perturb_args, swav_args,
                 views.append((feats, img))
         return views
 
-    def loss_fn(ssl_params, views, picks):
+    def swapped_loss(s_s, s_t, marginals):
+        (r_s, c_s), (r_t, c_t) = marginals
+        with record_function("swav.sinkhorn"):
+            q_s = sinkhorn_knopp(s_s, niters, eps, r_s, c_s, ops)
+            q_t = sinkhorn_knopp(s_t, niters, eps, r_t, c_t, ops)
+        return swapped_prediction_loss(s_s / temperature, s_t / temperature,
+                                       q_s, q_t)
+
+    def masked(feats, layer):
+        """The local loss's view: the perturbed block's feature group zeroed.
+        ``block_row_std`` perturbs w rows (2l, 2l + 1), which style feature
+        levels 2l and 2l + 1, so a level's group is level // 2."""
+        return [f * 0.0 if i // 2 == layer else f for i, f in enumerate(feats)]
+
+    def loss_fn(ssl_params, views, draws):
         (feats_s, img_s), (feats_t, img_t) = views
         total = 0.0
-        for p in picks:
+        for p in draws.picks:
             p = p.to(device)
             s_s = scores_fn(ssl_params, feats_s, p)
             s_t = scores_fn(ssl_params, feats_t, p)
-            r_s, c_s = sinkhorn_marginals(s_s.shape, source_pdf, img_s, device)
-            r_t, c_t = sinkhorn_marginals(s_t.shape, source_pdf, img_t, device)
-            with record_function("swav.sinkhorn"):
-                q_s = sinkhorn_knopp(s_s, niters, eps, r_s, c_s, ops)
-                q_t = sinkhorn_knopp(s_t, niters, eps, r_t, c_t, ops)
-            total = total + swapped_prediction_loss(
-                s_s / temperature, s_t / temperature, q_s, q_t)
+            marginals = (sinkhorn_marginals(s_s.shape, source_pdf, img_s, device),
+                         sinkhorn_marginals(s_t.shape, source_pdf, img_t, device))
+            loss = swapped_loss(s_s, s_t, marginals)
+            if add_local:  # two more Sinkhorn calls, on the masked views' scores
+                loss = loss + swapped_loss(
+                    scores_fn(ssl_params, masked(feats_s, draws.layer_s), p),
+                    scores_fn(ssl_params, masked(feats_t, draws.layer_t), p),
+                    marginals)
+            total = total + loss
         return total / num_patches
 
     def step(gen, ssl_params, opt_state, draws, it):
@@ -403,7 +437,7 @@ def make_swav_train_step(gen_meta, model_config, perturb_args, swav_args,
         views = sample_inputs(gen, draws)
         params = tree_map(lambda t: t.detach().requires_grad_(True), ssl_params)
         leaves = tree_leaves(params)
-        loss = loss_fn(params, views, draws.picks)
+        loss = loss_fn(params, views, draws)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = iter([torch.zeros_like(p) if g is None else g
                       for p, g in zip(leaves, grads)])
@@ -420,6 +454,15 @@ def make_swav_train_step(gen_meta, model_config, perturb_args, swav_args,
 # ---------------------------------------------------------------------------
 
 
+# the fixed samples in each epoch's plot_test_images grid, as in the JAX
+# package
+PLOT_TEST_SAMPLES = 5
+
+
+class _SimulatedPreemption(RuntimeError):
+    """Raised by the test-only fault-injection hook (``_abort_after_epoch``)."""
+
+
 class SwAVClustering:
     """The SwAV 'preprocessor' of hfc_with_swav: ``preprocess``/``pretrain``/
     ``predict_swav_codes`` over a port ``Generator`` (``model``), saving and
@@ -429,11 +472,20 @@ class SwAVClustering:
 
     ``device=None`` runs on ``cuda`` and raises without a card;
     ``device="cpu"`` runs every op's plain version. Random numbers (the mean
-    latent's z, the params' init, each step's draws) come from one
-    ``torch.Generator`` seeded with ``seed``. ``ops`` is ``KERNELS`` or
-    ``PLAIN``. With ``record_loss_history`` each epoch appends its last loss
-    to ``loss_history`` and the host-clock seconds since the loop began to
-    ``epoch_seconds`` (each a device sync).
+    latent's z, the params' init, the plotted test samples' z, each step's
+    draws) come from one ``torch.Generator`` seeded with ``seed``. ``ops`` is
+    ``KERNELS`` or ``PLAIN``. With ``record_loss_history`` each epoch appends
+    its last loss to ``loss_history`` and the host-clock seconds since the
+    loop began to ``epoch_seconds`` (each a device sync).
+
+    ``swav_args['checkpoint_every']`` (epochs) snapshots the run into
+    ``swav_pretrain_state.npz`` in ``out_dir``: params, the LARS state, the
+    epoch, the generator's RNG state and a fingerprint of the config. A
+    later ``pretrain`` in the same ``out_dir`` resumes from it, or starts
+    from epoch 0 when the fingerprint differs or the file is unusable; a
+    run that finishes deletes it. ``swav_args['plot_test_images']`` writes a
+    prediction grid of ``PLOT_TEST_SAMPLES`` fixed samples each epoch into
+    ``out_dir/swav`` (needs matplotlib).
     """
 
     def __init__(self, model, model_config, perturb_args, swav_args,
@@ -443,6 +495,9 @@ class SwAVClustering:
         del layer_hf_dim  # in hfc_prep_args; unused, as in the JAX package
         self.device = resolve_device(device)
         self.ops = ops
+        # fault-injection hook for the snapshot tests: raise
+        # _SimulatedPreemption after this many epochs (None: never)
+        self._abort_after_epoch = None
         self.record_loss_history = False
         self.loss_history = []
         self.epoch_seconds = []
@@ -505,9 +560,10 @@ class SwAVClustering:
     def pretrain(self, input_latent=None):
         del input_latent  # placeholder in the reference too
         sa = self.swav_args
-        for opt in ("checkpoint_every", "plot_test_images"):
-            if sa.get(opt):
-                raise NotImplementedError(f"swav_args[{opt!r}] is not ported yet")
+        plot = bool(sa.get("plot_test_images", False))
+        if plot and importlib.util.find_spec("matplotlib") is None:
+            raise ImportError("swav_args['plot_test_images'] draws its grids "
+                              "with matplotlib, which is not installed")
         if (sa.get("data_parallel", False) and self.device.type == "cuda"
                 and torch.cuda.device_count() > 1):
             raise NotImplementedError("data_parallel over more than one card "
@@ -522,16 +578,65 @@ class SwAVClustering:
             self.mean_latent, self._image_hw, self.ops)
         opt_state = optimizer.init(self.ssl_params)
 
+        if plot:  # fixed test samples, plotted each epoch
+            test_z = torch.randn(PLOT_TEST_SAMPLES,
+                                 self.model_config.latent_dim,
+                                 generator=self.generator).to(self.device)
+            with torch.no_grad():
+                test_imgs, _ = generator_forward(
+                    self.model, [test_z], truncation=self.truncation,
+                    truncation_latent=self.mean_latent, ops=self.ops)
+            test_imgs = np.clip(test_imgs.cpu().numpy() * 0.5 + 0.5, 0, 1)
+
         num_epochs, num_samples = sa["num_epochs"], sa["num_samples"]
+        ckpt_every = int(sa.get("checkpoint_every", 0) or 0)
+        ckpt_file = (os.path.join(self.out_dir, "swav_pretrain_state.npz")
+                     if self.out_dir else None)
+        # a snapshot of another architecture or schedule must not resume
+        # (the last item is the JAX package's sample batch: one card, 1)
+        fp = repr((sa["hlen"], sa["nclasses"], sa["nprototypes"],
+                   sa["projn_nw"], num_epochs, num_samples, 1))
+        start_epoch = 0
+        if ckpt_every and ckpt_file and os.path.exists(ckpt_file):
+            try:
+                self.ssl_params, opt_state, start_epoch = self._resume(
+                    ckpt_file, fp)
+                if self.logger:
+                    self.logger.info(
+                        f"Resuming SwAV pretraining from epoch {start_epoch}")
+            except (OSError, EOFError, KeyError, ValueError, RuntimeError,
+                    zipfile.BadZipFile) as e:
+                # a truncated write or another config: start afresh
+                if self.logger:
+                    self.logger.warning(f"Ignoring unusable pretrain snapshot "
+                                        f"({e}) - starting from epoch 0")
+
         t0 = time.perf_counter()
-        it = 0
-        for e in range(num_epochs):
+        it = start_epoch * num_samples
+        for e in range(start_epoch, num_epochs):
             for _ in range(num_samples):
                 draws = draw_step_inputs(self.generator, self.model.meta, mc,
                                          self.perturb_args, sa, self._image_hw)
                 self.ssl_params, opt_state, loss = step(
                     self.model, self.ssl_params, opt_state, draws, it)
                 it += 1
+            if ckpt_every and ckpt_file and (e + 1) % ckpt_every == 0:
+                # written to a temporary file, then renamed: a preemption
+                # mid-write leaves the previous snapshot whole
+                tmp = ckpt_file[:-4] + "_tmp.npz"
+                save_pytree(tmp, {
+                    "ssl_params": self.ssl_params,
+                    "opt_count": torch.tensor(opt_state.count),
+                    "opt_trace": opt_state.trace,
+                    "epoch": torch.tensor(e + 1),
+                    "rng_state": self.generator.get_state(),
+                    "fingerprint_chars": torch.tensor([ord(c) for c in fp],
+                                                      dtype=torch.int32),
+                })
+                os.replace(tmp, ckpt_file)
+            if self._abort_after_epoch is not None and (
+                    e + 1) >= self._abort_after_epoch:
+                raise _SimulatedPreemption(f"aborted after epoch {e + 1}")
             if self.record_loss_history:
                 self.loss_history.append(float(loss))
                 self.epoch_seconds.append(time.perf_counter() - t0)
@@ -542,11 +647,61 @@ class SwAVClustering:
                         f"\tT: {time.perf_counter() - t0:.03f}")
                 if self.writer is not None:
                     self.writer.add_scalar("swav/loss", float(loss), e)
+            if plot:
+                self._plot_epoch_predictions(test_z, test_imgs, e)
 
         if self.logger:
             self.logger.info("Finished pretraining - Saving swav params")
         if self.params_file:
             save_pytree(self.params_file, self.ssl_params)
+        if ckpt_file and os.path.exists(ckpt_file):
+            # a crash-recovery file only: left behind, it would turn a later
+            # pretraining in this out_dir into a resume
+            os.remove(ckpt_file)
+
+    def _resume(self, ckpt_file, fp):
+        """(params, LARS state, epoch) of the snapshot, with the generator's
+        RNG state restored; raises ValueError for another config's."""
+        state = load_pytree(ckpt_file)
+        saved_fp = "".join(chr(c) for c in state["fingerprint_chars"].tolist())
+        if saved_fp != fp:
+            raise ValueError(f"snapshot config {saved_fp!r} != current {fp!r}")
+        # the whole snapshot parsed before any state changes
+        params = tree_map(lambda t: t.to(self.device), state["ssl_params"])
+        opt_state = LarsState(int(state["opt_count"]), tree_map(
+            lambda t: t.to(self.device), state["opt_trace"]))
+        epoch = int(state["epoch"])
+        self.generator.set_state(state["rng_state"])
+        return params, opt_state, epoch
+
+    def _plot_epoch_predictions(self, test_z, test_imgs, e):
+        """One column per test sample; rows: the image, the label map, then
+        the first ``max_masks`` per-class score maps."""
+        import matplotlib
+
+        matplotlib.use("Agg", force=False)
+        import matplotlib.pyplot as plt
+
+        from ganecdotes_torch.utils.visualization import quick_imshow
+
+        np_masks = min(self.nclasses, int(self.swav_args.get("max_masks", 4)))
+        preds, labels = self.predict_swav_codes(test_z, input_is_latent=False)
+        preds = preds.cpu().numpy()
+        labels = labels.cpu().numpy().astype(np.float32)
+        labels = labels / max(float(labels.max()), 1.0)
+
+        n = test_z.shape[0]
+        ims = [test_imgs[i] for i in range(n)]
+        ims += [labels[i] for i in range(n)]
+        for m in range(np_masks):
+            ims += [preds[i, :, :, m] for i in range(n)]
+        fig = quick_imshow(
+            np_masks + 2, n, ims, colorbar=False, colormap="gray",
+            fname=os.path.join(self.out_dir, "swav", f"test_epoch_{e}.png"))
+        plt.close(fig)
+        if self.writer is not None:
+            self.writer.add_image("swav/test_image", labels[0], e,
+                                  dataformats="HW")
 
     def predict_swav_codes(self, input_latent, input_is_latent=True):
         """(NHWC projection scores, their argmax labels) for a latent."""
@@ -558,8 +713,13 @@ class SwAVClustering:
                 self.model, [z], input_is_latent=input_is_latent,
                 truncation=self.truncation, truncation_latent=self.mean_latent,
                 ops=self.ops)
-            preds = swav_predict_from_features(
-                self.ssl_params, feats, self.swav_args["hlen"], self.nclasses,
-                self.swav_args["projn_nw"],
-                self.swav_args.get("hf_interp", "nearest"))
+            z = project_feature_maps(
+                feats, self.ssl_params["projection"][0]["weight"],
+                hlen=self.swav_args["hlen"],
+                interp=self.swav_args.get("hf_interp", "nearest"))
+            # a 2-layer head's statistics over the whole batch, as the JAX
+            # package's batched call takes them (the serving path takes
+            # each image's own)
+            preds = projection_tail(self.ssl_params, z.reshape(-1, z.shape[-1]),
+                                    self.swav_args["projn_nw"]).reshape(z.shape)
         return preds, preds.argmax(dim=-1)

@@ -1,8 +1,12 @@
-"""Label colours, mask rendering and image collages (port of
-ganecdotes_tpu/utils/visualization.py ``sample_label_colors``,
-``visualize_label_mask`` and ``create_pil_collage``). Host-side numpy; PIL
-is imported inside ``create_pil_collage`` only, so nothing else needs it.
+"""Label colours, mask rendering, image collages, subplot grids and image
+files (port of ganecdotes_tpu/utils/visualization.py
+``sample_label_colors``, ``visualize_label_mask``, ``create_pil_collage``,
+``quick_imshow`` and ``load_image``). Host-side numpy; PIL and matplotlib
+are imported inside the functions that draw or read with them, so nothing
+else needs them.
 """
+
+import os
 
 import numpy as np
 
@@ -76,3 +80,41 @@ def create_pil_collage(images, fname=None, grid=None, return_im=False):
     if return_im:
         return canvas
     return pil
+
+
+def quick_imshow(nrows, ncols=1, images=None, colorbar=False, colormap="jet",
+                 fname=None):
+    """A grid of subplots, one image each (row-major), saved to ``fname``
+    if given; returns the figure."""
+    import matplotlib.pyplot as plt
+
+    fig, axes = plt.subplots(nrows, ncols, squeeze=False)
+    if images is not None:
+        for k, im in enumerate(images[: nrows * ncols]):
+            ax = axes[k // ncols][k % ncols]
+            m = ax.imshow(np.asarray(im), cmap=colormap)
+            ax.axis("off")
+            if colorbar:
+                fig.colorbar(m, ax=ax)
+    if fname is not None:
+        fig.savefig(fname)
+    return fig
+
+
+def load_image(im_path):
+    """A png, jpg, tiff (PIL), npy, npz (``arr_0``) or FITS image as a
+    numpy array."""
+    ext = os.path.splitext(im_path)[-1].lower()
+    if ext in (".png", ".jpg", ".jpeg", ".tiff"):
+        from PIL import Image
+
+        return np.asarray(Image.open(im_path))
+    if ext == ".npy":
+        return np.load(im_path)
+    if ext == ".npz":
+        return np.load(im_path)["arr_0"]
+    if ext in (".fits", ".gz"):
+        from ganecdotes_torch.utils.fits import read_fits_data
+
+        return read_fits_data(im_path)
+    raise ValueError(f"{im_path}: format not supported")

@@ -388,6 +388,96 @@ def test_folded_server_matches_unfused_server(cuda):
         assert agree >= 0.999
 
 
+@pytest.mark.parametrize("projn_nw,interp", [("2-layer", "nearest"),
+                                             ("1-layer", "nearest"),
+                                             ("2-layer", "bilinear")])
+def test_unfolded_request_of_b_equals_b_requests_of_one(cuda, projn_nw, interp):
+    """A request of 8 through a non-linear projection (or bilinear
+    features), which serves unfused with each image's own BatchNorm
+    statistics, against each image's features projected alone on the card:
+    logits within 1e-4 * max(1, max |logits|), labels equal (the synthesis
+    is the request's in both: it is not batch-invariant to the last bit)."""
+    from ganecdotes_torch.pipeline.serving import OneShotServer
+    from ganecdotes_torch.selfsup.heads import one_shot_segmentor_apply
+
+    mc = SimpleNamespace(truncation=0.7, num_latents_for_mean=256,
+                         gen_args=dict(size=64, style_dim=512, n_mlp=8),
+                         classes=["c%d" % i for i in range(8)])
+    sc = SimpleNamespace(
+        hfc_prep_args=dict(swav_args=dict(hlen=1300, nclasses=16, nprototypes=32,
+                                          projn_nw=projn_nw, hf_interp=interp)),
+        seg_args=dict(size="XXS", in_ch=16))
+    server = OneShotServer(mc, sc, device=cuda, seed=5)
+    assert not server.foldable
+    z = torch.randn(8, 512, generator=torch.Generator().manual_seed(6))
+    _, labels, z0 = server.serve(z)
+    with torch.inference_mode():
+        _, feats = server._synthesize(z, False)
+        emb = server._project(feats)
+        logits = one_shot_segmentor_apply(server.seg_params, emb, server.seg_size)
+        assert torch.equal(labels, logits.argmax(-1))
+        assert torch.equal(z0, emb[:1].argmax(-1))
+        scale = max(1.0, logits.abs().max().item())
+        for i in range(8):
+            logits_i = one_shot_segmentor_apply(
+                server.seg_params, server._project([f[i : i + 1] for f in feats]),
+                server.seg_size)
+            assert (logits[i : i + 1] - logits_i).abs().max().item() <= 1e-4 * scale
+            assert torch.equal(labels[i : i + 1], logits_i.argmax(-1))
+
+
+def test_session_grid_is_the_servers_request(cuda, tmp_path):
+    """The GUI session's grid refresh after Update/Train on the card: one
+    request through the pipeline's server, assembled on the card, equals
+    the server's ``serve`` of the same latents assembled as the JAX GUI
+    assembles it (numpy, tile by tile), bit for bit."""
+    import os
+    import textwrap
+
+    from test_pipeline import TINY_MODEL, TINY_SWAV, TINY_TRAINER
+
+    from ganecdotes_torch.gui.interactive_labeller import InteractiveSession
+    from ganecdotes_torch.pipeline.one_shot_pipeline import OneShotPipeline
+    from ganecdotes_torch.selfsup.swav import init_swav_params
+    from ganecdotes_torch.utils.serialization import save_pytree
+    from ganecdotes_torch.utils.visualization import visualize_label_mask
+
+    cfg = {}
+    for name, body in [("model", TINY_MODEL), ("trainer", TINY_TRAINER),
+                       ("seg", TINY_SWAV)]:
+        cfg[name] = str(tmp_path / f"{name}_config.py")
+        with open(cfg[name], "w") as f:
+            f.write(textwrap.dedent(body))
+    out = str(tmp_path / "gui")
+    os.makedirs(out)
+    save_pytree(os.path.join(out, "swav_params.npz"), init_swav_params(
+        3584, 16, 32, generator=torch.Generator().manual_seed(1)))
+    pipe = OneShotPipeline(out, segmentor="hfc_with_swav", num_test_samples=8,
+                           custom=cfg, device=cuda)
+    pipe.seg_config.train_hfc = False
+    pipe.seg_config.hfc_prep_args["train"] = False
+    pipe.setup()
+    session = InteractiveSession(pipe)
+    assert session.num_outs == 8
+    session.labels[0] = pipe.one_shot_label[0].cpu().numpy().astype(np.uint8)
+    _build.reset_launches()
+    grid = session.update_or_train()
+    assert all(_build.LAUNCHES[k] > 0 for k in ("styled_conv3x3",
+                                                 "styled_up_conv3x3"))
+    img, pred, _ = pipe.server.serve(torch.as_tensor(session.out_latents),
+                                     input_is_latent=True)
+    img, pred = img.cpu().numpy(), pred.cpu().numpy()
+    tiles = []
+    for i in range(8):
+        tiles += [np.clip(img[i], -1, 1) * 0.5 + 0.5,
+                  visualize_label_mask(pred[i], pipe.color_map)]
+    h, w, _ = tiles[0].shape
+    want = np.zeros((4 * h, 4 * w, 3), np.float32)
+    for k, t in enumerate(tiles):
+        want[k // 4 * h : (k // 4 + 1) * h, k % 4 * w : (k % 4 + 1) * w] = t
+    np.testing.assert_array_equal(grid, want)
+
+
 def test_pipeline_kernels_match_plain_ops(cuda, tmp_path):
     """The tiny one-shot pipeline (tests/test_pipeline.py's configs, 3 test
     samples, train_hfc False with one swav_params.npz) with KERNELS and with

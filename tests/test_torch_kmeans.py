@@ -270,13 +270,39 @@ def test_what_the_flat_port_leaves_out_raises(tmp_path):
         with pytest.raises(NotImplementedError, match="item 10"):
             tkm.HFCPreprocessor(gen, _MC(), device="cpu",
                                 **dict(_prep_args(str(tmp_path)), **over))
+    # the reference's pickled sklearn clusterers load (they raised before
+    # the importer was ported): the centers JAX's importer reads, and the
+    # one-shot features over them
+    import pickle
+
+    from sklearn.cluster import KMeans
+
     sav = tmp_path / "sav"
     os.makedirs(sav)
+    probe = tkm.HFCPreprocessor(gen, _MC(), device="cpu",
+                                **dict(_prep_args(str(tmp_path / "probe")),
+                                       train=False))
+    w = np.random.RandomState(3).randn(512).astype(np.float32)
+    groups = probe._grouped_features(probe._w_plus(w))
+    for n, k in enumerate((3, 4)):
+        x = groups[n].reshape(-1, groups[n].shape[-1]).numpy()
+        with open(sav / f"clusterer_layer_{n}.sav", "wb") as f:
+            pickle.dump(KMeans(n_clusters=k, n_init=1, random_state=n).fit(x), f)
+    pre = tkm.HFCPreprocessor(gen, _MC(), device="cpu",
+                              **dict(_prep_args(str(sav), True), train=False))
+    pre.mean_latent = probe.mean_latent
     for n in range(2):
-        open(sav / f"clusterer_layer_{n}.sav", "wb").close()
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tkm.HFCPreprocessor(gen, _MC(), device="cpu",
-                            **dict(_prep_args(str(sav), True), train=False))
+        np.testing.assert_array_equal(
+            pre.hfc_model.centers[n].numpy(),
+            np.asarray(jkm.import_sklearn_clusterer(
+                str(sav / f"clusterer_layer_{n}.sav"))))
+    feats, labels = pre.predict_hfc_vectors(w)
+    assert feats.shape == (1, 16, 16, 7)
+    for n in range(2):
+        np.testing.assert_array_equal(
+            labels[n].reshape(-1).numpy(),
+            tkm.kmeans_predict(groups[n].reshape(-1, groups[n].shape[-1]),
+                               pre.hfc_model.centers[n]).numpy())
     with pytest.raises(FileNotFoundError):
         tkm.HFCPreprocessor(gen, _MC(), device="cpu",
                             **dict(_prep_args(str(tmp_path / "none"), True),

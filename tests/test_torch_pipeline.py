@@ -360,15 +360,28 @@ def test_what_is_not_ported_raises_with_its_roadmap_item(tmp_path, kwargs, item)
 
 
 def test_online_gui_and_sample_noises_raise(tmp_path):
-    """Online mode without a fed latent (the GUI) raises; a fed latent in
-    offline mode raises. A ``sample_noises`` path with nothing there no
-    longer raises: the one-shot synthesis takes the generator's fixed
-    buffers, without truncation, as the JAX pipeline does."""
+    """Online mode without a fed latent no longer raises: its set-up opens
+    the labelling GUI on the one-shot image (under Agg it does not block)
+    and takes the painted labels, none here: a (1, 1, H, W) uint8 zero
+    label, as the JAX pipeline takes it (tests/test_torch_gui.py holds it
+    against JAX). A fed latent in offline mode raises. A ``sample_noises``
+    path with nothing there no longer raises: the one-shot synthesis takes
+    the generator's fixed buffers, without truncation, as the JAX pipeline
+    does."""
+    import matplotlib
+
+    matplotlib.use("Agg")
     cfg = _write_configs(str(tmp_path))
     pipe = OneShotPipeline(str(tmp_path / "o"), segmentor="hfc_with_swav",
-                           mode="online", custom=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pipe.run_pipeline()
+                           mode="online", custom=cfg, device="cpu",
+                           num_test_samples=2)
+    pipe.setup()
+    assert pipe.one_shot_label.shape == (1, 1, SIZE, SIZE)
+    assert pipe.one_shot_label.dtype == torch.uint8
+    assert int(pipe.one_shot_label.max()) == 0
+    np.testing.assert_allclose(pipe.labeller.images,
+                               pipe.transform_im_for_gui(pipe.one_shot_img))
+    assert pipe.test_latents.shape[0] == 2  # 3 synthesised, less the one-shot
     with pytest.raises(ValueError, match="offline"):
         OneShotPipeline(str(tmp_path / "p"), segmentor="hfc_with_swav",
                         custom=cfg, device="cpu").run_pipeline(

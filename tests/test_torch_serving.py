@@ -122,7 +122,9 @@ def test_projection_equals_explicit_concat():
 @pytest.mark.parametrize("projn_nw", ["linear", "1-layer", "2-layer"])
 def test_swav_projection_matches_jax(projn_nw):
     """Every projection head, with the 2-layer head's train-mode BatchNorm
-    (batch statistics at predict time, swav.py:542-546)."""
+    (batch statistics at predict time, swav.py:542-546), each image's own:
+    the JAX side vmapped over the batch, as the JAX pipeline serves it
+    (one_shot_pipeline.py:681-689)."""
     ssl = jax.tree.map(np.asarray, init_swav_params(
         jax.random.PRNGKey(3), 20, 6, 10, projn_nw))
     ours_init = tswav.init_swav_params(20, 6, 10, projn_nw)
@@ -135,9 +137,10 @@ def test_swav_projection_matches_jax(projn_nw):
                 bn[k] = (rng.rand(6) + 0.5).astype(np.float32)
     feats = [rng.randn(2, r, r, c).astype(np.float32)
              for r, c in [(4, 8), (8, 8), (8, 8)]]
-    want = swav_predict_from_features(jax.tree.map(jnp.asarray, ssl),
-                                      [jnp.asarray(f) for f in feats], 20, 6,
-                                      projn_nw)
+    jssl = jax.tree.map(jnp.asarray, ssl)
+    want = jax.vmap(lambda fs: swav_predict_from_features(
+        jssl, [f[None] for f in fs], 20, 6, projn_nw)[0])(
+            [jnp.asarray(f) for f in feats])
     ours = tswav.swav_predict_from_features(
         from_jax_params(ssl), [torch.from_numpy(f) for f in feats], 20, 6,
         projn_nw)
@@ -148,9 +151,8 @@ def test_swav_projection_matches_jax(projn_nw):
         np.testing.assert_allclose(
             tswav.projection_tail(from_jax_params(ssl), torch.from_numpy(z),
                                   projn_nw, train=train).numpy(),
-            np.asarray(jswav.projection_tail(jax.tree.map(jnp.asarray, ssl),
-                                             jnp.asarray(z), projn_nw,
-                                             train=train)),
+            np.asarray(jax.vmap(lambda zi, train=train: jswav.projection_tail(
+                jssl, zi[None], projn_nw, train=train)[0])(jnp.asarray(z))),
             atol=1e-5, rtol=1e-5)
 
 
@@ -192,10 +194,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     banned = ("jax", "jaxlib", "ganecdotes_tpu", "optax", "flax")
     files = list(_port_files())
     assert len(files) > 10
-    for cli in ("evaluate.py", "pretrain.py"):  # the CLIs are covered too
+    for cli in ("evaluate.py", "pretrain.py", "gui.py"):  # the CLIs too
         assert os.path.join(ROOT_DIR, "ganecdotes_torch", "cli", cli) in files
     # and the other methods' modules and configs
     for rel in ("selfsup/simclr.py", "selfsup/kmeans.py", "selfsup/heads.py",
+                "gui/labeller.py", "gui/interactive_labeller.py",
+                "utils/fits.py", "utils/visualization.py",
                 "configs/segmentors/repurposegan_config.py",
                 "configs/segmentors/datasetgan_config.py",
                 "configs/segmentors/hfc_with_simclr_config.py",

@@ -389,11 +389,25 @@ def test_swav_clustering_pretrains_saves_loads_and_predicts(tmp_path):
                                     dict(checkpoint_every=1),
                                     dict(plot_test_images=True)])
 def test_swav_clustering_refuses_unported_options(tmp_path, option):
+    """Each option, which raised before it was ported, now runs its
+    pretraining (tests/test_torch_swav_options.py holds each against the
+    JAX package): the local loss trains to finite params, a run with
+    snapshots leaves none behind, and the plots are written each epoch."""
+    import matplotlib
+
+    matplotlib.use("Agg")
     _, _, gen = _jax_generator()
     mc, pa, sa, sk = _clustering_args(tmp_path, **option)
-    swav = tswav.SwAVClustering(gen, mc, pa, sa, sk, device="cpu")
-    with pytest.raises(NotImplementedError):
-        swav.pretrain()
+    swav = tswav.SwAVClustering(gen, mc, pa, sa, sk, out_dir=str(tmp_path),
+                                device="cpu")
+    swav.record_loss_history = True
+    swav.pretrain()
+    assert len(swav.loss_history) == 2 and np.isfinite(swav.loss_history).all()
+    assert all(torch.isfinite(t).all() for t in tlars.tree_leaves(swav.ssl_params))
+    assert not os.path.exists(tmp_path / "swav_pretrain_state.npz")
+    plots = sorted(os.listdir(tmp_path / "swav"))
+    assert plots == (["test_epoch_0.png", "test_epoch_1.png"]
+                     if "plot_test_images" in option else [])
 
 
 def test_swav_clustering_needs_a_card_unless_asked_for_the_cpu(monkeypatch,
