@@ -4,8 +4,9 @@ pretraining, BagGAN training and one-shot evaluate paths, the other four
 segmentation methods' pretrain and evaluate paths, the evaluate path of
 other model configs from reference-format checkpoints, the BagGAN
 training CLI into the pidray evaluate path, the labelling GUI's session,
-and serving with non-linear projections and bilinear features, SwAV's
-local loss and its snapshots, on one GPU.
+serving with non-linear projections and bilinear features, SwAV's local
+loss and its snapshots, the hierarchical k-means with the belief encoding,
+the serving export and data parallel over ranks, on one GPU.
 
 Run from the repository root on a machine with one CUDA card and nvcc
 (found through CUDA_HOME, PATH or /usr/local/cuda):
@@ -138,13 +139,35 @@ Phases (any failure exits non-zero before the last line):
      equal) and the request against plain (image 1e-3, labels 99.9%); 5
      SwAV steps with the local loss, kernels against plain under phase 5's
      gates (4 Sinkhorn launches a patch); a snapshot run stopped after
-     epoch 2 and resumed, bit-equal to an unbroken run.
+     epoch 2 and resumed, bit-equal to an unbroken run;
+ 15. (a) hierarchical k-means: the shipped hfc_kmeans config with
+     hfc_algo='hfc_kmeans_hier' and hier_encode=True through cli/pretrain.py's
+     path (the hierarchical fit on the perturbed block features, then the
+     beliefs over its hle_samples = 100 syntheses of seeded z) and
+     cli/evaluate.py's (16 test samples, 200 epochs, the saved clusterers
+     and beliefs.npz loaded), with the kernels and the plain ops: the plain
+     fit replays the kernels run's block features and seedings, the plain
+     fine-tune its one-shot features (phase 9's replay); centers within
+     1e-3, beliefs within the move of one flipped label in the heaviest
+     sample, phase 9's evaluate gates; LegacyHierarchicalKMeansHFC on the
+     kernels run's block features on the card against the same class on
+     the CPU with the card's seedings; (b) export: phase 4's server and
+     (a)'s pipeline through runtime.export.export_serving, loaded back, 3
+     requests of 8 latents, each launching kernels 2-4 as often as the live
+     server, image within 1e-6 and labels equal, then the artifact moved to
+     the CPU for one request; (c) data parallel: two ranks on the one card
+     over gloo (spawned processes, joined) take one SwAV step at the full
+     ffhq config (a sample each), one BagGAN iteration at the pidray config
+     (B = 20 as 10 + 10, ADA p 0.6) and a request of 8 (4 + 4), each held
+     against one process on the global batch with phases 5, 7 and 4's
+     gates; then NCCL at world size 1 runs the SwAV step, bit-equal to the
+     step without data parallel.
 Phases 13 and 14 run with matplotlib, cv2, sklearn and PIL unimportable
 (``host_only_refused``): their paths need none of them.
 
 ``--details PATH`` also writes every shape's numbers, the build record and
 the serving, pretraining, training, evaluate, methods, configs,
-train -> evaluate, GUI and item-5 records to a JSON file.
+train -> evaluate, GUI, item-5 and phase-15 records to a JSON file.
 """
 
 import argparse
@@ -1988,12 +2011,14 @@ def _method_pipeline(method, out_dir, dev, ops, gen, pretraining,
         sc.hfc_prep_args["train"] = pretraining
     if method == "hfc_kmeans":
         sc.hfc_prep_args["hfc_args"]["base_args"]["presaved"] = not pretraining
+        pipe.preprocessor.train = pretraining  # outside training: beliefs.npz
     if method == "hfc_with_simclr" and pretraining:
         sc.hfc_prep_args["simclr_args"]["num_iters"] = SIMCLR_STEPS
     return pipe
 
 
-def run_method_pretrain(method, gen, dev, ops, out_dir, replay=None):
+def run_method_pretrain(method, gen, dev, ops, out_dir, replay=None,
+                        custom=None, hle_zs=None):
     """cli/pretrain.py's path up to the fitted preprocessor: SimCLR's steps
     (each step's loss and host ms; ``pretrain`` = the pipeline's one-shot
     features block, which pretrains), or the k-means fit's features
@@ -2002,11 +2027,13 @@ def run_method_pretrain(method, gen, dev, ops, out_dir, replay=None):
     features) of the kernels run: the plain run computes its own block
     features, then fits on the kernels run's with the same picks (Lloyd's
     300 iterations carry a rounding step of their input further than the
-    centers' gate, ``method_rounding.py``). Returns (pipeline, record, the
-    block features)."""
+    centers' gate, ``method_rounding.py``). With the belief encoding
+    (``custom`` configs), the beliefs over ``hle_zs`` follow the fit
+    (``beliefs``). Returns (pipeline, record, the block features)."""
     blocks = _Blocks()
     pipe = blocks("construct", lambda: _method_pipeline(method, out_dir, dev,
-                                                        ops, gen, True))
+                                                        ops, gen, True,
+                                                        custom=custom))
     blocks("setup", pipe.setup)
     rec = {"block_ms": blocks.ms, "peak_memory_bytes": blocks.peak}
     pre, hidden = pipe.preprocessor, None
@@ -2024,9 +2051,12 @@ def run_method_pretrain(method, gen, dev, ops, out_dir, replay=None):
         fit_on = hidden
         if replay is not None:
             pre.hfc_model.replay_seeds, fit_on = replay
-        blocks("fit", lambda: pre.hfc_model.fit(fit_on))
+        blocks("fit", lambda: pre.fit_clusterers(fit_on))
         rec["fit_s"] = blocks.ms["fit"] / 1e3
-    for f in PRETRAINED[method]:
+        if pre.hier_encode:
+            blocks("beliefs", lambda: pre.train_beliefs(hle_zs))
+            rec["beliefs_s"] = blocks.ms["beliefs"] / 1e3
+    for f in PRETRAINED[method] if custom is None else hier_files(pre):
         check(os.path.exists(os.path.join(out_dir, f)), f"{f} was not written")
     return pipe, rec, hidden
 
@@ -3274,6 +3304,591 @@ def item5(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: hierarchical k-means, the serving export, data parallel
+# ---------------------------------------------------------------------------
+
+HIER_OVERRIDES = ("hfc_prep_args['hfc_algo'] = 'hfc_kmeans_hier'\n"
+                  "hfc_prep_args['hier_encode'] = True\n")
+HLE_SEED = 15  # the belief samples' z (hle_samples of them), both runs
+LEGACY_KMEANS = dict(n_init=2, max_iter=20)  # the legacy check: card vs CPU
+EXPORT_IMAGE_TOL = 1e-6  # artifact vs live server, of max(1, max |live|)
+DP_WORLD = 2  # ranks sharing the one card (gloo)
+DP_TIMEOUT_S = 600
+
+
+def hier_files(pre):
+    """What the hierarchical fit and the beliefs write."""
+    return ([f"clusterer_layer_{n}.npz" for n in range(pre.hfc_model.n_layer)]
+            + ["beliefs.npz"])
+
+
+def belief_one_flip_bound(pre, z):
+    """How far one flipped label moves a belief: beliefs are the half-mix of
+    the samples' matrices, so the last sample (``z``) weighs 1/2, and its
+    entry (v, l) is a count over the area of coarse cluster l on the finer
+    grid. A flipped coarse pixel covers 4 fine ones (the 2x nearest
+    resize) and moves an entry by at most 4 / area, so the bound is 2 / the
+    smallest such area of the last sample over the belief matrices."""
+    from ganecdotes_torch.models.stylegan2.generator import mapping_apply
+    from ganecdotes_torch.ops.interp import resize_nearest
+
+    n_layers = pre.perturb_config["n_layers"]
+    with torch.no_grad():
+        w = mapping_apply(pre.model, z.to(pre.device), pre.ops)
+        _, labels = pre.hfc_model.predict(pre._grouped_features(pre._w_plus(w))[:n_layers])
+    smallest = None
+    for k in range(n_layers - 1):
+        h, wd = labels[k + 1].shape[-2:]
+        curr = resize_nearest(labels[k].float().permute(0, 2, 3, 1), (h, wd))[..., 0]
+        counts = torch.bincount(curr.long().reshape(-1))[1:]  # label 0 skipped
+        a = int(counts[counts > 0].min())
+        smallest = a if smallest is None else min(smallest, a)
+    return 2.0 / smallest, smallest
+
+
+def legacy_check(dev, hidden):
+    """LegacyHierarchicalKMeansHFC on the first of the kernels run's
+    perturbed copies of each block, on the card, against the same class on
+    the CPU with the card run's seedings: centers and label maps."""
+    from ganecdotes_torch.selfsup.kmeans import LegacyHierarchicalKMeansHFC
+
+    feats = [h[:1] for h in hidden]
+    base = dict(n_layers=len(feats), clusters_per_layer=[4, 8, 16, 32, 64],
+                out_size=256,
+                out_dir=os.path.join(ROOT, "build", "chip_smoke_hier", "legacy"))
+    t0 = time.perf_counter()
+    card = LegacyHierarchicalKMeansHFC(LEGACY_KMEANS, dict(base), device=dev)
+    card.fit(feats)
+    labels, maps = card.hierarchical_predict(feats)
+    card_s = _sync_ms(t0) / 1e3
+    t0 = time.perf_counter()
+    cpu = LegacyHierarchicalKMeansHFC(LEGACY_KMEANS, dict(base))
+    cpu.replay_seeds = [[i.cpu() for i in s] for s in card.seed_indices]
+    cpu_feats = [f.cpu() for f in feats]
+    cpu.fit(cpu_feats)
+    c_labels, c_maps = cpu.hierarchical_predict(cpu_feats)
+    cpu_s = time.perf_counter() - t0
+    center_err = max(errors(a.cpu(), b)[0] / max(1.0, errors(a.cpu(), b)[2])
+                     for a, b in zip(card.centers, cpu.centers))
+    agree = (labels.cpu() == c_labels).float().mean().item()
+    out = {"center_err": center_err, "label_agreement": agree, "card_s": card_s,
+           "cpu_s": cpu_s, "maps_shape": list(maps.shape),
+           "maps_agreement": (maps.cpu() == c_maps).float().mean().item()}
+    check(center_err <= CENTER_TOL, f"legacy centers, card vs CPU: {out}")
+    check(agree >= LABEL_AGREEMENT, f"legacy labels, card vs CPU: {out}")
+    return out
+
+
+def hier_kmeans(dev, flat_request_ms):
+    """Phase 15 (a): the shipped hfc_kmeans config with the hierarchical
+    clusterer and the belief encoding through cli/pretrain.py's and
+    cli/evaluate.py's paths at ffhq-256, kernels against plain (the plain
+    fit replays the kernels run's block features and seedings, the plain
+    fine-tune its one-shot features); the legacy clusterer, card against
+    CPU. Returns (record, the kernels run's evaluate pipeline)."""
+    import shutil
+
+    import numpy as np
+
+    from ganecdotes_torch.models.stylegan2.generator import Generator
+    from ganecdotes_torch.ops import _build
+    from ganecdotes_torch.ops.opset import KERNELS, PLAIN
+
+    mc, _, _, _ = swav_configs()
+    gen = Generator(**mc.gen_args, generator=torch.Generator().manual_seed(0)).to(dev)
+    root = os.path.join(ROOT, "build", "chip_smoke_hier")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    custom = {"seg": config_copy("hfc_kmeans_config", "segmentors",
+                                 HIER_OVERRIDES, root)}
+    from ganecdotes_torch.configs.segmentors import hfc_kmeans_config as kc
+
+    rec, runs, hidden = {"pretrain": {}, "evaluate": {}}, {}, {}
+    replay = None
+    hle_zs = torch.randn(kc.hfc_prep_args["hle_samples"], 1, mc.latent_dim,
+                         generator=torch.Generator().manual_seed(HLE_SEED))
+    for name, ops in (("kernels", KERNELS), ("plain", PLAIN)):
+        _build.reset_launches()
+        d = os.path.join(root, name, "pretrain")
+        pipe, r, hidden[name] = run_method_pretrain(
+            "hfc_kmeans", gen, dev, ops, d, replay, custom, hle_zs)
+        r["launches"] = dict(_build.LAUNCHES)
+        pre = pipe.preprocessor
+        check(pre.hfc_algo == "hfc_kmeans_hier" and pre.hier_encode,
+              "the edited config did not reach the preprocessor")
+        check(len(pre.trained_beliefs) == pre.perturb_config["n_layers"] - 1,
+              "beliefs missing")
+        runs[name], rec["pretrain"][name] = pipe, r
+        if name == "kernels":
+            replay = (pre.hfc_model.seed_indices, hidden[name])
+    kp, pp = (runs[k].preprocessor for k in ("kernels", "plain"))
+    center_err = max(errors(a, b)[0] / max(1.0, errors(a, b)[2])
+                     for a, b in zip(kp.hfc_model.centers, pp.hfc_model.centers))
+    fit_feature_err = max(errors(a, b)[0] / max(1.0, errors(a, b)[2])
+                          for a, b in zip(hidden["kernels"], hidden["plain"]))
+    belief_err = max(float((a - b).abs().max())
+                     for a, b in zip(kp.trained_beliefs, pp.trained_beliefs))
+    bound, area = belief_one_flip_bound(kp, hle_zs[-1])
+    pre_gates = {"fit_feature_err": fit_feature_err, "center_err": center_err,
+                 "belief_max_abs_err": belief_err, "belief_bound": bound,
+                 "last_sample_smallest_area": area}
+    rec["pretrain"]["gates"] = pre_gates
+    print(f"  pretrain: fit {rec['pretrain']['kernels']['fit_s']:.3f} s, beliefs "
+          f"({kp.hle_samples} samples) {rec['pretrain']['kernels']['beliefs_s']:.3f} s "
+          f"[plain {rec['pretrain']['plain']['fit_s']:.3f}, "
+          f"{rec['pretrain']['plain']['beliefs_s']:.3f} s]; gates {json.dumps(pre_gates)}",
+          flush=True)
+    check(fit_feature_err <= FEATURE_TOL, f"the fit's block features differ: {pre_gates}")
+    check(center_err <= CENTER_TOL, f"hierarchical centers differ: {pre_gates}")
+    check(belief_err <= bound, f"beliefs differ past one flipped label: {pre_gates}")
+    for k in SERVING_KERNELS:
+        check(rec["pretrain"]["kernels"]["launches"][k] > 0,
+              f"kernel {k} was not launched on the hierarchical fit")
+    rec["legacy"] = legacy_check(dev, hidden["kernels"])
+    print(f"  legacy clusterer, card vs CPU: {json.dumps(rec['legacy'])}", flush=True)
+    runs.clear()
+    hidden.clear()
+
+    own, replay_features, evals = {}, None, {}
+    files = hier_files(kp)
+    for name, ops in (("kernels", KERNELS), ("plain", PLAIN)):
+        d = os.path.join(root, name, "eval")
+        os.makedirs(d)
+        for f in files:
+            shutil.copy(os.path.join(root, "kernels", "pretrain", f), d)
+        _build.reset_launches()
+        evals[name], rec["evaluate"][name], own[name] = run_method_evaluate(
+            "hfc_kmeans", gen, dev, ops, d, replay_features, custom=custom)
+        check(evals[name].preprocessor.trained_beliefs is not None,
+              "beliefs.npz was not loaded")
+        replay_features = own[name]
+    kern, kr = evals["kernels"], rec["evaluate"]["kernels"]
+    plain, pr = evals["plain"], rec["evaluate"]["plain"]
+    for k in SERVING_KERNELS:
+        check(kr["launches"][k] > 0, f"kernel {k} was not launched on the evaluate path")
+    check(all(v == 0 for v in pr["launches"].values()), "the plain run launched kernels")
+    check(bool(np.isfinite(kern.test_images).all()), "non-finite test images")
+    (e1, k1), (_, kl) = kr["finetune_losses"][0], kr["finetune_losses"][-1]
+    (_, p1), (_, pl) = pr["finetune_losses"][0], pr["finetune_losses"][-1]
+    gates = {"feature_agreement": (own["kernels"] == own["plain"]).float().mean().item(),
+             "first_chunk_loss_rel": abs(k1 - p1) / max(abs(p1), 1e-30),
+             "last_loss_rel": abs(kl - pl) / max(abs(pl), 1e-30),
+             "label_agreement": float((kern.pred_labels == plain.pred_labels).mean()),
+             "mean_mask_iou_err": abs(kern.mean_mask_iou - plain.mean_mask_iou)}
+    rec["evaluate"]["gates"] = gates
+    rec["summary"] = {"request_ms": kr["requests"]["folded"]["steady_ms"],
+                      "flat_request_ms": flat_request_ms,
+                      "plain_request_ms": pr["requests"]["folded"]["steady_ms"],
+                      "epoch_ms": statistics.median(kr["epoch_ms"]),
+                      "fit_s": rec["pretrain"]["kernels"]["fit_s"],
+                      "beliefs_s": rec["pretrain"]["kernels"]["beliefs_s"],
+                      "mean_mask_iou": kern.mean_mask_iou}
+    print(f"  evaluate: {json.dumps(rec['summary'])}; gates {json.dumps(gates)}; "
+          f"launches {json.dumps(kr['launches'])}; block ms "
+          f"{json.dumps({k: round(v, 3) for k, v in kr['block_ms'].items()})}",
+          flush=True)
+    check(gates["feature_agreement"] >= LABEL_AGREEMENT, f"one-shot features: {gates}")
+    check(gates["first_chunk_loss_rel"] <= FIRST_CHUNK_LOSS_RTOL, f"first loss: {gates}")
+    check(gates["last_loss_rel"] <= LAST_LOSS_RTOL, f"last loss: {gates}")
+    check(gates["label_agreement"] >= LABEL_AGREEMENT, f"labels: {gates}")
+    check(gates["mean_mask_iou_err"] <= IOU_TOL, f"IoU: {gates}")
+    check(kl < k1, f"the fine-tune did not lower its loss: {k1} -> {kl}")
+    del plain, own, replay_features
+    return rec, kern
+
+
+def _request_launches(fn, w):
+    from ganecdotes_torch.ops import _build
+
+    _build.reset_launches()
+    out = fn(w)
+    torch.cuda.synchronize()
+    return out, {k: _build.LAUNCHES[k] for k in SERVING_KERNELS}
+
+
+def export_check(dev, name, source, live):
+    """Export ``source`` (a server or a trained pipeline) with
+    ``export_serving``, load it back and answer N_REQUESTS requests of B
+    latents w: each request's launches of kernels 1-4 equal to the live
+    server's, the image within EXPORT_IMAGE_TOL of it, labels equal; then
+    the artifact moved to the CPU answers the first request."""
+    from ganecdotes_torch.runtime.export import export_serving, load_exported
+
+    path = os.path.join(ROOT, "build", "chip_smoke_export", f"{name}.ganex")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.perf_counter()
+    meta = export_serving(source, path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    call, _ = load_exported(path)
+    load_s = time.perf_counter() - t0
+    ws = [_latents(live, 200 + i) for i in range(N_REQUESTS)]
+    rec = {"export_s": export_s, "load_s": load_s,
+           "mb": os.path.getsize(path) / 2**20, "meta": meta,
+           "request_ms": [], "live_request_ms": [], "launches": [],
+           "live_launches": [], "image_err": 0.0}
+    first = None
+    for w in ws:
+        t0 = time.perf_counter()
+        out, launches = _request_launches(call, w)
+        rec["request_ms"].append(_sync_ms(t0))
+        t0 = time.perf_counter()
+        want, live_launches = _request_launches(
+            lambda v: live.serve(v, input_is_latent=True), w)
+        rec["live_request_ms"].append(_sync_ms(t0))
+        rec["launches"].append(launches)
+        rec["live_launches"].append(live_launches)
+        err, _, scale = errors(out[0], want[0])
+        rec["image_err"] = max(rec["image_err"], err / max(1.0, scale))
+        check(launches == live_launches,
+              f"{name}: the artifact launched {launches}, the live server {live_launches}")
+        check(all(launches[k] > 0 for k in ("upfirdn2d", "styled_conv3x3",
+                                            "styled_up_conv3x3")),
+              f"{name}: the artifact ran no kernel: {launches}")
+        check(torch.equal(out[1], want[1]), f"{name}: the artifact's labels differ")
+        if first is None:
+            first = (w, out)
+    check(rec["image_err"] <= EXPORT_IMAGE_TOL, f"{name}: image err {rec['image_err']}")
+    t0 = time.perf_counter()
+    cpu_call, _ = load_exported(path, device="cpu")
+    cpu_out = cpu_call(first[0].cpu())
+    rec["cpu_request_s"] = time.perf_counter() - t0
+    rec["cpu_label_agreement"] = (cpu_out[1] == first[1][1].cpu()).float().mean().item()
+    check(rec["cpu_label_agreement"] >= LABEL_AGREEMENT,
+          f"{name}: the artifact on the CPU: {rec['cpu_label_agreement']}")
+    print(f"  export {name}: export {export_s:.3f} s, load {load_s:.3f} s, "
+          f"{rec['mb']:.1f} MB; request ms {[round(t, 3) for t in rec['request_ms']]} "
+          f"[live {[round(t, 3) for t in rec['live_request_ms']]}]; launches per "
+          f"request {json.dumps(rec['launches'][-1])}; image err {rec['image_err']:.3e}; "
+          f"on the CPU {rec['cpu_request_s']:.3f} s, label agreement "
+          f"{rec['cpu_label_agreement']:.6f}", flush=True)
+    return rec
+
+
+def _latents(server, seed):
+    """B latents w of the server's mapping, from z of ``seed``."""
+    from ganecdotes_torch.models.stylegan2.generator import mapping_apply
+
+    z = torch.randn(B, 512, generator=torch.Generator().manual_seed(seed)).to(server.device)
+    with torch.no_grad():
+        return mapping_apply(server.gen, z, server.ops)
+
+
+def export_phase(dev, hier_pipe):
+    """Phase 15 (b): phase 4's server and the hierarchical pipeline of (a)
+    through the serving export."""
+    from ganecdotes_torch.pipeline.serving import OneShotServer
+
+    server = OneShotServer(device=dev, seed=0)  # phase 4's, from its seed
+    out = {"swav": export_check(dev, "swav", server, server)}
+    del server
+    out["hier_kmeans"] = export_check(dev, "hier_kmeans", hier_pipe, hier_pipe.server)
+    return out
+
+
+# -- (c) data parallel: the ranks ---------------------------------------------
+
+
+def _dp_gan_config(out_dir, data_parallel):
+    cfg = pidray_config(out_dir)
+    cfg.data_parallel = data_parallel
+    return cfg
+
+
+def _to(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(t, dev) for t in tree)
+    return tree
+
+
+def _weights_digest(gan):
+    import hashlib
+
+    h = hashlib.sha1()
+    for net in (gan.netG, gan.netD):
+        for t in net.state_dict().values():
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _swav_dp_inputs(dev):
+    """The SwAV step's inputs at the full ffhq config: the generator and
+    params from their seeds, the kernels' mean latent, DP_WORLD samples'
+    draws."""
+    from ganecdotes_torch.models.stylegan2.convert import from_jax_params
+    from ganecdotes_torch.models.stylegan2.generator import Generator, mean_latent
+    from ganecdotes_torch.selfsup.swav import draw_step_inputs, init_swav_params
+
+    mc, pa, sa, sk = swav_configs()
+    gen = Generator(**mc.gen_args, generator=torch.Generator().manual_seed(0)).to(dev)
+    g = torch.Generator().manual_seed(42)
+    with torch.no_grad():
+        mean = mean_latent(gen, mc.num_latents_for_mean, g)
+    ssl = from_jax_params(init_swav_params(sa["hlen"], sa["nclasses"], sa["nprototypes"],
+                                           sa["projn_nw"], generator=g), dev)
+    mcd = {"truncation": mc.truncation, "latent_dim": mc.latent_dim}
+    draws = [draw_step_inputs(g, gen.meta, mcd, pa, sa, (mc.image_size,) * 2)
+             for _ in range(DP_WORLD)]
+    return gen, mean, ssl, mcd, (pa, sa, sk), draws
+
+
+def _swav_dp_step(dev, mesh, draws_in):
+    from ganecdotes_torch.selfsup.swav import make_swav_train_step
+
+    gen, mean, ssl, mcd, (pa, sa, sk), draws = _swav_dp_inputs(dev)
+    mc, _, _, _ = swav_configs()
+    opt, step = make_swav_train_step(gen.meta, mcd, pa, sa, sk, mean,
+                                     (mc.image_size,) * 2, mesh=mesh)
+    return step(gen, ssl, opt.init(ssl), draws_in(draws), 0)
+
+
+def _gan_dp_draws(dev, gan):
+    from ganecdotes_torch.gan.train import draw_step_inputs
+
+    g = torch.Generator().manual_seed(21)
+    real = torch.rand(GAN_B, GAN_SIZE, GAN_SIZE, 3, generator=g) * 2 - 1
+    draws = draw_step_inputs(g, gan.config, gan.gen_meta, GAN_B, 0, ADA_P)
+    return real, _to(draws, dev)
+
+
+def _gan_dp_iteration(dev, data_parallel, out_dir):
+    from ganecdotes_torch.gan.train import BagGANHQ
+
+    gan = BagGANHQ(_dp_gan_config(out_dir, data_parallel), seed=0, device=dev)
+    gan.ada_state["p"].fill_(ADA_P)
+    gan.keep_first_grads = True
+    real, draws = _gan_dp_draws(dev, gan)
+    gan.set_input({"ct": real}, iter_no=0, draws=draws)
+    gan.optimize_parameters()
+    torch.cuda.synchronize()
+    return gan
+
+
+def dp_rank(rank, world, port, ref_path, results):
+    """One rank of phase 15 (c) on the one card over gloo: the SwAV step
+    (its own sample), the BagGAN iteration (its half of B = 20) and a
+    request of 8 (its 4), each against the one-process reference at
+    ``ref_path``; the rank's launches per case."""
+    try:
+        import torch.distributed as dist
+
+        sys.path.insert(0, ROOT)
+        from ganecdotes_torch import resolve_device
+        from ganecdotes_torch.ops import _build
+        from ganecdotes_torch.parallel import mesh as pm
+        from ganecdotes_torch.pipeline.serving import OneShotServer
+        from ganecdotes_torch.selfsup.lars import tree_leaves
+
+        dev = resolve_device("cuda")
+        pm.distributed_init(f"tcp://localhost:{port}", world, rank, backend="gloo")
+        mesh = pm.make_mesh(device=dev)
+        ref = torch.load(ref_path, weights_only=False)
+        out, launches = {}, {}
+
+        _build.reset_launches()
+        params, _, loss = _swav_dp_step(dev, mesh, lambda d: [d[rank]])
+        launches["swav"] = dict(_build.LAUNCHES)
+        loss_rel = abs(float(loss) - ref["swav_loss"]) / abs(ref["swav_loss"])
+        param_err = max(errors(a.cpu(), b)[0] / max(1.0, errors(a.cpu(), b)[2])
+                        for a, b in zip(tree_leaves(params), ref["swav_params"]))
+        out["swav"] = {"loss_rel": loss_rel, "param_err": param_err}
+        del params
+
+        _build.reset_launches()
+        gan = _gan_dp_iteration(dev, True, os.path.join(ROOT, "build",
+                                                        "chip_smoke_dp", f"gan{rank}"))
+        launches["gan"] = dict(_build.LAUNCHES)
+        check(gan.mesh is not None and gan.mesh.size == world, "no mesh")
+        grads = {}
+        for kind, gs in gan.first_grads.items():
+            ps = ref["gan_grads"][kind]
+            norm = sum(float(p.square().sum()) for p in ps) ** 0.5
+            grads[kind] = max(float((g.cpu() - p).norm()) / max(norm, 1e-30)
+                              for g, p in zip(gs, ps))
+        losses = {k: float(getattr(gan, "loss_" + k)) for k in ref["gan_losses"]}
+        loss_errs = {k: abs(v - ref["gan_losses"][k]) / max(1.0, abs(ref["gan_losses"][k]))
+                     for k, v in losses.items()}
+        out["gan"] = {"grad_err": grads, "loss_errs": loss_errs,
+                      "digest": _weights_digest(gan),
+                      "ada_p": float(gan.ada_state["p"])}
+        del gan
+        torch.cuda.empty_cache()
+
+        _build.reset_launches()
+        server = OneShotServer(device=dev, seed=0)
+        w = ref["serve_w"].to(dev)
+        img, labels = pm.data_parallel_infer(
+            mesh, lambda _, v: server.serve(v, input_is_latent=True)[:2], None, w)
+        torch.cuda.synchronize()
+        launches["serve"] = dict(_build.LAUNCHES)
+        err, _, scale = errors(img.cpu(), ref["serve_img"])
+        out["serve"] = {"image_err": err / max(1.0, scale),
+                        "label_agreement": (labels.cpu() == ref["serve_labels"])
+                        .float().mean().item()}
+        out["launches"] = launches
+        results.put((rank, True, out))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def nccl_rank(port, results):
+    """NCCL, the production backend, at world size 1: the SwAV step under
+    the mesh against the step without data parallel, in one process."""
+    try:
+        sys.path.insert(0, ROOT)
+        from ganecdotes_torch import resolve_device
+        from ganecdotes_torch.parallel import mesh as pm
+        from ganecdotes_torch.selfsup.lars import tree_leaves
+
+        dev = resolve_device("cuda")
+        pm.distributed_init(f"tcp://localhost:{port}", 1, 0, backend="nccl")
+        mesh = pm.make_mesh(device=dev)
+        a, _, la = _swav_dp_step(dev, mesh, lambda d: [d[0]])
+        b, _, lb = _swav_dp_step(dev, None, lambda d: d[0])
+        equal = bool(torch.equal(la, lb)) and all(
+            torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+        results.put((0, True, {"bit_equal": equal, "loss": float(la),
+                               "backend": torch.distributed.get_backend()}))
+    except BaseException:
+        results.put((0, False, traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn(target, n, *args):
+    """Run ``target(rank, ..., results)`` (or ``target(..., results)`` for
+    n = 0: one process) in spawned processes; their results by rank. Every
+    process is joined, or killed past DP_TIMEOUT_S."""
+    import queue
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=target, args=((r, max(n, 1)) if n else ())
+                         + (port,) + args + (results,)) for r in range(max(n, 1))]
+    for p in procs:
+        p.start()
+    out, deadline = {}, time.monotonic() + DP_TIMEOUT_S
+    try:
+        while len(out) < len(procs):
+            try:
+                rank, ok, value = results.get(timeout=max(deadline - time.monotonic(), 1))
+            except queue.Empty:
+                raise SmokeFailure(f"{target.__name__}: ranks did not finish within "
+                                   f"{DP_TIMEOUT_S} s") from None
+            check(ok, f"{target.__name__} rank {rank} failed:\n{value}")
+            out[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [out[r] for r in sorted(out)]
+
+
+def data_parallel(dev):
+    """Phase 15 (c): the one-process references on the global batches, then
+    DP_WORLD ranks over gloo on the one card, then NCCL at world size 1.
+    These runs show that the collective code runs on the card, not how it
+    scales: there is one card."""
+    from ganecdotes_torch.pipeline.serving import OneShotServer
+    from ganecdotes_torch.selfsup.lars import tree_leaves
+
+    root = os.path.join(ROOT, "build", "chip_smoke_dp")
+    os.makedirs(root, exist_ok=True)
+    ref = {}
+    t0 = time.perf_counter()
+    params, _, loss = _swav_dp_step(dev, None, lambda d: d)  # both samples
+    ref["swav_loss"] = float(loss)
+    ref["swav_params"] = [t.cpu() for t in tree_leaves(params)]
+    del params
+    gan = _gan_dp_iteration(dev, False, os.path.join(root, "gan_one"))
+    ref["gan_grads"] = {k: [g.cpu() for g in v] for k, v in gan.first_grads.items()}
+    ref["gan_losses"] = gan_losses(gan, 0)
+    del gan
+    torch.cuda.empty_cache()
+    server = OneShotServer(device=dev, seed=0)
+    w = _latents(server, 300)
+    img, labels, _ = server.serve(w, input_is_latent=True)
+    ref.update(serve_w=w.cpu(), serve_img=img.cpu(), serve_labels=labels.cpu())
+    del server, img, labels
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    ref_path = os.path.join(root, "reference.pt")
+    torch.save(ref, ref_path)
+
+    t0 = time.perf_counter()
+    ranks = _spawn(dp_rank, DP_WORLD, ref_path)
+    ranks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (nccl,) = _spawn(nccl_rank, 0)
+    nccl_s = time.perf_counter() - t0
+    for r, out in enumerate(ranks):
+        print(f"  rank {r}: swav {json.dumps(out['swav'])}; gan grads "
+              f"{json.dumps(out['gan']['grad_err'])}, losses "
+              f"{json.dumps(out['gan']['loss_errs'])}; serve {json.dumps(out['serve'])}; "
+              f"launches {json.dumps(out['launches'])}", flush=True)
+        check(out["swav"]["loss_rel"] <= STEP_LOSS_RTOL, f"rank {r} SwAV loss: {out['swav']}")
+        check(out["swav"]["param_err"] <= STEP_PARAM_TOL, f"rank {r} SwAV params: {out['swav']}")
+        for kind, err in out["gan"]["grad_err"].items():
+            check(err <= GAN_GRAD_TOL[kind], f"rank {r} {kind} gradients: {err}")
+        for k, err in out["gan"]["loss_errs"].items():
+            check(err <= (GAN_LOSS_TOL if k == "d" else GAN_DRIFT_TOL),
+                  f"rank {r} loss {k}: {err}")
+        check(out["serve"]["image_err"] <= IMAGE_TOL, f"rank {r} image: {out['serve']}")
+        check(out["serve"]["label_agreement"] >= LABEL_AGREEMENT,
+              f"rank {r} labels: {out['serve']}")
+        for case, kernels in (("swav", PRETRAIN_KERNELS),
+                              ("gan", SERVING_KERNELS + RESAMPLE_KERNELS
+                               + ("fused_leaky_relu_bwd",)),
+                              ("serve", ("upfirdn2d", "styled_conv3x3",
+                                         "styled_up_conv3x3"))):
+            for k in kernels:
+                check(out["launches"][case][k] > 0, f"rank {r} {case}: {k} not launched")
+    check(len({out["gan"]["digest"] for out in ranks}) == 1,
+          "the ranks' GAN weights differ after the iteration")
+    print(f"  nccl world size 1: {json.dumps(nccl)}; one-process references "
+          f"{ref_s:.3f} s, {DP_WORLD} ranks {ranks_s:.3f} s, nccl {nccl_s:.3f} s",
+          flush=True)
+    check(nccl["bit_equal"], f"the NCCL world-size-1 step differs: {nccl}")
+    return {"ranks": ranks, "nccl": nccl, "reference_s": ref_s,
+            "ranks_s": ranks_s, "nccl_s": nccl_s}
+
+
+def phase15(dev, flat_request_ms):
+    print("hierarchical k-means (ffhq-256, the shipped hfc_kmeans config with "
+          "hfc_algo='hfc_kmeans_hier' and hier_encode=True; the legacy "
+          "clusterer, card against CPU):", flush=True)
+    hier, hier_pipe = hier_kmeans(dev, flat_request_ms)
+    print("export (phase 4's server and the hierarchical pipeline through "
+          "export_serving; loaded back, 3 requests of 8, then on the CPU):", flush=True)
+    exported = export_phase(dev, hier_pipe)
+    del hier_pipe
+    torch.cuda.empty_cache()
+    print(f"data parallel ({DP_WORLD} ranks on the one card over gloo: a SwAV "
+          f"step, a BagGAN iteration at B = {GAN_B}, a request of 8; then NCCL "
+          "at world size 1):", flush=True)
+    dp = data_parallel(dev)
+    return {"hier_kmeans": hier, "export": exported, "data_parallel": dp}
+
+
 def kernels_line(rows, launches):
     out = []
     for name, (source, replaces) in KERNELS_TABLE.items():
@@ -3401,6 +4016,7 @@ def main():
           f"{1 + PRETRAIN_STEPS} steps; snapshot resume):", flush=True)
     with host_only_refused():
         item5_run = item5(dev)
+    phase15_run = phase15(dev, other_methods["hfc_kmeans"]["summary"]["folded_ms"])
 
     # each kernel's launches from the path it belongs to; the serving
     # kernel rows are per request of 8, the Sinkhorn row per SwAV step, the
@@ -3420,7 +4036,7 @@ def main():
                        "serve": served, "pretrain": pretrained, "train": trained,
                        "evaluate": evaluated, "methods": other_methods,
                        "configs": other_configs, "train_evaluate": trained_evaluated,
-                       "gui": gui_run, "item5": item5_run,
+                       "gui": gui_run, "item5": item5_run, "phase15": phase15_run,
                        "kernels": line}, f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": line}))

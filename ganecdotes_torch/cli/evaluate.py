@@ -22,11 +22,20 @@ DatasetGAN need nothing saved.
 (60) resolves to the generic config, whose XXS head outputs 12 channels: a
 one-shot label past class 11 raises a ``ValueError`` before the fine-tune.
 ``--method datasetgan`` runs those models at every class.
+
+``--export_serving PATH.ganex`` exports the trained request (generate ->
+embed -> segment, the weights inside) after the run
+(``runtime.export.export_serving``); ``runtime.export.load_exported`` runs
+it, with ``ganecdotes_torch`` importable for its kernels' custom ops.
+
+Under ``torchrun --nproc_per_node=N`` the test requests are split over the
+ranks and gathered, and rank 0 scores them and writes the files.
 """
 
 import argparse
 
 from ganecdotes_torch.configs.mapper import resolve_method_alias
+from ganecdotes_torch.parallel.mesh import distributed_init
 from ganecdotes_torch.pipeline.one_shot_pipeline import OneShotPipeline
 
 # the top-level evaluate.py's choices, then every other model key whose
@@ -53,8 +62,9 @@ def build_parser():
     parser.add_argument("--num_test_samples", default=10, type=int)
     parser.add_argument(
         "--export_serving", default=None, metavar="PATH.ganex",
-        help="export the trained serving program to a one-file artifact "
-             "(not ported yet: raises)")
+        help="after evaluation, export the trained generate->embed->segment "
+             "request (weights inside) to a one-file torch.export serving "
+             "artifact; runtime.export.load_exported runs it")
     parser.add_argument(
         "--device", default=None,
         help="torch device (default: the CUDA card; 'cpu' runs the plain "
@@ -73,11 +83,8 @@ def use_headless_matplotlib():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.export_serving:
-        raise NotImplementedError(
-            "--export_serving (a serving artifact) is not ported yet: "
-            "ROADMAP §1 item 8")
     args.method = resolve_method_alias(args.method, args.model)
+    distributed_init()
     use_headless_matplotlib()
     pipe = OneShotPipeline(
         out_dir=args.out_dir, exp_name=args.expt_desc, model=args.model,
@@ -89,6 +96,12 @@ def main(argv=None):
     if args.method == "hfc_kmeans":
         pipe.seg_config.hfc_prep_args["hfc_args"]["base_args"]["presaved"] = True
     pipe.run_pipeline()
+    if args.export_serving and (pipe.mesh is None or pipe.mesh.rank == 0):
+        from ganecdotes_torch.runtime.export import export_serving
+
+        meta = export_serving(pipe, args.export_serving)
+        pipe.logger.info("Exported serving artifact to %s (batch %d, platforms %s)",
+                         args.export_serving, meta["batch"], meta["platforms"])
     return pipe
 
 

@@ -12,12 +12,19 @@ hfc_kmeans`` ``clusterer_layer_{n}.npz`` + ``model_stats.npz`` into
 Runs on the CUDA card unless ``--device cpu`` is given; without a card and
 without ``--device`` it raises. Training parameters are in the config files
 under ganecdotes_torch/configs/segmentors/.
+
+Under ``torchrun --nproc_per_node=N`` (one process per card) SwAV
+pretrains data-parallel, one sample per rank in each update (the config's
+``swav_args['data_parallel']``, on unless the config sets it), the test
+requests are split over the ranks, and rank 0 writes the files; the other
+methods pretrain in one process only.
 """
 
 import argparse
 
 from ganecdotes_torch.cli.evaluate import MODELS, use_headless_matplotlib
 from ganecdotes_torch.configs.mapper import resolve_method_alias
+from ganecdotes_torch.parallel.mesh import distributed_init
 from ganecdotes_torch.pipeline.one_shot_pipeline import OneShotPipeline
 
 
@@ -44,6 +51,10 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     args.method = resolve_method_alias(args.method, args.model)
+    ranks = distributed_init()
+    if ranks and "hfc_with_swav" not in args.method:
+        raise SystemExit(f"--method {args.method} pretrains in one process; "
+                         "only hfc_with_swav pretrains over ranks")
     use_headless_matplotlib()
     pipe = OneShotPipeline(
         out_dir=args.out_dir, exp_name=args.expt_desc, model=args.model,
@@ -53,6 +64,8 @@ def main(argv=None):
     pipe.seg_config.hfc_prep_args["train"] = True
     if args.method == "hfc_kmeans":
         pipe.seg_config.hfc_prep_args["hfc_args"]["base_args"]["presaved"] = False
+    if ranks:
+        pipe.seg_config.hfc_prep_args["swav_args"].setdefault("data_parallel", True)
     pipe.run_pipeline()
     return pipe
 

@@ -24,6 +24,12 @@ loads ``latest_net_G.npz`` from the run config's ``checkpoint_dir``), and
 it steps the learning-rate policy at each epoch's end. A resume is the
 config's ``continue_train = True`` with ``load_epoch``.
 
+Under ``torchrun --nproc_per_node=N`` (one process per card, N dividing the
+batch) it trains data-parallel (the config's ``data_parallel``, on unless
+the config sets it, as the JAX CLI turns it on above one device): every
+rank loads the global batch and keeps its slice, and rank 0 writes the
+checkpoints.
+
 ``--chunk`` above 1 (the JAX CLI's fused multi-iteration dispatch) raises
 ``NotImplementedError``: not ported (ROADMAP item 6).
 """
@@ -38,6 +44,7 @@ import torch
 
 from ganecdotes_torch.gan.train import BagGANHQ
 from ganecdotes_torch.ops.opset import KERNELS
+from ganecdotes_torch.parallel.mesh import distributed_init
 from ganecdotes_torch.runtime import NativeDataLoader
 from ganecdotes_torch.utils.util import load_config
 
@@ -91,6 +98,13 @@ def run(args, ops=KERNELS):
     cfg = load_run_config(args.config, args.out_dir)
     n_epochs = args.epochs or getattr(cfg, "n_epochs", 10)
     size, chans = cfg.image_size, getattr(cfg, "num_channels", 3)
+    if distributed_init():
+        ranks = torch.distributed.get_world_size()
+        if cfg.batch_size % ranks:
+            raise SystemExit(f"batch_size {cfg.batch_size} does not divide over "
+                             f"{ranks} ranks")
+        if not hasattr(cfg, "data_parallel"):
+            cfg.data_parallel = True
     gan = BagGANHQ(cfg, device=args.device, ops=ops)
     gan.setup_gan()
     gan.print_networks()

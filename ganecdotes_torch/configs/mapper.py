@@ -6,8 +6,7 @@ Every key resolves to a path in the port's ``configs/``, which holds a copy
 of every config file the JAX package ships. Three model keys name a file
 that neither package has ('ffhq-256-er', 'church-512', 'celeba-256', kept
 for key-level parity with the reference): the pipeline raises
-``NotImplementedError`` for them (``not_ported``), and for a part of a
-shipped method that is not ported (``not_ported_part``).
+``NotImplementedError`` for them (``not_ported``).
 """
 
 import os
@@ -101,12 +100,6 @@ lr_scheduler = {
     "cosine": sched_lib.cosine_lr,
 }
 
-# the ROADMAP items that bring what the port does not run yet
-ITEMS = {
-    "hier_kmeans": "§1 item 10 (hierarchical k-means and belief encoding)",
-}
-
-
 def not_ported(kind, key, path):
     """Raise ``NotImplementedError`` for the ``kind`` ("model", "seg",
     "trainer") config ``key`` whose file at ``path`` is missing: the JAX
@@ -114,14 +107,6 @@ def not_ported(kind, key, path):
     raise NotImplementedError(
         f"no {kind} config {key!r} ({path}): the JAX package ships no such "
         "file either, so there is nothing to port")
-
-
-def not_ported_part(what, item):
-    """Raise ``NotImplementedError`` for ``what`` (a method's option or a
-    reference-format file), naming ROADMAP ``ITEMS[item]``: "hier_kmeans"
-    (``hfc_algo='hfc_kmeans_hier'``, ``hier_encode=True``, the legacy
-    hierarchical clusterer, beliefs files)."""
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP {ITEMS[item]}")
 
 
 def resolve_method_alias(method, model):

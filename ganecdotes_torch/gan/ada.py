@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ganecdotes_torch.ops.affine_warp import affine_warp, norm_to_pixel_matrix
 from ganecdotes_torch.ops.grid_sample import grid_sample_bilinear
 from ganecdotes_torch.ops.opset import KERNELS
+from ganecdotes_torch.parallel.mesh import all_reduce_sum
 
 SYM6 = (
     0.015404109327027373, 0.0034907120842174702, -0.11799011114819057,
@@ -325,13 +326,16 @@ def ada_init_state(p0=0.0, device=None):
     }
 
 
-def ada_update(state, real_pred, target, aug_len, update_every):
+def ada_update(state, real_pred, target, aug_len, update_every, mesh=None):
     """One controller step on device tensors, with no host sync: adds the
     sign statistics of ``real_pred`` to the buffer and, every
-    ``update_every``-th call, moves p by sign(r_t - target) * n / aug_len."""
+    ``update_every``-th call, moves p by sign(r_t - target) * n / aug_len.
+    Under a data-parallel ``mesh`` the statistics are summed over the ranks
+    (JAX's ``axis_name`` psum, the reference's all_reduce)."""
     real_pred = real_pred.detach()
     stats = torch.stack([torch.sign(real_pred).sum(),
                          torch.tensor(float(real_pred.numel()), device=real_pred.device)])
+    stats = all_reduce_sum(mesh, stats)
     buf = state["buf"] + stats
     update = state["update"] + 1
     due = update % update_every == 0

@@ -11,6 +11,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ganecdotes_torch.parallel.mesh import all_reduce_sum
+
 # ---------------------------------------------------------------------------
 # adversarial objectives
 # ---------------------------------------------------------------------------
@@ -74,17 +76,23 @@ def r1_penalty(disc_fn, real_images):
 
 
 def path_length_penalty(gen_latent_fn, latents, noise_imgs, mean_path_length,
-                        decay=0.01):
+                        decay=0.01, mesh=None):
     """Perceptual path-length regularizer (ref bagganhq.py:225-269).
     ``gen_latent_fn`` maps w+ latents to images; ``noise_imgs`` is the
     N(0, 1)/sqrt(HW) image-space probe. Returns (ppl, new_mean, lengths),
-    the mean detached."""
+    the mean detached. Under a data-parallel ``mesh`` the lengths' mean is
+    the global batch's (differentiably), and ``ppl`` the rank's share."""
     lat = _input(latents)
     img = gen_latent_fn(lat)
     (grad,) = torch.autograd.grad((img * noise_imgs).sum(), lat,
                                   create_graph=True)
     path_lengths = torch.sqrt(grad.square().sum(dim=2).mean(dim=1))
-    path_mean = mean_path_length + decay * (path_lengths.mean() - mean_path_length)
+    if mesh is None or mesh.size == 1:
+        mean_length = path_lengths.mean()
+    else:
+        mean_length = (all_reduce_sum(mesh, path_lengths.sum())
+                       / (path_lengths.shape[0] * mesh.size))
+    path_mean = mean_path_length + decay * (mean_length - mean_path_length)
     ppl = torch.mean((path_lengths - path_mean) ** 2)
     return ppl, path_mean.detach(), path_lengths
 

@@ -30,9 +30,18 @@ runs under ``torch.utils.checkpoint``, and ``'all'`` (the default) also
 checkpoints the step's two D forwards, so their activations are recomputed
 in the backward instead of kept; ``'gp'`` keeps them.
 
+``data_parallel`` in a process group of more than one rank (``torchrun``,
+``parallel.mesh.distributed_init``) trains over the ranks, as the JAX
+trainer shards its steps over the mesh: every rank draws the global
+batch's ``BagGANDraws`` and takes the global batch's images, then keeps its
+slice; each step's gradients are averaged over the ranks, the minibatch
+standard deviation, ADA's sign statistics and the PPL's mean path length
+are the global batch's, and the reported losses are the global means, so
+N ranks reproduce one process on the global batch. Only rank 0 writes
+checkpoints.
+
 Not ported (each raises ``NotImplementedError``): the fused multi-iteration
-``optimize_parameters_chunk``, ``compute_dtype='bfloat16'`` and
-``data_parallel`` over more than one card.
+``optimize_parameters_chunk`` and ``compute_dtype='bfloat16'``.
 """
 
 import functools
@@ -43,6 +52,7 @@ from contextlib import contextmanager
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
@@ -69,6 +79,13 @@ from ganecdotes_torch.models.stylegan2.generator import (
 from ganecdotes_torch.ops import _build
 from ganecdotes_torch.ops.modulated_conv import styled_conv3x3_ref, styled_up_conv3x3_xla
 from ganecdotes_torch.ops.opset import KERNELS
+from ganecdotes_torch.parallel.mesh import (
+    average_gradients,
+    make_mesh,
+    mean_over_ranks,
+    replicate,
+    shard_batch,
+)
 from ganecdotes_torch.pipeline.schedulers import plateau_lr
 from ganecdotes_torch.utils.optim import Adam
 from ganecdotes_torch.utils.serialization import load_pytree, save_pytree
@@ -190,7 +207,11 @@ class GANBaseModel:
         return os.path.join(self.checkpoint_dir, f"{suffix}_net_{name}.npz")
 
     def save_networks(self, suffix):
-        """Each net's params and buffers as the JAX package's pytree file."""
+        """Each net's params and buffers as the JAX package's pytree file
+        (under data parallel, rank 0's)."""
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None and mesh.rank != 0:
+            return
         for attr, name in self.model_names.items():
             save_pytree(self._net_path(suffix, name), module_tree(getattr(self, attr)))
             self.logger.info(f"saved {self._net_path(suffix, name)}")
@@ -274,6 +295,15 @@ def draw_step_inputs(generator, config, gen_meta, batch, iter_no, ada_p,
                        r1_aug, g_noise, g_aug, ppl_z, ppl_noise)
 
 
+def _shard(mesh, t):
+    """The rank's slice of every tensor in ``t`` (tensors, lists, tuples)."""
+    if isinstance(t, torch.Tensor):
+        return shard_batch(mesh, t)
+    if isinstance(t, (list, tuple)):
+        return type(t)(_shard(mesh, u) for u in t)
+    return t
+
+
 class BagGANHQ(GANBaseModel):
     """StyleGAN2 GAN trainer for baggage imagery (ref bagganhq.py:14-501).
 
@@ -302,9 +332,10 @@ class BagGANHQ(GANBaseModel):
             raise NotImplementedError(
                 f"wgangp_remat={self.wgangp_remat!r}: expected 'all' or 'gp'")
         self.device = resolve_device(device)
-        if (getattr(config, "data_parallel", False) and self.device.type == "cuda"
-                and torch.cuda.device_count() > 1):
-            raise NotImplementedError("data_parallel over more than one card is not ported yet")
+        self.mesh = None
+        if (getattr(config, "data_parallel", False) and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            self.mesh = make_mesh(device=self.device)
         self.ops = ops
         self.ppl_ops = ops._replace(
             styled_conv3x3=styled_conv3x3_ref,
@@ -361,6 +392,11 @@ class BagGANHQ(GANBaseModel):
             warp = getattr(config, "ada_warp_impl", "auto")
             self._ada_warp_impl = "shear_pallas" if warp == "auto" else warp
             self.tune_ada = self.use_aug and (getattr(config, "augment_p", 0) or 0) == 0
+        if self.mesh is not None:  # every rank starts from rank 0's weights
+            with torch.no_grad():
+                for net in (self.netG, getattr(self, "netD", None)):
+                    for t in [] if net is None else net.state_dict().values():
+                        t.copy_(replicate(self.mesh, t))
 
     @property
     def ada_aug_p(self):
@@ -393,7 +429,8 @@ class BagGANHQ(GANBaseModel):
 
     def _apply(self, kind, optimizer, loss, tensors):
         grads = torch.autograd.grad(loss, tensors, allow_unused=True)
-        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(tensors, grads)]
+        grads = average_gradients(self.mesh, [torch.zeros_like(t) if g is None else g
+                                              for t, g in zip(tensors, grads)])
         if self.keep_first_grads and kind not in self.first_grads:
             self.first_grads[kind] = [g.detach().clone() for g in grads]
         optimizer.step(grads)
@@ -406,7 +443,7 @@ class BagGANHQ(GANBaseModel):
                            warp_impl=self._ada_warp_impl, ops=self.ops)[0]
 
     def _disc(self, x):
-        return discriminator_forward(self.netD, x, self.ops)
+        return discriminator_forward(self.netD, x, self.ops, self.mesh)
 
     def _disc_remat(self, x):
         """``_disc`` under activation checkpointing: its activations are
@@ -450,8 +487,9 @@ class BagGANHQ(GANBaseModel):
             if self.tune_ada:
                 self.ada_state = ada_update(self.ada_state, pred_real,
                                             self.config.ada_target,
-                                            self.config.ada_length, 8)
-        return loss.detach(), loss_out.detach(), loss_ref.detach(), fake
+                                            self.config.ada_length, 8, self.mesh)
+        return (*(mean_over_ranks(self.mesh, t.detach())
+                  for t in (loss, loss_out, loss_ref)), fake)
 
     def r1_step(self, real, draws):
         cfg = self.config
@@ -460,7 +498,7 @@ class BagGANHQ(GANBaseModel):
                 lambda x: self._disc(self._augment(x, draws.r1_aug)), real)
             loss = cfg.r1_lambda / 2 * penalty * cfg.d_reg_every + 0 * pred[0, 0]
             self._apply("r1", self.optimizer_d, loss, self.d_tensors)
-        return loss.detach()
+        return mean_over_ranks(self.mesh, loss.detach())
 
     def g_step(self, draws):
         with self._step("g"):
@@ -468,7 +506,7 @@ class BagGANHQ(GANBaseModel):
             pred_fake = self._disc(self._augment(fake, draws.g_aug))
             loss = self.adversarial_loss(pred_fake, True)
             self._apply("g", self.optimizer_g, loss, self.g_tensors)
-        return loss.detach()
+        return mean_over_ranks(self.mesh, loss.detach())
 
     def ppl_step(self, draws):
         """Path-length regularization through the synthesis from the mapping
@@ -485,10 +523,10 @@ class BagGANHQ(GANBaseModel):
 
             ppl, new_mean, _ = path_length_penalty(
                 gen_from_lat, lat, draws.ppl_noise_imgs, self.mean_path_length,
-                decay=cfg.ppl_decay)
+                decay=cfg.ppl_decay, mesh=self.mesh)
             self._apply("ppl", self.optimizer_g, cfg.ppl_lambda * cfg.g_reg_every * ppl,
                         self.g_tensors)
-        return ppl.detach(), new_mean
+        return mean_over_ranks(self.mesh, ppl.detach()), new_mean
 
     # ------------------------------------------------------------------
 
@@ -496,7 +534,9 @@ class BagGANHQ(GANBaseModel):
                   latent=None, gen_args=None, draws=None):
         """Stage a training batch (ref bagganhq.py:155-205) and the
         iteration's draws: ``draws`` if given, else drawn from the trainer's
-        generator at the current ADA p."""
+        generator at the current ADA p. Under data parallel the batch, the
+        draws and ``latent`` are the global batch's, and the rank keeps its
+        slice of each."""
         self.iter_no = iter_no if iter_no is not None else self.iter_no
         self.epoch_no = epoch_no
         cfg = self.config
@@ -515,6 +555,10 @@ class BagGANHQ(GANBaseModel):
         if latent is not None:
             latent = latent if isinstance(latent, (list, tuple)) else [latent]
             draws = draws._replace(z=list(latent), inject_index=self.gen_meta["n_latent"])
+        if self.mesh is not None:
+            self.ref_image = shard_batch(self.mesh, self.ref_image)
+            draws = draws._replace(**{f: _shard(self.mesh, getattr(draws, f))
+                                      for f in draws._fields})
         self.draws = draws
         self.input_latent = draws.z
         self.inject_index = draws.inject_index if len(draws.z) > 1 else None

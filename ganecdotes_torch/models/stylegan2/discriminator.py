@@ -27,6 +27,7 @@ from ganecdotes_torch.nn.layers import (
 )
 from ganecdotes_torch.ops.opset import KERNELS
 from ganecdotes_torch.ops.upfirdn2d import blur_2d
+from ganecdotes_torch.parallel.mesh import all_gather, shard_batch
 
 
 def conv_layer_apply(p, x, downsample=False, activate=True,
@@ -105,8 +106,16 @@ class Discriminator(nn.Module):
         return discriminator_forward(self, x, ops)
 
 
-def minibatch_stddev(x, group_size=4, num_new_features=1):
-    """Minibatch standard-deviation statistic (ref model.py:763-772), NHWC."""
+def minibatch_stddev(x, group_size=4, num_new_features=1, mesh=None):
+    """Minibatch standard-deviation statistic (ref model.py:763-772), NHWC.
+
+    The groups are strided over the batch (sample j with j + B/g, j + 2B/g,
+    ...). Under a data-parallel ``mesh`` the statistic is the global
+    batch's, as the JAX package's sharded program computes it: the ranks'
+    inputs are gathered (differentiably), and each rank keeps its rows."""
+    local = x
+    if mesh is not None and mesh.size > 1:
+        x = all_gather(mesh, x)
     b, h, w, c = x.shape
     group = min(b, group_size)
     y = x.reshape(group, -1, h, w, num_new_features, c // num_new_features)
@@ -114,16 +123,20 @@ def minibatch_stddev(x, group_size=4, num_new_features=1):
     stddev = torch.sqrt(var + 1e-8)
     stddev = stddev.mean(dim=(1, 2, 4), keepdim=True).squeeze(4)  # (b/g,1,1,1)
     stddev = stddev.repeat(group, h, w, 1).to(x.dtype)
-    return torch.cat([x, stddev], dim=-1)
+    if local is not x:
+        stddev = shard_batch(mesh, stddev)
+    return torch.cat([local, stddev], dim=-1)
 
 
-def discriminator_forward(d, x, ops=KERNELS):
-    """x: (B, H, W, 3) -> logits (B, 1)."""
+def discriminator_forward(d, x, ops=KERNELS, mesh=None):
+    """x: (B, H, W, 3) -> logits (B, 1); ``mesh``: the minibatch statistic
+    over the data-parallel global batch."""
     bk = d.meta["blur_kernel"]
     out = conv_layer_apply(d.conv_in, x, blur_kernel=bk, ops=ops)
     for blk in d.blocks:
         out = blk(out, blur_kernel=bk, ops=ops)
-    out = minibatch_stddev(out, d.meta["stddev_group"], d.meta["stddev_feat"])
+    out = minibatch_stddev(out, d.meta["stddev_group"], d.meta["stddev_feat"],
+                           mesh)
     out = conv_layer_apply(d.final_conv, out, blur_kernel=bk, ops=ops)
     b = out.shape[0]
     # torch's NCHW flatten order, so converted weights stay valid

@@ -275,14 +275,9 @@ class _UpFirDn2d(torch.autograd.Function):
         return _UpFirDn2d.apply(g.contiguous(), spec), None
 
 
-def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
-    """Kernel on a CUDA tensor; plain version on a CPU tensor; differentiable.
-
-    ``kernel`` is a 2-D host array (e.g. from ``make_kernel``). On a CUDA
-    tensor it must be separable with at most ``_build.KMAX`` taps per axis,
-    and up and down 1 or 2 per axis; its 1-D taps travel to the card by
-    value with the launch. The plain version takes any case.
-    """
+def make_spec(kernel, up, down, pad, cuda):
+    """The ``_Spec`` of one upfirdn2d; ``cuda``: raise where the kernel
+    cannot run it."""
     up, down, pad = _normalize_args(up, down, pad)
     if isinstance(kernel, torch.Tensor):
         raise TypeError(f"{KERNEL}: pass the FIR kernel as a host array")
@@ -290,7 +285,7 @@ def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
     if k.ndim != 2:
         raise ValueError(f"{KERNEL}: kernel must be 2-D, got shape {k.shape}")
     taps = separable_taps(k)
-    if x.device.type != "cpu":
+    if cuda:
         if taps is None:
             raise ValueError(f"{KERNEL}: the kernel takes a separable (rank-1) "
                              f"FIR kernel, got a {k.shape} kernel of higher rank")
@@ -300,7 +295,19 @@ def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
         if not all(f in (1, 2) for f in up + down):
             raise ValueError(f"{KERNEL}: the kernel takes up and down of 1 or 2, "
                              f"got up {up}, down {down}")
-    return _UpFirDn2d.apply(x, _Spec(k, taps, up, down, pad))
+    return _Spec(k, taps, up, down, pad)
+
+
+def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
+    """Kernel on a CUDA tensor; plain version on a CPU tensor; differentiable.
+
+    ``kernel`` is a 2-D host array (e.g. from ``make_kernel``). On a CUDA
+    tensor it must be separable with at most ``_build.KMAX`` taps per axis,
+    and up and down 1 or 2 per axis; its 1-D taps travel to the card by
+    value with the launch. The plain version takes any case.
+    """
+    return _UpFirDn2d.apply(x, make_spec(kernel, up, down, pad,
+                                         x.device.type != "cpu"))
 
 
 def upsample_2d(x, kernel_taps=(1, 3, 3, 1), factor=2, impl=upfirdn2d):

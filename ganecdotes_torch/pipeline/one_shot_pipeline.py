@@ -1,7 +1,7 @@
 """One-shot segmentation pipeline: setup, train, test (port of
 ganecdotes_tpu/pipeline/one_shot_pipeline.py) for the five methods:
-hfc_with_swav, hfc_with_simclr, hfc_kmeans (flat), RepurposeGAN and
-DatasetGAN.
+hfc_with_swav, hfc_with_simclr, hfc_kmeans (flat or hierarchical, with the
+flat or the belief encoding), RepurposeGAN and DatasetGAN.
 
 * load: the StyleGAN2 generator from the reference checkpoint at the model
   config's ``model_path`` (rosinality ``g_ema``), the BagGAN generator of a
@@ -15,8 +15,8 @@ DatasetGAN.
 * train: the one-shot features of the method (the SwAV or SimCLR
   projection, pretrained or loaded from ``swav_params.npz`` /
   ``simclr_params.npz``; the k-means encoding of the clusterers fitted or
-  loaded from ``clusterer_layer_{n}.npz``; the raw nearest-up concat for
-  the two baselines), then the supervised fine-tune of the head
+  loaded from ``clusterer_layer_{n}.npz`` (and ``beliefs.npz``); the raw
+  nearest-up concat for the two baselines), then the supervised fine-tune of the head
   (``pipeline.trainer``): an FCN or ``Lin`` head, or DatasetGAN's pixel
   classifier with its BatchNorm state;
 * test: serve the test set in requests of ``MAX_TEST_BATCH`` through the
@@ -27,9 +27,7 @@ DatasetGAN.
   CSVs, ``results.npz``) and ``save_test_figures`` (collages, the PD plot
   and TensorBoard images; PIL and matplotlib are imported there only).
 
-The artifacts and their layout are the JAX pipeline's. What the port does
-not run yet raises ``NotImplementedError`` naming its ROADMAP item: the
-hierarchical k-means and the belief encoding.
+The artifacts and their layout are the JAX pipeline's.
 """
 
 import csv
@@ -40,6 +38,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ganecdotes_torch import resolve_device
 from ganecdotes_torch.metrics.segmentation import (
@@ -67,6 +66,12 @@ from ganecdotes_torch.models.stylegan2.generator import (
 )
 from ganecdotes_torch.ops.interp import resize_nearest
 from ganecdotes_torch.ops.opset import KERNELS
+from ganecdotes_torch.parallel.mesh import (
+    gather_batch,
+    make_mesh,
+    replicate,
+    shard_batch,
+)
 from ganecdotes_torch.pipeline.serving import (
     ConcatServer,
     KMeansServer,
@@ -200,6 +205,8 @@ class OneShotPipeline:
         self.logger.info("Loading Pipeline Blocks ... Done.")
 
         self.num_test_samples = num_test_samples
+        self.mesh = (make_mesh(device=self.device)
+                     if dist.is_initialized() and dist.get_world_size() > 1 else None)
 
     # ------------------------------------------------------------------
 
@@ -563,53 +570,66 @@ class OneShotPipeline:
         """Images in [-1, 1] (a tensor on any device) -> numpy in [0, 1]."""
         return np.clip(im.detach().cpu().numpy(), -1.0, 1.0) * 0.5 + 0.5
 
-    def _make_infer_fn(self):
-        """The test block's request: generate -> the method's folded form
-        -> argmax, on latents w; ``self.server`` holds the method's server
-        (``pipeline.serving``)."""
+    def make_server(self, ops=None):
+        """The method's server (``pipeline.serving``) over the trained
+        weights, on ``ops`` (the pipeline's op set by default)."""
+        ops = self.ops if ops is None else ops
         if "hfc_with_swav" in self.seg_str:
-            self.server = OneShotServer(
+            return OneShotServer(
                 self.model_config, self.seg_config, device=self.device,
                 gen=self.model, ssl_params=self.preprocessor.ssl_params,
                 seg_params=self.segmentor_params, mean_latent=self.mean_latent,
-                ops=self.ops)
-        else:
-            args = (self.model, self.mean_latent, self.model_config.truncation,
-                    self.segmentor_params, self.seg_size)
-            sc = self.seg_config
-            if self.seg_str == "repurposegan":
-                self.server = ConcatServer(*args, n_layers=sc.n_layers,
-                                           ops=self.ops)
-            elif self.seg_str == "datasetgan":
-                self.server = PixelClassifierServer(
-                    *args, state=self.segmentor_state, n_layers=sc.n_layers,
-                    ops=self.ops)
-            elif self.seg_str == "hfc_with_simclr":
-                sa = self.preprocessor.simclr_args
-                self.server = SimCLRServer(
-                    *args, params=self.preprocessor.params, hlen=sa["hlen"],
-                    interp=sa.get("hf_interp", "nearest"), ops=self.ops)
-            else:
-                self.server = KMeansServer(*args, pre=self.preprocessor,
-                                           ops=self.ops)
+                ops=ops)
+        args = (self.model, self.mean_latent, self.model_config.truncation,
+                self.segmentor_params, self.seg_size)
+        sc = self.seg_config
+        if self.seg_str == "repurposegan":
+            return ConcatServer(*args, n_layers=sc.n_layers, ops=ops)
+        if self.seg_str == "datasetgan":
+            return PixelClassifierServer(*args, state=self.segmentor_state,
+                                         n_layers=sc.n_layers, ops=ops)
+        if self.seg_str == "hfc_with_simclr":
+            sa = self.preprocessor.simclr_args
+            return SimCLRServer(*args, params=self.preprocessor.params,
+                                hlen=sa["hlen"],
+                                interp=sa.get("hf_interp", "nearest"), ops=ops)
+        return KMeansServer(*args, pre=self.preprocessor, ops=ops)
+
+    def _make_infer_fn(self):
+        """The test block's request: generate -> the method's folded form
+        -> argmax, on latents w; ``self.server`` holds the method's server
+        (``make_server``)."""
+        self.server = self.make_server()
         return functools.partial(self.server.serve, input_is_latent=True)
 
     def run_tests(self):
-        """The test block: prediction, scoring, then the figures."""
+        """The test block: prediction, scoring, then the figures (under
+        data parallel, scored and written by rank 0 only)."""
         self.predict_tests()
+        if self.mesh is not None and self.mesh.rank != 0:
+            return None
         results = self.score_tests()
         self.save_test_figures()
         return results
 
     def predict_tests(self):
         """Serve the test latents in requests of ``MAX_TEST_BATCH`` (the
-        ragged tail padded) and save ``label_predictions.npy``."""
+        ragged tail padded) and save ``label_predictions.npy``.
+
+        In a process group of more than one rank (``torchrun``,
+        ``parallel.mesh.distributed_init``) each request of ranks x
+        ``MAX_TEST_BATCH // ranks`` latents is split over the ranks, with
+        rank 0's trained head, and gathered (JAX's sharded test batch)."""
         self.test_dir = os.path.join(self.out_dir, "tests")
         self.test_img_dir = os.path.join(self.test_dir, "images")
         os.makedirs(self.test_img_dir, exist_ok=True)
 
-        infer = self._make_infer_fn()
+        mesh = self.mesh
         batch = MAX_TEST_BATCH
+        if mesh is not None:
+            batch = mesh.size * max(1, MAX_TEST_BATCH // mesh.size)
+            self.segmentor_params = replicate(mesh, self.segmentor_params)
+        infer = self._make_infer_fn()
         pred_labels, test_images, inference_times = [], [], []
         # (offset, img 0, cluster map 0 or None, labels 0)
         self._request_firsts = []
@@ -621,7 +641,13 @@ class OneShotPipeline:
             if pad > 0:
                 chunk_lat = np.concatenate(
                     [chunk_lat, np.repeat(chunk_lat[-1:], pad, axis=0)], 0)
-            img, pred, z0 = infer(torch.as_tensor(chunk_lat))
+            lat = torch.as_tensor(chunk_lat)
+            if mesh is None:
+                img, pred, z0 = infer(lat)
+            else:  # z0: sample 0's cluster map, rank 0's
+                img, pred, z0 = infer(shard_batch(mesh, lat).to(self.device))
+                img, pred = gather_batch(mesh, img), gather_batch(mesh, pred)
+                z0 = None if z0 is None else gather_batch(mesh, z0)[:1]
             pred = pred.cpu()
             inference_times.append(time.perf_counter() - t0)
             pred_labels.append(pred.numpy())
@@ -633,8 +659,9 @@ class OneShotPipeline:
 
         self.pred_labels = np.concatenate(pred_labels, axis=0)[:n]
         self.test_images = np.concatenate(test_images, axis=0)[:n]
-        np.save(os.path.join(self.test_dir, "label_predictions.npy"),
-                self.pred_labels)
+        if mesh is None or mesh.rank == 0:
+            np.save(os.path.join(self.test_dir, "label_predictions.npy"),
+                    self.pred_labels)
         self.inference_times = inference_times
         self.mean_inference_time = float(np.mean(inference_times))
         self.logger.info(f"Mean Inference Time: {self.mean_inference_time}")

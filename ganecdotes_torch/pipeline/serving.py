@@ -79,6 +79,8 @@ class OneShotServer:
     kernels are checked against on the card).
     """
 
+    method = "hfc_with_swav"
+
     def __init__(self, model_config=None, seg_config=None, *, device=None,
                  seed=0, gen=None, ssl_params=None, seg_params=None,
                  mean_latent=None, ops=KERNELS):
@@ -101,6 +103,7 @@ class OneShotServer:
         self.foldable = (self.seg_size in DILATIONS and self.projn_nw == "linear"
                          and self.interp == "nearest")
         self.truncation = mc.truncation
+        self.classes = list(mc.classes)
 
         def rng(k):
             return torch.Generator().manual_seed(seed * 4 + k)
@@ -123,51 +126,64 @@ class OneShotServer:
                 self.nclasses, len(mc.classes), self.seg_size, generator=rng(3))
         self.seg_params = from_jax_params(seg_params, self.device)
 
-    def _synthesize(self, z, input_is_latent):
+    def _w(self, z, input_is_latent):
         z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
-        w = z if input_is_latent else mapping_apply(self.gen, z, self.ops)
+        return z if input_is_latent else mapping_apply(self.gen, z, self.ops)
+
+    def _synthesize(self, z, input_is_latent=True):
         return generator_forward(
-            self.gen, w, input_is_latent=True, truncation=self.truncation,
-            truncation_latent=self.mean_latent, ops=self.ops)
+            self.gen, self._w(z, input_is_latent), input_is_latent=True,
+            truncation=self.truncation, truncation_latent=self.mean_latent,
+            ops=self.ops)
 
     def _project(self, feats):
         return swav_predict_from_features(
             self.ssl_params, feats, self.hlen, self.nclasses, self.projn_nw,
             self.interp)
 
+    def _unfused(self, w):
+        img, feats = self._synthesize(w)
+        emb = self._project(feats)
+        logits = one_shot_segmentor_apply(self.seg_params, emb, self.seg_size)
+        return img, logits, emb[:1]
+
+    def _folded(self, w):
+        if not self.foldable:
+            return self._unfused(w)
+        img, feats = self._synthesize(w)
+        logits = project_segment_fcn(
+            feats, self.ssl_params["projection"][0]["weight"], self.seg_params,
+            self.seg_size, hlen=self.hlen)
+        return img, logits, self._project([f[:1] for f in feats])
+
     def infer(self, z, input_is_latent=False):
         """The unfused form: (img (B,H,W,3), logits (B,H,W,C_out), the
         embedding of sample 0 (1,H,W,nclasses)) for a batch of z (or w)."""
         with torch.inference_mode():
-            img, feats = self._synthesize(z, input_is_latent)
-            emb = self._project(feats)
-            logits = one_shot_segmentor_apply(self.seg_params, emb,
-                                              self.seg_size)
-            return img, logits, emb[:1]
+            return self._unfused(self._w(z, input_is_latent))
 
     def serve_unfused(self, z, input_is_latent=False):
         """``infer``'s (img, labels, z0)."""
-        img, logits, emb0 = self.infer(z, input_is_latent)
-        return img, logits.argmax(dim=-1), emb0.argmax(dim=-1)
+        return _argmax(*self.infer(z, input_is_latent))
 
     def infer_folded(self, z, input_is_latent=False):
         """``infer``'s outputs with the head's first conv folded into the
         pyramid: only sample 0's embedding is computed. Where nothing folds
         (``foldable`` False): ``infer``."""
-        if not self.foldable:
-            return self.infer(z, input_is_latent)
         with torch.inference_mode():
-            img, feats = self._synthesize(z, input_is_latent)
-            logits = project_segment_fcn(
-                feats, self.ssl_params["projection"][0]["weight"],
-                self.seg_params, self.seg_size, hlen=self.hlen)
-            return img, logits, self._project([f[:1] for f in feats])
+            return self._folded(self._w(z, input_is_latent))
 
     def serve(self, z, input_is_latent=False):
         """(img, labels, z0) for a batch of z (or w), as the JAX ``infer``
         computes them: ``infer_folded``'s argmaxes."""
-        img, logits, emb0 = self.infer_folded(z, input_is_latent)
-        return img, logits.argmax(dim=-1), emb0.argmax(dim=-1)
+        return _argmax(*self.infer_folded(z, input_is_latent))
+
+
+def _argmax(img, logits, emb0):
+    """(img, labels, z0): the argmaxes of the logits and of sample 0's
+    embedding (None where the method has none)."""
+    return (img, logits.argmax(dim=-1),
+            None if emb0 is None else emb0.argmax(dim=-1))
 
 
 class MethodServer:
@@ -209,23 +225,20 @@ class MethodServer:
             w = self._w(z, input_is_latent)
             return self._folded(w)
 
-    @staticmethod
-    def _argmax(img, logits, emb0):
-        return (img, logits.argmax(dim=-1),
-                None if emb0 is None else emb0.argmax(dim=-1))
-
     def serve(self, z, input_is_latent=False):
         """(img, labels, z0) for a batch of z (or w), the folded form."""
-        return self._argmax(*self.infer_folded(z, input_is_latent))
+        return _argmax(*self.infer_folded(z, input_is_latent))
 
     def serve_unfused(self, z, input_is_latent=False):
         """``infer``'s (img, labels, z0): the oracle of ``serve``."""
-        return self._argmax(*self.infer(z, input_is_latent))
+        return _argmax(*self.infer(z, input_is_latent))
 
 
 class ConcatServer(MethodServer):
     """RepurposeGAN: the head over the first ``n_layers`` feature maps'
     nearest-up concat; folded, ``embed.concat_segment_fcn``."""
+
+    method = "repurposegan"
 
     def __init__(self, *args, n_layers, **kwargs):
         super().__init__(*args, **kwargs)
@@ -246,6 +259,8 @@ class PixelClassifierServer(MethodServer):
     """DatasetGAN: the eval-mode pixel classifier (BN ``state``) over the
     concat; folded, its first Linear projected level by level
     (``embed.project_feature_maps``), then ``pixel_classifier_from_first``."""
+
+    method = "datasetgan"
 
     def __init__(self, *args, state, n_layers, **kwargs):
         super().__init__(*args, **kwargs)
@@ -273,6 +288,8 @@ class SimCLRServer(MethodServer):
     statistics) then the head; folded, ``simclr.simclr_predict_segment``.
     z0 is sample 0's projection. The unfused form projects one image at a
     time (the JAX package vmaps it), so the batch never couples samples."""
+
+    method = "hfc_with_simclr"
 
     def __init__(self, *args, params, hlen, interp="nearest", **kwargs):
         super().__init__(*args, **kwargs)
@@ -304,9 +321,15 @@ class KMeansServer(MethodServer):
     """hfc_kmeans: the features of the preprocessor's own mean latent and
     truncation (``pre``, an ``HFCPreprocessor``; its latents truncated
     there, then again in the synthesis, as the JAX program does), each
-    block's nearest center, the flat encoding and the head; folded,
-    ``kmeans.hfc_segment_fcn`` over the blocks' channel parts. The image is
-    a second synthesis at the model config's truncation."""
+    block's nearest center, the encoding and the head. The flat encoding's
+    folded form is ``kmeans.hfc_segment_fcn`` over the blocks' channel
+    parts; the belief encoding (``pre.hier_encode``, with the
+    preprocessor's trained beliefs, or estimated from each request where
+    it has none) re-takes the argmax between its products, so nothing
+    folds and both forms are the unfused one, as in the JAX program. The
+    image is a second synthesis at the model config's truncation."""
+
+    method = "hfc_kmeans"
 
     def __init__(self, *args, pre, **kwargs):
         super().__init__(*args, **kwargs)
@@ -317,6 +340,8 @@ class KMeansServer(MethodServer):
         self.centers = pre.hfc_model.centers[: self.n_layers]
         self.cpl = list(pre.hfc_model.clusters_per_layer)
         self.out_size = pre.hfc_model.out_size
+        self.hier_encode = pre.hier_encode
+        self.beliefs = pre.trained_beliefs
 
     def _groups(self, w, concat):
         w = self.pre_mean + self.p_trunc * (w - self.pre_mean)
@@ -327,13 +352,16 @@ class KMeansServer(MethodServer):
         groups = group_features_by_block(feats, skip_const=True, concat=concat)
         return groups[: self.n_layers]
 
-    def _unfused(self, w):
-        x, _ = hfc_predict_from_features(self._groups(w, True), self.centers,
-                                         self.cpl, self.out_size)
+    def _unfused(self, w, concat=True):
+        x, _ = hfc_predict_from_features(self._groups(w, concat), self.centers,
+                                         self.cpl, self.out_size,
+                                         self.hier_encode, self.beliefs)
         logits = one_shot_segmentor_apply(self.seg_params, x, self.seg_size)
         return self._synthesize(w)[0], logits, None
 
     def _folded(self, w):
+        if self.hier_encode:
+            return self._unfused(w, concat=False)
         logits, _ = hfc_segment_fcn(self._groups(w, False), self.centers,
                                     self.cpl, self.out_size, self.seg_params,
                                     self.seg_size)

@@ -26,6 +26,7 @@ from typing import List, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ganecdotes_torch import resolve_device
@@ -37,6 +38,12 @@ from ganecdotes_torch.models.stylegan2.generator import (
 )
 from ganecdotes_torch.ops.interp import resize_nearest
 from ganecdotes_torch.ops.opset import KERNELS
+from ganecdotes_torch.parallel.mesh import (
+    average_gradients,
+    make_mesh,
+    mean_over_ranks,
+    replicate,
+)
 from ganecdotes_torch.selfsup.augmentor import (
     perturbed_features,
     random_rotate_flip_params,
@@ -339,7 +346,8 @@ def draw_step_inputs(generator, gen_meta, model_config, perturb_args,
 
 
 def make_swav_train_step(gen_meta, model_config, perturb_args, swav_args,
-                         sinkhorn_args, mean_latent_w, image_hw, ops=KERNELS):
+                         sinkhorn_args, mean_latent_w, image_hw, ops=KERNELS,
+                         mesh=None):
     """(optimizer, step) with
     ``step(gen, ssl_params, opt_state, draws, it) -> (params, opt, loss)``.
 
@@ -347,6 +355,12 @@ def make_swav_train_step(gen_meta, model_config, perturb_args, swav_args,
     respect to the normalised params and applies LARS to them, as the JAX
     step does. The generator runs under ``torch.no_grad()``: the features
     carry no gradient, but the projection's backward keeps them.
+
+    ``draws`` is one sample's ``SwAVDraws``, or a list of them: a batch of
+    samples whose losses are averaged (JAX's ``sample_batch``). Under a
+    data-parallel ``mesh`` (``parallel.mesh``) each rank passes its own
+    samples; the gradients and the loss are averaged over the ranks, so
+    every rank applies the same update.
     """
     h, w = image_hw
     n_latent = gen_meta["n_latent"]
@@ -434,17 +448,22 @@ def make_swav_train_step(gen_meta, model_config, perturb_args, swav_args,
     def step(gen, ssl_params, opt_state, draws, it):
         del it
         ssl_params = normalize_prototypes(ssl_params)
-        views = sample_inputs(gen, draws)
         params = tree_map(lambda t: t.detach().requires_grad_(True), ssl_params)
         leaves = tree_leaves(params)
-        loss = loss_fn(params, views, draws)
+        if isinstance(draws, list):
+            loss = sum(loss_fn(params, sample_inputs(gen, d), d)
+                       for d in draws) / len(draws)
+        else:
+            loss = loss_fn(params, sample_inputs(gen, draws), draws)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = iter([torch.zeros_like(p) if g is None else g
-                      for p, g in zip(leaves, grads)])
+        grads = average_gradients(mesh, [torch.zeros_like(p) if g is None else g
+                                         for p, g in zip(leaves, grads)])
+        grads = iter(grads)
         grads = tree_map(lambda _: next(grads), params)
         with torch.no_grad(), record_function("swav.lars"):
             updates, opt_state = optimizer.update(grads, opt_state, ssl_params)
-            return apply_updates(ssl_params, updates), opt_state, loss.detach()
+            return (apply_updates(ssl_params, updates), opt_state,
+                    mean_over_ranks(mesh, loss.detach()))
 
     return optimizer, step
 
@@ -486,6 +505,12 @@ class SwAVClustering:
     run that finishes deletes it. ``swav_args['plot_test_images']`` writes a
     prediction grid of ``PLOT_TEST_SAMPLES`` fixed samples each epoch into
     ``out_dir/swav`` (needs matplotlib).
+
+    ``swav_args['data_parallel']`` in a process group (``torchrun``,
+    ``parallel.mesh.distributed_init``) trains over its ranks: each update
+    takes one sample per rank, as the JAX package's ``sample_batch`` takes
+    one per device; every rank draws every sample and keeps its own, and
+    only rank 0 writes files. In one process it is the plain loop.
     """
 
     def __init__(self, model, model_config, perturb_args, swav_args,
@@ -564,18 +589,25 @@ class SwAVClustering:
         if plot and importlib.util.find_spec("matplotlib") is None:
             raise ImportError("swav_args['plot_test_images'] draws its grids "
                               "with matplotlib, which is not installed")
-        if (sa.get("data_parallel", False) and self.device.type == "cuda"
-                and torch.cuda.device_count() > 1):
-            raise NotImplementedError("data_parallel over more than one card "
-                                      "is not ported yet")
         self.pretrain_count += 1
         self.ssl_params = from_jax_params(init_swav_params(
             sa["hlen"], sa["nclasses"], sa["nprototypes"], sa["projn_nw"],
             generator=self.generator), self.device)
+        # data parallel over the process group's ranks: each update takes
+        # one sample per rank (every rank draws them all and keeps its own)
+        mesh = None
+        if sa.get("data_parallel", False) and dist.is_initialized():
+            mesh = make_mesh(device=self.device)
+            self.ssl_params = replicate(mesh, self.ssl_params)
+            if self.logger:
+                self.logger.info(f"SwAV pretraining data-parallel over "
+                                 f"{mesh.size} ranks")
+        n_par = 1 if mesh is None else mesh.size
         mc = self._model_config_dict()
         optimizer, step = make_swav_train_step(
             self.model.meta, mc, self.perturb_args, sa, self.sinkhorn_args,
-            self.mean_latent, self._image_hw, self.ops)
+            self.mean_latent, self._image_hw, self.ops, mesh)
+        writes = not dist.is_initialized() or dist.get_rank() == 0
         opt_state = optimizer.init(self.ssl_params)
 
         if plot:  # fixed test samples, plotted each epoch
@@ -592,10 +624,10 @@ class SwAVClustering:
         ckpt_every = int(sa.get("checkpoint_every", 0) or 0)
         ckpt_file = (os.path.join(self.out_dir, "swav_pretrain_state.npz")
                      if self.out_dir else None)
-        # a snapshot of another architecture or schedule must not resume
-        # (the last item is the JAX package's sample batch: one card, 1)
+        # a snapshot of another architecture, schedule or sample batch
+        # must not resume
         fp = repr((sa["hlen"], sa["nclasses"], sa["nprototypes"],
-                   sa["projn_nw"], num_epochs, num_samples, 1))
+                   sa["projn_nw"], num_epochs, num_samples, n_par))
         start_epoch = 0
         if ckpt_every and ckpt_file and os.path.exists(ckpt_file):
             try:
@@ -615,12 +647,14 @@ class SwAVClustering:
         it = start_epoch * num_samples
         for e in range(start_epoch, num_epochs):
             for _ in range(num_samples):
-                draws = draw_step_inputs(self.generator, self.model.meta, mc,
-                                         self.perturb_args, sa, self._image_hw)
+                draws = [draw_step_inputs(self.generator, self.model.meta, mc,
+                                          self.perturb_args, sa, self._image_hw)
+                         for _ in range(n_par)]
+                draws = draws[0] if mesh is None else [draws[mesh.rank]]
                 self.ssl_params, opt_state, loss = step(
                     self.model, self.ssl_params, opt_state, draws, it)
                 it += 1
-            if ckpt_every and ckpt_file and (e + 1) % ckpt_every == 0:
+            if ckpt_every and ckpt_file and writes and (e + 1) % ckpt_every == 0:
                 # written to a temporary file, then renamed: a preemption
                 # mid-write leaves the previous snapshot whole
                 tmp = ckpt_file[:-4] + "_tmp.npz"
@@ -652,9 +686,9 @@ class SwAVClustering:
 
         if self.logger:
             self.logger.info("Finished pretraining - Saving swav params")
-        if self.params_file:
+        if self.params_file and writes:
             save_pytree(self.params_file, self.ssl_params)
-        if ckpt_file and os.path.exists(ckpt_file):
+        if ckpt_file and writes and os.path.exists(ckpt_file):
             # a crash-recovery file only: left behind, it would turn a later
             # pretraining in this out_dir into a resume
             os.remove(ckpt_file)

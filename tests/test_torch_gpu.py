@@ -1108,3 +1108,36 @@ def test_wgangp_remat_modes_agree(cuda, tmp_path):
     norm = sum(float(v.square().sum()) for v in gg)
     assert diff <= (2e-3) ** 2 * norm, (diff / norm) ** 0.5
     assert ma < mg, (ma, mg)
+
+
+# ---------------------------------------------------------------------------
+# the custom ops of the serving export (ops/library.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(8, 4, 4, 512, 512), (8, 32, 32, 512, 256),
+                                   (1, 16, 16, 32, 16), (8, 64, 64, 64, 64)])
+def test_library_ops_equal_their_wrappers(cuda, shape):
+    """Each ``ganecdotes`` custom op launches its wrapper's kernel: the same
+    bits, and one launch more on the wrapper's count per call (the narrow
+    and the 3xTF32 variants, the up body with both)."""
+    from ganecdotes_torch.ops.library import LIBRARY
+    from ganecdotes_torch.ops.opset import KERNELS
+
+    B, H, W, Cin, Cout = shape
+    for up, name in ((False, "styled_conv3x3"), (True, "styled_up_conv3x3")):
+        args = _styled_inputs(B, H, W, Cin, Cout, B, up, cuda)
+        want = getattr(KERNELS, name)(*args)
+        before = _build.LAUNCHES[name]
+        got = getattr(LIBRARY, name)(*args)
+        assert _build.LAUNCHES[name] == before + 1
+        assert torch.equal(got, want), name
+    x = torch.randn(B, H, W, Cin, device=cuda)
+    b = torch.randn(Cin, device=cuda)
+    assert torch.equal(LIBRARY.fused_leaky_relu(x, b), KERNELS.fused_leaky_relu(x, b))
+    k = tup.make_kernel([1, 3, 3, 1], 4)
+    for up, down, pad in ((2, 1, (2, 1)), (1, 2, (1, 1)), (1, 1, (1, 2))):
+        before = _build.LAUNCHES["upfirdn2d"]
+        got = LIBRARY.upfirdn2d(x, k, up, down, pad)
+        assert _build.LAUNCHES["upfirdn2d"] == before + 1
+        assert torch.equal(got, KERNELS.upfirdn2d(x, k, up, down, pad))

@@ -1,12 +1,15 @@
-"""The port's flat k-means (selfsup/kmeans.py) held against the JAX package
-on the CPU.
+"""The port's k-means (selfsup/kmeans.py: flat and hierarchical, the flat
+and the belief encodings) held against the JAX package on the CPU.
 
 The port cannot reproduce ``jax.random``'s draws, so they are passed in:
 the k-means++ seeding takes the JAX run's first index and uniforms (rebuilt
 from its key by ``_kmeans_single``'s split sequence, kmeans.py:71-86, and
 ``jax.random.choice``'s inverse CDF at 1 - uniform), Lloyd's iterations and
 ``kmeans_fit(init_centers=...)`` start from given centers, and the
-preprocessor's fit takes the JAX run's perturbation normals.
+preprocessor's fit takes the JAX run's perturbation normals and the belief
+samples' latents. A fit of many seedings (``n_init`` runs a layer) replays
+them all: ``_record_fits`` records the JAX run's ``kmeans_fit`` calls, whose
+key gives each run's picks.
 
 Tolerances (float32 on both sides, sums in another order): centers and
 inertias 1e-4 absolute plus relative after Lloyd's iterations on O(1) data
@@ -165,7 +168,8 @@ def test_hfc_segment_fcn_matches_unfused_and_jax(cpl, size, out_size):
     seg = jax.tree.map(np.asarray, jheads.init_one_shot_segmentor(
         jax.random.PRNGKey(1), sum(cpl), 4, size))
     tg, tc, tseg = [_t(g) for g in groups], [_t(c) for c in centers], from_jax_params(seg)
-    z, labels = tkm.hfc_predict_from_features(tg, tc, cpl, out_size)
+    z, labels = tkm.hfc_predict_from_features(tg, tc, cpl, out_size,
+                                              hier_encode=False)
     jz, jlabels = jkm.hfc_predict_from_features(
         [jnp.asarray(g) for g in groups], [jnp.asarray(c) for c in centers], cpl,
         out_size, hier_encode=False)
@@ -187,8 +191,15 @@ def test_hfc_segment_fcn_matches_unfused_and_jax(cpl, size, out_size):
     parts = [(g[..., :2], g[..., 2:]) for g in tg]
     pgot, _ = tkm.hfc_segment_fcn(parts, tc, cpl, out_size, tseg, size)
     np.testing.assert_allclose(pgot.numpy(), got.numpy(), atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tkm.hfc_predict_from_features(tg, tc, cpl, out_size, hier_encode=True)
+    # the belief encoding of the same input, beliefs estimated from it
+    hz, hlabels = tkm.hfc_predict_from_features(tg, tc, cpl, out_size,
+                                                hier_encode=True)
+    jhz, jhlabels = jkm.hfc_predict_from_features(
+        [jnp.asarray(g) for g in groups], [jnp.asarray(c) for c in centers], cpl,
+        out_size, hier_encode=True)
+    np.testing.assert_array_equal(hz.numpy(), np.asarray(jhz))
+    for a, b in zip(hlabels, jhlabels):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 class _MC:
@@ -263,13 +274,90 @@ def test_preprocessor_fit_features_and_checkpoints_match_jax(tmp_path):
     assert jz.shape == tz.shape == (1, 16, 16, 7)
 
 
+def _record_fits(monkeypatch):
+    """Record the JAX package's ``kmeans_fit`` calls: (x, k, key) of each
+    seeded fit, None for a fit from given centers."""
+    calls, fit = [], jkm.kmeans_fit
+
+    def recording(x, k, key, *args, init_centers=None, **kw):
+        calls.append(None if init_centers is not None
+                     else (np.asarray(x), k, key))
+        return fit(x, k, key, *args, init_centers=init_centers, **kw)
+
+    monkeypatch.setattr(jkm, "kmeans_fit", recording)
+    return calls
+
+
+def _replay(call, n_init=10):
+    """The k-means++ picks of each of a recorded fit's ``n_init`` runs."""
+    x, k, key = call
+    return [torch.tensor(_jax_seeding(x, jax.random.fold_in(key, i), k)[0])
+            for i in range(n_init)]
+
+
+def _fit_both(tmp_path, monkeypatch, **over):
+    """The JAX and the port's preprocessors fitted on one 16^2 generator,
+    the port replaying the JAX run's perturbation normals, seedings and
+    belief samples' latents; -> (JAX's, the port's, the sample's w, the
+    JAX block features)."""
+    jgen = JaxGenerator(size=16, key=jax.random.PRNGKey(0))
+    gen = from_jax_generator_params(jax.tree.map(np.asarray, jgen.params))
+    args = {k: dict(_prep_args(str(tmp_path / k)), **over) for k in ("jax", "torch")}
+    jpre = jkm.HFCPreprocessor(jgen, _MC(), **args["jax"])
+    tpre = tkm.HFCPreprocessor(gen, _MC(), device="cpu", **args["torch"])
+    tpre.mean_latent = _t(jpre.mean_latent)
+    w = (np.random.RandomState(1).randn(1, 512) * 0.5).astype(np.float32)
+    key, z_rands = jpre.key, []
+    for _ in range(2):
+        key, kp = jax.random.split(key)
+        z_rands.append(_t(jax.random.normal(kp, (2 * jgen.meta["n_latent"], 512))))
+    hle_zs = []
+    for _ in range(2):
+        key, kz = jax.random.split(key)
+        hle_zs.append(_t(jax.random.normal(kz, (1, 512))))
+    calls = _record_fits(monkeypatch)
+    jhidden = jpre.train_hfc_model(w, return_aug=True)
+    hier = over.get("hfc_algo") == "hfc_kmeans_hier"
+    order = [0] if hier else [0, 1]
+    seeded = [c for c in calls if c is not None]
+    assert len(seeded) == len(order)
+    tpre.hfc_model.replay_seeds = [None, None]
+    for n, call in zip(order, seeded):
+        tpre.hfc_model.replay_seeds[n] = _replay(call)
+    tpre.train_hfc_model(w, z_rands=z_rands, hle_zs=hle_zs)
+    return jpre, tpre, w, jhidden
+
+
 def test_what_the_flat_port_leaves_out_raises(tmp_path):
-    gen = from_jax_generator_params(jax.tree.map(
-        np.asarray, JaxGenerator(size=16, key=jax.random.PRNGKey(0)).params))
+    """The hierarchical clusterer and the belief encoding, which raised in
+    the flat port, now build and encode as the JAX package does: here over
+    saved clusterers, beliefs estimated from the sample (the fits are
+    ``test_hierarchical_preprocessor_matches_jax``); and the reference's
+    pickled sklearn clusterers load."""
+    jgen = JaxGenerator(size=16, key=jax.random.PRNGKey(0))
+    gen = from_jax_generator_params(jax.tree.map(np.asarray, jgen.params))
+    rs = np.random.RandomState(6)
+    saved = str(tmp_path / "saved")
+    os.makedirs(saved)
+    for n, k in enumerate((3, 4)):
+        np.savez_compressed(os.path.join(saved, f"clusterer_layer_{n}.npz"),
+                            centers=rs.randn(k, 1024).astype(np.float32) * 0.3)
+    w = (rs.randn(1, 512) * 0.5).astype(np.float32)
     for over in (dict(hfc_algo="hfc_kmeans_hier"), dict(hier_encode=True)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            tkm.HFCPreprocessor(gen, _MC(), device="cpu",
-                                **dict(_prep_args(str(tmp_path)), **over))
+        args = dict(_prep_args(saved, True), **over)
+        jpre = jkm.HFCPreprocessor(jgen, _MC(), **args)
+        tpre = tkm.HFCPreprocessor(gen, _MC(), device="cpu", **args)
+        tpre.mean_latent = _t(jpre.mean_latent)
+        assert isinstance(tpre.hfc_model, tkm.HierarchicalKMeansHFC) == (
+            "hfc_algo" in over)
+        tz, tlab = tpre.predict_hfc_vectors(w)
+        jz, jlab = jpre.predict_hfc_vectors(w)
+        np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
+        for a, b in zip(tlab, jlab):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    with pytest.raises(ValueError, match="hfc_algo"):
+        tkm.HFCPreprocessor(gen, _MC(), device="cpu",
+                            **dict(_prep_args(saved, True), hfc_algo="hier"))
     # the reference's pickled sklearn clusterers load (they raised before
     # the importer was ported): the centers JAX's importer reads, and the
     # one-shot features over them
@@ -307,3 +395,200 @@ def test_what_the_flat_port_leaves_out_raises(tmp_path):
         tkm.HFCPreprocessor(gen, _MC(), device="cpu",
                             **dict(_prep_args(str(tmp_path / "none"), True),
                                    train=False))
+
+
+@pytest.mark.parametrize("over", [
+    dict(hfc_algo="hfc_kmeans_hier", hier_encode=True),
+    dict(hfc_algo="hfc_kmeans_hier"),
+    dict(hier_encode=True),
+], ids=["hier-fit-and-beliefs", "hier-fit", "flat-fit-and-beliefs"])
+def test_hierarchical_preprocessor_matches_jax(tmp_path, monkeypatch, over):
+    """``train_hfc_model`` with the hierarchical fit (layer 0's seedings
+    replayed, layer 1 from its parent's centers) and the beliefs over the
+    JAX run's two ``hle_samples`` latents; ``beliefs.npz`` read back by
+    both packages; the one-shot features of the trained and the loaded
+    beliefs."""
+    jpre, tpre, w, _ = _fit_both(tmp_path, monkeypatch, **over)
+    for a, b in zip(tpre.hfc_model.centers, jpre.hfc_model.centers):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    names = set(os.listdir(tmp_path / "torch"))
+    assert {"clusterer_layer_0.npz", "clusterer_layer_1.npz"} <= names
+    assert ("model_stats.npz" in names) == ("hfc_algo" not in over)
+    assert ("beliefs.npz" in names) == ("hier_encode" in over)
+    if "hier_encode" in over:
+        assert len(tpre.trained_beliefs) == 1
+        assert tpre.trained_beliefs[0].shape == (4, 3)
+        np.testing.assert_allclose(tpre.trained_beliefs[0].numpy(),
+                                   np.asarray(jpre.trained_beliefs[0]), atol=1e-6)
+        for d in ("jax", "torch"):  # each file read by either package
+            fp = str(tmp_path / d / "beliefs.npz")
+            for a, b in zip(tkm.load_belief_file(fp), jkm.load_belief_file(fp)):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    tz, tlab = tpre.predict_hfc_vectors(w)
+    jz, jlab = jpre.predict_hfc_vectors(w)
+    np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
+    for a, b in zip(tlab, jlab):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    # the saved files, loaded outside training, give the same features
+    load = tkm.HFCPreprocessor(
+        tpre.model, _MC(), device="cpu",
+        **dict(_prep_args(str(tmp_path / "torch"), True), train=False, **over))
+    load.mean_latent = tpre.mean_latent
+    lz, _ = load.predict_hfc_vectors(w)
+    assert torch.equal(lz, tz)
+
+
+def test_multi_sample_encoding_takes_the_latents_passed_in(tmp_path):
+    """``multi_sample_hierarchical_encoding`` over latents passed in: the
+    running half-mix of each sample's estimate, as JAX computes it from
+    the same latents (its key replaced by a stub that hands them out)."""
+    jgen = JaxGenerator(size=16, key=jax.random.PRNGKey(0))
+    gen = from_jax_generator_params(jax.tree.map(np.asarray, jgen.params))
+    rs = np.random.RandomState(5)
+    centers = [rs.randn(3, 1024).astype(np.float32) * 0.3,
+               rs.randn(4, 1024).astype(np.float32) * 0.3]
+    dirs = {k: str(tmp_path / k) for k in ("jax", "torch")}
+    for d in dirs.values():
+        os.makedirs(d)
+        for n, c in enumerate(centers):
+            np.savez_compressed(os.path.join(d, f"clusterer_layer_{n}.npz"),
+                                centers=c)
+    kw = dict(hier_encode=True, train=False)
+    jpre = jkm.HFCPreprocessor(jgen, _MC(), **dict(_prep_args(dirs["jax"], True), **kw))
+    tpre = tkm.HFCPreprocessor(gen, _MC(), device="cpu",
+                               **dict(_prep_args(dirs["torch"], True), **kw))
+    tpre.mean_latent = _t(jpre.mean_latent)
+    zs = rs.randn(3, 1, 512).astype(np.float32)
+    feed = iter(zs)
+    orig = jax.random.normal
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.random, "normal",
+                   lambda key, shape, *a, **k: jnp.asarray(next(feed))
+                   if shape == (1, 512) else orig(key, shape, *a, **k))
+        want = jpre.multi_sample_hierarchical_encoding(3, 2)
+    got = tpre.multi_sample_hierarchical_encoding(3, 2, zs=_t(zs))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-6)
+    # the half-mix, not the mean: the last sample weighs 1/2
+    one = [tpre.multi_sample_hierarchical_encoding(1, 2, zs=_t(zs[i:i + 1]))[0]
+           for i in range(3)]
+    torch.testing.assert_close(got[0], 0.25 * (one[0] + one[1]) + 0.5 * one[2])
+
+
+def test_load_belief_file_both_formats(tmp_path):
+    """beliefs.npz in this repo's layout (one entry per matrix) and the
+    reference's (one object array holding the list), as JAX reads them."""
+    rs = np.random.RandomState(1)
+    mats = [rs.rand(3, 4).astype(np.float32), rs.rand(4, 6).astype(np.float32)]
+    repo_fp, ref_fp = str(tmp_path / "repo.npz"), str(tmp_path / "ref.npz")
+    np.savez_compressed(repo_fp, *mats)
+    np.savez_compressed(ref_fp, np.asarray(mats, dtype=object))
+    # more than ten matrices sort arr_2 before arr_10
+    many_fp = str(tmp_path / "many.npz")
+    many = [np.full((2, 2), i, np.float32) for i in range(12)]
+    np.savez_compressed(many_fp, *many)
+    for fp, want in ((repo_fp, mats), (ref_fp, mats), (many_fp, many)):
+        got = tkm.load_belief_file(fp)
+        jgot = jkm.load_belief_file(fp)
+        assert len(got) == len(jgot) == len(want)
+        for a, b, c in zip(got, jgot, want):
+            assert a.dtype == torch.float32
+            np.testing.assert_array_equal(a.numpy(), c)
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_region_beliefs_device_matches_host_loop_and_jax():
+    """The one-hot products equal the host loop (label 0's column and
+    absent labels' columns zero) and JAX's device form."""
+    rs = np.random.RandomState(3)
+    for kp, kc in [(4, 7), (8, 3), (5, 5)]:
+        curr = rs.randint(0, kc, size=(2, 16, 16)).astype(np.uint8)
+        prev = rs.randint(0, kp, size=(2, 16, 16)).astype(np.uint8)
+        curr[curr == kc - 1] = 1  # an absent label
+        host = tkm._region_beliefs(curr, prev, (kp, kc))
+        np.testing.assert_array_equal(host, jkm._region_beliefs(curr, prev, (kp, kc)))
+        dev = tkm.region_beliefs_device(_t(curr), _t(prev), (kp, kc))
+        np.testing.assert_allclose(dev.numpy(), host, atol=1e-6)
+        assert dev[:, 0].abs().sum() == 0 and dev[:, kc - 1].abs().sum() == 0
+        jdev = jkm.region_beliefs_device(curr.astype(np.int32),
+                                         prev.astype(np.int32), (kp, kc))
+        np.testing.assert_array_equal(dev.numpy(), np.asarray(jdev))
+
+
+def test_beliefs_none_equals_the_estimate_fed_back():
+    """``hier_encode`` with ``beliefs=None`` estimates the matrices from the
+    batch; feeding that estimate back as trained beliefs gives the same
+    features and labels, and both equal JAX's."""
+    rs = np.random.RandomState(0)
+    cpl = [3, 5]
+    groups = [rs.randn(2, 8, 8, 6).astype(np.float32),
+              rs.randn(2, 16, 16, 4).astype(np.float32)]
+    centers = [rs.randn(3, 6).astype(np.float32), rs.randn(5, 4).astype(np.float32)]
+    tg, tc = [_t(g) for g in groups], [_t(c) for c in centers]
+    auto, auto_labels = tkm.hfc_predict_from_features(tg, tc, cpl, 16, True, None)
+    lab0 = tkm.kmeans_predict(tg[0].reshape(-1, 6), tc[0]).reshape(2, 8, 8)
+    lab1 = tkm.kmeans_predict(tg[1].reshape(-1, 4), tc[1]).reshape(2, 16, 16)
+    curr = tkm.resize_nearest(lab0[..., None].float(), (16, 16))[..., 0]
+    beliefs = [tkm.region_beliefs_device(curr, lab1, (cpl[1], cpl[0]))]
+    fed, fed_labels = tkm.hfc_predict_from_features(tg, tc, cpl, 16, True, beliefs)
+    assert torch.equal(auto, fed)
+    for a, b in zip(auto_labels, fed_labels):
+        assert torch.equal(a, b)
+    jz, jlabels = jkm.hfc_predict_from_features(
+        [jnp.asarray(g) for g in groups], [jnp.asarray(c) for c in centers],
+        cpl, 16, True, None)
+    np.testing.assert_array_equal(auto.numpy(), np.asarray(jz))
+    for a, b in zip(auto_labels, jlabels):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert auto.shape == (2, 16, 16, 8)
+
+
+def test_hierarchical_fit_matches_jax(tmp_path, monkeypatch):
+    """``HierarchicalKMeansHFC.hierarchical_fit`` with layer 0's seedings
+    replayed: the propagated twins (equal centers, the second kept empty by
+    the argmin's first index) and Lloyd's iterations from them."""
+    feats = [_blobs(n=64, d=6, k=3, seed=4).reshape(1, 8, 8, 6),
+             _blobs(n=256, d=4, k=6, seed=5).reshape(1, 16, 16, 4)]
+    base = dict(n_layers=2, clusters_per_layer=[3, 6], out_size=16)
+    calls = _record_fits(monkeypatch)
+    jm = jkm.HierarchicalKMeansHFC({}, dict(base, out_dir=str(tmp_path / "j")))
+    jm.hierarchical_fit([jnp.asarray(f) for f in feats])
+    tm = tkm.HierarchicalKMeansHFC({}, dict(base, out_dir=str(tmp_path / "t")))
+    tm.replay_seeds = [_replay(calls[0]), None]
+    assert calls[1] is None  # layer 1 starts from its parent's centers
+    tm.hierarchical_fit([_t(f) for f in feats])
+    for a, b in zip(tm.centers, jm.centers):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    init = tm.calculate_cluster_centers(_t(feats[0]), _t(feats[1]),
+                                        tkm.kmeans_predict(_t(feats[0]).reshape(-1, 6),
+                                                           tm.centers[0]), 1)
+    assert init.shape == (6, 4) and torch.equal(init[0::2], init[1::2])
+    jinit = jm.calculate_cluster_centers(
+        jnp.asarray(feats[0]), jnp.asarray(feats[1]),
+        jkm.kmeans_predict(jnp.asarray(feats[0]).reshape(-1, 6), jm.centers[0]), 1)
+    np.testing.assert_allclose(init.numpy(), jinit, **TOL)
+
+
+def test_legacy_hierarchical_kmeans_matches_jax(tmp_path, monkeypatch):
+    """``LegacyHierarchicalKMeansHFC``: the fine-to-coarse fit with every
+    layer's seedings replayed, and ``hierarchical_predict``'s label maps and
+    one-hot concat (tests/test_pipeline.py:266's shapes)."""
+    rs = np.random.RandomState(1)
+    feats = [rs.rand(1, 8, 8, 6).astype(np.float32),
+             rs.rand(1, 16, 16, 4).astype(np.float32)]
+    base = dict(n_layers=2, clusters_per_layer=[3, 4], out_size=16)
+    calls = _record_fits(monkeypatch)
+    jm = jkm.LegacyHierarchicalKMeansHFC({}, dict(base, out_dir=str(tmp_path / "j")))
+    jm.fit([jnp.asarray(f) for f in feats])
+    tm = tkm.LegacyHierarchicalKMeansHFC({}, dict(base, out_dir=str(tmp_path / "t")))
+    tm.replay_seeds = [_replay(calls[1]), _replay(calls[0])]  # fitted 1, then 0
+    tm.fit([_t(f) for f in feats])
+    for a, b in zip(tm.centers, jm.centers):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    labels, maps = tm.hierarchical_predict([_t(f) for f in feats])
+    jlabels, jmaps = jm.hierarchical_predict([jnp.asarray(f) for f in feats])
+    assert labels.shape == (1, 2, 16, 16) and maps.shape == (1, 16, 16, 7)
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(jlabels))
+    np.testing.assert_array_equal(maps.numpy(), np.asarray(jmaps))
+    s = maps.reshape(-1, 7)
+    assert torch.equal(s[:, :3].sum(-1), torch.ones(256))
+    assert torch.equal(s[:, 3:].sum(-1), torch.ones(256))

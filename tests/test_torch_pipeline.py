@@ -40,6 +40,7 @@ from ganecdotes_torch.metrics.segmentation import get_mask_iou
 from ganecdotes_torch.models.stylegan2.convert import from_jax_generator_params
 from ganecdotes_torch.ops import _build
 from ganecdotes_torch.pipeline.one_shot_pipeline import OneShotPipeline
+from ganecdotes_torch.runtime.export import load_exported
 from test_pipeline import (
     TINY_KMEANS,
     TINY_MODEL,
@@ -305,9 +306,18 @@ def test_evaluate_cli(pretrained, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate.main(["--out_dir", str(tmp_path / "nocard")])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        evaluate.main(["--out_dir", out, "--device", "cpu",
-                       "--export_serving", str(tmp_path / "a.ganex")])
+    # --export_serving: the trained request as an artifact, which answers
+    # as the run's server does
+    art = str(tmp_path / "a.ganex")
+    pipe = evaluate.main(["--out_dir", out, "--device", "cpu",
+                          "--num_test_samples", str(N_TEST),
+                          "--export_serving", art])
+    call, meta = load_exported(art)
+    assert meta["segmentor"] == "hfc_with_swav_ffhq"
+    assert meta["batch"] == 8 and meta["latent_dim"] == 512
+    w = torch.as_tensor(np.repeat(pipe.test_latents[:1], 8, axis=0))
+    for got, want in zip(call(w), pipe.server.serve(w, input_is_latent=True)):
+        assert torch.equal(got, want)
 
 
 def test_pretrain_cli(pretrained, tmp_path):
@@ -335,28 +345,91 @@ def test_pipeline_needs_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(segmentor="hfc_kmeans", seg_edit=("hfc_algo='hfc_kmeans'",
-                                            "hfc_algo='hfc_kmeans_hier'")),
-     "item 10"),
-    (dict(segmentor="hfc_kmeans", seg_edit=("hier_encode=False",
-                                            "hier_encode=True")), "item 10"),
     (dict(model="church-512", segmentor="hfc_with_swav"), "no such file"),
 ])
 def test_what_is_not_ported_raises_with_its_roadmap_item(tmp_path, kwargs, item):
-    """The hierarchical k-means and the belief encoding in the tiny
-    hfc_kmeans config (item 10); a model key whose config file the JAX
-    package does not ship either."""
-    kwargs = dict(kwargs)
-    edit = kwargs.pop("seg_edit", None)
-    out = str(tmp_path / "o")
-    if edit:
-        assert TINY_KMEANS.count(edit[0]) == 1
-        kwargs["custom"] = _write_configs(str(tmp_path),
-                                          seg=TINY_KMEANS.replace(*edit))
+    """A model key whose config file the JAX package does not ship either.
+    (The hierarchical k-means and the belief encoding raised here before
+    they were ported: ``test_hierarchical_kmeans_pipeline_matches_jax``.)"""
     with pytest.raises(NotImplementedError, match=item):
-        pipe = OneShotPipeline(out, device="cpu", **kwargs)
+        pipe = OneShotPipeline(str(tmp_path / "o"), device="cpu", **kwargs)
         _evaluate_mode(pipe)
         pipe.run_pipeline()
+
+
+@pytest.mark.parametrize("edits", [
+    [("hfc_algo='hfc_kmeans'", "hfc_algo='hfc_kmeans_hier'")],
+    [("hier_encode=False", "hier_encode=True")],
+    [("hfc_algo='hfc_kmeans'", "hfc_algo='hfc_kmeans_hier'"),
+     ("hier_encode=False", "hier_encode=True")],
+], ids=["hier-fit", "hier-encode", "both"])
+def test_hierarchical_kmeans_pipeline_matches_jax(tmp_path, edits):
+    """The tiny hfc_kmeans pipeline with the hierarchical clusterer and the
+    belief encoding (the cases that raised before ROADMAP §1 item 10 was
+    ported), evaluated on saved clusterers and beliefs in both packages:
+    the generator, both mean latents and the head's init carried across.
+    The one-shot features, each chunk's loss (1e-5 relative) and the test
+    labels (99.9% of pixels) against JAX's; the request through the
+    server (the belief encoding: unfused in both forms)."""
+    from ganecdotes_tpu.pipeline.one_shot_pipeline import (
+        OneShotPipeline as JaxPipeline,
+    )
+
+    seg = TINY_KMEANS
+    for old, new in edits:
+        assert seg.count(old) == 1
+        seg = seg.replace(old, new)
+    cfg = _write_configs(str(tmp_path), *_samples(str(tmp_path)), seg=seg)
+    outs = {k: str(tmp_path / k) for k in ("jax", "torch")}
+    rs = np.random.RandomState(14)
+    centers = [(rs.randn(k, 1024) * 0.5).astype(np.float32) for k in (4, 8)]
+    beliefs = [rs.dirichlet(np.ones(8), 4).T.astype(np.float32)]
+    for d in outs.values():
+        os.makedirs(d)
+        for n, c in enumerate(centers):
+            np.savez_compressed(os.path.join(d, f"clusterer_layer_{n}.npz"),
+                                centers=c)
+        np.savez_compressed(os.path.join(d, "beliefs.npz"), *beliefs)
+    init = jax.tree.map(np.asarray, jheads.init_one_shot_segmentor(
+        jax.random.PRNGKey(12), 12, 4, "S"))
+    hier_encode = "hier_encode=True" in seg
+
+    jpipe = JaxPipeline(out_dir=outs["jax"], model="ffhq-256",
+                        segmentor="hfc_kmeans", num_test_samples=N_TEST,
+                        custom=cfg)
+    _evaluate_mode(jpipe)
+    jpipe.preprocessor.train = False  # read beliefs.npz
+    jpipe.segmentor_init_params = jax.tree.map(jnp.asarray, init)
+    jpipe.run_pipeline()
+
+    gen = from_jax_generator_params(jax.tree.map(np.asarray, jpipe.model.params))
+    pipe = OneShotPipeline(out_dir=outs["torch"], model="ffhq-256",
+                           segmentor="hfc_kmeans", num_test_samples=N_TEST,
+                           custom=cfg, device="cpu", gen=gen,
+                           mean_latent=np.asarray(jpipe.mean_latent))
+    _evaluate_mode(pipe)
+    pipe.preprocessor.train = False
+    pipe.preprocessor.mean_latent = torch.from_numpy(
+        np.array(jpipe.preprocessor.mean_latent))
+    pipe.segmentor_init_params = init
+    pipe.run_pipeline()
+    assert pipe.preprocessor.hier_encode == hier_encode
+    if hier_encode:
+        torch.testing.assert_close(pipe.preprocessor.trained_beliefs[0],
+                                   torch.from_numpy(beliefs[0]))
+    np.testing.assert_allclose(
+        pipe.one_shot_train_features.numpy(),
+        np.asarray(jpipe.one_shot_train_features), atol=1e-4, rtol=1e-4)
+    jpred = np.load(os.path.join(outs["jax"], "tests", "label_predictions.npy"))
+    tpred = np.load(os.path.join(outs["torch"], "tests", "label_predictions.npy"))
+    assert (tpred == jpred).mean() >= 0.999
+    assert abs(pipe.mean_mask_iou - jpipe.mean_mask_iou) <= 1e-3
+    w = torch.as_tensor(pipe.test_latents[:N_TEST])
+    img, logits, _ = pipe.server.infer_folded(w, input_is_latent=True)
+    u_img, u_logits, _ = pipe.server.infer(w, input_is_latent=True)
+    assert torch.equal(img, u_img)
+    if hier_encode:  # nothing folds: the same unfused form, parts or concat
+        torch.testing.assert_close(logits, u_logits, atol=1e-5, rtol=1e-5)
 
 
 def test_online_gui_and_sample_noises_raise(tmp_path):
