@@ -3596,14 +3596,6 @@ def _dp_gan_config(out_dir, data_parallel):
     return cfg
 
 
-def _to(tree, dev):
-    if isinstance(tree, torch.Tensor):
-        return tree.to(dev)
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to(t, dev) for t in tree)
-    return tree
-
-
 def _weights_digest(gan):
     import hashlib
 
@@ -3650,8 +3642,7 @@ def _gan_dp_draws(dev, gan):
 
     g = torch.Generator().manual_seed(21)
     real = torch.rand(GAN_B, GAN_SIZE, GAN_SIZE, 3, generator=g) * 2 - 1
-    draws = draw_step_inputs(g, gan.config, gan.gen_meta, GAN_B, 0, ADA_P)
-    return real, _to(draws, dev)
+    return real, draw_step_inputs(g, gan.config, gan.gen_meta, GAN_B, 0, ADA_P, dev)
 
 
 def _gan_dp_iteration(dev, data_parallel, out_dir):
@@ -3730,7 +3721,7 @@ def dp_rank(rank, world, port, ref_path, results):
                         .float().mean().item()}
         out["launches"] = launches
         results.put((rank, True, out))
-    except BaseException:
+    except Exception:  # the parent raises it, with the rank's traceback
         results.put((rank, False, traceback.format_exc()))
     finally:
         import torch.distributed as dist
@@ -3757,7 +3748,7 @@ def nccl_rank(port, results):
             torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
         results.put((0, True, {"bit_equal": equal, "loss": float(la),
                                "backend": torch.distributed.get_backend()}))
-    except BaseException:
+    except Exception:  # the parent raises it, with the rank's traceback
         results.put((0, False, traceback.format_exc()))
     finally:
         import torch.distributed as dist
@@ -3873,6 +3864,7 @@ def data_parallel(dev):
 
 
 def phase15(dev, flat_request_ms):
+    t0 = time.perf_counter()
     print("hierarchical k-means (ffhq-256, the shipped hfc_kmeans config with "
           "hfc_algo='hfc_kmeans_hier' and hier_encode=True; the legacy "
           "clusterer, card against CPU):", flush=True)
@@ -3886,7 +3878,10 @@ def phase15(dev, flat_request_ms):
           f"step, a BagGAN iteration at B = {GAN_B}, a request of 8; then NCCL "
           "at world size 1):", flush=True)
     dp = data_parallel(dev)
-    return {"hier_kmeans": hier, "export": exported, "data_parallel": dp}
+    seconds = time.perf_counter() - t0
+    print(f"  phase 15: {seconds:.1f} s", flush=True)
+    return {"hier_kmeans": hier, "export": exported, "data_parallel": dp,
+            "seconds": seconds}
 
 
 def kernels_line(rows, launches):

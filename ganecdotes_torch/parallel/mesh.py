@@ -31,14 +31,12 @@ import torch.distributed as dist
 
 
 class Mesh(NamedTuple):
-    """One rank's view of the data-parallel group: ``size`` ranks, this
-    one's ``rank``, its ``device``, the process ``group`` (None: the
-    default group)."""
+    """One rank's view of the data-parallel group (the default process
+    group): ``size`` ranks, this one's ``rank``, its ``device``."""
 
     size: int
     rank: int
     device: torch.device
-    group: Optional[object] = None
 
 
 def distributed_init(init_method=None, world_size=None, rank=None, backend=None):
@@ -71,9 +69,10 @@ def distributed_init(init_method=None, world_size=None, rank=None, backend=None)
 
 
 def make_mesh(n_devices=None, device=None):
-    """The mesh of the first ``n_devices`` ranks (all of them by default) ->
-    ``Mesh``, None on a rank outside it. More ranks than the group has
-    raise, rather than report a run over ranks that never ran. ``device``
+    """The mesh of every rank of the process group (one rank outside one)
+    -> ``Mesh``. ``n_devices``, where given, must be the number of ranks:
+    more raise, rather than report a run over ranks that never ran, as
+    JAX's ``make_mesh`` refuses more devices than it has. ``device``
     defaults to the card the process took (``distributed_init``), else the
     CPU."""
     size = dist.get_world_size() if dist.is_initialized() else 1
@@ -82,16 +81,13 @@ def make_mesh(n_devices=None, device=None):
         raise ValueError(
             f"make_mesh: {n_devices} ranks requested but only {size} exist; "
             "a smaller mesh would report a data-parallel run that never ran")
-    group = None
     if n_devices is not None and n_devices < size:
-        group = dist.new_group(list(range(n_devices)))
-        if rank >= n_devices:
-            return None
-        size = n_devices
+        raise ValueError(f"make_mesh: a mesh spans all {size} ranks of the "
+                         f"process group, not {n_devices}")
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if torch.cuda.is_available() else torch.device("cpu"))
-    return Mesh(size, rank, torch.device(device), group)
+    return Mesh(size, rank, torch.device(device))
 
 
 def batch_shardings(mesh, batch):
@@ -119,7 +115,7 @@ def replicate(mesh, tree):
     if not isinstance(tree, torch.Tensor) or mesh.size == 1:
         return tree
     out = tree.detach().clone().contiguous()
-    dist.broadcast(out, src=0, group=mesh.group)
+    dist.broadcast(out, src=0)
     return out
 
 
@@ -128,22 +124,21 @@ class _AllReduceSum(torch.autograd.Function):
     itself: each rank's x reaches every rank's y."""
 
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x):
         y = x.detach().clone().contiguous()
-        dist.all_reduce(y, group=group)
+        dist.all_reduce(y)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        return _AllReduceSum.apply(g.contiguous(), ctx.group), None
+        return _AllReduceSum.apply(g.contiguous())
 
 
 def all_reduce_sum(mesh, x):
     """The sum of ``x`` over the ranks, differentiable to any order."""
     if mesh is None or mesh.size == 1:
         return x
-    return _AllReduceSum.apply(x, mesh.group)
+    return _AllReduceSum.apply(x)
 
 
 def all_gather(mesh, x):
@@ -179,7 +174,7 @@ def average_gradients(mesh, grads):
     if mesh is None or mesh.size == 1:
         return grads
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=mesh.group)
+    dist.all_reduce(flat)
     flat /= mesh.size
     out, off = [], 0
     for g in grads:

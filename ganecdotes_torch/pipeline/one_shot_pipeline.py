@@ -570,10 +570,10 @@ class OneShotPipeline:
         """Images in [-1, 1] (a tensor on any device) -> numpy in [0, 1]."""
         return np.clip(im.detach().cpu().numpy(), -1.0, 1.0) * 0.5 + 0.5
 
-    def make_server(self, ops=None):
+    def make_server(self):
         """The method's server (``pipeline.serving``) over the trained
-        weights, on ``ops`` (the pipeline's op set by default)."""
-        ops = self.ops if ops is None else ops
+        weights, on the pipeline's op set."""
+        ops = self.ops
         if "hfc_with_swav" in self.seg_str:
             return OneShotServer(
                 self.model_config, self.seg_config, device=self.device,

@@ -34,6 +34,8 @@ iteration:
   * resample_rows at BagGAN-HQ's two pass shapes (this turn's checkout's
     chip_smoke.py draws them from a fixed seed), ``ms`` per augment call.
 
+And the two host-bound paths, phase 4's request of 8 (``serve``) and phase
+5's SwAV step (``swav_step``), ms on the host clock with the card synced.
 And one BagGAN-HQ iteration at the full pidray config (``gan``, ADA p
 0.6, iteration 0: D, R1, G and PPL steps) after a warm-up: ms per step
 kind (host clock, the card synced on both sides; ``ms`` is D + R1), then
@@ -65,6 +67,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 CONVS = ("styled_conv3x3", "styled_up_conv3x3")
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -206,6 +209,34 @@ def gan_iteration(cs, dev):
                 ranges[label][kind] += ms
     return {"gan": {"ms": steps.get("d", 0.0) + steps.get("r1", 0.0), "step_ms": steps,
                     "ranges": ranges}}
+
+
+def paths(cs, dev, requests=6):
+    """Phase 4's request of 8 z through the folded ffhq-256 server
+    (``serve``) and phase 5's SwAV step at the full config
+    (``swav_step``, ``run_pretrain``'s 1 + 4 steps): ms, host clock with
+    the card synced, the median after the first."""
+    import torch
+
+    from ganecdotes_torch.models.stylegan2.generator import Generator
+    from ganecdotes_torch.ops.opset import KERNELS
+    from ganecdotes_torch.pipeline.serving import OneShotServer
+
+    server = OneShotServer(device=dev, seed=0)
+    ms = []
+    for i in range(requests):
+        z = torch.randn(8, 512, generator=torch.Generator().manual_seed(100 + i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.serve(z)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del server
+    mc, _, _, _ = cs.swav_configs()
+    gen = Generator(**mc.gen_args, generator=torch.Generator().manual_seed(0)).to(dev)
+    _, step_ms = cs.run_pretrain(gen, dev, KERNELS)
+    return {"serve": {"ms": statistics.median(ms[1:]), "request_ms": ms},
+            "swav_step": {"ms": statistics.median(step_ms[1:]), "step_ms": step_ms}}
 
 
 def lean_conv_cases(cs):
@@ -368,6 +399,7 @@ def worker(root, cases):
     out.update(time_fused_act(cs, dev))
     out.update(time_resample(cs, dev))
     out.update(gan_iteration(cs, dev))
+    out.update(paths(cs, dev))
     print(json.dumps(out), flush=True)
 
 

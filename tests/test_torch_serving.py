@@ -203,8 +203,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "configs/segmentors/repurposegan_config.py",
                 "configs/segmentors/datasetgan_config.py",
                 "configs/segmentors/hfc_with_simclr_config.py",
-                "configs/segmentors/hfc_kmeans_config.py"):
+                "configs/segmentors/hfc_kmeans_config.py",
+                "parallel/mesh.py", "runtime/export.py", "ops/library.py",
+                "utils/util.py"):
         assert os.path.join(ROOT_DIR, "ganecdotes_torch", *rel.split("/")) in files
+    # the data-parallel tests' rank processes import only torch and the port
+    files.append(os.path.join(ROOT_DIR, "tests", "torch_ranks.py"))
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

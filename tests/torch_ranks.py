@@ -37,7 +37,7 @@ def _rank_main(fn, rank, world, port, args, results):
 
         distributed_init(f"tcp://localhost:{port}", world, rank, backend="gloo")
         results.put((rank, True, fn(rank, world, *args)))
-    except BaseException:  # the parent raises it, with the rank's traceback
+    except Exception:  # the parent raises it, with the rank's traceback
         results.put((rank, False, traceback.format_exc()))
     finally:
         import torch.distributed as dist
