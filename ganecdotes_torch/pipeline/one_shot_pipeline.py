@@ -16,9 +16,9 @@ flat or the belief encoding), RepurposeGAN and DatasetGAN.
   projection, pretrained or loaded from ``swav_params.npz`` /
   ``simclr_params.npz``; the k-means encoding of the clusterers fitted or
   loaded from ``clusterer_layer_{n}.npz`` (and ``beliefs.npz``); the raw
-  nearest-up concat for the two baselines), then the supervised fine-tune of the head
-  (``pipeline.trainer``): an FCN or ``Lin`` head, or DatasetGAN's pixel
-  classifier with its BatchNorm state;
+  nearest-up concat for the two baselines), then the supervised fine-tune
+  of the head (``pipeline.trainer``): an FCN or ``Lin`` head, or
+  DatasetGAN's pixel classifier with its BatchNorm state;
 * test: serve the test set in requests of ``MAX_TEST_BATCH`` through the
   method's folded form (``pipeline.serving``: ``OneShotServer`` and the
   other methods' servers), then score it with
@@ -573,27 +573,26 @@ class OneShotPipeline:
     def make_server(self):
         """The method's server (``pipeline.serving``) over the trained
         weights, on the pipeline's op set."""
-        ops = self.ops
         if "hfc_with_swav" in self.seg_str:
             return OneShotServer(
                 self.model_config, self.seg_config, device=self.device,
                 gen=self.model, ssl_params=self.preprocessor.ssl_params,
                 seg_params=self.segmentor_params, mean_latent=self.mean_latent,
-                ops=ops)
+                ops=self.ops)
         args = (self.model, self.mean_latent, self.model_config.truncation,
                 self.segmentor_params, self.seg_size)
         sc = self.seg_config
         if self.seg_str == "repurposegan":
-            return ConcatServer(*args, n_layers=sc.n_layers, ops=ops)
+            return ConcatServer(*args, n_layers=sc.n_layers, ops=self.ops)
         if self.seg_str == "datasetgan":
             return PixelClassifierServer(*args, state=self.segmentor_state,
-                                         n_layers=sc.n_layers, ops=ops)
+                                         n_layers=sc.n_layers, ops=self.ops)
         if self.seg_str == "hfc_with_simclr":
             sa = self.preprocessor.simclr_args
             return SimCLRServer(*args, params=self.preprocessor.params,
-                                hlen=sa["hlen"],
-                                interp=sa.get("hf_interp", "nearest"), ops=ops)
-        return KMeansServer(*args, pre=self.preprocessor, ops=ops)
+                                hlen=sa["hlen"], ops=self.ops,
+                                interp=sa.get("hf_interp", "nearest"))
+        return KMeansServer(*args, pre=self.preprocessor, ops=self.ops)
 
     def _make_infer_fn(self):
         """The test block's request: generate -> the method's folded form
