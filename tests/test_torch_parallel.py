@@ -163,6 +163,23 @@ def test_swav_step_over_two_ranks_matches_the_sample_batch_and_jax():
         np.testing.assert_array_equal(a, b)  # the ranks stay replicated
 
 
+def test_swav_batch_step_of_one_sample_is_the_single_step():
+    """A batch of one sample (what each rank steps on) equals the step on
+    that sample alone, bit for bit (tests/test_parallel.py:214)."""
+    setup, _, meta, gen, k_step = _swav_setup()
+    mc, pa, sa, sk = setup["configs"]
+    draws = _jax_draws(k_step, meta, 2, sa["num_patches"], SIZE * SIZE, PATCH)
+    opt, step = tswav.make_swav_train_step(gen.meta, mc, pa, sa, sk,
+                                           torch.from_numpy(setup["mean"]),
+                                           (SIZE, SIZE))
+    ssl = from_jax_params(setup["ssl"])
+    one, _, l1 = step(gen, ssl, opt.init(ssl), draws, 0)
+    batch, _, lb = step(gen, ssl, opt.init(ssl), [draws], 0)
+    assert torch.equal(l1, lb)
+    for a, b in zip(tlars.tree_leaves(one), tlars.tree_leaves(batch)):
+        assert torch.equal(a, b)
+
+
 def test_swav_pretraining_data_parallel_over_two_ranks(tmp_path):
     """``SwAVClustering.pretrain`` with ``data_parallel`` (tests/
     test_parallel.py:170's case): each update takes the two samples both
