@@ -156,12 +156,21 @@ Phases (any failure exits non-zero before the last line):
      requests of 8 latents, each launching kernels 2-4 as often as the live
      server, image within 1e-6 and labels equal, then the artifact moved to
      the CPU for one request; (c) data parallel: two ranks on the one card
-     over gloo (spawned processes, joined) take one SwAV step at the full
-     ffhq config (a sample each), one BagGAN iteration at the pidray config
-     (B = 20 as 10 + 10, ADA p 0.6) and a request of 8 (4 + 4), each held
-     against one process on the global batch with phases 5, 7 and 4's
-     gates; then NCCL at world size 1 runs the SwAV step, bit-equal to the
-     step without data parallel.
+     over gloo (spawned processes, joined) run, through the entry points,
+     SwAVClustering.pretrain with data_parallel for one update at the full
+     ffhq config (a sample each; only rank 0 writes swav_params.npz), a
+     BagGAN-HQ iteration with data_parallel at the pidray config (B = 20 as
+     10 + 10, ADA p 0.6) at a learning rate of 0, then one at the config's
+     rates, and cli/evaluate.py's path (phase 8's, on a seeded
+     swav_params.npz) whose test requests of 8 split 4 + 4 over the
+     pipeline's mesh; each held against one process on the global batch:
+     the update on both samples under phase 5's gates, each step kind's
+     gradients, the losses, ADA's state and the mean path length within
+     DP_GRAD_TOL and DP_LOSS_TOL, the ranks' weights equal after the
+     second iteration, the test images within 1e-3 and labels on 99.9%;
+     then NCCL at world size 1: an all-reduce and a broadcast on the card,
+     and the pretraining update with data_parallel bit-equal to the one
+     without.
 Phases 13 and 14 run with matplotlib, cv2, sklearn and PIL unimportable
 (``host_only_refused``): their paths need none of them.
 
@@ -3315,6 +3324,11 @@ LEGACY_KMEANS = dict(n_init=2, max_iter=20)  # the legacy check: card vs CPU
 EXPORT_IMAGE_TOL = 1e-6  # artifact vs live server, of max(1, max |live|)
 DP_WORLD = 2  # ranks sharing the one card (gloo)
 DP_TIMEOUT_S = 600
+DP_SWAV_SEED = 16  # the data-parallel pipeline's swav_params.npz
+# ranks against one process on the global batch, at a learning rate of 0
+# (every step kind's gradients at the same weights): ||g - one|| / ||one||
+DP_GRAD_TOL = {"d": 4e-4, "r1": 1e-3, "g": 1e-3, "ppl": 1e-3}
+DP_LOSS_TOL = 1e-5  # each loss and the mean path length, relative
 
 
 def hier_files(pre):
@@ -3606,119 +3620,195 @@ def _weights_digest(gan):
     return h.hexdigest()
 
 
-def _swav_dp_inputs(dev):
-    """The SwAV step's inputs at the full ffhq config: the generator and
-    params from their seeds, the kernels' mean latent, DP_WORLD samples'
-    draws."""
-    from ganecdotes_torch.models.stylegan2.convert import from_jax_params
-    from ganecdotes_torch.models.stylegan2.generator import Generator, mean_latent
-    from ganecdotes_torch.selfsup.swav import draw_step_inputs, init_swav_params
+def _dp_swav(dev, out_dir, data_parallel):
+    """``SwAVClustering`` at the full hfc_with_swav ffhq config for one
+    update (one epoch of one sample; under ``data_parallel`` a sample a
+    rank), on phase 5's generator and seed."""
+    from ganecdotes_torch.models.stylegan2.generator import Generator
+    from ganecdotes_torch.selfsup.swav import SwAVClustering
 
     mc, pa, sa, sk = swav_configs()
     gen = Generator(**mc.gen_args, generator=torch.Generator().manual_seed(0)).to(dev)
-    g = torch.Generator().manual_seed(42)
-    with torch.no_grad():
-        mean = mean_latent(gen, mc.num_latents_for_mean, g)
+    sa = dict(sa, num_epochs=1, num_samples=1, data_parallel=data_parallel)
+    swav = SwAVClustering(gen, mc, pa, sa, sk, out_dir=out_dir, device=dev, seed=42)
+    swav.record_loss_history = True
+    return swav
+
+
+def _swav_sample_batch_step(dev):
+    """The one-process reference of a data-parallel update: the
+    clustering's generator stream (its mean latent, its params, then
+    DP_WORLD samples' draws, in ``pretrain``'s order) through the step on
+    all the samples (JAX's ``sample_batch``) -> (params, loss)."""
+    from ganecdotes_torch.models.stylegan2.convert import from_jax_params
+    from ganecdotes_torch.selfsup.swav import (
+        draw_step_inputs,
+        init_swav_params,
+        make_swav_train_step,
+    )
+
+    swav = _dp_swav(dev, None, False)
+    _, pa, sa, sk = swav_configs()
     ssl = from_jax_params(init_swav_params(sa["hlen"], sa["nclasses"], sa["nprototypes"],
-                                           sa["projn_nw"], generator=g), dev)
-    mcd = {"truncation": mc.truncation, "latent_dim": mc.latent_dim}
-    draws = [draw_step_inputs(g, gen.meta, mcd, pa, sa, (mc.image_size,) * 2)
+                                           sa["projn_nw"], generator=swav.generator), dev)
+    mcd = swav._model_config_dict()
+    draws = [draw_step_inputs(swav.generator, swav.model.meta, mcd, pa, sa, swav._image_hw)
              for _ in range(DP_WORLD)]
-    return gen, mean, ssl, mcd, (pa, sa, sk), draws
-
-
-def _swav_dp_step(dev, mesh, draws_in):
-    from ganecdotes_torch.selfsup.swav import make_swav_train_step
-
-    gen, mean, ssl, mcd, (pa, sa, sk), draws = _swav_dp_inputs(dev)
-    mc, _, _, _ = swav_configs()
-    opt, step = make_swav_train_step(gen.meta, mcd, pa, sa, sk, mean,
-                                     (mc.image_size,) * 2, mesh=mesh)
-    return step(gen, ssl, opt.init(ssl), draws_in(draws), 0)
-
-
-def _gan_dp_draws(dev, gan):
-    from ganecdotes_torch.gan.train import draw_step_inputs
-
-    g = torch.Generator().manual_seed(21)
-    real = torch.rand(GAN_B, GAN_SIZE, GAN_SIZE, 3, generator=g) * 2 - 1
-    return real, draw_step_inputs(g, gan.config, gan.gen_meta, GAN_B, 0, ADA_P, dev)
+    opt, step = make_swav_train_step(swav.model.meta, mcd, pa, sa, sk, swav.mean_latent,
+                                     swav._image_hw)
+    params, _, loss = step(swav.model, ssl, opt.init(ssl), draws, 0)
+    return params, loss
 
 
 def _gan_dp_iteration(dev, data_parallel, out_dir):
-    from ganecdotes_torch.gan.train import BagGANHQ
+    """One BagGAN-HQ iteration at the pidray config (B = GAN_B, ADA p
+    ADA_P, iteration 0: every step kind) on seeded reals and draws, at a
+    learning rate of 0, so that each step kind's gradients are taken at
+    the same weights in every run; the optimizers then get the config's
+    rates back. -> (trainer, reals)"""
+    from ganecdotes_torch.gan.train import BagGANHQ, draw_step_inputs
 
     gan = BagGANHQ(_dp_gan_config(out_dir, data_parallel), seed=0, device=dev)
     gan.ada_state["p"].fill_(ADA_P)
     gan.keep_first_grads = True
-    real, draws = _gan_dp_draws(dev, gan)
+    g = torch.Generator().manual_seed(21)
+    real = torch.rand(GAN_B, GAN_SIZE, GAN_SIZE, 3, generator=g) * 2 - 1
+    draws = draw_step_inputs(g, gan.config, gan.gen_meta, GAN_B, 0, ADA_P, dev)
+    gan.optimizer_g.lr = gan.optimizer_d.lr = 0.0
     gan.set_input({"ct": real}, iter_no=0, draws=draws)
     gan.optimize_parameters()
+    gan.optimizer_g.lr, gan.optimizer_d.lr = gan._base_lrs
     torch.cuda.synchronize()
-    return gan
+    return gan, real
+
+
+def _gan_record(gan):
+    """What a data-parallel iteration is held to: each step kind's first
+    gradients, the losses, ADA's state and the mean path length."""
+    return {"grads": {k: [g.cpu() for g in v] for k, v in gan.first_grads.items()},
+            "losses": gan_losses(gan, 0),
+            "ada": {k: gan.ada_state[k].cpu() for k in ("buf", "p", "r_t")},
+            "mean_path_length": float(gan.mean_path_length)}
+
+
+def _grad_errs(grads, ref):
+    """Each step kind's ||g - ref|| / ||ref|| over all its tensors."""
+    out = {}
+    for kind, gs in grads.items():
+        ps = ref[kind]
+        norm = sum(float(p.square().sum()) for p in ps) ** 0.5
+        diff = sum(float((g.cpu() - p).square().sum()) for g, p in zip(gs, ps)) ** 0.5
+        out[kind] = diff / max(norm, 1e-30)
+    return out
+
+
+def _dp_swav_params(out_dir):
+    """A seeded swav_params.npz in the hfc_with_swav_ffhq config's shapes."""
+    from ganecdotes_torch.selfsup.swav import init_swav_params
+    from ganecdotes_torch.utils.serialization import save_pytree
+
+    _, _, sa, _ = swav_configs()
+    os.makedirs(out_dir, exist_ok=True)
+    save_pytree(os.path.join(out_dir, "swav_params.npz"), init_swav_params(
+        sa["hlen"], sa["nclasses"], sa["nprototypes"], sa["projn_nw"],
+        generator=torch.Generator().manual_seed(DP_SWAV_SEED)))
+
+
+def _dp_pipeline(dev, out_dir):
+    """cli/evaluate.py's path at ffhq-256 as phase 8 runs it
+    (hfc_with_swav_ffhq, EVAL_TEST_SAMPLES test samples, the supervised
+    trainer's 200 epochs, the swav_params.npz in ``out_dir`` loaded) up to
+    its test requests; in a process group the pipeline takes its mesh."""
+    from ganecdotes_torch.models.stylegan2.generator import Generator
+    from ganecdotes_torch.pipeline.one_shot_pipeline import OneShotPipeline
+
+    mc, _, _, _ = swav_configs()
+    gen = Generator(**mc.gen_args, generator=torch.Generator().manual_seed(0)).to(dev)
+    pipe = OneShotPipeline(out_dir, model="ffhq-256", segmentor="hfc_with_swav_ffhq",
+                           num_test_samples=EVAL_TEST_SAMPLES, device=dev, gen=gen)
+    pipe.logger.setLevel(logging.WARNING)
+    pipe.seg_config.train_hfc = False  # evaluate.py's settings
+    pipe.seg_config.hfc_prep_args["train"] = False
+    pipe.setup()
+    pipe.preprocessor = pipe._build_ssl_preprocessor()
+    check(pipe.preprocessor.ssl_params is not None, "swav_params.npz was not loaded")
+    pipe._extract_one_shot_features()
+    pipe.run_trainer()
+    return pipe
 
 
 def dp_rank(rank, world, port, ref_path, results):
-    """One rank of phase 15 (c) on the one card over gloo: the SwAV step
-    (its own sample), the BagGAN iteration (its half of B = 20) and a
-    request of 8 (its 4), each against the one-process reference at
-    ``ref_path``; the rank's launches per case."""
+    """One rank of phase 15 (c) on the one card over gloo, through the
+    entry points: ``SwAVClustering.pretrain`` with ``data_parallel`` for
+    one update (its own sample), a BagGAN-HQ iteration with
+    ``data_parallel`` (its half of B = 20) and the evaluate path's
+    ``predict_tests`` under the pipeline's mesh (its half of each request
+    of 8), each against the one-process reference at ``ref_path``; the
+    rank's launches per case."""
     try:
-        import torch.distributed as dist
-
         sys.path.insert(0, ROOT)
         from ganecdotes_torch import resolve_device
         from ganecdotes_torch.ops import _build
         from ganecdotes_torch.parallel import mesh as pm
-        from ganecdotes_torch.pipeline.serving import OneShotServer
         from ganecdotes_torch.selfsup.lars import tree_leaves
 
         dev = resolve_device("cuda")
         pm.distributed_init(f"tcp://localhost:{port}", world, rank, backend="gloo")
-        mesh = pm.make_mesh(device=dev)
         ref = torch.load(ref_path, weights_only=False)
+        root = os.path.join(ROOT, "build", "chip_smoke_dp")
         out, launches = {}, {}
 
         _build.reset_launches()
-        params, _, loss = _swav_dp_step(dev, mesh, lambda d: [d[rank]])
+        swav_dir = os.path.join(root, f"swav{rank}")
+        swav = _dp_swav(dev, swav_dir, True)
+        swav.pretrain()
+        torch.cuda.synchronize()
         launches["swav"] = dict(_build.LAUNCHES)
-        loss_rel = abs(float(loss) - ref["swav_loss"]) / abs(ref["swav_loss"])
-        param_err = max(errors(a.cpu(), b)[0] / max(1.0, errors(a.cpu(), b)[2])
-                        for a, b in zip(tree_leaves(params), ref["swav_params"]))
-        out["swav"] = {"loss_rel": loss_rel, "param_err": param_err}
-        del params
+        (loss,) = swav.loss_history
+        param_err = 0.0
+        for a, b in zip(tree_leaves(swav.ssl_params), ref["swav_params"]):
+            err, _, scale = errors(a.cpu(), b)
+            param_err = max(param_err, err / max(1.0, scale))
+        out["swav"] = {"loss_rel": abs(loss - ref["swav_loss"]) / abs(ref["swav_loss"]),
+                       "param_err": param_err,
+                       "files": sorted(f for f in os.listdir(swav_dir)
+                                       if f.endswith(".npz"))}
+        del swav
 
         _build.reset_launches()
-        gan = _gan_dp_iteration(dev, True, os.path.join(ROOT, "build",
-                                                        "chip_smoke_dp", f"gan{rank}"))
+        gan, real = _gan_dp_iteration(dev, True, os.path.join(root, f"gan{rank}"))
         launches["gan"] = dict(_build.LAUNCHES)
-        check(gan.mesh is not None and gan.mesh.size == world, "no mesh")
-        grads = {}
-        for kind, gs in gan.first_grads.items():
-            ps = ref["gan_grads"][kind]
-            norm = sum(float(p.square().sum()) for p in ps) ** 0.5
-            grads[kind] = max(float((g.cpu() - p).norm()) / max(norm, 1e-30)
-                              for g, p in zip(gs, ps))
-        losses = {k: float(getattr(gan, "loss_" + k)) for k in ref["gan_losses"]}
-        loss_errs = {k: abs(v - ref["gan_losses"][k]) / max(1.0, abs(ref["gan_losses"][k]))
-                     for k, v in losses.items()}
-        out["gan"] = {"grad_err": grads, "loss_errs": loss_errs,
-                      "digest": _weights_digest(gan),
-                      "ada_p": float(gan.ada_state["p"])}
+        check(gan.mesh is not None and gan.mesh.size == world, "the trainer has no mesh")
+        got, want = _gan_record(gan), ref["gan"]
+        out["gan"] = {
+            "grad_err": _grad_errs(got["grads"], want["grads"]),
+            "loss_errs": {k: abs(v - want["losses"][k]) / max(1.0, abs(want["losses"][k]))
+                          for k, v in got["losses"].items()},
+            "ada_equal": all(torch.equal(got["ada"][k], want["ada"][k])
+                             for k in want["ada"]),
+            "mean_path_length_rel": abs(got["mean_path_length"] - want["mean_path_length"])
+            / max(abs(want["mean_path_length"]), 1e-30)}
+        # a second iteration at the config's rates: the ranks stay replicated
+        gan.set_input({"ct": real}, iter_no=1)
+        gan.optimize_parameters()
+        out["gan"]["digest"] = _weights_digest(gan)
         del gan
         torch.cuda.empty_cache()
 
+        pipe = _dp_pipeline(dev, os.path.join(root, "pipe_ranks"))
+        check(pipe.mesh is not None and pipe.mesh.size == world,
+              "the pipeline has no mesh")
         _build.reset_launches()
-        server = OneShotServer(device=dev, seed=0)
-        w = ref["serve_w"].to(dev)
-        img, labels = pm.data_parallel_infer(
-            mesh, lambda _, v: server.serve(v, input_is_latent=True)[:2], None, w)
+        pipe.predict_tests()
         torch.cuda.synchronize()
-        launches["serve"] = dict(_build.LAUNCHES)
-        err, _, scale = errors(img.cpu(), ref["serve_img"])
-        out["serve"] = {"image_err": err / max(1.0, scale),
-                        "label_agreement": (labels.cpu() == ref["serve_labels"])
-                        .float().mean().item()}
+        launches["predict"] = dict(_build.LAUNCHES)
+        if rank == 0:  # run_tests' scoring, which only rank 0 does
+            pipe.score_tests()
+        err, _, scale = errors(torch.from_numpy(pipe.test_images), ref["pipe_images"])
+        out["predict"] = {"image_err": err / max(1.0, scale),
+                          "label_agreement": float((pipe.pred_labels
+                                                    == ref["pipe_labels"]).mean()),
+                          "request_ms": [t * 1e3 for t in pipe.inference_times]}
         out["launches"] = launches
         results.put((rank, True, out))
     except Exception:  # the parent raises it, with the rank's traceback
@@ -3731,23 +3821,34 @@ def dp_rank(rank, world, port, ref_path, results):
 
 
 def nccl_rank(port, results):
-    """NCCL, the production backend, at world size 1: the SwAV step under
-    the mesh against the step without data parallel, in one process."""
+    """NCCL, the production backend, at world size 1: an all-reduce and a
+    broadcast on the card (at one rank the mesh's own collectives return
+    at once), then ``SwAVClustering.pretrain``'s update with
+    ``data_parallel`` against the one without it, in one process."""
     try:
         sys.path.insert(0, ROOT)
+        import torch.distributed as dist
+
         from ganecdotes_torch import resolve_device
         from ganecdotes_torch.parallel import mesh as pm
         from ganecdotes_torch.selfsup.lars import tree_leaves
 
         dev = resolve_device("cuda")
         pm.distributed_init(f"tcp://localhost:{port}", 1, 0, backend="nccl")
-        mesh = pm.make_mesh(device=dev)
-        a, _, la = _swav_dp_step(dev, mesh, lambda d: [d[0]])
-        b, _, lb = _swav_dp_step(dev, None, lambda d: d[0])
-        equal = bool(torch.equal(la, lb)) and all(
-            torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
-        results.put((0, True, {"bit_equal": equal, "loss": float(la),
-                               "backend": torch.distributed.get_backend()}))
+        x = torch.arange(4, dtype=torch.float32, device=dev)
+        y = x.clone()
+        dist.all_reduce(y)
+        dist.broadcast(y, src=0)
+        runs = []
+        for data_parallel in (True, False):
+            swav = _dp_swav(dev, None, data_parallel)
+            swav.pretrain()
+            runs.append((swav.loss_history[0], tree_leaves(swav.ssl_params)))
+            del swav
+        (la, a), (lb, b) = runs
+        equal = la == lb and all(torch.equal(u, v) for u, v in zip(a, b))
+        results.put((0, True, {"bit_equal": equal, "collectives": bool(torch.equal(x, y)),
+                               "loss": la, "backend": dist.get_backend()}))
     except Exception:  # the parent raises it, with the rank's traceback
         results.put((0, False, traceback.format_exc()))
     finally:
@@ -3799,27 +3900,30 @@ def data_parallel(dev):
     DP_WORLD ranks over gloo on the one card, then NCCL at world size 1.
     These runs show that the collective code runs on the card, not how it
     scales: there is one card."""
-    from ganecdotes_torch.pipeline.serving import OneShotServer
+    import shutil
+
     from ganecdotes_torch.selfsup.lars import tree_leaves
 
     root = os.path.join(ROOT, "build", "chip_smoke_dp")
-    os.makedirs(root, exist_ok=True)
+    shutil.rmtree(root, ignore_errors=True)
+    for sub in ("pipe_one", "pipe_ranks"):
+        _dp_swav_params(os.path.join(root, sub))
     ref = {}
     t0 = time.perf_counter()
-    params, _, loss = _swav_dp_step(dev, None, lambda d: d)  # both samples
+    params, loss = _swav_sample_batch_step(dev)
     ref["swav_loss"] = float(loss)
     ref["swav_params"] = [t.cpu() for t in tree_leaves(params)]
     del params
-    gan = _gan_dp_iteration(dev, False, os.path.join(root, "gan_one"))
-    ref["gan_grads"] = {k: [g.cpu() for g in v] for k, v in gan.first_grads.items()}
-    ref["gan_losses"] = gan_losses(gan, 0)
+    gan, _ = _gan_dp_iteration(dev, False, os.path.join(root, "gan_one"))
+    ref["gan"] = _gan_record(gan)
     del gan
     torch.cuda.empty_cache()
-    server = OneShotServer(device=dev, seed=0)
-    w = _latents(server, 300)
-    img, labels, _ = server.serve(w, input_is_latent=True)
-    ref.update(serve_w=w.cpu(), serve_img=img.cpu(), serve_labels=labels.cpu())
-    del server, img, labels
+    pipe = _dp_pipeline(dev, os.path.join(root, "pipe_one"))
+    check(pipe.mesh is None, "the one-process pipeline has a mesh")
+    pipe.predict_tests()
+    ref.update(pipe_images=torch.from_numpy(pipe.test_images), pipe_labels=pipe.pred_labels)
+    one_request_ms = [t * 1e3 for t in pipe.inference_times]
+    del pipe
     torch.cuda.empty_cache()
     ref_s = time.perf_counter() - t0
     ref_path = os.path.join(root, "reference.pt")
@@ -3834,33 +3938,46 @@ def data_parallel(dev):
     for r, out in enumerate(ranks):
         print(f"  rank {r}: swav {json.dumps(out['swav'])}; gan grads "
               f"{json.dumps(out['gan']['grad_err'])}, losses "
-              f"{json.dumps(out['gan']['loss_errs'])}; serve {json.dumps(out['serve'])}; "
-              f"launches {json.dumps(out['launches'])}", flush=True)
+              f"{json.dumps(out['gan']['loss_errs'])}, ADA state equal "
+              f"{out['gan']['ada_equal']}, mean path length "
+              f"{out['gan']['mean_path_length_rel']:.3e}; predict "
+              f"{json.dumps(out['predict'])}; launches {json.dumps(out['launches'])}",
+              flush=True)
         check(out["swav"]["loss_rel"] <= STEP_LOSS_RTOL, f"rank {r} SwAV loss: {out['swav']}")
         check(out["swav"]["param_err"] <= STEP_PARAM_TOL, f"rank {r} SwAV params: {out['swav']}")
+        check(out["swav"]["files"] == (["swav_params.npz"] if r == 0 else []),
+              f"rank {r} wrote {out['swav']['files']}")
         for kind, err in out["gan"]["grad_err"].items():
-            check(err <= GAN_GRAD_TOL[kind], f"rank {r} {kind} gradients: {err}")
+            check(err <= DP_GRAD_TOL[kind], f"rank {r} {kind} gradients: {err}")
+        check(set(out["gan"]["grad_err"]) == set(DP_GRAD_TOL),
+              f"rank {r} step kinds: {sorted(out['gan']['grad_err'])}")
         for k, err in out["gan"]["loss_errs"].items():
-            check(err <= (GAN_LOSS_TOL if k == "d" else GAN_DRIFT_TOL),
-                  f"rank {r} loss {k}: {err}")
-        check(out["serve"]["image_err"] <= IMAGE_TOL, f"rank {r} image: {out['serve']}")
-        check(out["serve"]["label_agreement"] >= LABEL_AGREEMENT,
-              f"rank {r} labels: {out['serve']}")
+            check(err <= DP_LOSS_TOL, f"rank {r} loss {k}: {err}")
+        check(out["gan"]["ada_equal"], f"rank {r}: ADA's state differs")
+        check(out["gan"]["mean_path_length_rel"] <= DP_LOSS_TOL,
+              f"rank {r} mean path length: {out['gan']['mean_path_length_rel']}")
+        check(out["predict"]["image_err"] <= IMAGE_TOL, f"rank {r} images: {out['predict']}")
+        check(out["predict"]["label_agreement"] >= LABEL_AGREEMENT,
+              f"rank {r} labels: {out['predict']}")
         for case, kernels in (("swav", PRETRAIN_KERNELS),
                               ("gan", SERVING_KERNELS + RESAMPLE_KERNELS
                                + ("fused_leaky_relu_bwd",)),
-                              ("serve", ("upfirdn2d", "styled_conv3x3",
-                                         "styled_up_conv3x3"))):
+                              ("predict", ("upfirdn2d", "styled_conv3x3",
+                                           "styled_up_conv3x3"))):
             for k in kernels:
                 check(out["launches"][case][k] > 0, f"rank {r} {case}: {k} not launched")
     check(len({out["gan"]["digest"] for out in ranks}) == 1,
-          "the ranks' GAN weights differ after the iteration")
-    print(f"  nccl world size 1: {json.dumps(nccl)}; one-process references "
+          "the ranks' GAN weights differ after the second iteration")
+    check(os.path.exists(os.path.join(root, "pipe_ranks", "tests", "label_predictions.npy")),
+          "rank 0 did not write label_predictions.npy")
+    print(f"  one process's test requests {[round(t, 3) for t in one_request_ms]} ms; "
+          f"nccl world size 1: {json.dumps(nccl)}; one-process references "
           f"{ref_s:.3f} s, {DP_WORLD} ranks {ranks_s:.3f} s, nccl {nccl_s:.3f} s",
           flush=True)
-    check(nccl["bit_equal"], f"the NCCL world-size-1 step differs: {nccl}")
-    return {"ranks": ranks, "nccl": nccl, "reference_s": ref_s,
-            "ranks_s": ranks_s, "nccl_s": nccl_s}
+    check(nccl["collectives"], f"NCCL's all-reduce or broadcast is wrong: {nccl}")
+    check(nccl["bit_equal"], f"the NCCL world-size-1 update differs: {nccl}")
+    return {"ranks": ranks, "nccl": nccl, "one_request_ms": one_request_ms,
+            "reference_s": ref_s, "ranks_s": ranks_s, "nccl_s": nccl_s}
 
 
 def phase15(dev, flat_request_ms):
@@ -3874,9 +3991,10 @@ def phase15(dev, flat_request_ms):
     exported = export_phase(dev, hier_pipe)
     del hier_pipe
     torch.cuda.empty_cache()
-    print(f"data parallel ({DP_WORLD} ranks on the one card over gloo: a SwAV "
-          f"step, a BagGAN iteration at B = {GAN_B}, a request of 8; then NCCL "
-          "at world size 1):", flush=True)
+    print(f"data parallel ({DP_WORLD} ranks on the one card over gloo: "
+          "SwAVClustering.pretrain for one update, a BagGAN iteration at B = "
+          f"{GAN_B} at lr 0 then one at the config's, the evaluate path's test "
+          "requests of 8; then NCCL at world size 1):", flush=True)
     dp = data_parallel(dev)
     seconds = time.perf_counter() - t0
     print(f"  phase 15: {seconds:.1f} s", flush=True)

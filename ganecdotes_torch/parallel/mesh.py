@@ -9,7 +9,8 @@ the code calls the collectives itself:
   device;
 * ``shard_batch`` is the rank's slice of a global batch, ``replicate``
   broadcasts rank 0's tensors, ``gather_batch`` puts the slices back
-  together on every rank;
+  together on every rank, and ``data_parallel`` runs a request over the
+  ranks with all three (the pipeline's test requests go through it);
 * ``all_reduce_sum`` and ``all_gather`` are differentiable to any order
   (each one's backward is again an all-reduce), for statistics over the
   global batch inside a step that is differentiated twice (the
@@ -23,6 +24,7 @@ gather is an all-reduce of the slices placed in zeros, which is exact. The
 backend is NCCL on CUDA and gloo on the CPU unless the caller names one.
 """
 
+import functools
 import os
 from typing import NamedTuple, Optional
 
@@ -183,12 +185,26 @@ def average_gradients(mesh, grads):
     return out
 
 
+def data_parallel(mesh, make_infer, params_tree):
+    """``make_infer(params)``'s request, run over the ranks: rank 0's
+    ``params_tree`` is broadcast once and handed to ``make_infer``, and the
+    function returned takes a global batch of latents, computes the rank's
+    slice and gathers each output (a tensor, or a tuple of tensors with the
+    batch leading, None staying None) on every rank."""
+    infer = make_infer(replicate(mesh, params_tree))
+
+    def run(latents):
+        out = infer(shard_batch(mesh, latents))
+        if isinstance(out, (tuple, list)):
+            return type(out)(None if o is None else gather_batch(mesh, o) for o in out)
+        return gather_batch(mesh, out)
+
+    return run
+
+
 def data_parallel_infer(mesh, infer_fn, params_tree, latents):
     """``infer_fn(params, latents)`` over the global batch ``latents``, each
-    rank computing its slice with rank 0's params; the outputs (a tensor or
-    a tuple of them with the batch leading) gathered on every rank."""
-    params = replicate(mesh, params_tree)
-    out = infer_fn(params, shard_batch(mesh, latents))
-    if isinstance(out, (tuple, list)):
-        return type(out)(gather_batch(mesh, o) for o in out)
-    return gather_batch(mesh, out)
+    rank computing its slice with rank 0's params; the outputs gathered on
+    every rank (``data_parallel``)."""
+    return data_parallel(mesh, lambda params: functools.partial(infer_fn, params),
+                         params_tree)(latents)

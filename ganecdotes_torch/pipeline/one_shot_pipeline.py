@@ -66,12 +66,7 @@ from ganecdotes_torch.models.stylegan2.generator import (
 )
 from ganecdotes_torch.ops.interp import resize_nearest
 from ganecdotes_torch.ops.opset import KERNELS
-from ganecdotes_torch.parallel.mesh import (
-    gather_batch,
-    make_mesh,
-    replicate,
-    shard_batch,
-)
+from ganecdotes_torch.parallel.mesh import data_parallel, make_mesh
 from ganecdotes_torch.pipeline.serving import (
     ConcatServer,
     KMeansServer,
@@ -625,10 +620,16 @@ class OneShotPipeline:
 
         mesh = self.mesh
         batch = MAX_TEST_BATCH
-        if mesh is not None:
+        if mesh is None:
+            infer = self._make_infer_fn()
+        else:
             batch = mesh.size * max(1, MAX_TEST_BATCH // mesh.size)
-            self.segmentor_params = replicate(mesh, self.segmentor_params)
-        infer = self._make_infer_fn()
+
+            def make_infer(params):  # rank 0's trained head, on every rank
+                self.segmentor_params = params
+                return self._make_infer_fn()
+
+            infer = data_parallel(mesh, make_infer, self.segmentor_params)
         pred_labels, test_images, inference_times = [], [], []
         # (offset, img 0, cluster map 0 or None, labels 0)
         self._request_firsts = []
@@ -640,13 +641,8 @@ class OneShotPipeline:
             if pad > 0:
                 chunk_lat = np.concatenate(
                     [chunk_lat, np.repeat(chunk_lat[-1:], pad, axis=0)], 0)
-            lat = torch.as_tensor(chunk_lat)
-            if mesh is None:
-                img, pred, z0 = infer(lat)
-            else:  # z0: sample 0's cluster map, rank 0's
-                img, pred, z0 = infer(shard_batch(mesh, lat).to(self.device))
-                img, pred = gather_batch(mesh, img), gather_batch(mesh, pred)
-                z0 = None if z0 is None else gather_batch(mesh, z0)[:1]
+            # z0: sample 0's cluster map (under data parallel, rank 0's)
+            img, pred, z0 = infer(torch.as_tensor(chunk_lat))
             pred = pred.cpu()
             inference_times.append(time.perf_counter() - t0)
             pred_labels.append(pred.numpy())

@@ -45,7 +45,9 @@ kernels and its reductions), each kernel in the innermost range it starts
 in (as chip_smoke.py splits them: ADA's forward in ``gan.ada``).
 
 The turns of a round run base, new, new, base. One JSON line per turn, then
-the medians per checkout and the ratio new / base.
+the medians per checkout and the ratio new / base. ``--paths-only`` times
+only the two host-bound paths, PATHS_ONLY_REQUESTS requests a turn, so that
+more rounds fit in a call.
 
     python3 kernel_ab.py --variants DIR [--out PATH]
 
@@ -59,6 +61,15 @@ without a sync) and its error against the plain version, the wrapper's
 and the library call's device time under torch.profiler: the
 measurement the wrapper's choice (``variant``,
 ``narrow_splits``) is read from.
+
+    python3 kernel_ab.py --ops-route DIR [--out PATH]
+
+times, in one checkout, the live ffhq-256 server's request of 8 on the
+wrappers (``KERNELS``, what the live paths run) against the same server
+with kernels 1-4 through their ``torch.library`` custom ops
+(``ops.library.LIBRARY``, what an exported program runs), request by
+request in one process, and each of the four's host time a call both ways:
+what the custom ops' dispatch would cost the live server.
 """
 
 import argparse
@@ -70,6 +81,7 @@ import sys
 import time
 
 CONVS = ("styled_conv3x3", "styled_up_conv3x3")
+PATHS_ONLY_REQUESTS = 20
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -361,7 +373,80 @@ def lean_variants(root, out_path):
             json.dump({"card": smi, "rows": rows}, f, indent=1)
 
 
-def worker(root, cases):
+def ops_route(root, out_path, requests=40):
+    """In one checkout: phase 4's request of 8 through the live server on
+    ``KERNELS`` and through the same server on ``ops.library.LIBRARY``
+    (kernels 1-4 through their custom ops, as an exported program calls
+    them), the two alternating request by request (host clock, the card
+    synced; which goes first alternates too), their labels compared; and
+    kernels 1-4's host time a call through the wrapper and through the
+    op (``host_us``) at one shape of the request each."""
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    from ganecdotes_torch import resolve_device
+    from ganecdotes_torch.ops import fused_act, library, modulated_conv
+    from ganecdotes_torch.ops import upfirdn2d as fir
+    from ganecdotes_torch.ops._build import load
+    from ganecdotes_torch.ops.opset import KERNELS
+    from ganecdotes_torch.pipeline.serving import OneShotServer
+
+    dev = resolve_device("cuda")
+    load()
+    server = OneShotServer(device=dev, seed=0)
+    routes = (("kernels", KERNELS), ("library", library.LIBRARY))
+    ms = {name: [] for name, _ in routes}
+    labels_equal = True
+    for i in range(requests + 1):  # request 0 of each: warm-up
+        z = torch.randn(8, 512, generator=torch.Generator().manual_seed(100 + i))
+        labels = []
+        for name, ops in (routes if i % 2 else routes[::-1]):
+            server.ops = ops
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            labels.append(server.serve(z)[1])
+            torch.cuda.synchronize()
+            if i:
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+        labels_equal &= bool(torch.equal(*labels))
+    server.ops = KERNELS
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x, b = torch.randn(8, 512, generator=gen, device=dev), torch.randn(512, generator=gen,
+                                                                       device=dev)
+    rgb = torch.randn(8, 128, 128, 3, generator=gen, device=dev)
+    conv = cs.styled_inputs((8, 64, 64, 512, 512), False, gen, dev)
+    up = cs.styled_inputs((8, 64, 64, 512, 256), True, gen, dev)
+    calls = {
+        "fused_leaky_relu (8, 512)": (lambda: fused_act.fused_leaky_relu(x, b),
+                                      lambda: library.fused_leaky_relu(x, b)),
+        "upfirdn2d upsample (8, 128, 128, 3)": (
+            lambda: fir.upsample_2d(rgb),
+            lambda: fir.upsample_2d(rgb, impl=library.upfirdn2d)),
+        "styled_conv3x3 (8, 64, 64, 512, 512)": (
+            lambda: modulated_conv.styled_conv3x3(*conv),
+            lambda: library.styled_conv3x3(*conv)),
+        "styled_up_conv3x3 (8, 64, 64, 512, 256)": (
+            lambda: modulated_conv.styled_up_conv3x3(*up),
+            lambda: library.styled_up_conv3x3(*up)),
+    }
+    host = {case: {"wrapper_us": host_us(w), "op_us": host_us(o)}
+            for case, (w, o) in calls.items()}
+    diffs = [lib - ker for ker, lib in zip(ms["kernels"], ms["library"])]
+    out = {"requests": requests, "labels_equal": labels_equal,
+           "request_ms": {name: statistics.median(v) for name, v in ms.items()},
+           "library_minus_kernels_ms": {
+               "median": statistics.median(diffs),
+               "quartiles": statistics.quantiles(diffs, n=4)},
+           "host_us": host, "all_request_ms": ms}
+    print(json.dumps(out), flush=True)
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(out, f, indent=1)
+
+
+def worker(root, cases, paths_only=False):
     sys.path.insert(0, root)
     import torch
 
@@ -372,6 +457,9 @@ def worker(root, cases):
 
     dev = resolve_device("cuda")
     load()
+    if paths_only:
+        print(json.dumps(paths(cs, dev, requests=PATHS_ONLY_REQUESTS)), flush=True)
+        return
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
     for name, shapes in cs.path_shapes().items():
@@ -411,16 +499,25 @@ def main():
     parser.add_argument("--out", help="write the turns and the summary to this JSON file")
     parser.add_argument("--variants", metavar="DIR",
                         help="time every lean StyledConv variant in this checkout")
+    parser.add_argument("--ops-route", metavar="DIR",
+                        help="time the live server on the wrappers against "
+                             "the custom ops in this checkout")
+    parser.add_argument("--paths-only", action="store_true",
+                        help="time only the request of 8 and the SwAV step "
+                             f"({PATHS_ONLY_REQUESTS} requests a turn)")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     parser.add_argument("--cases", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.variants:
         lean_variants(os.path.abspath(args.variants), args.out)
         return 0
+    if args.ops_route:
+        ops_route(os.path.abspath(args.ops_route), args.out)
+        return 0
     if not (args.base and args.new):
-        parser.error("give BASE_DIR and NEW_DIR, or --variants DIR")
+        parser.error("give BASE_DIR and NEW_DIR, --variants DIR or --ops-route DIR")
     if args.worker:
-        worker(os.path.abspath(args.worker), json.loads(args.cases))
+        worker(os.path.abspath(args.worker), json.loads(args.cases), args.paths_only)
         return 0
     cases = json.dumps(fir_cases())
     turns = []
@@ -428,8 +525,9 @@ def main():
         for side in ("base", "new", "new", "base"):
             root = os.path.abspath(getattr(args, side))
             res = subprocess.run([sys.executable, os.path.abspath(__file__), "x", "x",
-                                  "--worker", root, "--cases", cases], cwd=root,
-                                 capture_output=True, text=True)
+                                  "--worker", root, "--cases", cases]
+                                 + (["--paths-only"] if args.paths_only else []),
+                                 cwd=root, capture_output=True, text=True)
             if res.returncode != 0:
                 sys.stderr.write(res.stderr[-8000:])
                 raise SystemExit(f"the {side} turn in {root} failed ({res.returncode})")
@@ -450,6 +548,11 @@ def main():
                 vals = [t[kernel]["cases_ms"][case] for t in turns if t["side"] == side]
                 cases_ms[case][side] = None if None in vals else statistics.median(vals)
         summary[kernel]["cases_ms"] = cases_ms
+    if args.paths_only:
+        turns_ms = {path: {side: [t[path]["ms"] for t in turns if t["side"] == side]
+                           for side in ("base", "new")} for path in ("serve", "swav_step")}
+        summary["turns_ms"] = turns_ms
+        return _write(args.out, turns, summary)
     summary["gan"]["step_ms"] = {
         kind: {side: statistics.median(t["gan"]["step_ms"][kind] for t in turns
                                        if t["side"] == side) for side in ("base", "new")}
@@ -460,10 +563,14 @@ def main():
                       for side in ("base", "new")}
                 for key in turns[0]["gan"]["ranges"][label]}
         for label in turns[0]["gan"]["ranges"]}
+    return _write(args.out, turns, summary)
+
+
+def _write(out_path, turns, summary):
     print(json.dumps({"summary": summary}))
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with open(out_path, "w") as f:
             json.dump({"turns": turns, "summary": summary}, f, indent=1)
     return 0
 
