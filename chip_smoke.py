@@ -3325,10 +3325,20 @@ EXPORT_IMAGE_TOL = 1e-6  # artifact vs live server, of max(1, max |live|)
 DP_WORLD = 2  # ranks sharing the one card (gloo)
 DP_TIMEOUT_S = 600
 DP_SWAV_SEED = 16  # the data-parallel pipeline's swav_params.npz
-# ranks against one process on the global batch, at a learning rate of 0
+# ranks against one process on the global batch at a learning rate of 0
 # (every step kind's gradients at the same weights): ||g - one|| / ||one||
-DP_GRAD_TOL = {"d": 4e-4, "r1": 1e-3, "g": 1e-3, "ppl": 1e-3}
-DP_LOSS_TOL = 1e-5  # each loss and the mean path length, relative
+# over the step's tensors, about 10x the larger of two H100 runs' readings
+# of the two halves' other summation order (PERF.md, PR 13): D 1.18e-4,
+# R1 1.9e-5, G 3.0e-4, PPL 3.2e-4. A per-rank statistic (the minibatch
+# standard deviation, the PPL mean, ADA's sums) moves them by far more.
+DP_GRAD_TOL = {"d": 1.2e-3, "r1": 2e-4, "g": 3e-3, "ppl": 3.2e-3}
+# the losses, |rank - one| / max(1, |one|), at phase 7's first-loss gate
+# (read 0 to 7.3e-7); the PPL loss and, relative, the mean path length at
+# about 10x their larger readings (3.5e-5 and 2.8e-5, varying between runs:
+# the path lengths of 5 against 10 syntheses, not batch-invariant to the
+# last bit)
+DP_LOSS_TOL = {"d": 1e-5, "d_out": 1e-5, "d_ref": 1e-5, "g_gan": 1e-5, "d_r1": 1e-5,
+               "g_ppl": 3.5e-4, "mean_path_length": 2.8e-4}
 
 
 def hier_files(pre):
@@ -3943,6 +3953,11 @@ def data_parallel(dev):
               f"{out['gan']['mean_path_length_rel']:.3e}; predict "
               f"{json.dumps(out['predict'])}; launches {json.dumps(out['launches'])}",
               flush=True)
+    print(f"  one process's test requests {[round(t, 3) for t in one_request_ms]} ms; "
+          f"nccl world size 1: {json.dumps(nccl)}; one-process references "
+          f"{ref_s:.3f} s, {DP_WORLD} ranks {ranks_s:.3f} s, nccl {nccl_s:.3f} s",
+          flush=True)
+    for r, out in enumerate(ranks):
         check(out["swav"]["loss_rel"] <= STEP_LOSS_RTOL, f"rank {r} SwAV loss: {out['swav']}")
         check(out["swav"]["param_err"] <= STEP_PARAM_TOL, f"rank {r} SwAV params: {out['swav']}")
         check(out["swav"]["files"] == (["swav_params.npz"] if r == 0 else []),
@@ -3952,9 +3967,9 @@ def data_parallel(dev):
         check(set(out["gan"]["grad_err"]) == set(DP_GRAD_TOL),
               f"rank {r} step kinds: {sorted(out['gan']['grad_err'])}")
         for k, err in out["gan"]["loss_errs"].items():
-            check(err <= DP_LOSS_TOL, f"rank {r} loss {k}: {err}")
+            check(err <= DP_LOSS_TOL[k], f"rank {r} loss {k}: {err}")
         check(out["gan"]["ada_equal"], f"rank {r}: ADA's state differs")
-        check(out["gan"]["mean_path_length_rel"] <= DP_LOSS_TOL,
+        check(out["gan"]["mean_path_length_rel"] <= DP_LOSS_TOL["mean_path_length"],
               f"rank {r} mean path length: {out['gan']['mean_path_length_rel']}")
         check(out["predict"]["image_err"] <= IMAGE_TOL, f"rank {r} images: {out['predict']}")
         check(out["predict"]["label_agreement"] >= LABEL_AGREEMENT,
@@ -3970,10 +3985,6 @@ def data_parallel(dev):
           "the ranks' GAN weights differ after the second iteration")
     check(os.path.exists(os.path.join(root, "pipe_ranks", "tests", "label_predictions.npy")),
           "rank 0 did not write label_predictions.npy")
-    print(f"  one process's test requests {[round(t, 3) for t in one_request_ms]} ms; "
-          f"nccl world size 1: {json.dumps(nccl)}; one-process references "
-          f"{ref_s:.3f} s, {DP_WORLD} ranks {ranks_s:.3f} s, nccl {nccl_s:.3f} s",
-          flush=True)
     check(nccl["collectives"], f"NCCL's all-reduce or broadcast is wrong: {nccl}")
     check(nccl["bit_equal"], f"the NCCL world-size-1 update differs: {nccl}")
     return {"ranks": ranks, "nccl": nccl, "one_request_ms": one_request_ms,

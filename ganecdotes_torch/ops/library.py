@@ -20,8 +20,11 @@ tensor picks one, as it picks between a wrapper's two paths; a failed
 launch raises.
 
 ``LIBRARY`` is ``KERNELS`` with these four through the ops: the op set a
-program to export runs on. The live servers keep ``KERNELS``: the ops'
-dispatch adds host time a call. Importing this module registers the ops;
+program to export runs on. The live servers keep ``KERNELS``, which launch
+the same C entries without the dispatcher: through the ops, the host time
+a call is 38-60 us longer and the ffhq-256 request of 8 0.94 ms (3%)
+slower on an H100 (``kernel_ab.py --ops-route``, the request where the card
+waits on the host). Importing this module registers the ops;
 a loaded program needs them registered before it runs
 (``runtime.export.load_exported`` imports it).
 """

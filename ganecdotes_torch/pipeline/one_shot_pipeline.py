@@ -613,7 +613,8 @@ class OneShotPipeline:
         In a process group of more than one rank (``torchrun``,
         ``parallel.mesh.distributed_init``) each request of ranks x
         ``MAX_TEST_BATCH // ranks`` latents is split over the ranks, with
-        rank 0's trained head, and gathered (JAX's sharded test batch)."""
+        rank 0's trained head, and gathered (JAX's sharded test batch),
+        by ``parallel.mesh.data_parallel``."""
         self.test_dir = os.path.join(self.out_dir, "tests")
         self.test_img_dir = os.path.join(self.test_dir, "images")
         os.makedirs(self.test_img_dir, exist_ok=True)

@@ -295,6 +295,78 @@ def test_gan_iteration_over_two_ranks_matches_one_process(tmp_path):
     assert outs[1]["ckpt"] == []
 
 
+def test_gan_steps_over_two_ranks_match_jax_on_its_mesh(tmp_path):
+    """Each BagGAN-HQ step kind over two ranks (B = 8 as 4 + 4, so the
+    minibatch standard deviation's strided groups span both ranks) against
+    the JAX package directly: its step losses (tests/test_torch_gan.py's
+    ``_jax_step_losses``, train.py:392-581) jitted with the batch sharded
+    over a 2-device mesh, as its data-parallel trainer jits its steps
+    (train.py:644-680), on the same weights and the draws rebuilt from the
+    same keys; tests/test_torch_gan.py's tolerances."""
+    import test_torch_gan as tg
+
+    from ganecdotes_tpu.models.stylegan2 import discriminator as jd
+    from ganecdotes_tpu.models.stylegan2 import generator as jg
+
+    batch, size = 8, tg.SIZE
+    g_params, meta = tg._jax_generator()
+    d_tree = tg.disc_tree(seed=4, widths=tg.WIDTHS)
+    rng = np.random.RandomState(5)
+    real = rng.randn(batch, size, size, 3).astype(np.float32)
+    z = rng.randn(2, batch, tg.LAT).astype(np.float32)
+    inject = 3
+    ppl_z = rng.randn(batch // 2, tg.LAT).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(6), 4)
+    cfg = tg._cfg(tmp_path, batch_size=batch, lr=0.0)
+
+    @jax.jit
+    def aug(key):  # augment's (G, C) for the global batch (ada.py:317, :282)
+        k1, k2 = jax.random.split(key)
+        return (jnp.linalg.inv(jada.sample_affine(k1, tg.P, batch, size, size)),
+                jada.sample_color(k2, tg.P, batch))
+
+    noise = jax.jit(lambda k: jg.make_noise(jg.generator_meta(size), k, batch))
+    kd, kr, kg, kp = keys
+    kz, kdd = jax.random.split(kd)
+    k1, k2, k3 = jax.random.split(kdd, 3)
+    kzg, ka = jax.random.split(kg)
+    _, kn = jax.random.split(kp)
+    draws = [list(z), inject, list(noise(kz)), aug(k1), aug(k2),
+             jax.random.uniform(k3, (batch, 1, 1, 1)), aug(kr), list(noise(kzg)),
+             aug(ka), ppl_z, jax.random.normal(kn, (batch // 2, size, size, 3)) / size]
+    draws = jax.tree.map(lambda a: np.array(a, np.float32), draws)
+    draws[1] = inject
+    setup = dict(cfg=vars(cfg), real=real, draws=draws, d_tree=d_tree,
+                 g_tree=jax.tree.map(np.asarray, g_params))
+    outs = torch_ranks.run_ranks(torch_ranks.gan_steps, WORLD, setup)
+
+    mesh = jmesh.make_mesh(WORLD)
+    repl, bsh = jmesh.batch_shardings(mesh)
+    d_meta = jd.discriminator_meta(size)
+
+    def step_loss(kind):
+        i = ("d", "r1", "g", "ppl").index(kind)
+
+        def loss(params, others, key, real_, z0, z1, pz):
+            fns = tg._jax_step_losses(meta, d_meta, cfg, real_, [z0, z1], inject, pz)
+            return fns[i](params, *others, key)
+
+        return jax.jit(jax.value_and_grad(loss),
+                       in_shardings=(repl, repl, repl, bsh, bsh, bsh, bsh))
+
+    dp = jax.tree.map(jnp.asarray, d_tree)
+    batched = [jnp.asarray(a) for a in (real, z[0], z[1], ppl_z)]
+    want = {"d": step_loss("d")(dp, (g_params,), kd, *batched),
+            "r1": step_loss("r1")(dp, (), kr, *batched),
+            "g": step_loss("g")(g_params, (dp,), kg, *batched),
+            "ppl": step_loss("ppl")(g_params, (), kp, *batched)}
+    for out in outs:
+        for kind, (loss, grads) in want.items():
+            np.testing.assert_allclose(out["losses"][kind], float(loss), **tg.LOSS_TOL)
+            names = out["names"]["d" if kind in ("d", "r1") else "g"]
+            tg._assert_grads_close(names, out["grads"][kind], grads, kind)
+
+
 def test_minibatch_stddev_of_the_global_batch():
     """The statistic over ranks equals one process's: the same function on
     the global batch, each rank's rows kept. The groups are strided (rows

@@ -189,6 +189,38 @@ def gan_iteration(rank, world, setup):
     return _gan_result(gan)
 
 
+def gan_steps(rank, world, setup):
+    """Each BagGAN-HQ step kind once with ``data_parallel``, on the JAX
+    nets' weights (the discriminator narrowed to its tree) and the global
+    batch's draws, at a learning rate of 0 so that every kind runs at those
+    weights: each kind's loss, its gradients averaged over the ranks, and
+    the parameter names in their order."""
+    from ganecdotes_torch.gan import train
+    from ganecdotes_torch.models.stylegan2 import convert
+
+    cfg = types.SimpleNamespace(**dict(setup["cfg"], data_parallel=True,
+                                       checkpoint_dir=os.path.join(
+                                           setup["cfg"]["checkpoint_dir"], str(rank))))
+    gan = train.BagGANHQ(cfg, device="cpu")
+    assert gan.mesh is not None and gan.mesh.size == world
+    gan.netG.load_state_dict(convert.tree_to_state(setup["g_tree"]))
+    gan.netD = convert.from_jax_discriminator_params(setup["d_tree"])
+    gan.d_tensors = list(gan.netD.parameters())
+    gan.optimizer_d = train.Adam(gan.d_tensors, 0.0)
+    gan.keep_first_grads = True
+    gan.set_input(data_sample={"ct": setup["real"]}, iter_no=0,
+                  draws=train.BagGANDraws(*[_tensors(f) for f in setup["draws"]]))
+    real, d = gan.ref_image, gan.draws
+    losses = {"d": gan.d_step(real, d)[0], "r1": gan.r1_step(real, d),
+              "g": gan.g_step(d),
+              "ppl": gan.ppl_step(d)[0] * cfg.ppl_lambda * cfg.g_reg_every}
+    g_names = [n for n, _ in gan.netG.named_parameters()]
+    g_names += [f"noises.{i}" for i in range(len(gan.netG.noises))]
+    return dict(losses={k: float(v) for k, v in losses.items()},
+                grads={k: [_np(g) for g in v] for k, v in gan.first_grads.items()},
+                names={"d": [n for n, _ in gan.netD.named_parameters()], "g": g_names})
+
+
 def _tensors(v):
     if isinstance(v, np.ndarray):
         return torch.from_numpy(v)
