@@ -6,7 +6,8 @@ other model configs from reference-format checkpoints, the BagGAN
 training CLI into the pidray evaluate path, the labelling GUI's session,
 serving with non-linear projections and bilinear features, SwAV's local
 loss and its snapshots, the hierarchical k-means with the belief encoding,
-the serving export and data parallel over ranks, on one GPU.
+the serving export, data parallel over ranks, and bfloat16 serving and
+training with the fused multi-iteration chunk, on one GPU.
 
 Run from the repository root on a machine with one CUDA card and nvcc
 (found through CUDA_HOME, PATH or /usr/local/cuda):
@@ -171,6 +172,30 @@ Phases (any failure exits non-zero before the last line):
      then NCCL at world size 1: an all-reduce and a broadcast on the card,
      and the pretraining update with data_parallel bit-equal to the one
      without.
+ 16. bfloat16: (a) every kernel's bf16 instance (kernels 1, 1-bwd, 2, 3,
+     4, 6a, 6b) at the bf16 request's shapes (ffhq-256, B = 8) and the bf16
+     training cell's (pidray, B = 20: the rosinality and lean maps'
+     StyledConvs, D's blurs and activations, ADA's passes), each launching
+     its bf16 instance only, held with its plain bf16 version against the
+     float32 plain version on the same bf16 inputs: the kernel's error
+     within the plain bf16 version's plus 2^-8 * max(1, max |ref|), timed
+     beside its plain version, one bf16 library call and its bound (the
+     StyledConvs' at 989 TFLOP/s bf16); the build's SASS must hold bf16
+     HMMA instructions in both StyledConv bf16 kernels; (b) phase 4's
+     server with inference_dtype = 'bfloat16': 3 requests of 8 folded and
+     unfused, no float32 StyledConv or FIR launched, labels against the
+     float32 server (>= 95%) and the plain bf16 server (flipping at most
+     twice the pixels the plain bf16 server flips against float32), one
+     exported bf16 request against the live one; (c) phase 7's run with
+     compute_dtype = 'bfloat16', kernels and plain ops: every bf16 kernel
+     launched, parameters and Adam moments float32, the gates set from
+     bf16 (twice the plain bf16 run's distance to phase 7's float32 plain
+     run, or phase 7's gate where larger); (d) cli/train_baggan.py at the
+     pidray lean map with compute_dtype = 'bfloat16', 6 iterations with
+     --chunk 4 and twice with --chunk 1 under cuDNN's deterministic
+     algorithms: the weights bit-equal, or else the final losses within
+     phase 7's drift gate (or twice the two single-stepped runs' own drift,
+     where that is larger). The plain bf16 run of (c) takes 2 iterations.
 Phases 13 and 14 run with matplotlib, cv2, sklearn and PIL unimportable
 (``host_only_refused``): their paths need none of them.
 
@@ -240,6 +265,11 @@ KERNELS_TABLE = {
     "resample_rows_t": ("ganecdotes_torch/csrc/affine_warp.cu",
                         "ganecdotes_tpu/ops/affine_warp_pallas.py:328"),
 }
+# each kernel's bf16 instance (phase 16): the same source and TPU kernel
+# (the Pallas kernels are dtype-generic), the StyledConvs' bodies on
+# csrc/bf16_mma.cuh
+KERNELS_TABLE.update({k + "_bf16": v for k, v in list(KERNELS_TABLE.items())
+                      if k != "sinkhorn_knopp"})
 SERVING_KERNELS = ("fused_leaky_relu", "upfirdn2d", "styled_conv3x3",
                    "styled_up_conv3x3")
 PRETRAIN_KERNELS = SERVING_KERNELS + ("sinkhorn_knopp",)
@@ -1496,13 +1526,16 @@ def grouped_convs_per_step(gan):
         del gan._step
 
 
-def run_gan(dev, ops):
-    """BagGANHQ at the full pidray config for GAN_ITERS iterations from seed
-    0; the trainer, per-iteration host ms, losses and the grouped convs on
-    the card per step kind."""
+def run_gan(dev, ops, iters=None, **over):
+    """BagGANHQ at the full pidray config (``over``: config values on top)
+    for ``iters`` (default GAN_ITERS) iterations from seed 0; the trainer,
+    per-iteration host ms, losses and the grouped convs on the card per step
+    kind."""
     from ganecdotes_torch.gan.train import BagGANHQ
 
     cfg = pidray_config(os.path.join(ROOT, "build", "chip_smoke_gan"))
+    for k, v in over.items():
+        setattr(cfg, k, v)
     gan = BagGANHQ(cfg, seed=0, device=dev, ops=ops)
     gan.ada_state["p"].fill_(ADA_P)
     gan.time_steps = True
@@ -1511,7 +1544,7 @@ def run_gan(dev, ops):
     size = cfg.image_size
     iter_ms, losses = [], []
     with grouped_convs_per_step(gan) as grouped:
-        for it in range(GAN_ITERS):
+        for it in range(iters or GAN_ITERS):
             real = torch.rand(cfg.batch_size, size, size, cfg.num_channels,
                               generator=gen, device=dev) * 2 - 1
             gan.set_input(real, iter_no=it)
@@ -1760,6 +1793,8 @@ def train(dev):
           f"{json.dumps(agreement)}", flush=True)
     plain_iter_ms, plain_step_ms, plain_losses = plain[1], plain[0].step_ms, plain[2]
     plain_grouped = plain[0].grouped_convs
+    # phase 16 (c) sets its bf16 gates from these float32 gradients
+    plain_reference = {"first_grads": plain[0].first_grads, "losses": plain_losses}
     del plain
     img = gan.test()
     check(tuple(img.shape) == (GAN_B, GAN_SIZE, GAN_SIZE, 3)
@@ -1775,6 +1810,7 @@ def train(dev):
         "grouped_convs": gan.grouped_convs, "plain_grouped_convs": plain_grouped,
         "plain_iter_ms": plain_iter_ms, "plain_step_ms": plain_step_ms,
         "plain_losses": plain_losses, "agreement": agreement, "profile": prof,
+        "plain_reference": plain_reference,
     }
     del gan, kern
     torch.cuda.empty_cache()
@@ -2836,16 +2872,17 @@ def write_npy_files(d, n, size, seed):
         np.save(os.path.join(d, f"img_{i:03d}.npy"), a)
 
 
-def train_cli(run_cfg, data, out_dir, epochs, iters, ops):
+def train_cli(run_cfg, data, out_dir, epochs, iters, ops, chunk=1):
     """cli/train_baggan.py's run on the card, ``epochs`` of ``iters``
-    iterations, with every launch counted: (trainer, record, launches,
-    narrow-variant launches, host s)."""
+    iterations (``chunk`` a call), with every launch counted: (trainer,
+    record, launches, narrow-variant launches, host s)."""
     from ganecdotes_torch.cli import train_baggan as cli
     from ganecdotes_torch.ops import _build, modulated_conv
 
     args = cli.build_parser().parse_args(
         ["--config", run_cfg, "--data_dir", data, "--out_dir", out_dir, "--epochs",
-         str(epochs), "--iters_per_epoch", str(iters), "--device", "cuda"])
+         str(epochs), "--iters_per_epoch", str(iters), "--chunk", str(chunk),
+         "--device", "cuda"])
     _build.reset_launches()
     variants = dict(modulated_conv.VARIANT_LAUNCHES)
     t0 = time.perf_counter()
@@ -4013,6 +4050,510 @@ def phase15(dev, flat_request_ms):
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: bfloat16 serving and training
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS = 989e12  # H100 SXM, bf16 on the tensor cores, dense
+BF16 = ("bf16 tensor cores", BF16_FLOPS)
+# a bf16 kernel against the fp32 plain version on its own bf16 inputs: no
+# more than the plain bf16 version's error there plus one bf16 rounding
+# step of the output's scale
+BF16_STEP = 2.0 ** -8
+BF16_KERNEL_NAMES = tuple(k + "_bf16" for k in (
+    "fused_leaky_relu", "fused_leaky_relu_bwd", "upfirdn2d", "styled_conv3x3",
+    "styled_up_conv3x3", "resample_rows", "resample_rows_t"))
+
+
+def _outs(t):
+    return t if isinstance(t, tuple) else (t,)
+
+
+def bf16_row(name, path, case, shape, calls, kern, plain, ref32, lib, moved, ops):
+    """One bf16 kernel row: the kernel (bf16 in and out) and the plain bf16
+    version on the same inputs, each against the fp32 plain version on
+    them; the kernel's bf16 instance must be the one that launched, and its
+    error within the plain bf16 version's plus BF16_STEP of the output's
+    scale. Times: kernel, plain bf16 version, one bf16 library call."""
+    from ganecdotes_torch.ops import _build
+
+    before = dict(_build.LAUNCHES)
+    got = _outs(kern())
+    ran = [k for k, n in _build.LAUNCHES.items() if n != before[k]]
+    want, ref = _outs(plain()), _outs(ref32())
+    torch.cuda.synchronize()
+    check(all(g.dtype == torch.bfloat16 for g in got),
+          f"{name} bf16 {case}: the kernel returned {[g.dtype for g in got]}")
+    check(ran == [name + "_bf16"],
+          f"{name} bf16 {case}: launched {ran}, expected [{name}_bf16]")
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+    plain_err = max((w.float() - r.float()).abs().max().item() for w, r in zip(want, ref))
+    scale = max(r.abs().max().item() for r in ref)
+    tol = plain_err + BF16_STEP * max(1.0, scale)
+    row = {"kernel": name + "_bf16", "path": path, "case": case, "shape": list(shape),
+           "calls": calls, "max_abs_err": err, "plain_bf16_err": plain_err,
+           "scale": scale, "tol": tol, "max_abs_err_convT_blur": None,
+           "ok": err <= tol, "ms": time_ms(kern), "plain_ms": time_ms(plain),
+           "library_ms": None if lib is None else time_ms(lib), "bytes": moved,
+           "flops": sum(n for n, _ in ops)}
+    row["bound_ms"], row["bound_by"] = bound_ms(moved, ops)
+    print(f"  {name + '_bf16':24s} {case:24s} {str(tuple(shape)):26s} err {err:.3e} "
+          f"(plain bf16 {plain_err:.3e}, tol {tol:.3e}) ms {row['ms']:.4f} "
+          f"plain {row['plain_ms']:.4f} lib "
+          f"{row['library_ms'] if lib is None else round(row['library_ms'], 4)} "
+          f"bound {row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+    check(row["ok"], f"{name} bf16 {case}: max abs err {err} over {tol}")
+    return row
+
+
+def bf16_styled_shapes():
+    """(kernel, path, shape, calls per request, noise batch) of the bf16
+    StyledConv rows: the ffhq-256 request of 8, then the pidray G step's
+    synthesis at B = GAN_B at the rosinality widths and the lean map, one
+    noise map per sample (measured only)."""
+    from ganecdotes_torch.models.baggan.convert import BAGGAN_RES_TO_CHANNEL_MAP
+    from ganecdotes_torch.models.stylegan2.generator import channel_map
+
+    for name in ("styled_conv3x3", "styled_up_conv3x3"):
+        for shape, calls in path_shapes()[name]:
+            yield name, "serve ffhq-256", shape, calls, 1
+    res = [2**k for k in range(2, GAN_SIZE.bit_length())]
+    for path, ch in (("train rosinality", channel_map()),
+                     ("train lean", BAGGAN_RES_TO_CHANNEL_MAP)):
+        for r in res:
+            yield "styled_conv3x3", path, (GAN_B, r, r, ch[r], ch[r]), 0, GAN_B
+        for r in res[1:]:
+            yield ("styled_up_conv3x3", path, (GAN_B, r // 2, r // 2, ch[r // 2], ch[r]),
+                   0, GAN_B)
+
+
+def bf16_kernels(dev):
+    """Phase 16 (a): every bf16 kernel at the bf16 serving request's shapes
+    (ffhq-256, B = 8) and the bf16 training cell's (pidray, B = GAN_B)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from ganecdotes_torch.ops import fused_act, modulated_conv, resample
+    from ganecdotes_torch.ops import upfirdn2d as tup
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(16)
+    rows = []
+    for name, path, shape, calls, noise_b in bf16_styled_shapes():
+        up = name == "styled_up_conv3x3"
+        x, wt, s, demod, noise, nw, bias = styled_inputs(shape, up, gen, dev, noise_b)
+        args = [x.to(bf), wt, s.to(bf), demod.to(bf), noise, nw, bias]
+        args32 = [a.float() for a in args]
+        fn = getattr(modulated_conv, name)
+        ref = getattr(modulated_conv, name + "_ref")
+        b, h, w, ci, co = shape
+        xm = (args[0] * args[2][:, None, None, :]).permute(0, 3, 1, 2)
+        if up:
+            wl = wt.permute(2, 3, 0, 1).to(bf).contiguous()
+
+            def lib(xm=xm, wl=wl):  # the conv part only
+                return F.conv_transpose2d(xm, wl, stride=2)
+        else:
+            wl = wt.permute(3, 2, 0, 1).to(bf).contiguous()
+
+            def lib(xm=xm, wl=wl):
+                return F.conv2d(xm, wl, padding=1)
+        f = 2 if up else 1
+        moved = (2 * (x.numel() + wt.numel() + b * f * h * f * w * co + s.numel())
+                 + 4 * (demod.numel() + noise.numel() + bias.numel() + 1))
+        flops = 2 * b * h * w * 9 * ci * co
+        ops = [(flops, BF16)]
+        if up:  # the separable blur of T, in fp32
+            ops.append((2 * b * co * 4 * (2 * w) * ((2 * h + 1) + 2 * h), FP32))
+        row = bf16_row(name, path, f"{path} nb{noise_b}", shape, calls,
+                       lambda fn=fn, a=args: fn(*a), lambda ref=ref, a=args: ref(*a),
+                       lambda ref=ref, a=args32: ref(*a), lib, moved, ops)
+        row["tile_n"] = modulated_conv.tile_n(co)
+        if not up:
+            row["tap_splits"] = modulated_conv.tap_splits(
+                b * h * w, co, torch.cuda.get_device_properties(dev).multi_processor_count,
+                row["tile_n"])
+        rows.append(row)
+
+    # the FIR kernel: the to_rgb skips of the request of 8 (per request),
+    # then (measured only) the pidray D's forward blurs, ADA's SYM6 passes
+    # and the to_rgb skips at B = GAN_B
+    blur4 = tup.make_kernel((1, 3, 3, 1), gain=4.0)
+    firs = [("serve ffhq-256", f"to_rgb up {sh[1]}^2", sh, blur4, (2, 2), (1, 1),
+             (2, 1, 2, 1), calls) for sh, calls in path_shapes()["upfirdn2d"]]
+    firs += [("train", f"to_rgb up {sh[1]}^2", (GAN_B,) + tuple(sh[1:]), blur4,
+              (2, 2), (1, 1), (2, 1, 2, 1), 0) for sh, _ in path_shapes()["upfirdn2d"]]
+    k = tup.make_kernel((1, 3, 3, 1))
+    for kname, case, shape, pad, _ in gan_d_shapes():
+        if kname == "upfirdn2d" and " fwd " in case:
+            firs.append(("train", case, shape, k, (1, 1), (1, 1), tuple(pad) * 2, 0))
+    for case, shape, kern2d, up, down, pad in gan_fir_shapes()[:4]:
+        firs.append(("train", case, shape, kern2d, up, down, pad, 0))
+    for path, case, shape, k2, up, down, pad, calls in firs:
+        x = torch.randn(*shape, generator=gen, device=dev).to(bf)
+        up, down, pad = tup._normalize_args(up, down, pad)
+        fn, wl = fir_library(k2, up, down, pad)
+        wl = wl.to(dev, bf).expand(shape[3], 1, *k2.shape)
+        out = tup.upfirdn2d_ref(x, k2, up=up, down=down, pad=pad)
+        kh, kw = k2.shape
+        flops = 2 * (out.numel() * down[0] * kh / up[1] + out.numel() * kw / up[0])
+        rows.append(bf16_row(
+            "upfirdn2d", path, case, shape, calls,
+            lambda x=x, k2=k2, up=up, down=down, pad=pad: tup.upfirdn2d(x, k2, up, down, pad),
+            lambda x=x, k2=k2, up=up, down=down, pad=pad: tup.upfirdn2d_ref(x, k2, up, down, pad),
+            lambda x=x, k2=k2, up=up, down=down, pad=pad: tup.upfirdn2d_ref(
+                x.float(), k2, up, down, pad),
+            lambda x=x, fn=fn, wl=wl: fn(x, wl), nbytes(x, out), [(flops, FP32)]))
+
+    # the fused act and its backward at the pidray D's activations (per D
+    # forward at B = GAN_B)
+    for kname, case, shape, _, d_calls in gan_d_shapes():
+        if kname != "fused_leaky_relu":
+            continue
+        x = torch.randn(*shape, generator=gen, device=dev).to(bf)
+        bias = torch.randn(shape[-1], generator=gen, device=dev)
+        rows.append(bf16_row(
+            "fused_leaky_relu", "train", case, shape, d_calls,
+            lambda x=x, b=bias: fused_act.fused_leaky_relu(x, b),
+            lambda x=x, b=bias: fused_act.fused_leaky_relu_ref(x, b),
+            lambda x=x, b=bias: fused_act.fused_leaky_relu_ref(x.float(), b),
+            None, nbytes(x, x) + 2 * bias.numel(), [(3 * x.numel(), FP32)]))
+        y = fused_act.fused_leaky_relu(x, bias)
+        g = torch.randn(*shape, generator=gen, device=dev).to(bf)
+        rows.append(bf16_row(
+            "fused_leaky_relu_bwd", "train", case.replace("act", "act bwd"), shape, d_calls,
+            lambda g=g, y=y: fused_act.fused_leaky_relu_bwd(g, y),
+            lambda g=g, y=y: fused_act.fused_leaky_relu_bwd_ref(g, y),
+            lambda g=g, y=y: fused_act.fused_leaky_relu_bwd_ref(g.float(), y.float()),
+            None, nbytes(g, y, g) + 2 * shape[-1], [(4 * g.numel(), FP32)]))
+
+    # ADA's warp pass and its adjoint (per augment call)
+    for case, x, alpha, icpt, out_len, calls in resample_cases(dev)[:2]:
+        x = x.to(bf)
+        s_len = x.shape[2]
+        grid = _grid_for_pass(alpha, icpt, s_len, out_len).to(bf)
+        g = torch.randn(x.shape[0], x.shape[1], out_len, x.shape[3], generator=gen,
+                        device=dev).to(bf)
+        rows.append(bf16_row(
+            "resample_rows", "train", case, tuple(x.shape), calls,
+            lambda x=x, a=alpha, i=icpt, n=out_len: resample.resample_rows(x, a, i, n),
+            lambda x=x, a=alpha, i=icpt, n=out_len: resample.resample_rows_ref(x, a, i, n),
+            lambda x=x, a=alpha, i=icpt, n=out_len: resample.resample_rows_ref(
+                x.float(), a, i, n),
+            lambda x=x, grid=grid: F.grid_sample(x, grid, mode="bilinear",
+                                                 padding_mode="zeros", align_corners=False),
+            nbytes(x, alpha, icpt, g), [(3 * g.numel(), FP32)]))
+        rows.append(bf16_row(
+            "resample_rows_t", "train", case, tuple(x.shape), calls,
+            lambda g=g, a=alpha, i=icpt, n=s_len: resample.resample_rows_t(g, a, i, n),
+            lambda g=g, a=alpha, i=icpt, n=s_len: resample.resample_rows_t_ref(g, a, i, n),
+            lambda g=g, a=alpha, i=icpt, n=s_len: resample.resample_rows_t_ref(
+                g.float(), a, i, n),
+            lambda g=g, x=x, grid=grid: torch.ops.aten.grid_sampler_2d_backward(
+                g, x, grid, 0, 0, False, [True, False])[0],
+            nbytes(g, alpha, icpt, x), [(3 * x.numel(), FP32)]))
+    return rows
+
+
+BF16_SERVING_KERNELS = ("styled_conv3x3_bf16", "styled_up_conv3x3_bf16",
+                        "upfirdn2d_bf16")
+BF16_TRAINING_KERNELS = BF16_KERNEL_NAMES  # all seven
+BF16_LABELS_VS_FP32 = 0.95  # JAX's own bf16-against-float32 gate
+# the kernels' bf16 labels against the plain ops' bf16 labels: at most
+# twice the pixels the plain bf16 server itself flips against float32. Two
+# bf16 computations that differ in their last bits drift apart by a few
+# bf16 steps through the 14 layers, which flips the argmax wherever the top
+# two logits are that close: with this random head about 1% of pixels
+# (PERF.md §6), so a fixed 99.9% cannot hold for any two of them
+BF16_LABEL_FLIP_FACTOR = 2.0
+
+
+def bf16_serve(dev, fp32_served):
+    """Phase 16 (b): the ffhq-256 hfc_with_swav server (phase 4's seed) with
+    ``inference_dtype='bfloat16'``: 3 requests of 8 folded (every launch
+    counted: the bf16 serving kernels, none of their float32 instances) and
+    unfused, ms, img/s and peak memory beside phase 4's float32 server;
+    labels against the float32 server on the same weights (>= 95%) and
+    against the plain-ops bf16 server (flipping at most
+    BF16_LABEL_FLIP_FACTOR times the pixels the plain bf16 server flips
+    against float32; 99.9% reported beside it); one exported bf16 request
+    against the live one (the image within 1e-6 of its scale, labels
+    equal)."""
+    from ganecdotes_torch.ops import _build
+    from ganecdotes_torch.ops.opset import PLAIN
+    from ganecdotes_torch.pipeline.serving import OneShotServer
+    from ganecdotes_torch.runtime.export import export_serving, load_exported
+
+    zs = [torch.randn(B, 512, generator=torch.Generator().manual_seed(100 + i))
+          for i in range(N_REQUESTS)]
+    server = OneShotServer(device=dev, seed=0, dtype="bfloat16")
+    kw = dict(gen=server.gen, ssl_params=server.ssl_params,
+              seg_params=server.seg_params, mean_latent=server.mean_latent)
+    fp32 = OneShotServer(device=dev, seed=0, **kw)
+    plain = OneShotServer(device=dev, seed=0, ops=PLAIN, dtype="bfloat16", **kw)
+    server.serve(zs[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _build.reset_launches()
+    outs, times = [], []
+    for z in zs:
+        t0 = time.perf_counter()
+        outs.append(server.serve(z))
+        times.append(_sync_ms(t0))
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    unfused, u_times = [], []
+    for z in zs:
+        t0 = time.perf_counter()
+        unfused.append(server.serve_unfused(z))
+        u_times.append(_sync_ms(t0))
+    steady = statistics.median(times[1:])
+    print(f"  bf16 request ms {[round(t, 3) for t in times]} (float32, phase 4: "
+          f"{fp32_served['steady_request_ms']:.3f}); {B / steady * 1e3:.2f} img/s "
+          f"(float32 {fp32_served['img_per_s']:.2f}); unfused ms "
+          f"{[round(t, 3) for t in u_times]}; peak memory above the weights "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    print(f"  launches {launches}", flush=True)
+    for k in BF16_SERVING_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched on the bf16 serving path")
+    for k in ("styled_conv3x3", "styled_up_conv3x3", "upfirdn2d"):
+        check(launches[k] == 0, f"the float32 {k} ran on the bf16 serving path")
+    agree = {"fp32": 1.0, "plain_bf16": 1.0, "unfused": 1.0, "plain_bf16_vs_fp32": 1.0}
+    for z, (img, labels, z0), (u_img, u_labels, _) in zip(zs, outs, unfused):
+        check(img.dtype == torch.bfloat16 and tuple(img.shape) == (B, 256, 256, 3)
+              and bool(torch.isfinite(img).all()), "bf16 image")
+        agree["unfused"] = min(agree["unfused"], (labels == u_labels).float().mean().item())
+        f_labels, p_labels = fp32.serve(z)[1], plain.serve(z)[1]
+        for name, a, b in (("fp32", labels, f_labels), ("plain_bf16", labels, p_labels),
+                           ("plain_bf16_vs_fp32", p_labels, f_labels)):
+            agree[name] = min(agree[name], (a == b).float().mean().item())
+    flips = 1 - agree["plain_bf16"]
+    flip_tol = BF16_LABEL_FLIP_FACTOR * (1 - agree["plain_bf16_vs_fp32"])
+    print(f"  label agreement: float32 {agree['fp32']:.6f} (>= {BF16_LABELS_VS_FP32}), "
+          f"plain bf16 {agree['plain_bf16']:.6f} (flips {flips:.6f} <= {flip_tol:.6f}, "
+          f"twice the plain bf16 server's against float32, "
+          f"{agree['plain_bf16_vs_fp32']:.6f}; >= 0.999 "
+          f"{'held' if agree['plain_bf16'] >= 0.999 else 'missed'}), "
+          f"folded against unfused {agree['unfused']:.6f}", flush=True)
+    check(agree["fp32"] >= BF16_LABELS_VS_FP32, f"bf16 labels vs float32: {agree}")
+    check(flips <= flip_tol, f"bf16 labels vs plain: {agree}")
+    check(agree["unfused"] >= BF16_LABELS_VS_FP32, f"folded vs unfused bf16: {agree}")
+    del fp32, plain
+    d = os.path.join(ROOT, "build", "chip_smoke_export")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "bf16_server.ganex")
+    t0 = time.perf_counter()
+    export_serving(server, path, batch=B)
+    export_s = time.perf_counter() - t0
+    call, _ = load_exported(path)
+    with torch.no_grad():
+        w = server._w(zs[0], False)
+    img, labels, z0 = call(w)
+    live = server.serve(w, input_is_latent=True)
+    err, _, scale = errors(img.float(), live[0].float())
+    exported = {"export_s": export_s, "image_err": err,
+                "labels_equal": bool(torch.equal(labels, live[1])),
+                "z0_equal": bool(torch.equal(z0, live[2]))}
+    print(f"  export: {export_s:.2f} s; the exported bf16 request against the live "
+          f"one: {json.dumps(exported)}", flush=True)
+    check(img.dtype == torch.bfloat16 and err <= 1e-6 * max(1.0, scale)
+          and exported["labels_equal"] and exported["z0_equal"],
+          f"the exported bf16 request differs from the live one: {exported}")
+    return {"request_ms": times, "steady_request_ms": steady,
+            "img_per_s": B / steady * 1e3, "unfused_request_ms": u_times,
+            "peak_memory_bytes": peak, "launches": launches,
+            "label_agreement": agree, "export": exported,
+            "fp32_steady_request_ms": fp32_served["steady_request_ms"]}
+
+
+def _grad_rel(a, b):
+    diff = sum(float((x - y).float().square().sum()) for x, y in zip(a, b)) ** 0.5
+    norm = sum(float(y.float().square().sum()) for y in b) ** 0.5
+    return diff / max(norm, 1e-30)
+
+
+def bf16_train(dev, fp32):
+    """Phase 16 (c): phase 7's BagGAN-HQ run (pidray 256^2, rosinality
+    widths, B = GAN_B, GAN_ITERS iterations, ADA p 0.6) with
+    ``compute_dtype='bfloat16'``, with the kernels and with the plain ops
+    for GAN_PLAIN16_ITERS iterations (the plain bf16 ops take 17 s an
+    iteration on the card): every bf16 kernel launched, parameters and Adam
+    moments float32, every loss finite; D, R1, G and PPL ms and peak memory.
+    The gates are set from bf16: each step kind's iteration-0 gradient,
+    kernels against plain, within twice the plain bf16 run's own distance to
+    phase 7's float32 plain run (``fp32``: its iteration-0 gradients and
+    losses; relative L2), or phase 7's float32 gate where that is larger;
+    each loss of the plain run's iterations the same way against
+    GAN_DRIFT_TOL."""
+    from ganecdotes_torch.gan.train import STEP_KINDS
+    from ganecdotes_torch.ops import _build
+    from ganecdotes_torch.ops.opset import KERNELS, PLAIN
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    gan, iter_ms, losses = run_gan(dev, KERNELS, compute_dtype="bfloat16")
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = {k: statistics.median(v) for k, v in gan.step_ms.items() if v}
+    print(f"  bf16, kernels: iteration ms {[round(t, 3) for t in iter_ms]}; ms per step "
+          f"kind (median) { {k: round(v, 3) for k, v in step_ms.items()} }; peak memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    print(f"  launches {launches}", flush=True)
+    print(f"  losses {json.dumps(losses)}", flush=True)
+    for k in BF16_TRAINING_KERNELS:
+        check(launches[k] > 0, f"kernel {k} was not launched on the bf16 training path")
+    for kind in ("d", "g"):  # their D and synthesis run in bf16 only
+        for k in ("styled_conv3x3", "styled_up_conv3x3", "resample_rows"):
+            check(gan.step_launches[kind][k] == 0,
+                  f"the float32 {k} ran in the bf16 {kind} step")
+    for opt in (gan.optimizer_g, gan.optimizer_d):
+        check(all(t.dtype == torch.float32 for t in opt.params + opt.m + opt.v),
+              "a parameter or Adam moment left float32")
+    check(all(math.isfinite(v) for l in losses for v in l.values()), "non-finite bf16 loss")
+    kern_grads = {k: [g.cpu() for g in v] for k, v in gan.first_grads.items()}
+    out = {"iter_ms": iter_ms, "step_ms": gan.step_ms, "step_ms_median": step_ms,
+           "peak_memory_bytes": peak, "launches": launches,
+           "step_launches": gan.step_launches, "losses": losses}
+    del gan
+    torch.cuda.empty_cache()
+    _build.reset_launches()
+    p_gan, p_iter_ms, p_losses = run_gan(dev, PLAIN, iters=GAN_PLAIN16_ITERS,
+                                         compute_dtype="bfloat16")
+    check(all(v == 0 for v in _build.LAUNCHES.values()), "the plain run launched a kernel")
+    plain_grads = {k: [g.cpu() for g in v] for k, v in p_gan.first_grads.items()}
+    out["plain_iter_ms"], out["plain_losses"] = p_iter_ms, p_losses
+    out["plain_step_ms_median"] = {k: statistics.median(v)
+                                   for k, v in p_gan.step_ms.items() if v}
+    del p_gan
+    torch.cuda.empty_cache()
+    grads = {}
+    for kind in STEP_KINDS:
+        err = _grad_rel(kern_grads[kind], plain_grads[kind])
+        own = _grad_rel(plain_grads[kind], fp32["first_grads"][kind])
+        tol = max(2 * own, GAN_GRAD_TOL[kind])
+        grads[kind] = {"rel_l2": err, "plain_bf16_vs_fp32": own, "tol": tol}
+        check(err <= tol, f"bf16 {kind} gradients, kernels against plain: {grads[kind]}")
+    loss_errs = []
+    for k_l, p_l, f_l in zip(losses, p_losses, fp32["losses"]):
+        for name in p_l:
+            err = abs(k_l[name] - p_l[name])
+            tol = max(2 * abs(p_l[name] - f_l[name]), GAN_DRIFT_TOL * max(1.0, abs(p_l[name])))
+            loss_errs.append((name, err, tol))
+            check(err <= tol, f"bf16 loss {name}: kernels {k_l[name]}, plain {p_l[name]}, "
+                              f"float32 plain {f_l[name]}")
+    out["agreement"] = {"grads": grads, "losses": loss_errs}
+    print(f"  bf16, plain ops: iteration ms {[round(t, 3) for t in p_iter_ms]}; "
+          f"kernels against plain: {json.dumps(out['agreement'])}", flush=True)
+    return out
+
+
+GAN_PLAIN16_ITERS = 2  # phase 16 (c)'s plain bf16 run: all four step kinds, then D + G
+CHUNK_ITERS, CHUNK = 6, 4  # phase 16 (d): calls of 4 and 2 against 6 of 1
+
+
+def bf16_chunk_cli(dev):
+    """Phase 16 (d): cli/train_baggan.py at the pidray lean-map config
+    (res2chlmap = "baggan", ADA p 0.6, B = GAN_B, R1 and PPL every 4th
+    iteration as shipped) with compute_dtype = 'bfloat16' on .npy files,
+    CHUNK_ITERS iterations with --chunk CHUNK and twice with --chunk 1, cuDNN
+    on its deterministic algorithms: the same batches, and the weights bit
+    for bit equal, or else every final loss within phase 7's drift gate or,
+    where the two single-stepped runs themselves drift apart by more (ops
+    whose CUDA backward sums with atomics, as the reflect pad's does), within
+    twice their drift."""
+    import shutil
+
+    from ganecdotes_torch.ops.opset import KERNELS
+
+    root = os.path.join(ROOT, "build", "chip_smoke_chunk")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    data = os.path.join(root, "data")
+    write_npy_files(data, GAN_B * CHUNK_ITERS, GAN_SIZE, 41)
+    run_cfg = config_copy("config_pidray_unlabeled", os.path.join("models", "baggan"),
+                          "res2chlmap = 'baggan'\naugment_p = 0.6\n"
+                          "compute_dtype = 'bfloat16'\n", root)
+    det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for name, chunk in (("chunked", CHUNK), ("single", 1), ("single again", 1)):
+            gan, rec, launches, _, wall = train_cli(
+                run_cfg, data, os.path.join(root, name.replace(" ", "_")), 1,
+                CHUNK_ITERS, KERNELS, chunk=chunk)
+            runs[name] = (gan, rec, launches, wall)
+            print(f"  {name}, --chunk {chunk}: calls {rec['call_iterations']}, ms a call "
+                  f"{[round(t, 3) for t in rec['iteration_ms']]}, {wall:.2f} s; losses "
+                  f"{json.dumps(rec['epochs'][-1]['losses'])}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
+    (g_c, r_c, l_c, _), (g_1, r_1, _, _) = runs["chunked"], runs["single"]
+    g_2, r_2 = runs["single again"][:2]
+    check(r_c["call_iterations"] == [CHUNK, CHUNK_ITERS - CHUNK],
+          f"--chunk {CHUNK} calls: {r_c['call_iterations']}")
+    check(r_c["batch_sums"] == r_1["batch_sums"], "the two runs read other batches")
+    for k in BF16_TRAINING_KERNELS:
+        check(l_c[k] > 0, f"kernel {k} was not launched by the chunked bf16 run")
+    def equal(a, b):
+        return all(torch.equal(u, v) for net in ("netG", "netD")
+                   for u, v in zip(getattr(a, net).state_dict().values(),
+                                   getattr(b, net).state_dict().values()))
+
+    def drift(ra, rb):
+        la, lb = ra["epochs"][-1]["losses"], rb["epochs"][-1]["losses"]
+        return max(abs(la[k] - lb[k]) / max(1.0, abs(lb[k])) for k in lb)
+
+    bit_equal, repeat_equal = equal(g_c, g_1), equal(g_2, g_1)
+    d_chunk, d_repeat = drift(r_c, r_1), drift(r_2, r_1)
+    tol = max(GAN_DRIFT_TOL, 2 * d_repeat)
+    print(f"  chunked against single steps: weights bit-equal {bit_equal}, final "
+          f"losses max relative difference {d_chunk:.3e} (gate {tol:.3e}); the two "
+          f"single-stepped runs: bit-equal {repeat_equal}, {d_repeat:.3e}", flush=True)
+    check(bit_equal or d_chunk <= tol,
+          f"the chunked run left the single-stepped one: {d_chunk} over {tol}")
+    return {"chunk": CHUNK, "iterations": CHUNK_ITERS, "bit_equal": bit_equal,
+            "loss_drift": d_chunk, "single_repeat_bit_equal": repeat_equal,
+            "single_repeat_drift": d_repeat, "tol": tol,
+            **{name: {"record": r[1], "wall_s": r[3]} for name, r in runs.items()}}
+
+
+def phase16(dev, served, fp32_plain):
+    t0 = time.perf_counter()
+    print("bf16 kernels against their plain bf16 versions (both against the "
+          "float32 plain version; ms per call, CUDA events):", flush=True)
+    rows = bf16_kernels(dev)
+    print("bf16 serving (ffhq-256, hfc_with_swav, B = 8, inference_dtype = "
+          "'bfloat16'):", flush=True)
+    served16 = bf16_serve(dev, served)
+    print(f"bf16 training (BagGAN-HQ pidray, 256^2, B = {GAN_B}, "
+          "compute_dtype = 'bfloat16'):", flush=True)
+    trained16 = bf16_train(dev, fp32_plain)
+    print(f"bf16 CLI with --chunk {CHUNK} (pidray lean map, B = {GAN_B}):", flush=True)
+    chunked = bf16_chunk_cli(dev)
+    seconds = time.perf_counter() - t0
+    print(f"  phase 16: {seconds:.1f} s", flush=True)
+    return rows, {"serve": served16, "train": trained16, "chunk_cli": chunked,
+                  "seconds": seconds}
+
+
+def bf16_tensor_core_instructions(library):
+    """bf16 HMMA instructions (HMMA.*.BF16) per kernel in the library's SASS."""
+    from ganecdotes_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and "HMMA" in line and "BF16" in line:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
 def kernels_line(rows, launches):
     out = []
     for name, (source, replaces) in KERNELS_TABLE.items():
@@ -4080,6 +4621,11 @@ def main():
     print(f"  tensor-core (HMMA) instructions in the SASS: {json.dumps(hmma)}", flush=True)
     check(any("styled_conv3x3" in k for k in hmma),
           "the non-up StyledConv kernel has no tensor-core instruction")
+    hmma16 = bf16_tensor_core_instructions(info["library"])
+    print(f"  bf16 HMMA instructions in the SASS: {json.dumps(hmma16)}", flush=True)
+    for kernel in ("styled_conv3x3_bf16_kernel", "up_gemm_bf16_kernel"):
+        check(any(kernel in k and n > 0 for k, n in hmma16.items()),
+              f"{kernel} has no bf16 tensor-core (HMMA ... BF16) instruction")
 
     print("kernels vs plain versions (ms per call, CUDA events):", flush=True)
     rows = check_kernels(dev)
@@ -4141,16 +4687,25 @@ def main():
     with host_only_refused():
         item5_run = item5(dev)
     phase15_run = phase15(dev, other_methods["hfc_kmeans"]["summary"]["folded_ms"])
+    bf16_rows, phase16_run = phase16(dev, served, trained.pop("plain_reference"))
+    rows += bf16_rows
 
     # each kernel's launches from the path it belongs to; the serving
     # kernel rows are per request of 8, the Sinkhorn row per SwAV step, the
     # resample rows per augment call, the fused act's backward per backward
     # of one D forward's activations at B = 20 (launches: the 5 training
     # iterations)
+    # the bf16 rows: the StyledConvs and the FIR per bf16 request of 8 (their
+    # launches from phase 16's requests), the fused act, its backward and
+    # the resample passes per D forward or augment call at B = 20 (their
+    # launches from phase 16's 5 bf16 training iterations)
     launches = dict(served["launches"],
                     sinkhorn_knopp=pretrained["launches"]["sinkhorn_knopp"],
                     **{k: trained["launches"][k]
-                       for k in RESAMPLE_KERNELS + ("fused_leaky_relu_bwd",)})
+                       for k in RESAMPLE_KERNELS + ("fused_leaky_relu_bwd",)},
+                    **{k: phase16_run["serve"]["launches"][k] for k in BF16_SERVING_KERNELS},
+                    **{k: phase16_run["train"]["launches"][k]
+                       for k in BF16_KERNEL_NAMES if k not in BF16_SERVING_KERNELS})
     line = kernels_line(rows, launches)
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
@@ -4161,6 +4716,7 @@ def main():
                        "evaluate": evaluated, "methods": other_methods,
                        "configs": other_configs, "train_evaluate": trained_evaluated,
                        "gui": gui_run, "item5": item5_run, "phase15": phase15_run,
+                       "phase16": phase16_run, "hmma_bf16": hmma16,
                        "kernels": line}, f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": line}))

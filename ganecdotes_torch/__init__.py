@@ -49,3 +49,17 @@ def resolve_device(device=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.set_float32_matmul_precision("highest")
     return device
+
+
+def compute_dtype(name, knob="compute_dtype"):
+    """A config's compute type (its ``knob``: ``inference_dtype``,
+    ``compute_dtype``): None, 'float32' or ``torch.float32`` give None (the
+    default float32 path itself), 'bfloat16' or ``torch.bfloat16`` give
+    ``torch.bfloat16``; anything else raises ``NotImplementedError``, as the
+    JAX package does."""
+    if name in (None, "float32", torch.float32):
+        return None
+    if name in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise NotImplementedError(f"{knob}={name!r}: expected None, 'float32' or 'bfloat16'")
+

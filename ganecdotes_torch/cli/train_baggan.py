@@ -30,8 +30,12 @@ the config sets it, as the JAX CLI turns it on above one device): every
 rank loads the global batch and keeps its slice, and rank 0 writes the
 checkpoints.
 
-``--chunk`` above 1 (the JAX CLI's fused multi-iteration dispatch) raises
-``NotImplementedError``: not ported (ROADMAP item 6).
+``--chunk k`` above 1 hands each k iterations to
+``BagGANHQ.optimize_parameters_chunk`` in one call (a last, shorter call
+takes the rest of the epoch), as the JAX CLI does: its runs of plain (D,
+G) iterations execute back to back with no host sync, and the run follows
+the same trajectory as ``--chunk 1``. The run config's ``compute_dtype =
+'bfloat16'`` trains the D and G steps in bf16 (``gan.train``).
 """
 
 import argparse
@@ -62,8 +66,10 @@ def build_parser():
     parser.add_argument("--save_every", type=int, default=1,
                         help="checkpoint every N epochs")
     parser.add_argument("--chunk", type=int, default=1,
-                        help="GAN iterations per optimizer call; above 1 is not "
-                             "ported (raises)")
+                        help="GAN iterations per optimizer call; above 1 runs "
+                             "the plain (D, G) iterations between lazy "
+                             "regularisations back to back with no host sync "
+                             "(the same trajectory as 1)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card; 'cpu' runs "
                              "the plain PyTorch path)")
@@ -88,13 +94,10 @@ def load_run_config(path, out_dir=None):
 def run(args, ops=KERNELS):
     """The CLI's run for parsed ``args`` with op set ``ops`` (``KERNELS`` or
     ``PLAIN``). Returns (the trainer, a record: the data source and the
-    loader's counts, per-epoch losses and ADA p, per-iteration losses, host
-    ms with the card synced and the sum of the batch, the ms each batch
-    took to arrive)."""
-    if args.chunk > 1:
-        raise NotImplementedError(
-            "--chunk > 1 (the fused multi-iteration optimizer call) is not "
-            "ported yet (ROADMAP item 6)")
+    loader's counts, per-epoch losses and ADA p, per optimizer call its
+    iterations, losses and host ms with the card synced, per batch its sum
+    and the ms it took to arrive)."""
+    chunk = max(1, args.chunk)
     cfg = load_run_config(args.config, args.out_dir)
     n_epochs = args.epochs or getattr(cfg, "n_epochs", 10)
     size, chans = cfg.image_size, getattr(cfg, "num_channels", 3)
@@ -130,24 +133,37 @@ def run(args, ops=KERNELS):
         def next_batch():
             return rng.rand(cfg.batch_size, size, size, chans).astype(np.float32) * 2 - 1
 
-    rec = {"source": source, "iters_per_epoch": iters, "epochs": [], "losses": [],
-           "iteration_ms": [], "batch_wait_ms": [], "batch_sums": []}
+    rec = {"source": source, "iters_per_epoch": iters, "chunk": chunk, "epochs": [],
+           "losses": [], "call_iterations": [], "iteration_ms": [],
+           "batch_wait_ms": [], "batch_sums": []}
     try:
         it = 0
         for epoch in range(gan.epoch, gan.epoch + n_epochs):
             t0 = time.time()
-            for _ in range(iters):
+            done = 0
+            while done < iters:
+                k = min(chunk, iters - done)
                 sync()
                 ti = time.perf_counter()
-                batch = next_batch()
-                rec["batch_wait_ms"].append((time.perf_counter() - ti) * 1e3)
-                gan.set_input(data_sample={"ct": batch}, iter_no=it, epoch_no=epoch)
-                gan.optimize_parameters()
+                batches = []
+                for _ in range(k):
+                    tb = time.perf_counter()
+                    batches.append(next_batch())
+                    rec["batch_wait_ms"].append((time.perf_counter() - tb) * 1e3)
+                if k == 1:
+                    gan.set_input(data_sample={"ct": batches[0]}, iter_no=it,
+                                  epoch_no=epoch)
+                    gan.optimize_parameters()
+                else:
+                    gan.iter_no, gan.epoch_no = it, epoch
+                    gan.optimize_parameters_chunk([{"ct": b} for b in batches])
                 sync()
                 rec["iteration_ms"].append((time.perf_counter() - ti) * 1e3)
+                rec["call_iterations"].append(k)
                 rec["losses"].append(gan.get_current_losses())
-                rec["batch_sums"].append(float(batch.sum(dtype=np.float64)))
-                it += 1
+                rec["batch_sums"] += [float(b.sum(dtype=np.float64)) for b in batches]
+                it += k
+                done += k
             losses = gan.get_current_losses()
             rec["epochs"].append({"epoch": epoch, "losses": losses,
                                   "ada_p": gan.ada_aug_p, "s": time.time() - t0})

@@ -45,6 +45,13 @@
 // but slower. Each sum runs in increasing v, so runs repeat bit for bit. At
 // ADA's scales (|alpha| ~ 1) a thread visits about 6 candidates; the pass
 // moves the same bytes as the forward.
+//
+// bfloat16 images (the _bf16 entries): both kernels instantiated on bf16
+// storage for the image and its cotangent (alpha and the intercepts stay
+// float32). Each tap is converted to fp32 on the load, the geometry, the
+// lerp and the adjoint's sums run in fp32 with the same _rn steps, and the
+// result is rounded once to bf16 on the store.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,6 +60,13 @@ namespace {
 constexpr int TW = 32;   // adjoint block: 32 columns w (one warp) ...
 constexpr int TS = 8;    // ... by 8 source rows s
 constexpr int CMAX = 4;  // channels one adjoint thread sums per walk of v
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 struct Geometry {
   int k0;     // unwrapped index of tap 0
@@ -77,10 +91,11 @@ __device__ __forceinline__ Geometry geometry(float alpha, float icpt, int v) {
 
 // One thread per output (b, v, w): w across a warp in x, v in y, b in z;
 // the geometry once, then every channel's two live taps and the lerp.
-__global__ void resample_rows_kernel(const float* __restrict__ x,
+template <class T>
+__global__ void resample_rows_kernel(const T* __restrict__ x,
                                      const float* __restrict__ alpha,
                                      const float* __restrict__ icpt,
-                                     float* __restrict__ out, int C, int S,
+                                     T* __restrict__ out, int C, int S,
                                      int W, int V) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   const int v = blockIdx.y * blockDim.y + threadIdx.y;
@@ -93,20 +108,21 @@ __global__ void resample_rows_kernel(const float* __restrict__ x,
   const bool hi_in = klo + 1 >= 0 && klo + 1 < S;
   const float one_f = __fsub_rn(1.f, g.f);
   const int64_t src_plane = (int64_t)S * W, out_plane = (int64_t)V * W;
-  const float* lo_p = x + (int64_t)b * C * src_plane + (int64_t)klo * W + w;
-  float* o = out + (int64_t)b * C * out_plane + (int64_t)v * W + w;
+  const T* lo_p = x + (int64_t)b * C * src_plane + (int64_t)klo * W + w;
+  T* o = out + (int64_t)b * C * out_plane + (int64_t)v * W + w;
 #pragma unroll 4
   for (int c = 0; c < C; ++c) {
-    const float lo = lo_in ? lo_p[c * src_plane] : 0.f;
-    const float hi = hi_in ? lo_p[c * src_plane + W] : 0.f;
-    o[c * out_plane] = __fadd_rn(__fmul_rn(one_f, lo), __fmul_rn(g.f, hi));
+    const float lo = lo_in ? ld(lo_p + c * src_plane) : 0.f;
+    const float hi = hi_in ? ld(lo_p + c * src_plane + W) : 0.f;
+    st(o + c * out_plane, __fadd_rn(__fmul_rn(one_f, lo), __fmul_rn(g.f, hi)));
   }
 }
 
-__global__ void resample_rows_t_kernel(const float* __restrict__ gout,
+template <class T>
+__global__ void resample_rows_t_kernel(const T* __restrict__ gout,
                                        const float* __restrict__ alpha,
                                        const float* __restrict__ icpt,
-                                       float* __restrict__ dx, int C, int S,
+                                       T* __restrict__ dx, int C, int S,
                                        int W, int V) {
   const int w = blockIdx.x * TW + threadIdx.x;
   const int s = blockIdx.y * TS + threadIdx.y;
@@ -129,7 +145,7 @@ __global__ void resample_rows_t_kernel(const float* __restrict__ gout,
   }
   // the geometry is the same for every channel: CMAX channels per walk
   for (int c0 = 0; c0 < C; c0 += CMAX) {
-    const float* gp = gout + ((int64_t)b * C + c0) * V * W + w;
+    const T* gp = gout + ((int64_t)b * C + c0) * V * W + w;
     float acc[CMAX];
 #pragma unroll
     for (int c = 0; c < CMAX; ++c) acc[c] = 0.f;
@@ -145,14 +161,34 @@ __global__ void resample_rows_t_kernel(const float* __restrict__ gout,
 #pragma unroll
       for (int c = 0; c < CMAX; ++c) {
         if (c0 + c < C)
-          acc[c] = __fadd_rn(acc[c], __fmul_rn(coef, gp[((int64_t)c * V + v) * W]));
+          acc[c] = __fadd_rn(acc[c], __fmul_rn(coef, ld(gp + ((int64_t)c * V + v) * W)));
       }
     }
 #pragma unroll
     for (int c = 0; c < CMAX; ++c) {
-      if (c0 + c < C) dx[(((int64_t)b * C + c0 + c) * S + s) * W + w] = acc[c];
+      if (c0 + c < C) st(dx + (((int64_t)b * C + c0 + c) * S + s) * W + w, acc[c]);
     }
   }
+}
+
+template <class T>
+int launch_fwd(const T* x, const float* alpha, const float* icpt, T* out,
+               int B, int C, int S, int W, int V, int tw, int tv, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((W + tw - 1) / tw, (V + tv - 1) / tv, B);
+  resample_rows_kernel<T><<<grid, dim3(tw, tv), 0, s>>>(x, alpha, icpt, out,
+                                                          C, S, W, V);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_adj(const T* gout, const float* alpha, const float* icpt, T* dx,
+               int B, int C, int S, int W, int V, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((W + TW - 1) / TW, (S + TS - 1) / TS, B);
+  resample_rows_t_kernel<T><<<grid, dim3(TW, TS), 0, s>>>(gout, alpha, icpt,
+                                                          dx, C, S, W, V);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -163,19 +199,29 @@ extern "C" int gk_resample_rows(const float* x, const float* alpha,
                                 const float* icpt, float* out, int B, int C,
                                 int S, int W, int V, int tw, int tv,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((W + tw - 1) / tw, (V + tv - 1) / tv, B);
-  resample_rows_kernel<<<grid, dim3(tw, tv), 0, s>>>(x, alpha, icpt, out, C,
-                                                       S, W, V);
-  return (int)cudaGetLastError();
+  return launch_fwd(x, alpha, icpt, out, B, C, S, W, V, tw, tv, stream);
 }
 
 extern "C" int gk_resample_rows_t(const float* gout, const float* alpha,
                                   const float* icpt, float* dx, int B, int C,
                                   int S, int W, int V, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((W + TW - 1) / TW, (S + TS - 1) / TS, B);
-  resample_rows_t_kernel<<<grid, dim3(TW, TS), 0, s>>>(gout, alpha, icpt, dx,
-                                                       C, S, W, V);
-  return (int)cudaGetLastError();
+  return launch_adj(gout, alpha, icpt, dx, B, C, S, W, V, stream);
+}
+
+// The bf16 instances: the image (or its cotangent) and the output bf16,
+// alpha and the intercepts float32.
+extern "C" int gk_resample_rows_bf16(const void* x, const float* alpha,
+                                     const float* icpt, void* out, int B,
+                                     int C, int S, int W, int V, int tw,
+                                     int tv, void* stream) {
+  return launch_fwd(static_cast<const bf16*>(x), alpha, icpt,
+                    static_cast<bf16*>(out), B, C, S, W, V, tw, tv, stream);
+}
+
+extern "C" int gk_resample_rows_t_bf16(const void* gout, const float* alpha,
+                                       const float* icpt, void* dx, int B,
+                                       int C, int S, int W, int V,
+                                       void* stream) {
+  return launch_adj(static_cast<const bf16*>(gout), alpha, icpt,
+                    static_cast<bf16*>(dx), B, C, S, W, V, stream);
 }

@@ -30,6 +30,13 @@
 // row of a (gridDim.x, C) workspace; a second, short launch sums each
 // column in a fixed order (column_sum_kernel). No atomics: two runs give
 // the same bits.
+//
+// bfloat16 (the _bf16 entries): the same kernels instantiated on bf16
+// storage, 8 bytes a thread's group of 4. Each element is converted to fp32
+// on the load, the same fp32 steps run, and the result is rounded once to
+// bf16 on the store (__float2bfloat16_rn); db's partial and column sums stay
+// fp32 and round once. The bytes halve, so the bound halves.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -44,6 +51,8 @@ struct Group {
   float v[VEC];
 };
 
+using bf16 = __nv_bfloat16;
+
 template <int VEC>
 __device__ __forceinline__ Group<VEC> load(const float* __restrict__ p) {
   Group<VEC> g;
@@ -57,6 +66,20 @@ __device__ __forceinline__ Group<VEC> load(const float* __restrict__ p) {
 }
 
 template <int VEC>
+__device__ __forceinline__ Group<VEC> load(const bf16* __restrict__ p) {
+  Group<VEC> g;
+  if constexpr (VEC == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+    g.v[0] = a.x; g.v[1] = a.y; g.v[2] = b.x; g.v[3] = b.y;
+  } else {
+    g.v[0] = __bfloat162float(*p);
+  }
+  return g;
+}
+
+template <int VEC>
 __device__ __forceinline__ void store(float* __restrict__ p, const Group<VEC>& g) {
   if constexpr (VEC == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(g.v[0], g.v[1], g.v[2], g.v[3]);
@@ -65,23 +88,45 @@ __device__ __forceinline__ void store(float* __restrict__ p, const Group<VEC>& g
   }
 }
 
+template <int VEC>
+__device__ __forceinline__ void store(bf16* __restrict__ p, const Group<VEC>& g) {
+  if constexpr (VEC == 4) {
+    __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+    q[0] = __floats2bfloat162_rn(g.v[0], g.v[1]);
+    q[1] = __floats2bfloat162_rn(g.v[2], g.v[3]);
+  } else {
+    *p = __float2bfloat16_rn(g.v[0]);
+  }
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// v as the store of a T leaves it (rounded to bf16 for a bf16 tensor)
+__device__ __forceinline__ float stored(float v, const float*) { return v; }
+__device__ __forceinline__ float stored(float v, const bf16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 __device__ __forceinline__ float act(float v, float m, float slope, float scale) {
   return __fmul_rn(m >= 0.f ? v : __fmul_rn(v, slope), scale);
 }
 
 // MASK: the sign test reads m[] (the VJP of the backward), not x + bias
-template <int VEC, bool MASK>
+template <class T, int VEC, bool MASK>
 __global__ void __launch_bounds__(THREADS, 8)
-    fused_leaky_relu_kernel(const float* __restrict__ x,
-                            const float* __restrict__ bias,
-                            const float* __restrict__ m, float* __restrict__ y,
+    fused_leaky_relu_kernel(const T* __restrict__ x,
+                            const T* __restrict__ bias,
+                            const T* __restrict__ m, T* __restrict__ y,
                             int rows, int c, float slope, float scale) {
   const int q = blockIdx.y * blockDim.x + threadIdx.x;  // channel group
   if (q * VEC >= c) return;
   const int c0 = q * VEC;
   Group<VEC> b;
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) b.v[i] = bias ? bias[c0 + i] : 0.f;
+  for (int i = 0; i < VEC; ++i) b.v[i] = bias ? to_f32(bias[c0 + i]) : 0.f;
   const int r0 = blockIdx.x * blockDim.y + threadIdx.y;
   const int step = gridDim.x * blockDim.y;
   const int64_t stride = (int64_t)step * c;
@@ -101,11 +146,11 @@ __global__ void __launch_bounds__(THREADS, 8)
 
 // dx in one pass over g and y; with ``part``, each block's column sums of
 // dx into part[blockIdx.x, :]
-template <int VEC>
+template <class T, int VEC>
 __global__ void __launch_bounds__(THREADS, 8)
-    fused_leaky_relu_bwd_kernel(const float* __restrict__ g,
-                                const float* __restrict__ y,
-                                float* __restrict__ dx, float* __restrict__ part,
+    fused_leaky_relu_bwd_kernel(const T* __restrict__ g,
+                                const T* __restrict__ y,
+                                T* __restrict__ dx, float* __restrict__ part,
                                 int rows, int c, float slope, float scale) {
   __shared__ float red[THREADS * VEC];
   const int q = blockIdx.y * blockDim.x + threadIdx.x;
@@ -126,7 +171,8 @@ __global__ void __launch_bounds__(THREADS, 8)
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         d.v[i] = act(d.v[i], s.v[i], slope, scale);
-        acc.v[i] = __fadd_rn(acc.v[i], d.v[i]);
+        // db sums dx as stored (rounded to T), as the plain version sums it
+        acc.v[i] = __fadd_rn(acc.v[i], stored(d.v[i], dx));
       }
       store<VEC>(dx + off, d);
     }
@@ -153,8 +199,9 @@ __global__ void __launch_bounds__(THREADS, 8)
 // rows, not all of them.
 constexpr int SUM_ROWS = 32;
 
+template <class T>
 __global__ void column_sum_kernel(const float* __restrict__ part,
-                                  float* __restrict__ db, int nblocks, int c) {
+                                  T* __restrict__ db, int nblocks, int c) {
   __shared__ float red[SUM_ROWS][32];
   const int j = blockIdx.x * 32 + threadIdx.x;
   float s = 0.f;
@@ -167,7 +214,38 @@ __global__ void column_sum_kernel(const float* __restrict__ part,
   if (threadIdx.y != 0 || j >= c) return;
   float total = red[0][threadIdx.x];
   for (int k = 1; k < SUM_ROWS; ++k) total = __fadd_rn(total, red[k][threadIdx.x]);
-  db[j] = total;
+  put(db + j, total);
+}
+
+template <class T>
+int launch_fwd(const T* x, const T* bias, const T* m, T* y, int rows, int c,
+               float slope, float scale, int vec, int tx, int ty, int gx,
+               int gy, cudaStream_t s) {
+  const dim3 grid(gx, gy), block(tx, ty);
+  if (vec == 4) {
+    if (m) fused_leaky_relu_kernel<T, 4, true><<<grid, block, 0, s>>>(x, bias, m, y, rows, c, slope, scale);
+    else fused_leaky_relu_kernel<T, 4, false><<<grid, block, 0, s>>>(x, bias, m, y, rows, c, slope, scale);
+  } else {
+    if (m) fused_leaky_relu_kernel<T, 1, true><<<grid, block, 0, s>>>(x, bias, m, y, rows, c, slope, scale);
+    else fused_leaky_relu_kernel<T, 1, false><<<grid, block, 0, s>>>(x, bias, m, y, rows, c, slope, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_bwd(const T* g, const T* y, T* dx, float* part, T* db, int rows,
+               int c, float slope, float scale, int vec, int tx, int ty,
+               int gx, int gy, cudaStream_t s) {
+  const dim3 grid(gx, gy), block(tx, ty);
+  float* p = db ? part : nullptr;
+  if (vec == 4)
+    fused_leaky_relu_bwd_kernel<T, 4><<<grid, block, 0, s>>>(g, y, dx, p, rows, c, slope, scale);
+  else
+    fused_leaky_relu_bwd_kernel<T, 1><<<grid, block, 0, s>>>(g, y, dx, p, rows, c, slope, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !db) return (int)err;
+  column_sum_kernel<T><<<(c + 31) / 32, dim3(32, SUM_ROWS), 0, s>>>(part, db, gx, c);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -178,16 +256,8 @@ extern "C" int gk_fused_leaky_relu(const float* x, const float* bias,
                                    const float* m, float* y, int rows, int c,
                                    float slope, float scale, int vec, int tx,
                                    int ty, int gx, int gy, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(gx, gy), block(tx, ty);
-  if (vec == 4) {
-    if (m) fused_leaky_relu_kernel<4, true><<<grid, block, 0, s>>>(x, bias, m, y, rows, c, slope, scale);
-    else fused_leaky_relu_kernel<4, false><<<grid, block, 0, s>>>(x, bias, m, y, rows, c, slope, scale);
-  } else {
-    if (m) fused_leaky_relu_kernel<1, true><<<grid, block, 0, s>>>(x, bias, m, y, rows, c, slope, scale);
-    else fused_leaky_relu_kernel<1, false><<<grid, block, 0, s>>>(x, bias, m, y, rows, c, slope, scale);
-  }
-  return (int)cudaGetLastError();
+  return launch_fwd(x, bias, m, y, rows, c, slope, scale, vec, tx, ty, gx, gy,
+                    static_cast<cudaStream_t>(stream));
 }
 
 // dx, and with ``db`` the bias gradient through ``part`` (gx, c): two
@@ -196,15 +266,30 @@ extern "C" int gk_fused_leaky_relu_bwd(const float* g, const float* y, float* dx
                                        float* part, float* db, int rows, int c,
                                        float slope, float scale, int vec, int tx,
                                        int ty, int gx, int gy, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(gx, gy), block(tx, ty);
-  float* p = db ? part : nullptr;
-  if (vec == 4)
-    fused_leaky_relu_bwd_kernel<4><<<grid, block, 0, s>>>(g, y, dx, p, rows, c, slope, scale);
-  else
-    fused_leaky_relu_bwd_kernel<1><<<grid, block, 0, s>>>(g, y, dx, p, rows, c, slope, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !db) return (int)err;
-  column_sum_kernel<<<(c + 31) / 32, dim3(32, SUM_ROWS), 0, s>>>(part, db, gx, c);
-  return (int)cudaGetLastError();
+  return launch_bwd(g, y, dx, part, db, rows, c, slope, scale, vec, tx, ty, gx,
+                    gy, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 instances: every tensor bf16 but ``part`` (float32).
+extern "C" int gk_fused_leaky_relu_bf16(const void* x, const void* bias,
+                                        const void* m, void* y, int rows, int c,
+                                        float slope, float scale, int vec,
+                                        int tx, int ty, int gx, int gy,
+                                        void* stream) {
+  return launch_fwd(static_cast<const bf16*>(x), static_cast<const bf16*>(bias),
+                    static_cast<const bf16*>(m), static_cast<bf16*>(y), rows, c,
+                    slope, scale, vec, tx, ty, gx, gy,
+                    static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gk_fused_leaky_relu_bwd_bf16(const void* g, const void* y,
+                                            void* dx, float* part, void* db,
+                                            int rows, int c, float slope,
+                                            float scale, int vec, int tx,
+                                            int ty, int gx, int gy,
+                                            void* stream) {
+  return launch_bwd(static_cast<const bf16*>(g), static_cast<const bf16*>(y),
+                    static_cast<bf16*>(dx), part, static_cast<bf16*>(db), rows,
+                    c, slope, scale, vec, tx, ty, gx, gy,
+                    static_cast<cudaStream_t>(stream));
 }

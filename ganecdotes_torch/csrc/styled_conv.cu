@@ -26,9 +26,19 @@
 // styled_conv_epilogue_kernel sums the splits in order, then runs the
 // epilogue. Requires Cin % 4 == 0, Cout % 4 == 0 and 16-byte-aligned
 // pointers (the wrapper checks).
+//
+// On bfloat16 activations (gk_styled_conv3x3_bf16) the same design runs on
+// the bf16 main loop of bf16_mma.cuh: x * s and W in bf16, one pass of
+// bf16 MMAs into fp32 accumulators, the epilogue in fp32 and one rounding
+// to bf16 on the store, as the JAX kernel's bf16 instance does
+// (modulated_conv_pallas.py:166-184). Its tile is 128 pixels by 16, 32, 64
+// or 128 output channels (bf16mma::tile_n), so one body serves every Cout
+// from 16 to 512. Requires Cin % 8 == 0 and Cout % 8 == 0.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -118,8 +128,21 @@ styled_conv3x3_kernel(const float* __restrict__ xm,     // (B, H, W, Cin)
   }
 }
 
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
+                                       float c, float d) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(a, b);
+  q[1] = __floats2bfloat162_rn(c, d);
+}
+
 // out = the epilogue of the splits' sums, added in split order; a thread
 // takes 4 channels of one pixel
+template <class OutT>
 __global__ void styled_conv_epilogue_kernel(const float* __restrict__ part,
                                             int nsplit,
                                             const float* __restrict__ demod,
@@ -127,7 +150,7 @@ __global__ void styled_conv_epilogue_kernel(const float* __restrict__ part,
                                             int64_t noise_bs,
                                             const float* __restrict__ nw,
                                             const float* __restrict__ bias,
-                                            float* __restrict__ out, int M,
+                                            OutT* __restrict__ out, int M,
                                             int HW, int Cout) {
   const int C4 = Cout >> 2;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -147,9 +170,104 @@ __global__ void styled_conv_epilogue_kernel(const float* __restrict__ part,
   const float nz = *nw * noise[(int64_t)b * noise_bs + (m - b * HW)];
   const float4 d = *reinterpret_cast<const float4*>(demod + (int64_t)b * Cout + n);
   const float4 bb = *reinterpret_cast<const float4*>(bias + n);
-  *reinterpret_cast<float4*>(out + at) =
-      make_float4(finish(a.x, d.x, nz, bb.x), finish(a.y, d.y, nz, bb.y),
-                  finish(a.z, d.z, nz, bb.z), finish(a.w, d.w, nz, bb.w));
+  store4(out + at, finish(a.x, d.x, nz, bb.x), finish(a.y, d.y, nz, bb.y),
+         finish(a.z, d.z, nz, bb.z), finish(a.w, d.w, nz, bb.w));
+}
+
+// The bf16 body: the 9-tap implicit GEMM on bf16_mma.cuh, a BN-wide tile.
+template <int BN>
+__global__ void __launch_bounds__(bf16mma::NT)
+styled_conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ xm,  // (B, H, W, Cin)
+                           const __nv_bfloat16* __restrict__ w,   // (3, 3, Cout, Cin)
+                           const float* __restrict__ demod,       // (B, Cout)
+                           const float* __restrict__ noise,       // (Nb, H, W)
+                           int64_t noise_bs,
+                           const float* __restrict__ nw,
+                           const float* __restrict__ bias,
+                           __nv_bfloat16* __restrict__ out,       // (B, H, W, Cout)
+                           float* __restrict__ part,  // (nsplit, M, Cout) if nsplit > 1
+                           int nsplit, int B, int H, int W, int Cin, int Cout) {
+  namespace bm = bf16mma;
+  using TL = bm::Tile<BN>;
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
+
+  const int HW = H * W;
+  const int M = B * HW;
+  const int m0 = blockIdx.x * bm::BM;
+  const int n0 = blockIdx.y * BN;
+  const int t0 = 9 * blockIdx.z / nsplit, t1 = 9 * (blockIdx.z + 1) / nsplit;
+
+  const bm::ARows a = bm::a_rows(m0, M, H, W, H, W);
+  float acc[TL::MI][TL::NJ][4];
+  bm::gemm<BN>(acc, smem, t1 - t0, Cin, [&](__nv_bfloat16* stage, int tap, int c0) {
+    tap += t0;
+    const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+    bm::load_stage<BN>(stage, xm, w + (int64_t)tap * Cout * Cin, a, dy - 1,
+                       dx - 1, c0, n0, H, W, Cin, Cout);
+  });
+
+  if (nsplit > 1) {  // this split's raw sums
+    float* pz = part + (int64_t)blockIdx.z * M * Cout;
+#pragma unroll
+    for (int i = 0; i < TL::MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + bm::frag_row<BN>(i, h);
+        if (m >= M) continue;
+#pragma unroll
+        for (int j = 0; j < TL::NJ; ++j) {
+          const int n = n0 + bm::frag_col<BN>(j);
+          if (n < Cout)
+            *reinterpret_cast<float2*>(pz + (int64_t)m * Cout + n) =
+                make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        }
+      }
+    return;
+  }
+
+  const float nwv = *nw;
+#pragma unroll
+  for (int i = 0; i < TL::MI; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + bm::frag_row<BN>(i, h);
+      if (m >= M) continue;
+      const int b = m / HW;
+      const int r = m - b * HW;
+      const float nz = nwv * noise[(int64_t)b * noise_bs + r];
+      __nv_bfloat16* orow = out + (int64_t)m * Cout;
+#pragma unroll
+      for (int j = 0; j < TL::NJ; ++j) {
+        const int n = n0 + bm::frag_col<BN>(j);
+        if (n >= Cout) continue;
+        const float2 d =
+            *reinterpret_cast<const float2*>(demod + (int64_t)b * Cout + n);
+        const float2 bb = *reinterpret_cast<const float2*>(bias + n);
+        *reinterpret_cast<__nv_bfloat162*>(orow + n) = __floats2bfloat162_rn(
+            finish(acc[i][j][2 * h], d.x, nz, bb.x),
+            finish(acc[i][j][2 * h + 1], d.y, nz, bb.y));
+      }
+    }
+  }
+}
+
+template <int BN>
+int launch_bf16(const __nv_bfloat16* xm, const __nv_bfloat16* w,
+                const float* demod, const float* noise, long long noise_bs,
+                const float* nw, const float* bias, __nv_bfloat16* out,
+                float* part, int nsplit, int B, int H, int W, int Cin,
+                int Cout, cudaStream_t s) {
+  auto kernel = styled_conv3x3_bf16_kernel<BN>;
+  const int smem = bf16mma::Tile<BN>::SMEM_BYTES;
+  cudaError_t e = bf16mma::set_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int M = B * H * W;
+  dim3 grid((M + bf16mma::BM - 1) / bf16mma::BM, (Cout + BN - 1) / BN, nsplit);
+  kernel<<<grid, bf16mma::NT, smem, s>>>(xm, w, demod, noise, noise_bs, nw,
+                                         bias, out, part, nsplit, B, H, W,
+                                         Cin, Cout);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -172,7 +290,49 @@ extern "C" int gk_styled_conv3x3(const float* xm, const float* w,
   e = cudaGetLastError();
   if (e != cudaSuccess || nsplit == 1) return (int)e;
   const int64_t total = (int64_t)M * (Cout / 4);
-  styled_conv_epilogue_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+  styled_conv_epilogue_kernel<float><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
       part, nsplit, demod, noise, noise_bs, nw, bias, out, M, H * W, Cout);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 entry: xm, w and out bf16; demod, noise, nw, bias and the split
+// scratch float32. ``bn`` is the tile width (16, 32, 64 or 128).
+extern "C" int gk_styled_conv3x3_bf16(const void* xm, const void* w,
+                                      const float* demod, const float* noise,
+                                      long long noise_bs, const float* nw,
+                                      const float* bias, void* out, float* part,
+                                      int nsplit, int B, int H, int W, int Cin,
+                                      int Cout, int bn, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((nsplit != 1 && nsplit != 3 && nsplit != 9) || Cin % 8 || Cout % 8 ||
+      bn != bf16mma::tile_n(Cout))
+    return (int)cudaErrorInvalidValue;
+  const auto* x16 = static_cast<const __nv_bfloat16*>(xm);
+  const auto* w16 = static_cast<const __nv_bfloat16*>(w);
+  auto* o16 = static_cast<__nv_bfloat16*>(out);
+  int rc;
+  switch (bn) {
+    case 16:
+      rc = launch_bf16<16>(x16, w16, demod, noise, noise_bs, nw, bias, o16,
+                           part, nsplit, B, H, W, Cin, Cout, s);
+      break;
+    case 32:
+      rc = launch_bf16<32>(x16, w16, demod, noise, noise_bs, nw, bias, o16,
+                           part, nsplit, B, H, W, Cin, Cout, s);
+      break;
+    case 64:
+      rc = launch_bf16<64>(x16, w16, demod, noise, noise_bs, nw, bias, o16,
+                           part, nsplit, B, H, W, Cin, Cout, s);
+      break;
+    default:
+      rc = launch_bf16<128>(x16, w16, demod, noise, noise_bs, nw, bias, o16,
+                            part, nsplit, B, H, W, Cin, Cout, s);
+  }
+  if (rc != 0 || nsplit == 1) return rc;
+  const int M = B * H * W;
+  const int64_t total = (int64_t)M * (Cout / 4);
+  styled_conv_epilogue_kernel<__nv_bfloat16>
+      <<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+          part, nsplit, demod, noise, noise_bs, nw, bias, o16, M, H * W, Cout);
   return (int)cudaGetLastError();
 }

@@ -40,9 +40,20 @@
 // from device memory at best): one thread owns a 2 x 2 block of outputs and
 // 4 channels, reads the 5 x 5 window of T it needs once, blurs it
 // separably and writes the 16 outputs as four 16-byte vectors.
+//
+// On bfloat16 activations (gk_styled_up_conv3x3_bf16) the phase GEMM runs
+// on the bf16 main loop of bf16_mma.cuh (x * s and W in bf16, fp32
+// accumulators, a tile of 128 pixels by bf16mma::tile_n(Cout) channels), and
+// T stays float32: the blur, noise, bias and activation then run on the
+// unrounded sums and the kernel rounds once, on the bf16 store, as the JAX
+// kernel's bf16 instance does with its blur folded into the phase filters
+// (modulated_conv_pallas.py:412-436). A bf16 T would halve T's bytes and
+// add a second rounding. Requires Cin % 8 == 0 and Cout % 8 == 0.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -113,16 +124,88 @@ up_gemm_kernel(const float* __restrict__ xm,     // (B, H, W, Cin)
   }
 }
 
+// The bf16 body's phase GEMM: up_gemm_kernel on bf16_mma.cuh, a BN-wide
+// tile, T in float32.
+template <int BN>
+__global__ void __launch_bounds__(bf16mma::NT)
+up_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ xm,  // (B, H, W, Cin)
+                    const __nv_bfloat16* __restrict__ w,   // (3, 3, Cout, Cin)
+                    const float* __restrict__ demod,       // (B, Cout)
+                    float* __restrict__ t_out,             // (B, 2H+1, 2W+1, Cout)
+                    PhaseTiles pt, int B, int H, int W, int Cin, int Cout) {
+  namespace bm = bf16mma;
+  using TL = bm::Tile<BN>;
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
+
+  int phase = 0;
+  while (phase < 3 && (int)blockIdx.x >= pt.first[phase + 1]) ++phase;
+  const int local = blockIdx.x - pt.first[phase];
+  const int m0 = (local / pt.tiles_n) * bm::BM;
+  const int n0 = (local % pt.tiles_n) * BN;
+  const int py = phase >> 1, px = phase & 1;
+  const int Hp = H + 1 - py, Wp = W + 1 - px;  // rows, cols of this class
+  const int HWp = Hp * Wp;
+  const int M = B * HWp;
+  const int ntx = 2 - px;
+  const int ntaps = (2 - py) * ntx;
+
+  const bm::ARows a = bm::a_rows(m0, M, Hp, Wp, H, W);
+  float acc[TL::MI][TL::NJ][4];
+  bm::gemm<BN>(acc, smem, ntaps, Cin, [&](__nv_bfloat16* stage, int tap, int c0) {
+    const int ty = ntx == 2 ? tap >> 1 : tap, tx = ntx == 2 ? tap & 1 : 0;
+    const int ky = py ? 1 : 2 * ty, kx = px ? 1 : 2 * tx;
+    bm::load_stage<BN>(stage, xm, w + (int64_t)(ky * 3 + kx) * Cout * Cin, a,
+                       -ty, -tx, c0, n0, H, W, Cin, Cout);
+  });
+
+  const int TH = 2 * H + 1, TW = 2 * W + 1;
+#pragma unroll
+  for (int i = 0; i < TL::MI; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + bm::frag_row<BN>(i, h);
+      if (m >= M) continue;
+      const int b = m / HWp;
+      const int r = m - b * HWp;
+      const int y = r / Wp;
+      const int x = r - y * Wp;
+      float* trow =
+          t_out + (((int64_t)b * TH + 2 * y + py) * TW + 2 * x + px) * Cout;
+#pragma unroll
+      for (int j = 0; j < TL::NJ; ++j) {
+        const int n = n0 + bm::frag_col<BN>(j);
+        if (n >= Cout) continue;
+        const float2 d =
+            *reinterpret_cast<const float2*>(demod + (int64_t)b * Cout + n);
+        *reinterpret_cast<float2*>(trow + n) =
+            make_float2(acc[i][j][2 * h] * d.x, acc[i][j][2 * h + 1] * d.y);
+      }
+    }
+  }
+}
+
 struct BlurTaps {
   float k[4];  // flipped 1-D taps: out[o] = sum_t k[t] * T[o - 1 + t]
 };
 
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(v[0], v[1]);
+  q[1] = __floats2bfloat162_rn(v[2], v[3]);
+}
+
+template <class OutT>
 __global__ void up_blur_epilogue_kernel(const float* __restrict__ t_in,  // (B, 2H+1, 2W+1, C)
                                         const float* __restrict__ noise,  // (Nb, 2H, 2W)
                                         int64_t noise_bs,
                                         const float* __restrict__ nw,
                                         const float* __restrict__ bias,
-                                        float* __restrict__ out,  // (B, 2H, 2W, C)
+                                        OutT* __restrict__ out,  // (B, 2H, 2W, C)
                                         BlurTaps kt, int B, int H, int W,
                                         int C) {
   const int C4 = C >> 2;
@@ -195,10 +278,35 @@ __global__ void up_blur_epilogue_kernel(const float* __restrict__ t_in,  // (B, 
         const float s = v[k] + nz + bv[k];
         v[k] = (s >= 0.f ? s : 0.2f * s) * SQRT2;
       }
-      *reinterpret_cast<float4*>(out + (((int64_t)b * OH + oy) * OW + ox) * C + c) =
-          make_float4(v[0], v[1], v[2], v[3]);
+      store4(out + (((int64_t)b * OH + oy) * OW + ox) * C + c, v);
     }
   }
+}
+
+PhaseTiles phase_tiles(int B, int H, int W, int Cout, int bm, int bn) {
+  PhaseTiles pt;
+  pt.tiles_n = (Cout + bn - 1) / bn;
+  pt.first[0] = 0;
+  for (int p = 0; p < 4; ++p) {
+    const int rows = H + 1 - (p >> 1), cols = W + 1 - (p & 1);
+    const int tiles_m = (B * rows * cols + bm - 1) / bm;
+    pt.first[p + 1] = pt.first[p] + tiles_m * pt.tiles_n;
+  }
+  return pt;
+}
+
+template <int BN>
+int launch_up_bf16(const __nv_bfloat16* xm, const __nv_bfloat16* w,
+                   const float* demod, float* scratch, int B, int H, int W,
+                   int Cin, int Cout, cudaStream_t s) {
+  auto kernel = up_gemm_bf16_kernel<BN>;
+  const int smem = bf16mma::Tile<BN>::SMEM_BYTES;
+  cudaError_t e = bf16mma::set_smem(kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  const PhaseTiles pt = phase_tiles(B, H, W, Cout, bf16mma::BM, BN);
+  kernel<<<pt.first[4], bf16mma::NT, smem, s>>>(xm, w, demod, scratch, pt, B,
+                                                H, W, Cin, Cout);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -229,8 +337,48 @@ extern "C" int gk_styled_up_conv3x3(const float* xm, const float* w,
   BlurTaps kt = {{k3, k2, k1, k0}};
   const int64_t total = (int64_t)B * H * W * (Cout / 4);
   const int threads = 256;
-  up_blur_epilogue_kernel<<<(unsigned)((total + threads - 1) / threads),
+  up_blur_epilogue_kernel<float><<<(unsigned)((total + threads - 1) / threads),
                             threads, 0, s>>>(scratch, noise, noise_bs, nw, bias,
                                              out, kt, B, H, W, Cout);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 entry: xm, w and out bf16; demod, noise, nw, bias and the T
+// scratch float32. ``bn`` is the GEMM's tile width (16, 32, 64 or 128).
+extern "C" int gk_styled_up_conv3x3_bf16(const void* xm, const void* w,
+                                         const float* demod, const float* noise,
+                                         long long noise_bs, const float* nw,
+                                         const float* bias, float* scratch,
+                                         void* out, int B, int H, int W,
+                                         int Cin, int Cout, float k0, float k1,
+                                         float k2, float k3, int bn,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Cin % 8 || Cout % 8 || bn != bf16mma::tile_n(Cout))
+    return (int)cudaErrorInvalidValue;
+  const auto* x16 = static_cast<const __nv_bfloat16*>(xm);
+  const auto* w16 = static_cast<const __nv_bfloat16*>(w);
+  int rc;
+  switch (bn) {
+    case 16:
+      rc = launch_up_bf16<16>(x16, w16, demod, scratch, B, H, W, Cin, Cout, s);
+      break;
+    case 32:
+      rc = launch_up_bf16<32>(x16, w16, demod, scratch, B, H, W, Cin, Cout, s);
+      break;
+    case 64:
+      rc = launch_up_bf16<64>(x16, w16, demod, scratch, B, H, W, Cin, Cout, s);
+      break;
+    default:
+      rc = launch_up_bf16<128>(x16, w16, demod, scratch, B, H, W, Cin, Cout, s);
+  }
+  if (rc != 0) return rc;
+  BlurTaps kt = {{k3, k2, k1, k0}};
+  const int64_t total = (int64_t)B * H * W * (Cout / 4);
+  const int threads = 256;
+  up_blur_epilogue_kernel<__nv_bfloat16>
+      <<<(unsigned)((total + threads - 1) / threads), threads, 0, s>>>(
+          scratch, noise, noise_bs, nw, bias, static_cast<__nv_bfloat16*>(out),
+          kt, B, H, W, Cout);
   return (int)cudaGetLastError();
 }

@@ -43,6 +43,13 @@
 // 2^31 elements) and the flattened (row, column) walks step without a
 // division. The taps pass by value in the launch's parameter space
 // (__grid_constant__: read in place through the constant cache, no copy).
+//
+// bfloat16 (gk_upfirdn2d_bf16): the same kernel on bf16 storage. Staging
+// converts each input to fp32 on its way into shared memory (plain 8- or
+// 2-byte loads: cp.async copies whole bytes, and a bf16 sample is narrower
+// than its 4-byte minimum), both passes run in fp32 as they do for float32,
+// and each output is rounded once to bf16 on the store. The bytes halve.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -101,6 +108,43 @@ struct Vec<4> {
   }
 };
 
+using bf16 = __nv_bfloat16;
+
+// one staging copy of VEC channels into shared memory (fp32 there)
+template <int VEC>
+__device__ __forceinline__ void stage_copy(float* dst, const float* src, bool ok) {
+  Vec<VEC>::copy(smem_addr(dst), src, ok);
+}
+
+template <int VEC>
+__device__ __forceinline__ void stage_copy(float* dst, const bf16* src, bool ok) {
+  if constexpr (VEC == 4) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ok) {
+      const uint2 t = *reinterpret_cast<const uint2*>(src);
+      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+      v = make_float4(a.x, a.y, b.x, b.y);
+    }
+    *reinterpret_cast<float4*>(dst) = v;
+  } else {
+    *dst = ok ? __bfloat162float(*src) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store_out(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_out(bf16* p, float4 v) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(v.x, v.y);
+  q[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
 // The walk of a flattened (row, column) range by a stride of whole positions:
 // advances without a division.
 struct Walk {
@@ -118,9 +162,9 @@ struct Walk {
   }
 };
 
-template <int UX, int DX, int UY, int DY, int VEC>
+template <int UX, int DX, int UY, int DY, int VEC, class T>
 __global__ void __launch_bounds__(256)
-    upfirdn2d_kernel(const float* __restrict__ x, float* __restrict__ y,
+    upfirdn2d_kernel(const T* __restrict__ x, T* __restrict__ y,
                      const __grid_constant__ Params p) {
   using V = typename Vec<VEC>::T;
   extern __shared__ __align__(16) float smem[];
@@ -140,18 +184,20 @@ __global__ void __launch_bounds__(256)
   const int pitch = p.iw * p.ct;  // floats per staged row (both buffers)
   float* in = smem;
   float* mid = p.vpass ? smem + p.ih * pitch : smem;
-  const float* xb = x + b * p.H * p.W * p.C + c;
+  const T* xb = x + b * p.H * p.W * p.C + c;
 
   // 1. stage the input footprint (zero outside the image)
   for (Walk s(pos, p.iw); s.r < p.ih; s.step(np, p.iw)) {
     const int iy = iy0 + s.r, ix = ix0 + s.col;
     const bool ok = c_ok && (unsigned)iy < (unsigned)p.H &&
                     (unsigned)ix < (unsigned)p.W;
-    Vec<VEC>::copy(smem_addr(in + s.r * pitch + s.col * p.ct + cv * VEC),
-                   ok ? xb + (iy * p.W + ix) * p.C : x, ok);
+    stage_copy<VEC>(in + s.r * pitch + s.col * p.ct + cv * VEC,
+                    ok ? xb + (iy * p.W + ix) * p.C : x, ok);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+  }
   __syncthreads();
 
   // 2. vertical pass: toh rows x iw columns into mid
@@ -196,15 +242,15 @@ __global__ void __launch_bounds__(256)
         for (int t = t0; t < kw; t += 2, src += p.ct)
           Vec<VEC>::fma(acc, kx[kw - 1 - t], *reinterpret_cast<const V*>(src));
       }
-      *reinterpret_cast<V*>(y + ((b * p.OH + oy) * p.OW + ox) * p.C + c) = acc;
+      store_out(y + ((b * p.OH + oy) * p.OW + ox) * p.C + c, acc);
     }
   }
 }
 
-template <int UX, int DX, int UY, int DY, int VEC>
-int launch(const float* x, float* y, int B, const Params& p, int threads,
+template <int UX, int DX, int UY, int DY, int VEC, class T>
+int launch(const T* x, T* y, int B, const Params& p, int threads,
            cudaStream_t s) {
-  auto kernel = upfirdn2d_kernel<UX, DX, UY, DY, VEC>;
+  auto kernel = upfirdn2d_kernel<UX, DX, UY, DY, VEC, T>;
   const int smem = (p.ih * p.iw + (p.vpass ? p.toh * p.iw : 0)) * p.ct * 4;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -223,15 +269,15 @@ inline int axis_case(int up, int down) {
   return -1;
 }
 
-template <int UX, int DX, int UY, int DY>
-int by_vec(const float* x, float* y, int B, const Params& p, int vec,
+template <int UX, int DX, int UY, int DY, class T>
+int by_vec(const T* x, T* y, int B, const Params& p, int vec,
            int threads, cudaStream_t s) {
   return vec == 4 ? launch<UX, DX, UY, DY, 4>(x, y, B, p, threads, s)
                   : launch<UX, DX, UY, DY, 1>(x, y, B, p, threads, s);
 }
 
-template <int UX, int DX>
-int by_y(const float* x, float* y, int B, const Params& p, int cy, int vec,
+template <int UX, int DX, class T>
+int by_y(const T* x, T* y, int B, const Params& p, int cy, int vec,
          int threads, cudaStream_t s) {
   switch (cy) {
     case 0:
@@ -243,15 +289,11 @@ int by_y(const float* x, float* y, int B, const Params& p, int cy, int vec,
   }
 }
 
-}  // namespace
-
-// The tile (toh, tow, ct, ih, iw, vec, threads, vpass) comes from the
-// wrapper's plan; taps.kh / taps.kw taps of taps.ky / taps.kx are used.
-extern "C" int gk_upfirdn2d(const float* x, float* y, int B, int H, int W,
-                            int C, int OH, int OW, int up_x, int up_y,
-                            int down_x, int down_y, int pad_x0, int pad_y0,
-                            int toh, int tow, int ct, int ih, int iw, int vec,
-                            int threads, int vpass, Taps taps, void* stream) {
+template <class T>
+int dispatch(const T* x, T* y, int B, int H, int W, int C, int OH, int OW,
+             int up_x, int up_y, int down_x, int down_y, int pad_x0,
+             int pad_y0, int toh, int tow, int ct, int ih, int iw, int vec,
+             int threads, int vpass, const Taps& taps, void* stream) {
   const int cx = axis_case(up_x, down_x), cy = axis_case(up_y, down_y);
   const int slices = (C + ct - 1) / ct;
   if (cx < 0 || cy < 0 || taps.kh < 1 || taps.kh > GK_KMAX || taps.kw < 1 ||
@@ -270,4 +312,30 @@ extern "C" int gk_upfirdn2d(const float* x, float* y, int B, int H, int W,
     default:
       return by_y<1, 2>(x, y, B, p, cy, vec, threads, s);
   }
+}
+
+}  // namespace
+
+// The tile (toh, tow, ct, ih, iw, vec, threads, vpass) comes from the
+// wrapper's plan; taps.kh / taps.kw taps of taps.ky / taps.kx are used.
+extern "C" int gk_upfirdn2d(const float* x, float* y, int B, int H, int W,
+                            int C, int OH, int OW, int up_x, int up_y,
+                            int down_x, int down_y, int pad_x0, int pad_y0,
+                            int toh, int tow, int ct, int ih, int iw, int vec,
+                            int threads, int vpass, Taps taps, void* stream) {
+  return dispatch(x, y, B, H, W, C, OH, OW, up_x, up_y, down_x, down_y, pad_x0,
+                  pad_y0, toh, tow, ct, ih, iw, vec, threads, vpass, taps,
+                  stream);
+}
+
+// The bf16 instance: x and y bf16, the same plan and taps.
+extern "C" int gk_upfirdn2d_bf16(const void* x, void* y, int B, int H, int W,
+                                 int C, int OH, int OW, int up_x, int up_y,
+                                 int down_x, int down_y, int pad_x0, int pad_y0,
+                                 int toh, int tow, int ct, int ih, int iw,
+                                 int vec, int threads, int vpass, Taps taps,
+                                 void* stream) {
+  return dispatch(static_cast<const bf16*>(x), static_cast<bf16*>(y), B, H, W,
+                  C, OH, OW, up_x, up_y, down_x, down_y, pad_x0, pad_y0, toh,
+                  tow, ct, ih, iw, vec, threads, vpass, taps, stream);
 }

@@ -14,11 +14,18 @@ it, 2x down after) through ``ops.upfirdn2d``: the FIR kernel with
 ``KERNELS``, ``upfirdn2d_ref`` with ``PLAIN`` (the JAX package runs them
 through its ``upfirdn2d``, as C = 3 matmuls). Random
 matrices are drawn from an explicit ``torch.Generator`` on the CPU; the
-trainer draws them up front (``gan/train.py::draw_step_inputs``) and passes
-them in as ``transform_matrix=(G, C)``.
+trainer draws them up front (``gan/train.py::draw_step_inputs``, as
+``TransformDraws``), composes them at the iteration's p on the device
+(``compose_transforms``) and passes them in as ``transform_matrix=(G, C)``.
+
+On a bfloat16 image the augmentation runs in bf16, as the JAX package's
+under ``compute_dtype='bfloat16'``: the wavelet passes and the warp on the
+kernels' bf16 instances (the warp's geometry float32), the color matrices
+cast to the image's type for the einsum (JAX ada.py:306-307).
 """
 
 import math
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -105,82 +112,135 @@ def saturation_mat(axis, i):
 # ---------------------------------------------------------------------------
 
 
-def _random_mat_apply(generator, p, transform, prev, eye):
-    b = transform.shape[0]
-    select = (torch.rand(b, 1, 1, generator=generator) < p).to(transform.dtype)
-    return (select * transform + (1 - select) * eye) @ prev
+class TransformDraws(NamedTuple):
+    """The random numbers of one ``sample_transforms`` call, drawn on the
+    CPU in its order: per random transform (geometric, then color) the
+    candidate matrices (B, n, n), the uniforms (B, 1, 1) that select them
+    against the probability, and which probability ("p" or "p_rot", the
+    rotations' 1 - sqrt(1 - p)). ``compose_transforms`` turns them into
+    (G, C) at a probability known later (a device tensor: no host sync)."""
+
+    affine: List[Tuple[torch.Tensor, torch.Tensor, str]]
+    color: List[Tuple[torch.Tensor, torch.Tensor, str]]
+
+
+def _compose(steps, p, n, device=None):
+    """prod over the steps, last first, of select * T + (1 - select) * I,
+    select = u < (p or p_rot). ``p`` a float, or a 0-d tensor on ``device``
+    (the matrices move there)."""
+    if isinstance(p, torch.Tensor):
+        probs = {"p": p, "p_rot": 1 - torch.sqrt(1 - p)}
+    else:
+        probs = {"p": p, "p_rot": 1 - math.sqrt(1 - p)}
+    b = steps[0][0].shape[0]
+    eye = _eye(n, b).to(device)
+    mat = eye
+    for transform, u, kind in steps:
+        transform, u = transform.to(device), u.to(device)
+        select = (u < probs[kind]).to(transform.dtype)
+        mat = (select * transform + (1 - select) * eye) @ mat
+    return mat
+
+
+def draw_affine(generator, size, height, width):
+    """The geometric transforms' draws (ref ada.py:269-325): the candidate
+    matrices and selection uniforms of ``sample_affine``, in its order."""
+    g = generator
+    steps = []
+
+    def step(transform, kind="p"):
+        steps.append((transform, torch.rand(size, 1, 1, generator=g), kind))
+
+    # flip
+    param = torch.randint(0, 2, (size,), generator=g).to(torch.float32)
+    step(scale_mat(1 - 2.0 * param, torch.ones(size)))
+    # 90-degree rotate (0 or 3 quarter-turns)
+    param = torch.tensor([0.0, 3.0])[torch.randint(0, 2, (size,), generator=g)]
+    step(rotate_mat(-math.pi / 2 * param))
+    # integer translate
+    param = torch.rand(2, size, generator=g) * 0.25 - 0.125
+    step(translate_mat(torch.round(param[1] * width), torch.round(param[0] * height)))
+    # isotropic scale
+    param = torch.exp(torch.randn(size, generator=g) * 0.2 * math.log(2))
+    step(scale_mat(param, param))
+    # pre-rotate
+    param = (torch.rand(size, generator=g) * 2 - 1) * math.pi
+    step(rotate_mat(-param), "p_rot")
+    # anisotropic scale
+    param = torch.exp(torch.randn(size, generator=g) * 0.2 * math.log(2))
+    step(scale_mat(param, 1 / param))
+    # post-rotate
+    param = (torch.rand(size, generator=g) * 2 - 1) * math.pi
+    step(rotate_mat(-param), "p_rot")
+    # fractional translate
+    param = torch.randn(2, size, generator=g) * 0.125
+    step(translate_mat(param[1] * width, param[0] * height))
+    return steps
+
+
+def draw_color(generator, size):
+    """The color transforms' draws (ref ada.py:328-359), in
+    ``sample_color``'s order."""
+    g = generator
+    steps = []
+    axis_val = 1 / math.sqrt(3)
+    axis = (axis_val, axis_val, axis_val)
+
+    def step(transform):
+        steps.append((transform, torch.rand(size, 1, 1, generator=g), "p"))
+
+    # brightness
+    param = torch.randn(size, generator=g) * 0.2
+    step(translate3d_mat(param, param, param))
+    # contrast
+    param = torch.exp(torch.randn(size, generator=g) * 0.5 * math.log(2))
+    step(scale3d_mat(param, param, param))
+    # luma flip
+    param = torch.randint(0, 2, (size,), generator=g).to(torch.float32)
+    step(luma_flip_mat(axis, param))
+    # hue rotation
+    param = (torch.rand(size, generator=g) * 2 - 1) * math.pi
+    step(rotate3d_mat(axis, param))
+    # saturation
+    param = torch.exp(torch.randn(size, generator=g) * math.log(2))
+    step(saturation_mat(axis, param))
+    return steps
 
 
 def sample_affine(generator, p, size, height, width):
     """Composed geometric transform (ref ada.py:269-325), (B, 3, 3), drawn on
     the CPU from ``generator``; ``p`` a float."""
-    eye = _eye(3, size)
-    G = eye
-    g = generator
-
-    # flip
-    param = torch.randint(0, 2, (size,), generator=g).to(torch.float32)
-    G = _random_mat_apply(g, p, scale_mat(1 - 2.0 * param, torch.ones(size)), G, eye)
-    # 90-degree rotate (0 or 3 quarter-turns)
-    param = torch.tensor([0.0, 3.0])[torch.randint(0, 2, (size,), generator=g)]
-    G = _random_mat_apply(g, p, rotate_mat(-math.pi / 2 * param), G, eye)
-    # integer translate
-    param = torch.rand(2, size, generator=g) * 0.25 - 0.125
-    G = _random_mat_apply(g, p, translate_mat(torch.round(param[1] * width),
-                                              torch.round(param[0] * height)), G, eye)
-    # isotropic scale
-    param = torch.exp(torch.randn(size, generator=g) * 0.2 * math.log(2))
-    G = _random_mat_apply(g, p, scale_mat(param, param), G, eye)
-
-    p_rot = 1 - math.sqrt(1 - p)
-    # pre-rotate
-    param = (torch.rand(size, generator=g) * 2 - 1) * math.pi
-    G = _random_mat_apply(g, p_rot, rotate_mat(-param), G, eye)
-    # anisotropic scale
-    param = torch.exp(torch.randn(size, generator=g) * 0.2 * math.log(2))
-    G = _random_mat_apply(g, p, scale_mat(param, 1 / param), G, eye)
-    # post-rotate
-    param = (torch.rand(size, generator=g) * 2 - 1) * math.pi
-    G = _random_mat_apply(g, p_rot, rotate_mat(-param), G, eye)
-    # fractional translate
-    param = torch.randn(2, size, generator=g) * 0.125
-    G = _random_mat_apply(g, p, translate_mat(param[1] * width, param[0] * height), G, eye)
-    return G
+    return _compose(draw_affine(generator, size, height, width), p, 3)
 
 
 def sample_color(generator, p, size):
     """Composed color transform (ref ada.py:328-359), (B, 4, 4), drawn on the
     CPU from ``generator``; ``p`` a float."""
-    eye = _eye(4, size)
-    C = eye
-    g = generator
-    axis_val = 1 / math.sqrt(3)
-    axis = (axis_val, axis_val, axis_val)
+    return _compose(draw_color(generator, size), p, 4)
 
-    # brightness
-    param = torch.randn(size, generator=g) * 0.2
-    C = _random_mat_apply(g, p, translate3d_mat(param, param, param), C, eye)
-    # contrast
-    param = torch.exp(torch.randn(size, generator=g) * 0.5 * math.log(2))
-    C = _random_mat_apply(g, p, scale3d_mat(param, param, param), C, eye)
-    # luma flip
-    param = torch.randint(0, 2, (size,), generator=g).to(torch.float32)
-    C = _random_mat_apply(g, p, luma_flip_mat(axis, param), C, eye)
-    # hue rotation
-    param = (torch.rand(size, generator=g) * 2 - 1) * math.pi
-    C = _random_mat_apply(g, p, rotate3d_mat(axis, param), C, eye)
-    # saturation
-    param = torch.exp(torch.randn(size, generator=g) * math.log(2))
-    C = _random_mat_apply(g, p, saturation_mat(axis, param), C, eye)
-    return C
+
+def draw_transforms(generator, size, height, width):
+    """The draws of one ``sample_transforms`` call (``TransformDraws``)."""
+    return TransformDraws(draw_affine(generator, size, height, width),
+                          draw_color(generator, size))
+
+
+def compose_transforms(draws, p, device=None):
+    """(G, C) of ``TransformDraws`` at probability ``p``: a float (composed
+    on the CPU, moved to ``device``) or a 0-d tensor (composed on its
+    device, with no host sync; the inverse without its error check)."""
+    if isinstance(p, torch.Tensor):
+        G = torch.linalg.inv_ex(_compose(draws.affine, p, 3, p.device))[0]
+        return G, _compose(draws.color, p, 4, p.device)
+    G = torch.linalg.inv(_compose(draws.affine, p, 3))
+    return G.to(device), _compose(draws.color, p, 4).to(device)
 
 
 def sample_transforms(generator, p, size, height, width, device=None):
     """(G, C) for one ``augment`` call: the inverse of a ``sample_affine``
     draw and a ``sample_color`` draw, in that order, on ``device``."""
-    G = torch.linalg.inv(sample_affine(generator, p, size, height, width))
-    C = sample_color(generator, p, size)
-    return G.to(device), C.to(device)
+    return compose_transforms(draw_transforms(generator, size, height, width), p,
+                              device)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,10 @@ the JAX package's format ('%s_net_%s.npz', loadable by either package).
 Random numbers are drawn up front, never inside a step: ``set_input``
 fills a ``BagGANDraws`` record from the trainer's ``torch.Generator``
 (``draw_step_inputs``), or takes one passed in, so a test can hand the port
-the draws the JAX step makes from its keys.
+the draws the JAX step makes from its keys. The trainer's own ADA draws
+are raw (``ada.TransformDraws``) and are composed into matrices at the
+start of the iteration that uses them, at ADA's p of that moment as a
+device tensor, so drawing needs no host sync.
 
 Every op runs through an op set: ``KERNELS`` (the CUDA kernels as autograd
 Functions) or ``PLAIN``. The PPL step takes gradients of gradients through
@@ -40,8 +43,26 @@ are the global batch's, and the reported losses are the global means, so
 N ranks reproduce one process on the global batch. Only rank 0 writes
 checkpoints.
 
-Not ported (each raises ``NotImplementedError``): the fused multi-iteration
-``optimize_parameters_chunk`` and ``compute_dtype='bfloat16'``.
+``compute_dtype='bfloat16'`` runs the D and G adversarial steps in bf16,
+as the JAX trainer does (train.py:369-470, :492-495, :516-526): the
+synthesis (its mapping in float32) and D on bf16 activations, the real
+batch cast to bf16 before ADA, D's predictions cast to float32 before the
+losses and the ADA controller, the WGAN-GP penalty's interpolates cast
+back to float32 (its D runs in float32), R1 and PPL in float32, parameters
+and Adam moments float32 (each weight meets the activation in its type:
+the casts' backward brings the gradient back to float32), and the D
+step's image returned in float32. On the card the kernels' bf16 instances
+run. ``'float32'`` (or None) is the default path itself; any other type
+raises ``NotImplementedError``.
+
+``optimize_parameters_chunk`` (the JAX trainer's fused multi-iteration
+call, train.py:583-637, :811-880) runs a list of batches: each iteration
+whose lazy regularisation is due goes through ``set_input`` +
+``optimize_parameters``; each run of plain (D, G) iterations is staged
+(its batches on the device and its draws taken from the generator in the
+single-step order) and then executed back to back with no host sync, the
+losses kept as device tensors until the run ends. A chunked run follows
+the single-stepped trajectory.
 """
 
 import functools
@@ -56,8 +77,16 @@ import torch.distributed as dist
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
-from ganecdotes_torch import resolve_device
-from ganecdotes_torch.gan.ada import ada_init_state, ada_update, augment, sample_transforms
+from ganecdotes_torch import compute_dtype, resolve_device
+from ganecdotes_torch.gan.ada import (
+    TransformDraws,
+    ada_init_state,
+    ada_update,
+    augment,
+    compose_transforms,
+    draw_transforms,
+    sample_transforms,
+)
 from ganecdotes_torch.gan.losses import (
     gan_loss,
     gradient_penalty,
@@ -240,7 +269,9 @@ class GANBaseModel:
 
 class BagGANDraws(NamedTuple):
     """The random numbers of one BagGAN iteration, on the trainer's device.
-    An augmentation is its ``(G, C)`` matrices (None without ADA)."""
+    An augmentation is its ``(G, C)`` matrices, or its raw
+    ``ada.TransformDraws`` to compose at the iteration's p (None without
+    ADA)."""
 
     z: List[torch.Tensor]  # 1 or 2 (B, latent) normals (2: style mixing)
     inject_index: int  # w+ rows below it take z[0]'s w; n_latent if unmixed
@@ -259,8 +290,10 @@ def draw_step_inputs(generator, config, gen_meta, batch, iter_no, ada_p,
                      device=None):
     """One iteration's ``BagGANDraws`` from ``generator`` (on the CPU, moved
     to ``device``): the latents, the mixing coin and inject index, the
-    noise maps, the ADA matrices at probability ``ada_p`` (a float), the GP
-    alpha, and the R1 and PPL draws when those are due at ``iter_no``."""
+    noise maps, the ADA matrices at probability ``ada_p`` (a float; None
+    keeps them raw, ``ada.TransformDraws``, for ``compose_draws``), the GP
+    alpha, and the R1 and PPL draws when those are due at ``iter_no``. The
+    generator's stream is the same either way."""
     g = generator
     n_latent = gen_meta["n_latent"]
     size, lat_dim = gen_meta["size"], gen_meta["style_dim"]
@@ -277,6 +310,8 @@ def draw_step_inputs(generator, config, gen_meta, batch, iter_no, ada_p,
     def aug():
         if not use_aug:
             return None
+        if ada_p is None:
+            return draw_transforms(g, batch, size, size)
         return sample_transforms(g, ada_p, batch, size, size, device)
 
     d_noise = make_noise(gen_meta, batch, g, device)
@@ -295,10 +330,24 @@ def draw_step_inputs(generator, config, gen_meta, batch, iter_no, ada_p,
                        r1_aug, g_noise, g_aug, ppl_z, ppl_noise)
 
 
+def compose_draws(draws, p):
+    """``draws`` with every raw ``ada.TransformDraws`` composed into (G, C)
+    at probability ``p`` (a 0-d device tensor: no host sync)."""
+    def one(t):
+        return compose_transforms(t, p) if isinstance(t, TransformDraws) else t
+
+    return draws._replace(d_fake_aug=one(draws.d_fake_aug),
+                          d_real_aug=one(draws.d_real_aug),
+                          r1_aug=one(draws.r1_aug), g_aug=one(draws.g_aug))
+
+
 def _shard(mesh, t):
-    """The rank's slice of every tensor in ``t`` (tensors, lists, tuples)."""
+    """The rank's slice of every tensor in ``t`` (tensors, lists, tuples,
+    named tuples; batch-leading)."""
     if isinstance(t, torch.Tensor):
         return shard_batch(mesh, t)
+    if isinstance(t, TransformDraws):
+        return TransformDraws(*(_shard(mesh, u) for u in t))
     if isinstance(t, (list, tuple)):
         return type(t)(_shard(mesh, u) for u in t)
     return t
@@ -310,7 +359,9 @@ class BagGANHQ(GANBaseModel):
     ``device=None`` runs on ``cuda`` and raises without a card;
     ``device="cpu"`` runs every op's plain version. ``ops`` is ``KERNELS``
     or ``PLAIN``. Weights are drawn from a ``torch.Generator`` seeded with
-    ``seed``, which also draws every iteration's ``BagGANDraws``.
+    ``seed``, which also draws every iteration's ``BagGANDraws``. The
+    config's ``compute_dtype`` ('float32', None or 'bfloat16') is
+    ``compute_dtype`` here: None or ``torch.bfloat16``.
 
     Instrumentation, for measuring runs: ``step_launches`` sums each
     kernel's launches per step kind ('d', 'r1', 'g', 'ppl'), always;
@@ -321,12 +372,8 @@ class BagGANHQ(GANBaseModel):
 
     def __init__(self, config, seed=0, device=None, ops=KERNELS):
         super().__init__(config)
-        if getattr(config, "compute_dtype", None) not in (None, "float32", torch.float32):
-            if getattr(config, "compute_dtype", None) in ("bfloat16", torch.bfloat16):
-                raise NotImplementedError("compute_dtype='bfloat16' is not ported yet")
-            raise NotImplementedError(
-                f"compute_dtype={config.compute_dtype!r}: expected None, "
-                "'float32' or 'bfloat16'")
+        # float32 is the default path itself: no casts
+        self.compute_dtype = compute_dtype(getattr(config, "compute_dtype", None))
         self.wgangp_remat = getattr(config, "wgangp_remat", "all")
         if self.wgangp_remat not in ("all", "gp"):
             raise NotImplementedError(
@@ -438,6 +485,8 @@ class BagGANHQ(GANBaseModel):
     def _augment(self, img, transform):
         if not self.use_aug:
             return img
+        if isinstance(transform, TransformDraws):  # a step called on its own
+            transform = compose_transforms(transform, self.ada_state["p"])
         with record_function("gan.ada"):
             return augment(img, transform_matrix=transform,
                            warp_impl=self._ada_warp_impl, ops=self.ops)[0]
@@ -454,32 +503,41 @@ class BagGANHQ(GANBaseModel):
                           preserve_rng_state=False)
 
     def _synth(self, z, noise, inject_index):
-        """Style-mixed synthesis from z (mapping each z) with the noise
-        maps passed in."""
+        """Style-mixed synthesis from z (mapping each z, in float32) with
+        the noise maps passed in, in ``compute_dtype``."""
         ws = [mapping_apply(self.netG, zz, self.ops) for zz in z]
         img, _ = generator_forward(self.netG, ws, input_is_latent=True,
                                    noise=noise, inject_index=inject_index,
-                                   return_latents=True, ops=self.ops)
+                                   return_latents=True, ops=self.ops,
+                                   dtype=self.compute_dtype)
         return img
+
+    def _pred32(self, pred):
+        """D's predictions in float32 for the losses and ADA's statistics."""
+        return pred if self.compute_dtype is None else pred.float()
 
     def d_step(self, real, draws):
         """D step: WGAN-GP mixed penalty under 'wgangp' (the 0.25/0.25/0.5
         combination of the JAX trainer; the penalty branch checkpointed, and
         the two D forwards too under ``wgangp_remat='all'``), the ADA
         controller after it."""
+        cd = self.compute_dtype
         with self._step("d"):
             with torch.no_grad():
                 fake = self._synth(draws.z, draws.d_noise, draws.inject_index)
                 d_fake = self._augment(fake, draws.d_fake_aug)
-                d_real = self._augment(real, draws.d_real_aug)
+                d_real = self._augment(real if cd is None else real.to(cd),
+                                       draws.d_real_aug)
             wgangp = self.config.gan_mode == "wgangp"
             fwd = self._disc_remat if wgangp and self.wgangp_remat == "all" else self._disc
-            pred_fake, pred_real = fwd(d_fake), fwd(d_real)
+            pred_fake = self._pred32(fwd(d_fake))
+            pred_real = self._pred32(fwd(d_real))
             loss_out = self.adversarial_loss(pred_fake, False)
             loss_ref = self.adversarial_loss(pred_real, True)
             if wgangp:
-                gp, _ = gradient_penalty(self._disc_remat, d_real, d_fake,
-                                         draws.gp_alpha)
+                # the penalty's D runs in float32 whatever compute_dtype
+                gp, _ = gradient_penalty(self._disc_remat, d_real.float(),
+                                         d_fake.float(), draws.gp_alpha)
                 loss = (loss_out + loss_ref) * 0.25 + gp * 0.5
             else:
                 loss = loss_out + loss_ref
@@ -489,7 +547,7 @@ class BagGANHQ(GANBaseModel):
                                             self.config.ada_target,
                                             self.config.ada_length, 8, self.mesh)
         return (*(mean_over_ranks(self.mesh, t.detach())
-                  for t in (loss, loss_out, loss_ref)), fake)
+                  for t in (loss, loss_out, loss_ref)), fake.float())
 
     def r1_step(self, real, draws):
         cfg = self.config
@@ -503,7 +561,7 @@ class BagGANHQ(GANBaseModel):
     def g_step(self, draws):
         with self._step("g"):
             fake = self._synth(draws.z, draws.g_noise, draws.inject_index)
-            pred_fake = self._disc(self._augment(fake, draws.g_aug))
+            pred_fake = self._pred32(self._disc(self._augment(fake, draws.g_aug)))
             loss = self.adversarial_loss(pred_fake, True)
             self._apply("g", self.optimizer_g, loss, self.g_tensors)
         return mean_over_ranks(self.mesh, loss.detach())
@@ -534,35 +592,41 @@ class BagGANHQ(GANBaseModel):
                   latent=None, gen_args=None, draws=None):
         """Stage a training batch (ref bagganhq.py:155-205) and the
         iteration's draws: ``draws`` if given, else drawn from the trainer's
-        generator at the current ADA p. Under data parallel the batch, the
-        draws and ``latent`` are the global batch's, and the rank keeps its
-        slice of each."""
+        generator (the ADA matrices raw, composed when the iteration runs).
+        Under data parallel the batch, the draws and ``latent`` are the
+        global batch's, and the rank keeps its slice of each."""
         self.iter_no = iter_no if iter_no is not None else self.iter_no
         self.epoch_no = epoch_no
+        self.ref_image, self.draws = self._stage(data_sample, self.iter_no,
+                                                 latent, draws)
+        self.bsize = self.ref_image.shape[0] * (1 if self.mesh is None else self.mesh.size)
+        self.input_latent = self.draws.z
+        self.inject_index = (self.draws.inject_index if len(self.draws.z) > 1
+                             else None)
+        self.gen_args = gen_args
+
+    def _stage(self, data_sample, iter_no, latent=None, draws=None):
+        """(the rank's batch on the device, the iteration's draws) for
+        iteration ``iter_no``, the generator's draws taken in the order the
+        single-step path takes them."""
         cfg = self.config
         if data_sample is not None:
             img = data_sample["ct"] if isinstance(data_sample, dict) else data_sample
-            self.ref_image = torch.as_tensor(img, dtype=torch.float32).to(
-                self.device).contiguous()
+            real = torch.as_tensor(img, dtype=torch.float32).to(self.device).contiguous()
         else:
-            self.ref_image = torch.zeros(cfg.batch_size, cfg.image_size, cfg.image_size,
-                                         getattr(cfg, "num_channels", 3), device=self.device)
-        self.bsize = self.ref_image.shape[0]
+            real = torch.zeros(cfg.batch_size, cfg.image_size, cfg.image_size,
+                               getattr(cfg, "num_channels", 3), device=self.device)
         if draws is None:
-            p = self.ada_aug_p if getattr(cfg, "augment", False) else 0.0
-            draws = draw_step_inputs(self.generator, cfg, self.gen_meta, self.bsize,
-                                     self.iter_no, p, self.device)
+            draws = draw_step_inputs(self.generator, cfg, self.gen_meta, real.shape[0],
+                                     iter_no, None, self.device)
         if latent is not None:
             latent = latent if isinstance(latent, (list, tuple)) else [latent]
             draws = draws._replace(z=list(latent), inject_index=self.gen_meta["n_latent"])
         if self.mesh is not None:
-            self.ref_image = shard_batch(self.mesh, self.ref_image)
+            real = shard_batch(self.mesh, real)
             draws = draws._replace(**{f: _shard(self.mesh, getattr(draws, f))
                                       for f in draws._fields})
-        self.draws = draws
-        self.input_latent = draws.z
-        self.inject_index = draws.inject_index if len(draws.z) > 1 else None
-        self.gen_args = gen_args
+        return real, draws
 
     def forward(self):
         """(image, latent, features) sample with fresh noise (ref :207-223)."""
@@ -580,7 +644,8 @@ class BagGANHQ(GANBaseModel):
         """One full GAN iteration: D, lazy R1, ADA tune, G, lazy PPL
         (ref bagganhq.py:432-483)."""
         cfg = self.config
-        d = self.draws
+        # the iteration's ADA matrices at p before its D step updates it
+        d = self.draws = compose_draws(self.draws, self.ada_state["p"])
         self.loss_d, self.loss_d_out, self.loss_d_ref, _ = self.d_step(self.ref_image, d)
         if self.iter_no % cfg.d_reg_every == 0:
             self.loss_d_r1 = self.r1_step(self.ref_image, d)
@@ -591,8 +656,44 @@ class BagGANHQ(GANBaseModel):
         self.iter_no += 1
 
     def optimize_parameters_chunk(self, real_batches):
-        raise NotImplementedError("the fused multi-iteration chunk is not ported "
-                                  "yet; call set_input + optimize_parameters")
+        """``len(real_batches)`` full GAN iterations from the current
+        ``iter_no`` (port of the JAX trainer's fused chunk,
+        train.py:811-880). An iteration whose R1 (every ``d_reg_every``) or
+        PPL (every ``g_reg_every``, with ``use_ppl``) is due runs through
+        ``set_input`` + ``optimize_parameters``, the single-step code; each
+        run of plain (D, G) iterations between them is staged, then run by
+        ``_run_dg_chunk`` back to back with no host sync. The draws are
+        taken from the generator in the single-step order, so the run
+        follows the single-stepped trajectory. ``real_batches``: (B, H, W,
+        C) arrays or ``{'ct': array}`` samples, as ``set_input`` takes.
+
+        The plain iterations leave ``ref_image``, ``draws`` and
+        ``input_latent`` as the last ``set_input`` left them; call
+        ``set_input`` before ``forward()`` / ``test()`` after a chunk."""
+        cfg = self.config
+        use_ppl = getattr(cfg, "use_ppl", False)
+        run = []
+        for b in real_batches:
+            it = self.iter_no + len(run)
+            if it % cfg.d_reg_every == 0 or (use_ppl and it % cfg.g_reg_every == 0):
+                self._run_dg_chunk(run)
+                run = []
+                self.set_input(data_sample=b, iter_no=self.iter_no)
+                self.optimize_parameters()
+                continue
+            run.append(self._stage(b, it))
+        self._run_dg_chunk(run)
+
+    def _run_dg_chunk(self, run):
+        """A staged run of plain iterations, [(batch, draws)], each its D
+        step at the iteration's p (its ADA matrices composed there), then
+        its G step. Nothing here reads a device value: the losses stay
+        device tensors (the last iteration's are the attributes)."""
+        for real, draws in run:
+            d = compose_draws(draws, self.ada_state["p"])
+            self.loss_d, self.loss_d_out, self.loss_d_ref, _ = self.d_step(real, d)
+            self.loss_g_gan = self.loss_g = self.g_step(d)
+            self.iter_no += 1
 
     def update_learning_rate(self, metric=None):
         mult = super().update_learning_rate(metric)

@@ -64,7 +64,7 @@ class InteractiveSession(MaskPainter):
 
     def _grid(self, imgs, preds, color_map):
         n = self.num_outs
-        ims = imgs[:n].clamp(-1, 1) * 0.5 + 0.5
+        ims = imgs[:n].float().clamp(-1, 1) * 0.5 + 0.5  # exact for bf16 images
         if preds is None:
             masks = torch.zeros_like(ims)
         else:  # visualize_label_mask: classes 1..len - 1 coloured, others black

@@ -14,6 +14,13 @@ the mapping's activations through ``ops.fused_leaky_relu`` and the to_rgb
 skip upsamples through ``ops.upfirdn2d``, where ``ops`` is ``KERNELS``
 (CUDA kernels, as autograd Functions, so gradients reach mapping and
 synthesis) or ``PLAIN`` (their plain versions, the reference).
+``dtype`` (``generator_forward``) runs the synthesis in that type, as the
+JAX generator's ``dtype`` does (generator.py:388-394): the mapping and the
+truncation stay float32, the w+ rows and the constant input are cast, and
+every weight meets the activation in the activation's type (the styles s
+and demod come out in it too: ``equal_linear_apply`` casts its weight to
+the latent's type). With bfloat16 on the card the StyledConvs and the
+to_rgb upsamples run their kernels' bf16 instances.
 Random noise is passed in, never drawn inside the forward: ``make_noise``
 draws the per-layer maps from a ``torch.Generator`` (JAX's threefry and
 torch's RNG never agree, so a test hands both packages the same maps).
@@ -104,7 +111,7 @@ class StyledConv(nn.Module):
         # demod[b,o] = rsqrt(sum_{khw,i} (W*s)**2 + 1e-8); the spatial sum of
         # W**2 is style-independent, so it is precontracted to (in, out)
         w_sq = w.square().sum(dim=(0, 1))
-        demod = torch.rsqrt(s.square() @ w_sq + 1e-8)
+        demod = torch.rsqrt(s.square() @ w_sq.to(s.dtype) + 1e-8)
         if up:
             return ops.styled_up_conv3x3(x, w, s, demod, noise,
                                          self.noise_weight, self.bias,
@@ -123,8 +130,8 @@ class ToRGB(nn.Module):
                 ops=KERNELS):
         # 1x1 modulated conv without demodulation: a per-pixel matmul
         s, w = self.conv.style_weight(style_w)
-        out = (x * s[:, None, None, :]) @ w[0, 0]
-        out = out + self.bias
+        out = (x * s[:, None, None, :].to(x.dtype)) @ w[0, 0].to(x.dtype)
+        out = out + self.bias.to(out.dtype)
         if skip is not None:
             out = out + upsample_2d(skip, blur_kernel, impl=ops.upfirdn2d)
         return out
@@ -225,7 +232,8 @@ def mean_latent(g, n_latent_samples, generator, ops=KERNELS):
 
 def generator_forward(g, styles, input_is_latent=False, truncation=1.0,
                       truncation_latent=None, noise=None, randomize_noise=False,
-                      inject_index=None, return_latents=False, ops=KERNELS):
+                      inject_index=None, return_latents=False, ops=KERNELS,
+                      dtype=None):
     """Full forward pass (ref Generator.forward, model.py:565-648).
 
     ``styles``: a list of one or two (B, style_dim) z (or w with
@@ -233,6 +241,9 @@ def generator_forward(g, styles, input_is_latent=False, truncation=1.0,
     mix: rows below ``inject_index`` take the first. ``noise`` is a list of
     per-layer (1 or B, H, W, 1) maps; None uses the fixed buffers, which
     ``randomize_noise=True`` refuses (pass the maps, from ``make_noise``).
+
+    ``dtype`` (e.g. ``torch.bfloat16``) casts the w+ rows and the constant
+    input, so the synthesis and its outputs run in it.
 
     Returns (image, features), (image, latent) with ``return_latents``, or
     (image, latent, features) with ``return_latents="all"``.
@@ -270,8 +281,13 @@ def generator_forward(g, styles, input_is_latent=False, truncation=1.0,
             styles[1][:, None, :].expand(-1, n_latent - inject_index, -1)],
             dim=1)
 
+    if dtype is not None:
+        latent = latent.to(dtype)
     batch = latent.shape[0]
-    out = g.input.expand(batch, -1, -1, -1).contiguous()
+    out = g.input.expand(batch, -1, -1, -1)
+    if dtype is not None:
+        out = out.to(dtype)
+    out = out.contiguous()
     out = g.conv1(out, latent[:, 0], noise[0], blur_kernel=blur_kernel, ops=ops)
     features = [out]
     skip = g.to_rgb1(out, latent[:, 1], blur_kernel=blur_kernel, ops=ops)

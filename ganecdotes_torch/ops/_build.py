@@ -46,6 +46,14 @@ LAUNCHES = {
     "resample_rows": 0,
     "resample_rows_t": 0,
 }
+# The bfloat16 instances of the kernels that take bf16 (every one but the
+# Sinkhorn's), counted apart: a bf16 run shows that it reached them.
+BF16_KERNELS = ("fused_leaky_relu", "fused_leaky_relu_bwd", "upfirdn2d",
+                "styled_conv3x3", "styled_up_conv3x3", "resample_rows",
+                "resample_rows_t")
+LAUNCHES.update({k + "_bf16": 0 for k in BF16_KERNELS})
+# the element types the kernels take, one per launch
+DTYPES = (torch.float32, torch.bfloat16)
 
 # what the last ``load`` did: seconds, whether it compiled, the log path
 BUILD_INFO = {}
@@ -74,6 +82,11 @@ _SIGNATURES = {
     # x, y, B, H, W, C, OH, OW, up_x, up_y, down_x, down_y, pad_x0, pad_y0,
     # the tile (toh, tow, ct, ih, iw, vec, threads, vpass), taps, stream
     "gk_upfirdn2d": [P, P] + [I] * 20 + [Taps, P],
+    # the bf16 instances of the three above, same arguments (fused act's
+    # backward: its partial sums float32)
+    "gk_fused_leaky_relu_bf16": [P, P, P, P, I, I, F, F] + [I] * 5 + [P],
+    "gk_fused_leaky_relu_bwd_bf16": [P] * 5 + [I, I, F, F] + [I] * 5 + [P],
+    "gk_upfirdn2d_bf16": [P, P] + [I] * 20 + [Taps, P],
     # xm, w (3, 3, Cout, Cin), demod, noise, noise batch stride, nw, bias,
     # out, split scratch (or NULL), tap splits, B, H, W, Cin, Cout, stream
     "gk_styled_conv3x3": [P, P, P, P, ctypes.c_longlong, P, P, P, P,
@@ -82,6 +95,16 @@ _SIGNATURES = {
     # scratch, out, B, H, W, Cin, Cout, the four 1-D blur taps, stream
     "gk_styled_up_conv3x3": [P, P, P, P, ctypes.c_longlong, P, P, P, P,
                              I, I, I, I, I, F, F, F, F, P],
+    # bf16 xm, w (3, 3, Cout, Cin), out; fp32 demod, noise, nw, bias, split
+    # scratch: xm, w, demod, noise, noise batch stride, nw, bias, out,
+    # scratch, tap splits, B, H, W, Cin, Cout, the tile width, stream
+    "gk_styled_conv3x3_bf16": [P, P, P, P, ctypes.c_longlong, P, P, P, P,
+                               I, I, I, I, I, I, I, P],
+    # bf16 xm, w, out; fp32 demod, noise, nw, bias, T scratch: xm, w,
+    # demod, noise, noise batch stride, nw, bias, scratch, out, B, H, W,
+    # Cin, Cout, the four 1-D blur taps, the tile width, stream
+    "gk_styled_up_conv3x3_bf16": [P, P, P, P, ctypes.c_longlong, P, P, P, P,
+                                  I, I, I, I, I, F, F, F, F, I, P],
     # x, w (3, 3, Cin, Cout), s, demod, noise, noise batch stride, nw, bias,
     # out, the up body's T scratch (or NULL), splits, B, H, W, Cin, Cout,
     # up, the four 1-D blur taps, stream
@@ -94,6 +117,9 @@ _SIGNATURES = {
     "gk_resample_rows": [P] * 4 + [I] * 7 + [P],
     # g, alpha, intercept, dx, B, C, S, W, V, stream
     "gk_resample_rows_t": [P] * 4 + [I] * 5 + [P],
+    # their bf16 instances (alpha and intercept float32)
+    "gk_resample_rows_bf16": [P] * 4 + [I] * 7 + [P],
+    "gk_resample_rows_t_bf16": [P] * 4 + [I] * 5 + [P],
 }
 
 _lib = None
@@ -221,11 +247,28 @@ def ptr(t):
     return t.data_ptr()
 
 
-def check_tensor(kernel, t, name, ndim=None, device=None):
-    """Raise unless ``t`` is a contiguous float32 CUDA tensor (of ``ndim``)."""
+def kernel_dtype(kernel, t, name="x"):
+    """``t``'s dtype where the kernels take it (``DTYPES``); raises naming
+    the kernel otherwise (float16, float64, integers)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{kernel}: {name} must be a tensor, got {type(t)}")
+    if t.dtype not in DTYPES:
+        raise TypeError(f"{kernel}: {name} is {t.dtype}, the kernel takes "
+                        "float32 or bfloat16")
+    return t.dtype
+
+
+def entry(name, dtype):
+    """The C entry of ``name`` for element type ``dtype``."""
+    return name + "_bf16" if dtype is torch.bfloat16 else name
+
+
+def check_tensor(kernel, t, name, ndim=None, device=None, dtype=torch.float32):
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (of
+    ``ndim``)."""
     # the common case in one expression: the wrappers run this for every
     # argument of every launch, and at B = 1 their host time is the call's
-    if (isinstance(t, torch.Tensor) and t.is_cuda and t.dtype is torch.float32
+    if (isinstance(t, torch.Tensor) and t.is_cuda and t.dtype is dtype
             and (device is None or t.device == device)
             and (ndim is None or t.dim() == ndim) and t.is_contiguous()
             and not t.data_ptr() % 16 and t.numel() < 2**31):
@@ -236,8 +279,8 @@ def check_tensor(kernel, t, name, ndim=None, device=None):
         raise ValueError(f"{kernel}: {name} is on {t.device}, the kernel takes CUDA tensors")
     if device is not None and t.device != device:
         raise ValueError(f"{kernel}: {name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{kernel}: {name} is {t.dtype}, the kernel takes float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{kernel}: {name} is {t.dtype}, this launch takes {dtype}")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{kernel}: {name} must be {ndim}-D, got shape {tuple(t.shape)}")
     if not t.is_contiguous():

@@ -136,7 +136,7 @@ def _resample_pass_t(g, alpha, intercept, src_len):
     Ui, qi = U.to(torch.int32), q.to(torch.int32)
     e_in = r[:, :, None] + v[:, None, :]  # (B, V, W)
     e = torch.floor(e_in)
-    f = e_in - e
+    f = (e_in - e).to(g.dtype)  # the forward lerps in the data type
     e1 = (e == 1).to(g.dtype)
     coefs = ((1.0 - f) * (1.0 - e1), (1.0 - f) * e1 + f * (1.0 - e1), f * e1)
     src_iota = torch.arange(src_len, dtype=torch.int32, device=g.device)

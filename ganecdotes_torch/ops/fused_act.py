@@ -32,6 +32,12 @@ thread one group of ``vec`` channels (4 where C % 4 == 0) walking rows; gx
 blocks stride over the rows, gy cover a row wider than tx groups. The
 backward's bias gradient sums each block's rows into one row of a (gx, C)
 workspace, then each column in a fixed order: the same bits every run.
+
+bfloat16 tensors launch the kernels' bf16 instances (counted as
+``fused_leaky_relu_bf16`` and ``fused_leaky_relu_bwd_bf16``): fp32 math,
+one rounding on the store, db summed in fp32. The bias is cast to x's type
+first, as the plain version casts it. Every tensor of a launch has one
+type; any type but float32 and bfloat16 raises.
 """
 
 import functools
@@ -96,12 +102,12 @@ def sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check(kernel, t, name, device=None, shape=None):
+def _check(kernel, t, name, device=None, shape=None, dtype=torch.float32):
     """``_build.check_tensor``'s checks, the common case in one test."""
-    if not (isinstance(t, torch.Tensor) and t.is_cuda and t.dtype == torch.float32
+    if not (isinstance(t, torch.Tensor) and t.is_cuda and t.dtype is dtype
             and t.is_contiguous() and t.data_ptr() % 16 == 0 and t.numel() < 2**31
             and (device is None or t.device == device)):
-        _build.check_tensor(kernel, t, name, device=device)
+        _build.check_tensor(kernel, t, name, device=device, dtype=dtype)
     if shape is not None and t.shape != shape:
         raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
@@ -126,17 +132,19 @@ def _act(x, bias, mask, negative_slope, scale):
             return fused_leaky_relu_ref(x, bias, negative_slope, scale)
         v = x if bias is None else x + bias.to(x.dtype)
         return torch.where(mask >= 0, v, v * negative_slope) * scale
-    _check(KERNEL, x, "x")
+    dtype = _build.kernel_dtype(KERNEL, x)
+    kernel = KERNEL if dtype is torch.float32 else KERNEL + "_bf16"
+    _check(kernel, x, "x", dtype=dtype)
     c = x.shape[-1] if x.dim() else 1
     if bias is not None:
-        _check(KERNEL, bias, "bias", x.device, (c,))
+        _check(kernel, bias, "bias", x.device, (c,), dtype)
     if mask is not None:
-        _check(KERNEL, mask, "mask", x.device, x.shape)
+        _check(kernel, mask, "mask", x.device, x.shape, dtype)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    rows, c, p = launch_plan(KERNEL, x, sm_count(x.device.index))
-    _build.launch(KERNEL, "gk_fused_leaky_relu", x.data_ptr(),
+    rows, c, p = launch_plan(kernel, x, sm_count(x.device.index))
+    _build.launch(kernel, _build.entry("gk_fused_leaky_relu", dtype), x.data_ptr(),
                   None if bias is None else bias.data_ptr(),
                   None if mask is None else mask.data_ptr(), y.data_ptr(), rows, c,
                   negative_slope, scale, *p, _build.stream_of(x))
@@ -147,18 +155,20 @@ def _act_grad(g, s, with_db, negative_slope, scale):
     """(dx, db or None), signs from ``s``."""
     if g.device.type == "cpu":
         return fused_leaky_relu_bwd_ref(g, s, with_db, negative_slope, scale)
-    _check(KERNEL_BWD, g, "g")
-    _check(KERNEL_BWD, s, "y", g.device, g.shape)
+    dtype = _build.kernel_dtype(KERNEL_BWD, g, "g")
+    kernel = KERNEL_BWD if dtype is torch.float32 else KERNEL_BWD + "_bf16"
+    _check(kernel, g, "g", dtype=dtype)
+    _check(kernel, s, "y", g.device, g.shape, dtype)
     c = g.shape[-1] if g.dim() else 1
     dx = torch.empty_like(g)
     if g.numel() == 0:
         return dx, g.new_zeros(c) if with_db else None
-    rows, c, p = launch_plan(KERNEL_BWD, g, sm_count(g.device.index))
+    rows, c, p = launch_plan(kernel, g, sm_count(g.device.index))
     part = db = None
-    if with_db:
-        part = torch.empty((p.gx, c), dtype=g.dtype, device=g.device)
+    if with_db:  # the partial sums stay float32 for either type
+        part = torch.empty((p.gx, c), dtype=torch.float32, device=g.device)
         db = torch.empty(c, dtype=g.dtype, device=g.device)
-    _build.launch(KERNEL_BWD, "gk_fused_leaky_relu_bwd", g.data_ptr(), s.data_ptr(),
+    _build.launch(kernel, _build.entry("gk_fused_leaky_relu_bwd", dtype), g.data_ptr(), s.data_ptr(),
                   dx.data_ptr(), None if part is None else part.data_ptr(),
                   None if db is None else db.data_ptr(), rows, c, negative_slope,
                   scale, *p, _build.stream_of(g))
@@ -224,13 +234,17 @@ class _ActGrad(torch.autograd.Function):
 
 
 def fused_leaky_relu(x, bias=None, negative_slope=0.2, scale=math.sqrt(2.0)):
-    """Kernel on a CUDA tensor (float32, contiguous, any (..., C)); the plain
-    version on a CPU tensor. Differentiable to any order."""
+    """Kernel on a CUDA tensor (float32 or bfloat16, contiguous, any (...,
+    C); the bias cast to x's type); the plain version on a CPU tensor.
+    Differentiable to any order."""
+    if bias is not None and bias.dtype != x.dtype:
+        bias = bias.to(x.dtype)
     return _recorded_act(x, bias, None, float(negative_slope), float(scale))
 
 
 def fused_leaky_relu_bwd(g, y, with_db=True, negative_slope=0.2, scale=math.sqrt(2.0)):
     """The backward: (dx, db), db None without ``with_db``; kernels on CUDA
-    tensors (float32, contiguous, equal shapes), the plain version on CPU
+    tensors (float32 or bfloat16, one type, contiguous, equal shapes), the
+    plain version on CPU
     tensors. Differentiable to any order in ``g``."""
     return _recorded_act_grad(g, y, bool(with_db), float(negative_slope), float(scale))

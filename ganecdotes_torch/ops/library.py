@@ -129,7 +129,9 @@ def _(x, w, s, demod, noise, noise_weight, bias, blur_kernel):
 
 def fused_leaky_relu(x, bias=None, negative_slope=0.2, scale=SQRT2):
     """``ops.fused_act.fused_leaky_relu`` through its custom op (no
-    gradient)."""
+    gradient); the bias cast to x's type, as the wrapper casts it."""
+    if bias is not None and bias.dtype != x.dtype:
+        bias = bias.to(x.dtype)
     return torch.ops.ganecdotes.fused_leaky_relu(x, bias, float(negative_slope),
                                                  float(scale))
 

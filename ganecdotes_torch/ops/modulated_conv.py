@@ -20,6 +20,16 @@ Each body has two variants on the card, picked from the shape alone
   the transposed conv's four phase classes into a scratch tensor, then the
   blur and the epilogue.
 
+On bfloat16 activations both bodies run one kernel each, whatever Cout
+(csrc/styled_conv.cu's and csrc/styled_up_conv.cu's ``_bf16`` entries, on
+the bf16 main loop of csrc/bf16_mma.cuh, counted as
+``styled_conv3x3_bf16`` / ``styled_up_conv3x3_bf16``): x * s and W in
+bf16, fp32 accumulators and epilogue, one rounding on the store, a tile of
+128 pixels by ``tile_n(Cout)`` channels; the up body's T stays float32.
+The narrow and 3xTF32 variants are float32 only. demod, noise, the noise
+weight and the bias reach the kernel as float32 (the JAX kernel casts them
+to fp32 inside, modulated_conv_pallas.py:179-181).
+
 Both take their plain versions only for tensors on the CPU. Where a
 gradient can flow they run inside an autograd Function; where none can
 (serving, no-grad synthesis) the forward is called directly. Their
@@ -105,15 +115,20 @@ def _check(kernel, x, w, s, demod, noise, noise_weight, bias, up):
     B = 1 a call's host time is its time on the card, so the common case
     tests each tensor in one expression (a CUDA tensor on x's card:
     ``get_device`` is -1 on the CPU) and ``_build.check_tensor`` runs only
-    to name what failed."""
+    to name what failed. float32 x takes float32 everywhere; bfloat16 x
+    takes float32 or bfloat16 for the rest (cast for the launch)."""
     idx = x.get_device() if x.is_cuda else -2  # -2: no tensor passes
+    bf16 = x.dtype is torch.bfloat16
     for t in (x, w, s, demod, noise, noise_weight, bias):
         if not (isinstance(t, torch.Tensor) and t.get_device() == idx
-                and t.dtype is torch.float32 and t.is_contiguous()
-                and not t.data_ptr() % 16):
+                and (t.dtype is torch.float32 or (bf16 and t.dtype is torch.bfloat16))
+                and t.is_contiguous() and not t.data_ptr() % 16):
+            dtype = _build.kernel_dtype(kernel, x)
             for name, u in zip(("x", "w", "s", "demod", "noise", "noise_weight", "bias"),
                                (x, w, s, demod, noise, noise_weight, bias)):
-                _build.check_tensor(kernel, u, name, device=x.device)
+                want = dtype if name == "x" or not bf16 else (
+                    u.dtype if u.dtype in _build.DTYPES else torch.float32)
+                _build.check_tensor(kernel, u, name, device=x.device, dtype=want)
     xs, ws = x.shape, w.shape
     if len(xs) != 4 or len(ws) != 4:
         raise ValueError(f"{kernel}: x and w must be 4-D, got {tuple(xs)}, {tuple(ws)}")
@@ -122,8 +137,10 @@ def _check(kernel, x, w, s, demod, noise, noise_weight, bias, up):
     oh, ow = (2 * h, 2 * wd) if up else (h, wd)
     if ws[0] != 3 or ws[1] != 3 or ws[2] != cin:
         raise ValueError(f"{kernel}: w has shape {tuple(ws)}, expected (3, 3, {cin}, Cout)")
-    if cin % 4 or cout % 4:
-        raise ValueError(f"{kernel}: channels must be multiples of 4, got {cin}->{cout}")
+    mult = 8 if bf16 else 4  # 16-byte copies of bf16 or float32 channels
+    if cin % mult or cout % mult:
+        raise ValueError(f"{kernel}: channels must be multiples of {mult}, "
+                         f"got {cin}->{cout}")
     if s.shape != (b, cin):
         raise ValueError(f"{kernel}: s has shape {tuple(s.shape)}, expected {(b, cin)}")
     if demod.shape != (b, cout):
@@ -141,13 +158,13 @@ def _check(kernel, x, w, s, demod, noise, noise_weight, bias, up):
     return b, oh, ow, cout
 
 
-def tap_splits(m, cout, sms):
+def tap_splits(m, cout, sms, bn=128):
     """How many ways csrc/styled_conv.cu splits its 9 taps (1, 3 or 9) for
-    M = m output pixels on ``sms`` SMs. Only a grid of fewer 128 x 128
-    tiles than SMs is split, into the fewest waves of whole-K work (the
-    smaller split on a tie): a split writes (split, M, Cout) partial sums
-    that a second kernel adds up."""
-    tiles = -(-m // 128) * -(-cout // 128)
+    M = m output pixels on ``sms`` SMs and tiles ``bn`` channels wide. Only
+    a grid of fewer 128 x bn tiles than SMs is split, into the fewest waves
+    of whole-K work (the smaller split on a tie): a split writes (split, M,
+    Cout) float32 partial sums that a second kernel adds up."""
+    tiles = -(-m // 128) * -(-cout // bn)
     if tiles >= sms:
         return 1
     return min((1, 3, 9), key=lambda n: -(-tiles * n // sms) / n)
@@ -234,12 +251,58 @@ def _narrow_forward(kernel, x, w, s, demod, noise, noise_weight, bias, up,
     return out
 
 
+def tile_n(cout):
+    """The bf16 kernels' tile width for ``cout`` channels (csrc/bf16_mma.cuh
+    ``tile_n``): the smallest of 16, 32 and 64 that holds them, else 128."""
+    return 16 if cout <= 16 else 32 if cout <= 32 else 64 if cout <= 64 else 128
+
+
+def _bf16_operands(kernel, x, w, s, demod, noise, noise_weight, bias):
+    """The bf16 C entries' operands: x * s (in bf16, as the JAX kernel
+    rounds it) and W as (3, 3, Cout, Cin) bf16; demod, noise, the noise
+    weight and the bias as float32."""
+    xm = x * s[:, None, None, :].to(x.dtype)
+    w_nk = w.permute(0, 1, 3, 2).to(torch.bfloat16,
+                                    memory_format=torch.contiguous_format).contiguous()
+    rest = [t.to(torch.float32).contiguous() for t in (demod, noise, noise_weight, bias)]
+    for name, t in zip(("demod", "noise", "noise_weight", "bias"), rest):
+        _build.check_tensor(kernel, t, name, device=x.device)
+    return (xm, w_nk, *rest)
+
+
+def _bf16_conv_forward(x, w, s, demod, noise, noise_weight, bias, out_shape):
+    kernel = "styled_conv3x3_bf16"
+    b, oh, ow, cout = out_shape
+    out = torch.empty(out_shape, dtype=torch.bfloat16, device=x.device)
+    if out.numel() == 0:
+        return out
+    xm, w_nk, demod, noise, nw, bias = _bf16_operands(
+        kernel, x, w, s, demod, noise, noise_weight, bias)
+    bn = tile_n(cout)
+    m = b * oh * ow
+    nsplit = tap_splits(m, cout, _sm_count(x.device), bn)
+    part = None
+    if nsplit > 1:
+        part = torch.empty((nsplit, m, cout), dtype=torch.float32, device=x.device)
+    _build.launch(
+        kernel, "gk_styled_conv3x3_bf16",
+        xm.data_ptr(), w_nk.data_ptr(), demod.data_ptr(), noise.data_ptr(),
+        0 if noise.shape[0] == 1 else oh * ow, nw.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(), nsplit,
+        *x.shape, cout, bn, _build.stream_of(x),
+    )
+    return out
+
+
 def _conv_forward(x, w, s, demod, noise, noise_weight, bias):
     if x.is_cpu:
         return styled_conv3x3_ref(x, w, s, demod, noise, noise_weight, bias)
     kernel = "styled_conv3x3"
     b, oh, ow, cout = _check(kernel, x, w, s, demod, noise, noise_weight,
                              bias, up=False)
+    if x.dtype is torch.bfloat16:
+        return _bf16_conv_forward(x, w, s, demod, noise, noise_weight, bias,
+                                  (b, oh, ow, cout))
     if variant(cout) == "narrow":
         return _narrow_forward(kernel, x, w, s, demod, noise, noise_weight,
                                bias, up=False)
@@ -299,6 +362,9 @@ def _up_conv_forward(x, w, s, demod, noise, noise_weight, bias, blur_kernel):
     taps = _blur_taps(kernel, blur_kernel)
     b, oh, ow, cout = _check(kernel, x, w, s, demod, noise, noise_weight,
                              bias, up=True)
+    if x.dtype is torch.bfloat16:
+        return _bf16_up_conv_forward(x, w, s, demod, noise, noise_weight, bias,
+                                     taps, (b, oh, ow, cout))
     if variant(cout, True, b * oh * ow // 4, _sm_count(x.device)) == "narrow":
         return _narrow_forward(kernel, x, w, s, demod, noise, noise_weight,
                                bias, up=True, taps=taps)
@@ -327,6 +393,29 @@ def _tf32x3_up_conv_forward(x, w, s, demod, noise, noise_weight, bias, taps,
         cout, *taps, _build.stream_of(x),
     )
     VARIANT_LAUNCHES[(kernel, "tf32x3")] += 1
+    return out
+
+
+def _bf16_up_conv_forward(x, w, s, demod, noise, noise_weight, bias, taps,
+                          out_shape):
+    kernel = "styled_up_conv3x3_bf16"
+    b, oh, ow, cout = out_shape
+    out = torch.empty(out_shape, dtype=torch.bfloat16, device=x.device)
+    if out.numel() == 0:
+        return out
+    xm, w_nk, demod, noise, nw, bias = _bf16_operands(
+        kernel, x, w, s, demod, noise, noise_weight, bias)
+    # demod * conv_transpose, (B, 2H+1, 2W+1, Cout), float32: the blur and
+    # the epilogue read the unrounded sums
+    scratch = torch.empty((b, oh + 1, ow + 1, cout), dtype=torch.float32,
+                          device=x.device)
+    _build.launch(
+        kernel, "gk_styled_up_conv3x3_bf16",
+        xm.data_ptr(), w_nk.data_ptr(), demod.data_ptr(), noise.data_ptr(),
+        0 if noise.shape[0] == 1 else oh * ow, nw.data_ptr(), bias.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(), *x.shape, cout, *taps,
+        tile_n(cout), _build.stream_of(x),
+    )
     return out
 
 

@@ -16,6 +16,11 @@ derivatives of every order with respect to the image (R1 takes gradients
 of gradients through ADA). The cotangents of ``alpha`` and ``intercept``
 are None, as the JAX kernel returns zeros for them: ADA's transform is
 drawn, never differentiated.
+
+A bfloat16 image (or cotangent) launches the kernels' bf16 instances
+(counted as ``resample_rows_bf16`` / ``resample_rows_t_bf16``; alpha and
+the intercepts stay float32, the lerp and the sums run in fp32 and round
+once on the store); any other type but float32 raises.
 """
 
 import torch
@@ -51,7 +56,9 @@ def _launch(kernel, entry, src, alpha, intercept, out_rows):
     """Checks and the launch shared by both kernels: ``src`` (B, C, R, W)
     in, (B, C, out_rows, W) out. The C entries take the forward's geometry
     (S source rows, V output rows)."""
-    _build.check_tensor(kernel, src, "input", ndim=4)
+    dtype = _build.kernel_dtype(kernel, src, "input")
+    counted = kernel if dtype is torch.float32 else kernel + "_bf16"
+    _build.check_tensor(counted, src, "input", ndim=4, dtype=dtype)
     _build.check_tensor(kernel, alpha, "alpha", ndim=1, device=src.device)
     _build.check_tensor(kernel, intercept, "intercept", ndim=2, device=src.device)
     b, c, _, w = src.shape
@@ -75,7 +82,7 @@ def _launch(kernel, entry, src, alpha, intercept, out_rows):
     out = torch.empty((b, c, out_rows, w), dtype=src.dtype, device=src.device)
     if out.numel() == 0:
         return out
-    _build.launch(kernel, entry, _build.ptr(src), _build.ptr(alpha),
+    _build.launch(counted, _build.entry(entry, dtype), _build.ptr(src), _build.ptr(alpha),
                   _build.ptr(intercept), _build.ptr(out), b, c, *geometry,
                   _build.stream_of(src))
     return out
@@ -117,7 +124,8 @@ class _ResampleRowsT(torch.autograd.Function):
 
 def resample_rows(x, alpha, intercept, out_len):
     """(B, C, S, W) -> (B, C, out_len, W): the CUDA kernel on CUDA tensors
-    (float32, contiguous; alpha (B,), intercept (B, W)), the plain version on
+    (float32 or bfloat16 x, contiguous; float32 alpha (B,) and intercept
+    (B, W)), the plain version on
     CPU tensors. Differentiable to any order in ``x``."""
     return _ResampleRows.apply(x, alpha, intercept, int(out_len))
 

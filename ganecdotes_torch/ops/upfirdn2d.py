@@ -24,6 +24,10 @@ down swapped, the taps flipped, and per axis the "gradient padding"
 ``(k - pad0 - 1, in*up - out*down + pad0 - up + 1)``, so every order of
 derivative runs on the kernel, as the JAX package's blur backward is the
 same Pallas kernel (upfirdn2d_pallas.py:222-242).
+
+A bfloat16 tensor launches the kernel's bf16 instance (counted as
+``upfirdn2d_bf16``: fp32 passes, one rounding on the store); any type but
+float32 and bfloat16 raises.
 """
 
 import functools
@@ -250,13 +254,15 @@ def _forward(x, spec):
     if x.device.type == "cpu":
         return upfirdn2d_ref(x, spec.kernel, spec.up, spec.down, spec.pad)
     x = x.contiguous()
-    _build.check_tensor(KERNEL, x, "x", ndim=4)
+    dtype = _build.kernel_dtype(KERNEL, x)
+    kernel = KERNEL if dtype is torch.float32 else KERNEL + "_bf16"
+    _build.check_tensor(kernel, x, "x", ndim=4, dtype=dtype)
     y = torch.empty(output_shape(x.shape, spec), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     xl, yl, args = launch_args(x, y, spec)
-    _build.launch(KERNEL, "gk_upfirdn2d", _build.ptr(xl), _build.ptr(yl), *args,
-                  _build.stream_of(x))
+    _build.launch(kernel, _build.entry("gk_upfirdn2d", dtype), _build.ptr(xl),
+                  _build.ptr(yl), *args, _build.stream_of(x))
     return y
 
 

@@ -567,27 +567,31 @@ class OneShotPipeline:
 
     def make_server(self):
         """The method's server (``pipeline.serving``) over the trained
-        weights, on the pipeline's op set."""
+        weights, on the pipeline's op set, in the model config's
+        ``inference_dtype`` (float32 unless it says 'bfloat16'; the training
+        path stays float32, as in JAX)."""
+        dtype = getattr(self.model_config, "inference_dtype", None)
         if "hfc_with_swav" in self.seg_str:
             return OneShotServer(
                 self.model_config, self.seg_config, device=self.device,
                 gen=self.model, ssl_params=self.preprocessor.ssl_params,
                 seg_params=self.segmentor_params, mean_latent=self.mean_latent,
-                ops=self.ops)
+                ops=self.ops, dtype=dtype)
         args = (self.model, self.mean_latent, self.model_config.truncation,
                 self.segmentor_params, self.seg_size)
+        kw = dict(ops=self.ops, dtype=dtype)
         sc = self.seg_config
         if self.seg_str == "repurposegan":
-            return ConcatServer(*args, n_layers=sc.n_layers, ops=self.ops)
+            return ConcatServer(*args, n_layers=sc.n_layers, **kw)
         if self.seg_str == "datasetgan":
             return PixelClassifierServer(*args, state=self.segmentor_state,
-                                         n_layers=sc.n_layers, ops=self.ops)
+                                         n_layers=sc.n_layers, **kw)
         if self.seg_str == "hfc_with_simclr":
             sa = self.preprocessor.simclr_args
             return SimCLRServer(*args, params=self.preprocessor.params,
-                                hlen=sa["hlen"], ops=self.ops,
-                                interp=sa.get("hf_interp", "nearest"))
-        return KMeansServer(*args, pre=self.preprocessor, ops=self.ops)
+                                hlen=sa["hlen"], interp=sa.get("hf_interp", "nearest"),
+                                **kw)
+        return KMeansServer(*args, pre=self.preprocessor, **kw)
 
     def _make_infer_fn(self):
         """The test block's request: generate -> the method's folded form
@@ -647,7 +651,7 @@ class OneShotPipeline:
             pred = pred.cpu()
             inference_times.append(time.perf_counter() - t0)
             pred_labels.append(pred.numpy())
-            img = img.cpu()
+            img = img.float().cpu()  # exact for a bf16 image
             test_images.append(img.numpy())
             self._request_firsts.append(
                 (bs, img[0].numpy(), None if z0 is None else z0[0].cpu().numpy(),

@@ -30,11 +30,20 @@ give.
 Every server's ``serve`` and ``serve_unfused`` return (img, labels, z0);
 z0 is None for the methods without a cluster map (RepurposeGAN, DatasetGAN,
 hfc_kmeans), as the JAX ``infer`` returns (img, labels) for them.
+
+``dtype`` (the model config's ``inference_dtype``: None, 'float32' or
+'bfloat16') runs the synthesis in that type, as the JAX program's
+``generator_forward(dtype=...)`` does (one_shot_pipeline.py:563-830): the
+mapping and the truncation stay float32, and the projections and heads
+downstream run in whatever type the JAX program's casts give them (most
+cast their float32 weights to the features' bfloat16; the JAX promotion of
+bf16 with a float32 array is float32 here too). The image comes back in
+it.
 """
 
 import torch
 
-from ganecdotes_torch import resolve_device
+from ganecdotes_torch import compute_dtype, resolve_device
 from ganecdotes_torch.models.stylegan2.convert import from_jax_params
 from ganecdotes_torch.models.stylegan2.generator import (
     Generator,
@@ -76,14 +85,15 @@ class OneShotServer:
     ``device=None`` runs on ``cuda`` and raises without a card;
     ``device="cpu"`` runs the plain path. ``ops`` is ``KERNELS`` (the CUDA
     kernels) or ``PLAIN`` (their plain PyTorch versions, the reference the
-    kernels are checked against on the card).
+    kernels are checked against on the card). ``dtype``: the synthesis'
+    type (None: the model config's ``inference_dtype``).
     """
 
     method = "hfc_with_swav"
 
     def __init__(self, model_config=None, seg_config=None, *, device=None,
                  seed=0, gen=None, ssl_params=None, seg_params=None,
-                 mean_latent=None, ops=KERNELS):
+                 mean_latent=None, ops=KERNELS, dtype=None):
         if model_config is None:
             from ganecdotes_torch.configs.models import ffhq_256 as model_config
         if seg_config is None:
@@ -93,6 +103,8 @@ class OneShotServer:
         self.device = resolve_device(device)
         self.ops = ops
         mc, sc = model_config, seg_config
+        self.dtype = compute_dtype(dtype or getattr(mc, "inference_dtype", None),
+                                   "inference_dtype")
         sa = sc.hfc_prep_args["swav_args"]
         self.hlen = sa["hlen"]
         self.nclasses = sa["nclasses"]
@@ -134,7 +146,7 @@ class OneShotServer:
         return generator_forward(
             self.gen, self._w(z, input_is_latent), input_is_latent=True,
             truncation=self.truncation, truncation_latent=self.mean_latent,
-            ops=self.ops)
+            ops=self.ops, dtype=self.dtype)
 
     def _project(self, feats):
         return swav_predict_from_features(
@@ -191,10 +203,12 @@ class MethodServer:
     weights: ``gen`` (a port ``Generator``), the pipeline's ``mean_latent``,
     the model config's ``truncation``, the head's ``seg_params`` and
     ``seg_size``. A subclass computes (logits, z0 or None) from the
-    request's latents w in ``_folded`` and ``_unfused``."""
+    request's latents w in ``_folded`` and ``_unfused``. ``dtype``: the
+    synthesis' type (None, 'float32' or 'bfloat16')."""
 
     def __init__(self, gen, mean_latent, truncation, seg_params, seg_size,
-                 ops=KERNELS):
+                 ops=KERNELS, dtype=None):
+        self.dtype = compute_dtype(dtype, "inference_dtype")
         self.gen = gen
         self.mean_latent = mean_latent
         self.truncation = truncation
@@ -210,7 +224,7 @@ class MethodServer:
     def _synthesize(self, w):
         return generator_forward(
             self.gen, w, input_is_latent=True, truncation=self.truncation,
-            truncation_latent=self.mean_latent, ops=self.ops)
+            truncation_latent=self.mean_latent, ops=self.ops, dtype=self.dtype)
 
     def infer(self, z, input_is_latent=False):
         """The unfused form: (img (B,H,W,3), logits (B,H,W,C_out), z0's
@@ -348,7 +362,7 @@ class KMeansServer(MethodServer):
         w_plus = w[:, None, :].expand(-1, self.gen.meta["n_latent"], -1)
         _, feats = generator_forward(
             self.gen, [w_plus], input_is_latent=True, truncation=self.p_trunc,
-            truncation_latent=self.pre_mean, ops=self.ops)
+            truncation_latent=self.pre_mean, ops=self.ops, dtype=self.dtype)
         groups = group_features_by_block(feats, skip_const=True, concat=concat)
         return groups[: self.n_layers]
 

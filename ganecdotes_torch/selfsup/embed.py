@@ -194,7 +194,7 @@ def project_segment_single_conv(features, weight, head_w, head_b, hlen=None):
         if r > cutoff:
             hi.setdefault(r, []).append((f, off, use))
             continue
-        z = f[..., :use] @ weight[off : off + use]
+        z = f[..., :use] @ weight[off : off + use].to(f.dtype)
         groups[r] = groups[r] + z if r in groups else z
     for r, levels in list(hi.items()):
         f_up = h // r
@@ -204,7 +204,7 @@ def project_segment_single_conv(features, weight, head_w, head_b, hlen=None):
         if fold > proj:  # wide-output head: the projected form is cheaper
             del hi[r]
             for f, off, use in levels:
-                z = f[..., :use] @ weight[off : off + use]
+                z = f[..., :use] @ weight[off : off + use].to(f.dtype)
                 groups[r] = groups[r] + z if r in groups else z
     if groups:
         acc = None
@@ -235,16 +235,18 @@ def project_segment_single_conv(features, weight, head_w, head_b, hlen=None):
             y = _polyphase_conv3x3_up(f[..., :use], wc, h // r)
             out = y if out is None else out + y
 
-    return out + head_b
+    return out + head_b.to(out.dtype)
 
 
 def _conv3x3(x, w):
     """conv3x3(x, w) with padding 1 (``F.conv2d``'s function), NHWC / HWIO:
     y = x @ W over the 9 taps at once, then out(i, j) = sum over the taps
-    (t, s) of y(i + t - 1, j + s - 1, t, s), as 9 shifted adds."""
+    (t, s) of y(i + t - 1, j + s - 1, t, s), as 9 shifted adds. ``w`` is
+    cast to x's type (the folds compose their weights in float32 and the
+    JAX convs take them in the features' type)."""
     b, h, wd, c_in = x.shape
     c_out = w.shape[-1]
-    taps = w.permute(2, 0, 1, 3).reshape(c_in, 9 * c_out)
+    taps = w.permute(2, 0, 1, 3).reshape(c_in, 9 * c_out).to(x.dtype)
     y = (x.reshape(-1, c_in) @ taps).reshape(b, h, wd, 3, 3, c_out)
     out = y[:, :, :, 1, 1].clone()
     for t in range(3):
@@ -297,7 +299,7 @@ def project_segment_fcn(features, weight, seg_params, size, hlen=None):
     for p, d in zip(seg_params[1:], DILATIONS[size][1:]):
         out = leaky_relu(out)
         out = conv2d_dilated_nhwc(out, p["weight"], dilation=d, padding=d)
-        out = out + p["bias"]
+        out = out + p["bias"].to(out.dtype)
     return out
 
 
@@ -340,7 +342,7 @@ def concat_segment_fcn(features, seg_params, size, hlen=None, n_layers=None,
     w0, b0 = seg_params[0]["weight"], seg_params[0]["bias"]
     if size == "Lin":
         z = resize_nearest(project_feature_maps(features, w0, hlen=hlen), (h, w))
-        return leaky_relu(z + b0)
+        return leaky_relu(z + b0.to(z.dtype))
 
     total = hlen if hlen is not None else w0.shape[2]
     chunks = _level_chunks(layer_channel_dims(features), total)
@@ -369,9 +371,9 @@ def concat_segment_fcn(features, seg_params, size, hlen=None, n_layers=None,
             y = _polyphase_conv3x3_up(torch.cat(lift, dim=-1),
                                       torch.cat(lift_w, dim=2), h // cutoff)
             out = y if out is None else out + y
-    out = out + b0
+    out = out + b0.to(out.dtype)
     for p, d in zip(seg_params[1:], DILATIONS[size][1:]):
         out = leaky_relu(out)
         out = conv2d_dilated_nhwc(out, p["weight"], dilation=d, padding=d)
-        out = out + p["bias"]
+        out = out + p["bias"].to(out.dtype)
     return out

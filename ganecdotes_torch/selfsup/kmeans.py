@@ -188,7 +188,9 @@ def load_belief_file(path, device=None):
 
 
 def kmeans_predict(x, centers):
-    """Nearest center: argmin_k (||c_k||^2 - 2 x.c_k), ||x||^2 dropped."""
+    """Nearest center: argmin_k (||c_k||^2 - 2 x.c_k), ||x||^2 dropped.
+    bf16 features meet float32 centers in float32 (JAX's promotion)."""
+    x = x.to(torch.promote_types(x.dtype, centers.dtype))
     score = (centers * centers).sum(dim=1)[None, :] - 2.0 * (x @ centers.T)
     return score.argmin(dim=1)
 
@@ -204,6 +206,7 @@ def kmeans_predict_parts(parts, centers):
     off = 0
     for p in parts:
         c = p.shape[-1]
+        p = p.to(torch.promote_types(p.dtype, centers.dtype))  # JAX's promotion
         score = score - 2.0 * (p @ centers[:, off : off + c].T)
         off += c
     return score.argmin(dim=1)

@@ -469,16 +469,38 @@ def test_schedulers_match_jax(policy):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
+    """What the JAX trainer refuses, the port refuses (a misspelt
+    ``wgangp_remat``, ``compute_dtype='float16'``); bfloat16 and the
+    chunk, once refused here, now run: the bf16 trainer keeps float32
+    weights, and a chunk of two plain iterations equals two single steps
+    bit for bit (tests/test_torch_chunk.py and tests/test_torch_bf16.py
+    hold both against the single-step path and JAX at length)."""
     with pytest.raises(NotImplementedError, match="wgangp_remat"):
         tt.BagGANHQ(_cfg(tmp_path, wgangp_remat="ALL"), device="cpu")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tt.BagGANHQ(_cfg(tmp_path, compute_dtype="bfloat16"), device="cpu")
     with pytest.raises(NotImplementedError, match="compute_dtype"):
         tt.BagGANHQ(_cfg(tmp_path, compute_dtype="float16"), device="cpu")
-    gan = tt.BagGANHQ(_cfg(tmp_path, wgangp_remat="gp", compute_dtype="float32"),
-                      device="cpu")
-    with pytest.raises(NotImplementedError, match="chunk"):
-        gan.optimize_parameters_chunk([np.zeros((B, SIZE, SIZE, 3), np.float32)])
+    bf16 = tt.BagGANHQ(_cfg(tmp_path, compute_dtype="bfloat16"), device="cpu")
+    assert bf16.compute_dtype is torch.bfloat16
+    assert all(t.dtype == torch.float32 for t in bf16.g_tensors + bf16.d_tensors)
+    batches = [np.random.RandomState(i).rand(B, SIZE, SIZE, 3).astype(np.float32)
+               for i in range(2)]
+    runs = []
+    for chunked in (False, True):
+        gan = tt.BagGANHQ(_cfg(tmp_path, wgangp_remat="gp", compute_dtype="float32",
+                               use_ppl=False, d_reg_every=100), device="cpu")
+        assert gan.compute_dtype is None
+        gan.iter_no = 1
+        if chunked:
+            gan.optimize_parameters_chunk(batches)
+        else:
+            for it, b in enumerate(batches, 1):
+                gan.set_input(b, iter_no=it)
+                gan.optimize_parameters()
+        assert gan.iter_no == 3
+        runs.append(gan)
+    for a, b in zip(runs[0].g_tensors + runs[0].d_tensors,
+                    runs[1].g_tensors + runs[1].d_tensors):
+        assert torch.equal(a, b)
 
 
 def test_trainer_needs_a_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):

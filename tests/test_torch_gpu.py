@@ -1059,7 +1059,8 @@ def test_baggan_iteration_kernels_match_plain_ops(cuda, tmp_path, monkeypatch,
         runs.append((gan, dict(_build.LAUNCHES)))
         masks = kinks.masks
     (plain, plain_launches), (kern, launches) = runs
-    assert all(v > 0 for k, v in launches.items() if k != "sinkhorn_knopp"), launches
+    assert all(v > 0 for k, v in launches.items()
+               if k != "sinkhorn_knopp" and not k.endswith("_bf16")), launches
     assert all(v == 0 for v in plain_launches.values()), plain_launches
     assert kinks.calls == len(masks) > 0, (kinks.calls, len(masks))
     assert all(f <= 1e-5 for f in kinks.flips), kinks.flips
@@ -1141,3 +1142,81 @@ def test_library_ops_equal_their_wrappers(cuda, shape):
         got = LIBRARY.upfirdn2d(x, k, up, down, pad)
         assert _build.LAUNCHES["upfirdn2d"] == before + 1
         assert torch.equal(got, KERNELS.upfirdn2d(x, k, up, down, pad))
+
+
+# ---------------------------------------------------------------------------
+# bfloat16: the kernels' bf16 instances
+# ---------------------------------------------------------------------------
+
+
+def _bf16_gate(kern, plain, ref, name):
+    """A bf16 kernel (bf16 out) against the fp32 plain version on its own
+    bf16 inputs: within the plain bf16 version's error there plus one bf16
+    rounding step of the output's scale (chip_smoke.py's phase 16 gate);
+    its bf16 instance, and only it, launched."""
+    before = dict(_build.LAUNCHES)
+    got = kern()
+    ran = [k for k, n in _build.LAUNCHES.items() if n != before[k]]
+    want, r = plain(), ref()
+    got, want, r = [t if isinstance(t, tuple) else (t,) for t in (got, want, r)]
+    torch.cuda.synchronize()
+    assert ran == [name + "_bf16"], ran
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    err = max((g.float() - x.float()).abs().max().item() for g, x in zip(got, r))
+    plain_err = max((w.float() - x.float()).abs().max().item() for w, x in zip(want, r))
+    scale = max(x.abs().max().item() for x in r)
+    assert err <= plain_err + 2.0 ** -8 * max(1.0, scale), (name, err, plain_err, scale)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 8, 512, 512), (3, 16, 16, 64, 16),
+                                   (2, 32, 32, 16, 32), (1, 4, 4, 24, 40)])
+@pytest.mark.parametrize("up", [False, True])
+def test_bf16_styled_convs_match_plain(cuda, shape, up):
+    """Kernels 3 and 4's bf16 bodies at every tile width (Cout 16 to 512,
+    a ragged 40) against their plain bf16 versions."""
+    bf = torch.bfloat16
+    args = _styled_inputs(*shape, 1, up, cuda)
+    args = [args[0].to(bf), args[1], args[2].to(bf), args[3].to(bf), *args[4:]]
+    fn = tmc.styled_up_conv3x3 if up else tmc.styled_conv3x3
+    ref = tmc.styled_up_conv3x3_ref if up else tmc.styled_conv3x3_ref
+    name = "styled_up_conv3x3" if up else "styled_conv3x3"
+    _bf16_gate(lambda: fn(*args), lambda: ref(*args),
+               lambda: ref(*[a.float() for a in args]), name)
+
+
+def test_bf16_memory_bound_kernels_match_plain(cuda):
+    """Kernels 1, 1-bwd, 2, 6a and 6b's bf16 instances against their plain
+    bf16 versions, C = 3 and C % 4 == 0 alike."""
+    from ganecdotes_torch.ops import resample as trs
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(2, 9, 9, 12, generator=g, device=cuda).to(bf)
+    b = torch.randn(12, generator=g, device=cuda)
+    _bf16_gate(lambda: tfa.fused_leaky_relu(x, b), lambda: tfa.fused_leaky_relu_ref(x, b),
+               lambda: tfa.fused_leaky_relu_ref(x.float(), b), "fused_leaky_relu")
+    y = tfa.fused_leaky_relu(x, b)
+    gy = torch.randn(y.shape, generator=g, device=cuda).to(bf)
+    _bf16_gate(lambda: tfa.fused_leaky_relu_bwd(gy, y),
+               lambda: tfa.fused_leaky_relu_bwd_ref(gy, y),
+               lambda: tfa.fused_leaky_relu_bwd_ref(gy.float(), y.float()),
+               "fused_leaky_relu_bwd")
+    k = tup.make_kernel((1, 3, 3, 1), gain=4)
+    for c in (3, 12):
+        xc = torch.randn(2, 8, 8, c, generator=g, device=cuda).to(bf)
+        _bf16_gate(lambda: tup.upfirdn2d(xc, k, 2, 1, (2, 1)),
+                   lambda: tup.upfirdn2d_ref(xc, k, 2, 1, (2, 1)),
+                   lambda: tup.upfirdn2d_ref(xc.float(), k, 2, 1, (2, 1)), "upfirdn2d")
+    xr = torch.randn(2, 3, 24, 16, generator=g, device=cuda).to(bf)
+    alpha = torch.tensor([0.9, -1.1], device=cuda)
+    icpt = torch.rand(2, 16, generator=g, device=cuda) * 20
+    _bf16_gate(lambda: trs.resample_rows(xr, alpha, icpt, 20),
+               lambda: trs.resample_rows_ref(xr, alpha, icpt, 20),
+               lambda: trs.resample_rows_ref(xr.float(), alpha, icpt, 20), "resample_rows")
+    gr = torch.randn(2, 3, 20, 16, generator=g, device=cuda).to(bf)
+    _bf16_gate(lambda: trs.resample_rows_t(gr, alpha, icpt, 24),
+               lambda: trs.resample_rows_t_ref(gr, alpha, icpt, 24),
+               lambda: trs.resample_rows_t_ref(gr.float(), alpha, icpt, 24),
+               "resample_rows_t")
+    with pytest.raises(TypeError, match="fused_leaky_relu: x is torch.float16"):
+        tfa.fused_leaky_relu(x.half(), None)

@@ -286,13 +286,17 @@ def test_kernel_build_has_a_source_per_kernel():
     names = {s.rsplit("/", 1)[-1] for s in srcs}
     assert {"fused_act.cu", "upfirdn2d.cu", "styled_conv.cu",
             "styled_up_conv.cu", "sinkhorn.cu", "affine_warp.cu"} <= names
-    assert set(_build.LAUNCHES) == {"fused_leaky_relu", "fused_leaky_relu_bwd",
-                                    "upfirdn2d", "styled_conv3x3",
-                                    "styled_up_conv3x3", "sinkhorn_knopp",
-                                    "resample_rows", "resample_rows_t"}
-    assert {"gk_fused_leaky_relu", "gk_fused_leaky_relu_bwd", "gk_styled_conv3x3",
-            "gk_styled_up_conv3x3", "gk_resample_rows",
-            "gk_resample_rows_t"} <= set(_build._SIGNATURES)
+    fp32 = {"fused_leaky_relu", "fused_leaky_relu_bwd", "upfirdn2d", "styled_conv3x3",
+            "styled_up_conv3x3", "sinkhorn_knopp", "resample_rows", "resample_rows_t"}
+    # each kernel but the Sinkhorn also has a bf16 instance, counted apart
+    bf16 = {k + "_bf16" for k in fp32 - {"sinkhorn_knopp"}}
+    assert set(_build.LAUNCHES) == fp32 | bf16
+    entries = {"gk_fused_leaky_relu", "gk_fused_leaky_relu_bwd", "gk_upfirdn2d",
+               "gk_styled_conv3x3", "gk_styled_up_conv3x3", "gk_resample_rows",
+               "gk_resample_rows_t"}
+    assert entries | {e + "_bf16" for e in entries} <= set(_build._SIGNATURES)
+    assert {"tf32x3.cuh", "bf16_mma.cuh"} <= {h.rsplit("/", 1)[-1]
+                                             for h in _build._sources()[1]}
     # every op of the op sets has its count; the fused act's backward kernel
     # runs inside the fused_leaky_relu Function and counts on its own
-    assert set(_build.LAUNCHES) == set(OpSet._fields) | {"fused_leaky_relu_bwd"}
+    assert fp32 == set(OpSet._fields) | {"fused_leaky_relu_bwd"}

@@ -217,11 +217,12 @@ def test_swav_pretraining_data_parallel_over_two_ranks(tmp_path):
         np.testing.assert_allclose(a, b.numpy(), **PARAM_TOL)
 
 
-def _gan_setup(tmp_path, batch=8, lr=0.0):
+def _gan_setup(tmp_path, batch=8, lr=0.0, **extra):
     """A 16^2 trainer, its weights and the global batch's draws. ``lr`` 0:
     each step kind's gradients are taken at the same weights in both runs
     (Adam's first step is about lr * sign(g), so a rounding-sized gradient
-    near 0 moves a weight by a whole step)."""
+    near 0 moves a weight by a whole step). ``extra``: more config values
+    (``compute_dtype``)."""
     cfg = dict(out_dir=str(tmp_path), checkpoint_dir=str(tmp_path / "ckpt"),
                is_train=True, image_size=16, latent_dim=32, num_channels=3,
                batch_size=batch, gan_mode="wgangp", use_ppl=True, r1_lambda=10,
@@ -234,6 +235,7 @@ def _gan_setup(tmp_path, batch=8, lr=0.0):
                generator_params=dict(mlp_layers=2),
                losses_to_print=["g_gan", "d", "g_ppl"], start_epoch=1,
                continue_train=False, load_net=False)
+    cfg.update(extra)
     gan = tt.BagGANHQ(types.SimpleNamespace(**cfg), seed=3, device="cpu")
     with torch.no_grad():  # noise reaches the image, D's bias is not zero
         for i, c in enumerate([gan.netG.conv1, *gan.netG.convs]):
@@ -293,6 +295,44 @@ def test_gan_iteration_over_two_ranks_matches_one_process(tmp_path):
             np.testing.assert_array_equal(outs[0][net][k], outs[1][net][k])
     assert outs[0]["ckpt"] == ["latest_net_D.npz", "latest_net_G.npz"]
     assert outs[1]["ckpt"] == []
+
+
+def test_bf16_gan_iteration_over_two_ranks_matches_one_process(tmp_path):
+    """The iteration above with ``compute_dtype='bfloat16'`` (B = 8 as 4 +
+    4, lr 0): the D and G steps in bf16 on each rank, the minibatch
+    standard deviation gathered over the ranks in the activation's bf16
+    (gloo sums bf16; the gather adds zeros, so it is exact), against one
+    process on the global batch. The ranks' bf16 convs on 4 samples and the
+    one process's on 8 round apart, so the gate is bf16's own: each loss
+    and each step kind's gradient within twice the one process's bf16
+    against float32 difference (R1 and PPL, float32 in both, within the
+    float32 test's 1e-5)."""
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        gan, setup, draws = _gan_setup(tmp_path / dtype, compute_dtype=dtype)
+        gan.keep_first_grads = True
+        gan.set_input(data_sample={"ct": setup["real"]}, iter_no=0, draws=draws)
+        gan.optimize_parameters()
+        runs[dtype] = torch_ranks._gan_result(gan), setup
+    (want, setup), (want32, _) = runs["bfloat16"], runs["float32"]
+    outs = torch_ranks.run_ranks(torch_ranks.gan_iteration, WORLD, setup)
+
+    def flat(grads):
+        return np.concatenate([g.ravel() for g in grads])
+
+    for out in outs:
+        for k, v in want["losses"].items():
+            if k in ("loss_d_r1", "loss_g_ppl"):
+                assert abs(out["losses"][k] - v) <= 1e-5 * max(abs(v), 1e-3), k
+            else:
+                assert abs(out["losses"][k] - v) <= 2 * abs(v - want32["losses"][k]), k
+        for kind, grads in want["grads"].items():
+            a, b = flat(out["grads"][kind]), flat(grads)
+            if kind in ("r1", "ppl"):
+                assert np.linalg.norm(a - b) <= 1e-5 * np.linalg.norm(b), kind
+            else:
+                own = np.linalg.norm(b - flat(want32["grads"][kind]))
+                assert np.linalg.norm(a - b) <= 2 * own, kind
 
 
 def test_gan_steps_over_two_ranks_match_jax_on_its_mesh(tmp_path):

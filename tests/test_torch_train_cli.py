@@ -4,8 +4,8 @@ the CPU at a tiny size: the port's pidray run config with a 16^2 generator
 through the native loader and on the JAX CLI's noise batches; its
 checkpoints loaded by the JAX package's ``load_pytree`` and by the port's
 ``load_baggan_generator``; its losses against ``BagGANHQ`` driven by hand
-on the same batches (equal: the same code and seed on one thread); and the
-refusal of ``--chunk > 1``.
+on the same batches (equal: the same code and seed on one thread); and
+``--chunk 2`` against ``--chunk 1`` (equal weights).
 """
 
 import glob
@@ -133,9 +133,24 @@ def test_cli_resumes_from_its_checkpoints(tmp_path):
 
 
 def test_cli_refuses_a_chunk_and_all_bad_data(tmp_path):
+    """``--chunk 2`` (once refused) now runs its two iterations in one
+    optimizer call and lands on the weights of ``--chunk 1``; all-bad data
+    and a missing data directory are still refused."""
     cfg_path = _run_config(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-        cli.main(["--config", cfg_path, "--chunk", "2", "--device", "cpu"])
+    runs = []
+    for chunk in ("1", "2"):
+        gan, rec = cli.run(cli.build_parser().parse_args([
+            "--config", cfg_path, "--out_dir", str(tmp_path / f"chunk{chunk}"),
+            "--epochs", "1", "--iters_per_epoch", "2", "--chunk", chunk,
+            "--device", "cpu"]))
+        assert sum(rec["call_iterations"]) == 2 and gan.iter_no == 2
+        runs.append((gan, rec))
+    assert runs[1][1]["call_iterations"] == [2]
+    assert runs[0][1]["batch_sums"] == runs[1][1]["batch_sums"]
+    for net in ("netG", "netD"):
+        for a, b in zip(getattr(runs[0][0], net).state_dict().values(),
+                        getattr(runs[1][0], net).state_dict().values()):
+            assert torch.equal(a, b)
     bad = tmp_path / "bad"
     bad.mkdir()
     for i in range(2):
