@@ -17,6 +17,9 @@ Run from the repository root on a machine with one CUDA card and nvcc
 Phases (any failure exits non-zero before the last line):
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. build: compiles ganecdotes_torch/csrc/*.cu for sm_90a, prints the time;
+     every instance of both bf16 StyledConv GEMM kernels must hold wgmma
+     (HGMMA ... BF16 in the SASS), no mma.sync (HMMA) and no spills; their
+     registers, spills and dynamic shared memory are printed;
   3. kernels: each kernel at every shape the ffhq-256 serving path gives it
      at B = 8, held against its plain PyTorch version on the card (float32,
      TF32 off; the up conv also against conv_transpose + blur) and timed
@@ -180,8 +183,8 @@ Phases (any failure exits non-zero before the last line):
      float32 plain version on the same bf16 inputs: the kernel's error
      within the plain bf16 version's plus 2^-8 * max(1, max |ref|), timed
      beside its plain version, one bf16 library call and its bound (the
-     StyledConvs' at 989 TFLOP/s bf16); the build's SASS must hold bf16
-     HMMA instructions in both StyledConv bf16 kernels; (b) phase 4's
+     StyledConvs' at 989 TFLOP/s bf16); each StyledConv row launched twice
+     and required equal bit for bit, its tile plan recorded; (b) phase 4's
      server with inference_dtype = 'bfloat16': 3 requests of 8 folded and
      unfused, no float32 StyledConv or FIR launched, labels against the
      float32 server (>= 95%) and the plain bf16 server (flipping at most
@@ -267,7 +270,7 @@ KERNELS_TABLE = {
 }
 # each kernel's bf16 instance (phase 16): the same source and TPU kernel
 # (the Pallas kernels are dtype-generic), the StyledConvs' bodies on
-# csrc/bf16_mma.cuh
+# csrc/bf16_wgmma.cuh
 KERNELS_TABLE.update({k + "_bf16": v for k, v in list(KERNELS_TABLE.items())
                       if k != "sinkhorn_knopp"})
 SERVING_KERNELS = ("fused_leaky_relu", "upfirdn2d", "styled_conv3x3",
@@ -338,19 +341,28 @@ def bound_ms(nbytes, ops):
     return t_f, f"operations ({rate})"
 
 
-def tensor_core_instructions(library):
-    """HMMA (tensor-core MMA) instructions per kernel in the built library's
-    SASS, by cuobjdump next to nvcc (the same toolkit: it fails if missing)."""
+def sass_lines(library):
+    """(kernel, instruction line) of the built library's SASS, by cuobjdump
+    next to nvcc (the same toolkit: it fails if missing)."""
     from ganecdotes_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", library], capture_output=True,
                           text=True, check=True).stdout
-    counts, fn = {}, None
+    fn = None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-        elif fn and "HMMA" in line:
+        elif fn:
+            yield fn, line
+
+
+def tensor_core_instructions(library):
+    """HMMA (tensor-core MMA) instructions per kernel in the built library's
+    SASS."""
+    counts = {}
+    for fn, line in sass_lines(library):
+        if "HMMA" in line:
             counts[fn] = counts.get(fn, 0) + 1
     return counts
 
@@ -4069,19 +4081,25 @@ def _outs(t):
     return t if isinstance(t, tuple) else (t,)
 
 
-def bf16_row(name, path, case, shape, calls, kern, plain, ref32, lib, moved, ops):
+def bf16_row(name, path, case, shape, calls, kern, plain, ref32, lib, moved, ops,
+             repeat=False):
     """One bf16 kernel row: the kernel (bf16 in and out) and the plain bf16
     version on the same inputs, each against the fp32 plain version on
     them; the kernel's bf16 instance must be the one that launched, and its
     error within the plain bf16 version's plus BF16_STEP of the output's
-    scale. Times: kernel, plain bf16 version, one bf16 library call."""
+    scale; with ``repeat``, a second launch must equal the first bit for
+    bit. Times: kernel, plain bf16 version, one bf16 library call."""
     from ganecdotes_torch.ops import _build
 
     before = dict(_build.LAUNCHES)
     got = _outs(kern())
     ran = [k for k, n in _build.LAUNCHES.items() if n != before[k]]
     want, ref = _outs(plain()), _outs(ref32())
+    again = _outs(kern()) if repeat else None
     torch.cuda.synchronize()
+    if repeat:
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"{name} bf16 {case}: two launches on the same input differ")
     check(all(g.dtype == torch.bfloat16 for g in got),
           f"{name} bf16 {case}: the kernel returned {[g.dtype for g in got]}")
     check(ran == [name + "_bf16"],
@@ -4095,7 +4113,7 @@ def bf16_row(name, path, case, shape, calls, kern, plain, ref32, lib, moved, ops
            "scale": scale, "tol": tol, "max_abs_err_convT_blur": None,
            "ok": err <= tol, "ms": time_ms(kern), "plain_ms": time_ms(plain),
            "library_ms": None if lib is None else time_ms(lib), "bytes": moved,
-           "flops": sum(n for n, _ in ops)}
+           "flops": sum(n for n, _ in ops), "repeat_equal": True if repeat else None}
     row["bound_ms"], row["bound_by"] = bound_ms(moved, ops)
     print(f"  {name + '_bf16':24s} {case:24s} {str(tuple(shape)):26s} err {err:.3e} "
           f"(plain bf16 {plain_err:.3e}, tol {tol:.3e}) ms {row['ms']:.4f} "
@@ -4167,12 +4185,10 @@ def bf16_kernels(dev):
             ops.append((2 * b * co * 4 * (2 * w) * ((2 * h + 1) + 2 * h), FP32))
         row = bf16_row(name, path, f"{path} nb{noise_b}", shape, calls,
                        lambda fn=fn, a=args: fn(*a), lambda ref=ref, a=args: ref(*a),
-                       lambda ref=ref, a=args32: ref(*a), lib, moved, ops)
-        row["tile_n"] = modulated_conv.tile_n(co)
-        if not up:
-            row["tap_splits"] = modulated_conv.tap_splits(
-                b * h * w, co, torch.cuda.get_device_properties(dev).multi_processor_count,
-                row["tile_n"])
+                       lambda ref=ref, a=args32: ref(*a), lib, moved, ops, repeat=True)
+        row["plan"] = modulated_conv.bf16_plan(
+            b, h, w, ci, co, up,
+            torch.cuda.get_device_properties(dev).multi_processor_count)._asdict()
         rows.append(row)
 
     # the FIR kernel: the to_rgb skips of the request of 8 (per request),
@@ -4538,20 +4554,54 @@ def phase16(dev, served, fp32_plain):
                   "seconds": seconds}
 
 
-def bf16_tensor_core_instructions(library):
-    """bf16 HMMA instructions (HMMA.*.BF16) per kernel in the library's SASS."""
-    from ganecdotes_torch.ops import _build
+BF16_GEMM_KERNELS = ("styled_conv3x3_bf16_kernel", "up_gemm_bf16_kernel")
 
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", library], capture_output=True,
-                          text=True, check=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-        elif fn and "HMMA" in line and "BF16" in line:
-            counts[fn] = counts.get(fn, 0) + 1
+
+def bf16_gemm_instructions(library):
+    """Per instance of the two bf16 StyledConv GEMM kernels in the library's
+    SASS: its wgmma (HGMMA ... BF16) and mma.sync (HMMA) instructions."""
+    counts = {}
+    for fn, line in sass_lines(library):
+        if not any(k in fn for k in BF16_GEMM_KERNELS):
+            continue
+        c = counts.setdefault(fn, {"hgmma_bf16": 0, "hmma": 0})
+        if "HGMMA" in line and "BF16" in line:
+            c["hgmma_bf16"] += 1
+        elif "HMMA" in line:
+            c["hmma"] += 1
     return counts
+
+
+def bf16_gemm_resources(log_path):
+    """Per instance of the two bf16 StyledConv GEMM kernels, from ptxas -v
+    in the build log: (tile rows, tile width) -> registers, spill bytes
+    (stores + loads) and dynamic shared memory (the plan's)."""
+    import re
+
+    from ganecdotes_torch.ops import modulated_conv
+
+    out, fn = {}, None
+    with open(log_path) as f:
+        for line in f:
+            if "Function properties for" in line:
+                name = line.split("Function properties for")[1].strip()
+                fn = name if any(k in name for k in BF16_GEMM_KERNELS) else None
+                continue
+            if fn is None:
+                continue
+            key = ("up " if "up_gemm" in fn else "conv ") + "x".join(
+                re.search(r"ILi(\d+)ELi(\d+)E", fn).groups())
+            rec = out.setdefault(key, {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                rec["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rec["registers"] = int(m.group(1))
+                bm, bn = (int(v) for v in key.split()[1].split("x"))
+                rec["smem_bytes"] = modulated_conv.bf16_ring(bm, bn)[2]
+                fn = None
+    return out
 
 
 def kernels_line(rows, launches):
@@ -4621,11 +4671,19 @@ def main():
     print(f"  tensor-core (HMMA) instructions in the SASS: {json.dumps(hmma)}", flush=True)
     check(any("styled_conv3x3" in k for k in hmma),
           "the non-up StyledConv kernel has no tensor-core instruction")
-    hmma16 = bf16_tensor_core_instructions(info["library"])
-    print(f"  bf16 HMMA instructions in the SASS: {json.dumps(hmma16)}", flush=True)
-    for kernel in ("styled_conv3x3_bf16_kernel", "up_gemm_bf16_kernel"):
-        check(any(kernel in k and n > 0 for k, n in hmma16.items()),
-              f"{kernel} has no bf16 tensor-core (HMMA ... BF16) instruction")
+    hmma16 = bf16_gemm_instructions(info["library"])
+    print("  bf16 StyledConv GEMMs' wgmma (HGMMA ... BF16) and mma.sync (HMMA) "
+          f"instructions in the SASS: {json.dumps(hmma16)}", flush=True)
+    for kernel in BF16_GEMM_KERNELS:
+        insts = [n for k, n in hmma16.items() if kernel in k]
+        check(insts and all(n["hgmma_bf16"] > 0 and n["hmma"] == 0 for n in insts),
+              f"{kernel}: every instance must run wgmma (HGMMA ... BF16) and no "
+              f"HMMA: {insts}")
+    resources = bf16_gemm_resources(info["log"])
+    print(f"  bf16 StyledConv GEMMs (tile rows x width): {json.dumps(resources)}",
+          flush=True)
+    check(len(resources) == 18 and all(r.get("spill_bytes") == 0 for r in resources.values()),
+          f"the bf16 StyledConv GEMMs must not spill: {resources}")
 
     print("kernels vs plain versions (ms per call, CUDA events):", flush=True)
     rows = check_kernels(dev)
@@ -4717,6 +4775,7 @@ def main():
                        "configs": other_configs, "train_evaluate": trained_evaluated,
                        "gui": gui_run, "item5": item5_run, "phase15": phase15_run,
                        "phase16": phase16_run, "hmma_bf16": hmma16,
+                       "bf16_gemm_resources": resources,
                        "kernels": line}, f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": line}))

@@ -27,18 +27,28 @@
 // epilogue. Requires Cin % 4 == 0, Cout % 4 == 0 and 16-byte-aligned
 // pointers (the wrapper checks).
 //
-// On bfloat16 activations (gk_styled_conv3x3_bf16) the same design runs on
-// the bf16 main loop of bf16_mma.cuh: x * s and W in bf16, one pass of
-// bf16 MMAs into fp32 accumulators, the epilogue in fp32 and one rounding
-// to bf16 on the store, as the JAX kernel's bf16 instance does
-// (modulated_conv_pallas.py:166-184). Its tile is 128 pixels by 16, 32, 64
-// or 128 output channels (bf16mma::tile_n), so one body serves every Cout
-// from 16 to 512. Requires Cin % 8 == 0 and Cout % 8 == 0.
+// On bfloat16 activations (gk_styled_conv3x3_bf16) the same function
+// runs on the TMA + wgmma main loop of bf16_wgmma.cuh (the Pallas kernel's
+// bf16 instance, modulated_conv_pallas.py:166-184: x * s and W in bf16,
+// fp32 accumulators, the epilogue in fp32 and one rounding to bf16 on the
+// store). Bound: operations, 2 * 9 * Cin * Cout flops a pixel at
+// 989 TFLOP/s (0.52 ms of bf16 tensor-core work a request of 8 at
+// ffhq-256, kernel_ab.py bf16_bounds). Design: a tile is a TMA box of tw x th x nb pixels (64 x 2 at
+// W >= 64, 32 x 4, 16 x 8, or whole images: ops/modulated_conv.py
+// pixel_box), 128 or 256 of them, by 16 to 256 output channels; tap
+// (dy, dx) loads the same box at (x0 + dx - 1, y0 + dy - 1), whose
+// out-of-image part TMA fills with zeros, so the nine taps are nine box
+// loads a 64-channel chunk and the 'same' padding never exists in memory
+// (the Pallas kernel reads a (th + 2)-row halo slab and slices its taps
+// from it; on Hopper TMA's address generation and L2 make the nine loads
+// as cheap, and each lands in the swizzled layout wgmma reads). The tap
+// splits and styled_conv_epilogue_kernel are the float32 path's. Requires
+// Cin % 8 == 0 and Cout % 8 == 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"
+#include "bf16_wgmma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -174,99 +184,115 @@ __global__ void styled_conv_epilogue_kernel(const float* __restrict__ part,
          finish(a.z, d.z, nz, bb.z), finish(a.w, d.w, nz, bb.w));
 }
 
-// The bf16 body: the 9-tap implicit GEMM on bf16_mma.cuh, a BN-wide tile.
-template <int BN>
-__global__ void __launch_bounds__(bf16mma::NT)
-styled_conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ xm,  // (B, H, W, Cin)
-                           const __nv_bfloat16* __restrict__ w,   // (3, 3, Cout, Cin)
-                           const float* __restrict__ demod,       // (B, Cout)
-                           const float* __restrict__ noise,       // (Nb, H, W)
-                           int64_t noise_bs,
-                           const float* __restrict__ nw,
-                           const float* __restrict__ bias,
-                           __nv_bfloat16* __restrict__ out,       // (B, H, W, Cout)
-                           float* __restrict__ part,  // (nsplit, M, Cout) if nsplit > 1
-                           int nsplit, int B, int H, int W, int Cin, int Cout) {
-  namespace bm = bf16mma;
-  using TL = bm::Tile<BN>;
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
+struct ConvBf16Args {
+  const float* demod;  // (B, Cout)
+  const float* noise;  // (Nb, H, W)
+  long long noise_bs;  // 0: broadcast over B
+  const float* nw;     // scalar
+  const float* bias;   // (Cout,)
+  __nv_bfloat16* out;  // (B, H, W, Cout)
+  float* part;         // (nsplit, M, Cout) if nsplit > 1
+  int nsplit, B, H, W, Cin, Cout;
+  int tw, th, nb;            // the A box: pixels a tile, tw x th x nb
+  int tiles_x, tiles_y, tiles_n, chunks;
+};
 
-  const int HW = H * W;
-  const int M = B * HW;
-  const int m0 = blockIdx.x * bm::BM;
-  const int n0 = blockIdx.y * BN;
-  const int t0 = 9 * blockIdx.z / nsplit, t1 = 9 * (blockIdx.z + 1) / nsplit;
+// The bf16 body: the 9-tap implicit GEMM on bf16_wgmma.cuh, a BM x BN tile.
+// Tile (blockIdx.x / tiles_n) covers pixels x0 .. x0 + tw - 1, rows y0 ..
+// y0 + th - 1 of images b0 .. b0 + nb - 1 (tile row r: x fastest, then y,
+// then b); tap (dy, dx)'s A is the same box at (x0 + dx - 1, y0 + dy - 1),
+// TMA filling what lies outside the image with zeros. Splits (blockIdx.y)
+// take taps 9 z / nsplit .. 9 (z + 1) / nsplit and write raw sums.
+template <int BM, int BN>
+__global__ void __launch_bounds__(bf16wg::NT, 1)
+styled_conv3x3_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                           const __grid_constant__ CUtensorMap wmap,
+                           const ConvBf16Args p) {
+  namespace bw = bf16wg;
+  using TL = bw::Tile<BM, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const bw::Ring<BM, BN> ring = bw::ring_setup<BM, BN>(smem_raw);
 
-  const bm::ARows a = bm::a_rows(m0, M, H, W, H, W);
-  float acc[TL::MI][TL::NJ][4];
-  bm::gemm<BN>(acc, smem, t1 - t0, Cin, [&](__nv_bfloat16* stage, int tap, int c0) {
-    tap += t0;
-    const int dy = tap / 3, dx = tap - 3 * (tap / 3);
-    bm::load_stage<BN>(stage, xm, w + (int64_t)tap * Cout * Cin, a, dy - 1,
-                       dx - 1, c0, n0, H, W, Cin, Cout);
-  });
+  const int tm = blockIdx.x / p.tiles_n;
+  const int n0 = (blockIdx.x - tm * p.tiles_n) * BN;
+  const int x0 = (tm % p.tiles_x) * p.tw;
+  const int y0 = (tm / p.tiles_x % p.tiles_y) * p.th;
+  const int b0 = tm / (p.tiles_x * p.tiles_y) * p.nb;
+  const int z = blockIdx.y;
+  const int t0 = 9 * z / p.nsplit, t1 = 9 * (z + 1) / p.nsplit;
 
-  if (nsplit > 1) {  // this split's raw sums
-    float* pz = part + (int64_t)blockIdx.z * M * Cout;
+  if (threadIdx.x >= bw::CONSUMERS) {  // the producer warpgroup: one thread works
+    if constexpr (TL::REBALANCE) bw::setmaxnreg_dec<bw::PRODUCER_REGS>();
+    if (threadIdx.x == bw::CONSUMERS) {
+      const CUtensorMap* xs = &xmap;
+      const CUtensorMap* ws = &wmap;
+      bw::prefetch_map(xs);
+      bw::prefetch_map(ws);
+      const uint32_t bytes = 2 * bw::BK * p.tw * p.th * p.nb + TL::B_BYTES;
+      bw::produce<BM, BN>(ring, t1 - t0, p.chunks, bytes,
+                      [=](uint32_t a, uint32_t b, uint32_t bar, int tap, int c0) {
+                        tap += t0;
+                        const int dy = tap / 3, dx = tap - 3 * dy;
+                        bw::tma_tile_4d(a, xs, bar, c0, x0 + dx - 1, y0 + dy - 1, b0);
+                        bw::tma_tile_3d(b, ws, bar, c0, n0, tap);
+                      });
+    }
+  } else {  // the two consumer warpgroups
+    if constexpr (TL::REBALANCE) bw::setmaxnreg_inc<bw::CONSUMER_REGS>();
+    const int HW = p.H * p.W;
+    const int64_t M = (int64_t)p.B * HW;
+    bw::RowInfo* table = ring.table();
+    if (threadIdx.x < BM) {  // tile row r's pixel, while the first stages load
+      const int r = threadIdx.x;
+      const int xi = r % p.tw, q = r / p.tw;
+      const int yi = q % p.th, bi = q / p.th;
+      const int x = x0 + xi, y = y0 + yi, b = b0 + bi;
+      const bool ok = bi < p.nb && b < p.B && y < p.H && x < p.W;
+      const int64_t pix = ((int64_t)b * p.H + y) * p.W + x;
+      bw::RowInfo ri;
+      ri.off = ok ? (pix + (p.nsplit > 1 ? z * M : 0)) * p.Cout : -1;
+      ri.b = b;
+      ri.nz = ok && p.nsplit == 1 ? *p.nw * p.noise[b * p.noise_bs + (pix - (int64_t)b * HW)]
+                                  : 0.f;
+      table[r] = ri;
+    }
+    float acc[TL::MI][TL::ACC];
+    bw::consume<BM, BN>(acc, ring, (t1 - t0) * p.chunks, threadIdx.x >> 7);
+    bw::consumers_sync();  // every stage consumed: the ring is free
+    float* st = ring.staged();
+    bw::stage_acc<BM, BN>(st, acc);
+    bw::consumers_sync();
+    if (p.nsplit > 1) {  // this split's raw sums
+      bw::store_out<BM, BN>(st, table, p.part, n0, p.Cout,
+                            [](const bw::RowInfo&, int, float(&)[4]) {});
+    } else {
+      bw::store_out<BM, BN>(
+          st, table, p.out, n0, p.Cout, [&](const bw::RowInfo& ri, int n, float(&v)[8]) {
+            const float4* d = reinterpret_cast<const float4*>(p.demod + (int64_t)ri.b * p.Cout + n);
+            const float4* bs = reinterpret_cast<const float4*>(p.bias + n);
+            const float4 d0 = d[0], d1 = d[1], c0 = bs[0], c1 = bs[1];
+            const float dd[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+            const float cc[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
 #pragma unroll
-    for (int i = 0; i < TL::MI; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + bm::frag_row<BN>(i, h);
-        if (m >= M) continue;
-#pragma unroll
-        for (int j = 0; j < TL::NJ; ++j) {
-          const int n = n0 + bm::frag_col<BN>(j);
-          if (n < Cout)
-            *reinterpret_cast<float2*>(pz + (int64_t)m * Cout + n) =
-                make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        }
-      }
-    return;
-  }
-
-  const float nwv = *nw;
-#pragma unroll
-  for (int i = 0; i < TL::MI; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + bm::frag_row<BN>(i, h);
-      if (m >= M) continue;
-      const int b = m / HW;
-      const int r = m - b * HW;
-      const float nz = nwv * noise[(int64_t)b * noise_bs + r];
-      __nv_bfloat16* orow = out + (int64_t)m * Cout;
-#pragma unroll
-      for (int j = 0; j < TL::NJ; ++j) {
-        const int n = n0 + bm::frag_col<BN>(j);
-        if (n >= Cout) continue;
-        const float2 d =
-            *reinterpret_cast<const float2*>(demod + (int64_t)b * Cout + n);
-        const float2 bb = *reinterpret_cast<const float2*>(bias + n);
-        *reinterpret_cast<__nv_bfloat162*>(orow + n) = __floats2bfloat162_rn(
-            finish(acc[i][j][2 * h], d.x, nz, bb.x),
-            finish(acc[i][j][2 * h + 1], d.y, nz, bb.y));
-      }
+            for (int k = 0; k < 8; ++k) v[k] = finish(v[k], dd[k], ri.nz, cc[k]);
+          });
     }
   }
 }
 
-template <int BN>
-int launch_bf16(const __nv_bfloat16* xm, const __nv_bfloat16* w,
-                const float* demod, const float* noise, long long noise_bs,
-                const float* nw, const float* bias, __nv_bfloat16* out,
-                float* part, int nsplit, int B, int H, int W, int Cin,
-                int Cout, cudaStream_t s) {
-  auto kernel = styled_conv3x3_bf16_kernel<BN>;
-  const int smem = bf16mma::Tile<BN>::SMEM_BYTES;
-  cudaError_t e = bf16mma::set_smem(kernel, smem);
+template <int BM, int BN>
+int launch_bf16(const void* xm, const void* w, ConvBf16Args p, int stages,
+                cudaStream_t s) {
+  using TL = bf16wg::Tile<BM, BN>;
+  if (stages != TL::STAGES) return (int)cudaErrorInvalidValue;
+  CUtensorMap xmap, wmap;
+  cudaError_t e = bf16wg::pixel_box_map(&xmap, xm, p.B, p.H, p.W, p.Cin, p.tw, p.th, p.nb);
+  if (e == cudaSuccess) e = bf16wg::weight_map(&wmap, w, p.Cin, p.Cout, BN);
+  auto kernel = styled_conv3x3_bf16_kernel<BM, BN>;
+  if (e == cudaSuccess) e = bf16wg::set_smem(kernel, TL::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  const int M = B * H * W;
-  dim3 grid((M + bf16mma::BM - 1) / bf16mma::BM, (Cout + BN - 1) / BN, nsplit);
-  kernel<<<grid, bf16mma::NT, smem, s>>>(xm, w, demod, noise, noise_bs, nw,
-                                         bias, out, part, nsplit, B, H, W,
-                                         Cin, Cout);
+  const dim3 grid(p.tiles_x * p.tiles_y * ((p.B + p.nb - 1) / p.nb) * p.tiles_n, p.nsplit);
+  kernel<<<grid, bf16wg::NT, TL::SMEM_BYTES, s>>>(xmap, wmap, p);
   return (int)cudaGetLastError();
 }
 
@@ -296,43 +322,49 @@ extern "C" int gk_styled_conv3x3(const float* xm, const float* w,
 }
 
 // The bf16 entry: xm, w and out bf16; demod, noise, nw, bias and the split
-// scratch float32. ``bn`` is the tile width (16, 32, 64 or 128).
+// scratch float32. The plan (ops/modulated_conv.py bf16_plan): ``bm`` the
+// tile's rows (128 or 256, the latter at most 128 wide), ``bn`` its width
+// (16 to 256), ``stages`` the ring's depth (checked against the kernel's),
+// (tw, th, nb) the pixel box of a tile.
 extern "C" int gk_styled_conv3x3_bf16(const void* xm, const void* w,
                                       const float* demod, const float* noise,
                                       long long noise_bs, const float* nw,
                                       const float* bias, void* out, float* part,
                                       int nsplit, int B, int H, int W, int Cin,
-                                      int Cout, int bn, void* stream) {
+                                      int Cout, int bm, int bn, int stages, int tw,
+                                      int th, int nb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((nsplit != 1 && nsplit != 3 && nsplit != 9) || Cin % 8 || Cout % 8 ||
-      bn != bf16mma::tile_n(Cout))
+      bn != bf16wg::tile_n(Cout) || (bm != 128 && (bm != 256 || bn > 128)) ||
+      tw < 1 || th < 1 || nb < 1 || tw > 256 || th > 256 || nb > 256 ||
+      tw * th * nb > bm)
     return (int)cudaErrorInvalidValue;
-  const auto* x16 = static_cast<const __nv_bfloat16*>(xm);
-  const auto* w16 = static_cast<const __nv_bfloat16*>(w);
-  auto* o16 = static_cast<__nv_bfloat16*>(out);
+  ConvBf16Args p{demod, noise, noise_bs, nw, bias, static_cast<__nv_bfloat16*>(out),
+                 part, nsplit, B, H, W, Cin, Cout, tw, th, nb,
+                 (W + tw - 1) / tw, (H + th - 1) / th, (Cout + bn - 1) / bn,
+                 (Cin + bf16wg::BK - 1) / bf16wg::BK};
   int rc;
-  switch (bn) {
-    case 16:
-      rc = launch_bf16<16>(x16, w16, demod, noise, noise_bs, nw, bias, o16,
-                           part, nsplit, B, H, W, Cin, Cout, s);
-      break;
-    case 32:
-      rc = launch_bf16<32>(x16, w16, demod, noise, noise_bs, nw, bias, o16,
-                           part, nsplit, B, H, W, Cin, Cout, s);
-      break;
-    case 64:
-      rc = launch_bf16<64>(x16, w16, demod, noise, noise_bs, nw, bias, o16,
-                           part, nsplit, B, H, W, Cin, Cout, s);
-      break;
-    default:
-      rc = launch_bf16<128>(x16, w16, demod, noise, noise_bs, nw, bias, o16,
-                            part, nsplit, B, H, W, Cin, Cout, s);
+  if (bm == 256) {
+    switch (bn) {
+      case 16: rc = launch_bf16<256, 16>(xm, w, p, stages, s); break;
+      case 32: rc = launch_bf16<256, 32>(xm, w, p, stages, s); break;
+      case 64: rc = launch_bf16<256, 64>(xm, w, p, stages, s); break;
+      default: rc = launch_bf16<256, 128>(xm, w, p, stages, s);
+    }
+  } else {
+    switch (bn) {
+      case 16: rc = launch_bf16<128, 16>(xm, w, p, stages, s); break;
+      case 32: rc = launch_bf16<128, 32>(xm, w, p, stages, s); break;
+      case 64: rc = launch_bf16<128, 64>(xm, w, p, stages, s); break;
+      case 128: rc = launch_bf16<128, 128>(xm, w, p, stages, s); break;
+      default: rc = launch_bf16<128, 256>(xm, w, p, stages, s);
+    }
   }
   if (rc != 0 || nsplit == 1) return rc;
   const int M = B * H * W;
   const int64_t total = (int64_t)M * (Cout / 4);
   styled_conv_epilogue_kernel<__nv_bfloat16>
       <<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-          part, nsplit, demod, noise, noise_bs, nw, bias, o16, M, H * W, Cout);
+          part, nsplit, demod, noise, noise_bs, nw, bias, p.out, M, H * W, Cout);
   return (int)cudaGetLastError();
 }

@@ -42,18 +42,27 @@
 // separably and writes the 16 outputs as four 16-byte vectors.
 //
 // On bfloat16 activations (gk_styled_up_conv3x3_bf16) the phase GEMM runs
-// on the bf16 main loop of bf16_mma.cuh (x * s and W in bf16, fp32
-// accumulators, a tile of 128 pixels by bf16mma::tile_n(Cout) channels), and
-// T stays float32: the blur, noise, bias and activation then run on the
-// unrounded sums and the kernel rounds once, on the bf16 store, as the JAX
-// kernel's bf16 instance does with its blur folded into the phase filters
-// (modulated_conv_pallas.py:412-436). A bf16 T would halve T's bytes and
-// add a second rounding. Requires Cin % 8 == 0 and Cout % 8 == 0.
+// on the TMA + wgmma main loop of bf16_wgmma.cuh (the Pallas kernel's bf16
+// instance, modulated_conv_pallas.py:405-436: x * s and W in bf16, fp32
+// accumulators), and T stays float32: the blur, noise, bias and activation
+// then run on the unrounded sums and the kernel rounds once, on the bf16
+// store, as the JAX kernel does with its blur folded into the phase
+// filters. A bf16 T would halve T's bytes and add a second rounding.
+// Bound: the GEMM's operations, 2 * 9 * Cin * Cout flops an input pixel at
+// 989 TFLOP/s (0.21 ms a request of 8 at ffhq-256), and the blur's bytes,
+// T read once in float32 and the bf16 output written once at 3.35 TB/s
+// (0.22 ms, kernel_ab.py bf16_bounds): the two halves' bounds are alike.
+// Design of the GEMM: the phase classes' (H + 1 - py) x (W + 1 - px)
+// grids are one more than a power of two wide, so a rectangular box wastes
+// up to half a tile a row; TMA's im2col mode instead walks a class's
+// positions flat across rows and images, 128 or 256 a tile, with the tap
+// as its offsets (up_gemm_bf16_kernel). Requires Cin % 8 == 0 and
+// Cout % 8 == 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bf16_mma.cuh"
+#include "bf16_wgmma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -124,64 +133,94 @@ up_gemm_kernel(const float* __restrict__ xm,     // (B, H, W, Cin)
   }
 }
 
-// The bf16 body's phase GEMM: up_gemm_kernel on bf16_mma.cuh, a BN-wide
-// tile, T in float32.
-template <int BN>
-__global__ void __launch_bounds__(bf16mma::NT)
-up_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ xm,  // (B, H, W, Cin)
-                    const __nv_bfloat16* __restrict__ w,   // (3, 3, Cout, Cin)
-                    const float* __restrict__ demod,       // (B, Cout)
-                    float* __restrict__ t_out,             // (B, 2H+1, 2W+1, Cout)
-                    PhaseTiles pt, int B, int H, int W, int Cin, int Cout) {
-  namespace bm = bf16mma;
-  using TL = bm::Tile<BN>;
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
+struct UpBf16Args {
+  const float* demod;  // (B, Cout)
+  float* t_out;        // (B, 2H+1, 2W+1, Cout)
+  int B, H, W, Cin, Cout;
+  int tiles_m, tiles_n, chunks;  // a class's tiles: tiles_m x tiles_n
+};
 
-  int phase = 0;
-  while (phase < 3 && (int)blockIdx.x >= pt.first[phase + 1]) ++phase;
-  const int local = blockIdx.x - pt.first[phase];
-  const int m0 = (local / pt.tiles_n) * bm::BM;
-  const int n0 = (local % pt.tiles_n) * BN;
+// The bf16 body's phase GEMM on bf16_wgmma.cuh, a BM x BN tile, T in
+// float32. Every class walks the same (H + 1) x (W + 1) grid of positions
+// per image, flat over (b, y, x) (x fastest): A comes by TMA's im2col mode,
+// BM consecutive positions a load, the base pixel of position (y, x)
+// being (x - 1, y - 1) and tap (ty, tx) the offsets (1 - tx, 1 - ty), so
+// the load reads pixel (x - tx, y - ty), zero outside the image. The
+// positions outside the class ((H + 1 - py) x (W + 1 - px)) and past the
+// last image are computed and not stored: a column or row of waste, not
+// up to half a tile a row as a rectangular box over (W + 1) columns would
+// be. Blocks: class 0 (4 taps) first, then classes 1, 2 (2 taps), 3 (1).
+template <int BM, int BN>
+__global__ void __launch_bounds__(bf16wg::NT, 1)
+up_gemm_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap, const UpBf16Args p) {
+  namespace bw = bf16wg;
+  using TL = bw::Tile<BM, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const bw::Ring<BM, BN> ring = bw::ring_setup<BM, BN>(smem_raw);
+
+  const int per_class = p.tiles_m * p.tiles_n;
+  const int phase = blockIdx.x / per_class;
+  const int local = blockIdx.x - phase * per_class;
+  const int m0 = (local / p.tiles_n) * BM;
+  const int n0 = (local % p.tiles_n) * BN;
   const int py = phase >> 1, px = phase & 1;
-  const int Hp = H + 1 - py, Wp = W + 1 - px;  // rows, cols of this class
-  const int HWp = Hp * Wp;
-  const int M = B * HWp;
   const int ntx = 2 - px;
   const int ntaps = (2 - py) * ntx;
+  const int Hg = p.H + 1, Wg = p.W + 1, HWg = Hg * Wg;
 
-  const bm::ARows a = bm::a_rows(m0, M, Hp, Wp, H, W);
-  float acc[TL::MI][TL::NJ][4];
-  bm::gemm<BN>(acc, smem, ntaps, Cin, [&](__nv_bfloat16* stage, int tap, int c0) {
-    const int ty = ntx == 2 ? tap >> 1 : tap, tx = ntx == 2 ? tap & 1 : 0;
-    const int ky = py ? 1 : 2 * ty, kx = px ? 1 : 2 * tx;
-    bm::load_stage<BN>(stage, xm, w + (int64_t)(ky * 3 + kx) * Cout * Cin, a,
-                       -ty, -tx, c0, n0, H, W, Cin, Cout);
-  });
-
-  const int TH = 2 * H + 1, TW = 2 * W + 1;
-#pragma unroll
-  for (int i = 0; i < TL::MI; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + bm::frag_row<BN>(i, h);
-      if (m >= M) continue;
-      const int b = m / HWp;
-      const int r = m - b * HWp;
-      const int y = r / Wp;
-      const int x = r - y * Wp;
-      float* trow =
-          t_out + (((int64_t)b * TH + 2 * y + py) * TW + 2 * x + px) * Cout;
-#pragma unroll
-      for (int j = 0; j < TL::NJ; ++j) {
-        const int n = n0 + bm::frag_col<BN>(j);
-        if (n >= Cout) continue;
-        const float2 d =
-            *reinterpret_cast<const float2*>(demod + (int64_t)b * Cout + n);
-        *reinterpret_cast<float2*>(trow + n) =
-            make_float2(acc[i][j][2 * h] * d.x, acc[i][j][2 * h + 1] * d.y);
-      }
+  if (threadIdx.x >= bw::CONSUMERS) {  // the producer warpgroup: one thread works
+    if constexpr (TL::REBALANCE) bw::setmaxnreg_dec<bw::PRODUCER_REGS>();
+    if (threadIdx.x == bw::CONSUMERS) {
+      const CUtensorMap* xs = &xmap;
+      const CUtensorMap* ws = &wmap;
+      bw::prefetch_map(xs);
+      bw::prefetch_map(ws);
+      const int n = m0 / HWg, r = m0 - n * HWg;
+      const int y = r / Wg, x = r - y * Wg;
+      bw::produce<BM, BN>(ring, ntaps, p.chunks, TL::STAGE_BYTES,
+                      [=](uint32_t a, uint32_t b, uint32_t bar, int tap, int c0) {
+                        const int ty = ntx == 2 ? tap >> 1 : tap;
+                        const int tx = ntx == 2 ? tap & 1 : 0;
+                        const int ky = py ? 1 : 2 * ty, kx = px ? 1 : 2 * tx;
+                        bw::tma_im2col_4d(a, xs, bar, c0, x - 1, y - 1, n,
+                                          static_cast<uint16_t>(1 - tx),
+                                          static_cast<uint16_t>(1 - ty));
+                        bw::tma_tile_3d(b, ws, bar, c0, n0, ky * 3 + kx);
+                      });
     }
+  } else {  // the two consumer warpgroups
+    if constexpr (TL::REBALANCE) bw::setmaxnreg_inc<bw::CONSUMER_REGS>();
+    const int TH = 2 * p.H + 1, TW = 2 * p.W + 1;
+    const int M = p.B * HWg;
+    bw::RowInfo* table = ring.table();
+    if (threadIdx.x < BM) {  // tile row r -> T[b, 2y + py, 2x + px], none outside the class
+      const int q = m0 + threadIdx.x;
+      const int b = q / HWg, rest = q - b * HWg;
+      const int y = rest / Wg, x = rest - y * Wg;
+      bw::RowInfo ri;
+      ri.off = q < M && y < Hg - py && x < Wg - px
+                   ? (((int64_t)b * TH + 2 * y + py) * TW + 2 * x + px) * p.Cout
+                   : -1;
+      ri.b = b;
+      ri.nz = 0.f;
+      table[threadIdx.x] = ri;
+    }
+    float acc[TL::MI][TL::ACC];
+    bw::consume<BM, BN>(acc, ring, ntaps * p.chunks, threadIdx.x >> 7);
+    bw::consumers_sync();  // every stage consumed: the ring is free
+    float* st = ring.staged();
+    bw::stage_acc<BM, BN>(st, acc);
+    bw::consumers_sync();
+    bw::store_out<BM, BN>(st, table, p.t_out, n0, p.Cout,
+                          [&](const bw::RowInfo& ri, int n, float(&v)[4]) {
+                            const float4 d = *reinterpret_cast<const float4*>(
+                                p.demod + (int64_t)ri.b * p.Cout + n);
+                            v[0] *= d.x;
+                            v[1] *= d.y;
+                            v[2] *= d.z;
+                            v[3] *= d.w;
+                          });
   }
 }
 
@@ -283,29 +322,21 @@ __global__ void up_blur_epilogue_kernel(const float* __restrict__ t_in,  // (B, 
   }
 }
 
-PhaseTiles phase_tiles(int B, int H, int W, int Cout, int bm, int bn) {
-  PhaseTiles pt;
-  pt.tiles_n = (Cout + bn - 1) / bn;
-  pt.first[0] = 0;
-  for (int p = 0; p < 4; ++p) {
-    const int rows = H + 1 - (p >> 1), cols = W + 1 - (p & 1);
-    const int tiles_m = (B * rows * cols + bm - 1) / bm;
-    pt.first[p + 1] = pt.first[p] + tiles_m * pt.tiles_n;
-  }
-  return pt;
-}
-
-template <int BN>
-int launch_up_bf16(const __nv_bfloat16* xm, const __nv_bfloat16* w,
-                   const float* demod, float* scratch, int B, int H, int W,
-                   int Cin, int Cout, cudaStream_t s) {
-  auto kernel = up_gemm_bf16_kernel<BN>;
-  const int smem = bf16mma::Tile<BN>::SMEM_BYTES;
-  cudaError_t e = bf16mma::set_smem(kernel, smem);
+template <int BM, int BN>
+int launch_up_bf16(const void* xm, const void* w, UpBf16Args p, int stages,
+                   cudaStream_t s) {
+  using TL = bf16wg::Tile<BM, BN>;
+  if (stages != TL::STAGES) return (int)cudaErrorInvalidValue;
+  // base pixels (x - 1, y - 1) of the (H + 1) x (W + 1) positions: the
+  // bounding box [-1, dim - 1] on both axes
+  const int lower[2] = {-1, -1}, upper[2] = {0, 0};
+  CUtensorMap xmap, wmap;
+  cudaError_t e = bf16wg::im2col_map(&xmap, xm, p.B, p.H, p.W, p.Cin, lower, upper, BM);
+  if (e == cudaSuccess) e = bf16wg::weight_map(&wmap, w, p.Cin, p.Cout, BN);
+  auto kernel = up_gemm_bf16_kernel<BM, BN>;
+  if (e == cudaSuccess) e = bf16wg::set_smem(kernel, TL::SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  const PhaseTiles pt = phase_tiles(B, H, W, Cout, bf16mma::BM, BN);
-  kernel<<<pt.first[4], bf16mma::NT, smem, s>>>(xm, w, demod, scratch, pt, B,
-                                                H, W, Cin, Cout);
+  kernel<<<4 * p.tiles_m * p.tiles_n, bf16wg::NT, TL::SMEM_BYTES, s>>>(xmap, wmap, p);
   return (int)cudaGetLastError();
 }
 
@@ -344,33 +375,41 @@ extern "C" int gk_styled_up_conv3x3(const float* xm, const float* w,
 }
 
 // The bf16 entry: xm, w and out bf16; demod, noise, nw, bias and the T
-// scratch float32. ``bn`` is the GEMM's tile width (16, 32, 64 or 128).
+// scratch float32. The plan (ops/modulated_conv.py bf16_plan): ``bm`` the
+// GEMM tile's rows (128 or 256, the latter at most 128 wide), ``bn`` its
+// width (16 to 256), ``stages`` the ring's depth and ``tiles_m`` a class's
+// tiles, both checked against the kernel's.
 extern "C" int gk_styled_up_conv3x3_bf16(const void* xm, const void* w,
                                          const float* demod, const float* noise,
                                          long long noise_bs, const float* nw,
                                          const float* bias, float* scratch,
                                          void* out, int B, int H, int W,
                                          int Cin, int Cout, float k0, float k1,
-                                         float k2, float k3, int bn,
-                                         void* stream) {
+                                         float k2, float k3, int bm, int bn,
+                                         int stages, int tiles_m, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Cin % 8 || Cout % 8 || bn != bf16mma::tile_n(Cout))
+  const long long positions = (long long)B * (H + 1) * (W + 1);
+  if (Cin % 8 || Cout % 8 || bn != bf16wg::tile_n(Cout) ||
+      (bm != 128 && (bm != 256 || bn > 128)) || tiles_m != (positions + bm - 1) / bm)
     return (int)cudaErrorInvalidValue;
-  const auto* x16 = static_cast<const __nv_bfloat16*>(xm);
-  const auto* w16 = static_cast<const __nv_bfloat16*>(w);
+  UpBf16Args p{demod, scratch, B, H, W, Cin, Cout, tiles_m, (Cout + bn - 1) / bn,
+               (Cin + bf16wg::BK - 1) / bf16wg::BK};
   int rc;
-  switch (bn) {
-    case 16:
-      rc = launch_up_bf16<16>(x16, w16, demod, scratch, B, H, W, Cin, Cout, s);
-      break;
-    case 32:
-      rc = launch_up_bf16<32>(x16, w16, demod, scratch, B, H, W, Cin, Cout, s);
-      break;
-    case 64:
-      rc = launch_up_bf16<64>(x16, w16, demod, scratch, B, H, W, Cin, Cout, s);
-      break;
-    default:
-      rc = launch_up_bf16<128>(x16, w16, demod, scratch, B, H, W, Cin, Cout, s);
+  if (bm == 256) {
+    switch (bn) {
+      case 16: rc = launch_up_bf16<256, 16>(xm, w, p, stages, s); break;
+      case 32: rc = launch_up_bf16<256, 32>(xm, w, p, stages, s); break;
+      case 64: rc = launch_up_bf16<256, 64>(xm, w, p, stages, s); break;
+      default: rc = launch_up_bf16<256, 128>(xm, w, p, stages, s);
+    }
+  } else {
+    switch (bn) {
+      case 16: rc = launch_up_bf16<128, 16>(xm, w, p, stages, s); break;
+      case 32: rc = launch_up_bf16<128, 32>(xm, w, p, stages, s); break;
+      case 64: rc = launch_up_bf16<128, 64>(xm, w, p, stages, s); break;
+      case 128: rc = launch_up_bf16<128, 128>(xm, w, p, stages, s); break;
+      default: rc = launch_up_bf16<128, 256>(xm, w, p, stages, s);
+    }
   }
   if (rc != 0) return rc;
   BlurTaps kt = {{k3, k2, k1, k0}};

@@ -97,14 +97,16 @@ _SIGNATURES = {
                              I, I, I, I, I, F, F, F, F, P],
     # bf16 xm, w (3, 3, Cout, Cin), out; fp32 demod, noise, nw, bias, split
     # scratch: xm, w, demod, noise, noise batch stride, nw, bias, out,
-    # scratch, tap splits, B, H, W, Cin, Cout, the tile width, stream
-    "gk_styled_conv3x3_bf16": [P, P, P, P, ctypes.c_longlong, P, P, P, P,
-                               I, I, I, I, I, I, I, P],
+    # scratch, tap splits, B, H, W, Cin, Cout, then the plan (the tile's
+    # rows and width, the ring's stages, the pixel box tw, th, nb), stream
+    "gk_styled_conv3x3_bf16": [P, P, P, P, ctypes.c_longlong, P, P, P, P]
+                              + [I] * 12 + [P],
     # bf16 xm, w, out; fp32 demod, noise, nw, bias, T scratch: xm, w,
     # demod, noise, noise batch stride, nw, bias, scratch, out, B, H, W,
-    # Cin, Cout, the four 1-D blur taps, the tile width, stream
+    # Cin, Cout, the four 1-D blur taps, then the plan (the tile's rows and
+    # width, the ring's stages, a class's tiles), stream
     "gk_styled_up_conv3x3_bf16": [P, P, P, P, ctypes.c_longlong, P, P, P, P,
-                                  I, I, I, I, I, F, F, F, F, I, P],
+                                  I, I, I, I, I, F, F, F, F, I, I, I, I, P],
     # x, w (3, 3, Cin, Cout), s, demod, noise, noise batch stride, nw, bias,
     # out, the up body's T scratch (or NULL), splits, B, H, W, Cin, Cout,
     # up, the four 1-D blur taps, stream

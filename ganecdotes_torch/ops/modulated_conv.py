@@ -22,10 +22,13 @@ Each body has two variants on the card, picked from the shape alone
 
 On bfloat16 activations both bodies run one kernel each, whatever Cout
 (csrc/styled_conv.cu's and csrc/styled_up_conv.cu's ``_bf16`` entries, on
-the bf16 main loop of csrc/bf16_mma.cuh, counted as
+the TMA + wgmma main loop of csrc/bf16_wgmma.cuh, counted as
 ``styled_conv3x3_bf16`` / ``styled_up_conv3x3_bf16``): x * s and W in
 bf16, fp32 accumulators and epilogue, one rounding on the store, a tile of
 128 pixels by ``tile_n(Cout)`` channels; the up body's T stays float32.
+Their tile plan (``bf16_plan``: the tile width, the ring's depth, the TMA
+box of a tile's pixels, the grid and the tap splits) is computed here and
+passed to the C entries, which check it.
 The narrow and 3xTF32 variants are float32 only. demod, noise, the noise
 weight and the bias reach the kernel as float32 (the JAX kernel casts them
 to fp32 inside, modulated_conv_pallas.py:179-181).
@@ -54,7 +57,9 @@ scaled; s (B,Cin); demod (B,Cout); noise (1 or B, OH, OW, 1) on the output
 grid; noise_weight a scalar tensor; bias (Cout,).
 """
 
+import functools
 import math
+from collections import namedtuple
 
 import numpy as np
 import torch
@@ -158,13 +163,18 @@ def _check(kernel, x, w, s, demod, noise, noise_weight, bias, up):
     return b, oh, ow, cout
 
 
-def tap_splits(m, cout, sms, bn=128):
-    """How many ways csrc/styled_conv.cu splits its 9 taps (1, 3 or 9) for
-    M = m output pixels on ``sms`` SMs and tiles ``bn`` channels wide. Only
-    a grid of fewer 128 x bn tiles than SMs is split, into the fewest waves
-    of whole-K work (the smaller split on a tie): a split writes (split, M,
-    Cout) float32 partial sums that a second kernel adds up."""
-    tiles = -(-m // 128) * -(-cout // bn)
+def tap_splits(m, cout, sms):
+    """How many ways csrc/styled_conv.cu's float32 kernel splits its 9 taps
+    (1, 3 or 9) for M = m output pixels on ``sms`` SMs (128 x 128 tiles)."""
+    return grid_splits(-(-m // 128) * -(-cout // 128), sms)
+
+
+def grid_splits(tiles, sms):
+    """How many ways a grid of ``tiles`` whole-K tiles splits its 9 taps
+    (1, 3 or 9) on ``sms`` SMs. Only a grid of fewer tiles than SMs is
+    split, into the fewest waves of whole-K work (the smaller split on a
+    tie): a split writes (split, M, Cout) float32 partial sums that a
+    second kernel adds up, in split order."""
     if tiles >= sms:
         return 1
     return min((1, 3, 9), key=lambda n: -(-tiles * n // sms) / n)
@@ -251,10 +261,101 @@ def _narrow_forward(kernel, x, w, s, demod, noise, noise_weight, bias, up,
     return out
 
 
+# csrc/bf16_wgmma.cuh's constants: 128- or 256-row tiles (two consumer
+# warpgroups of one or two m64 blocks), 64 channels a stage (one 128-byte
+# swizzled row), a ring of at most 6 stages in the 227 KB a block may use,
+# after 1024 bytes of alignment slack, 16 bytes of barriers a stage and a
+# row table of 256 16-byte entries.
+BF16_BMS = (128, 256)
+BF16_BK = 64
+BF16_SMEM_LIMIT = 232448
+BF16_MAX_STAGES = 6
+BF16_BOX_MAX = 256  # TMA's largest box side
+
+
 def tile_n(cout):
-    """The bf16 kernels' tile width for ``cout`` channels (csrc/bf16_mma.cuh
-    ``tile_n``): the smallest of 16, 32 and 64 that holds them, else 128."""
-    return 16 if cout <= 16 else 32 if cout <= 32 else 64 if cout <= 64 else 128
+    """The bf16 kernels' tile width for ``cout`` channels (csrc/bf16_wgmma.cuh
+    ``tile_n``): the smallest of 16, 32, 64 and 128 that holds them, else
+    256."""
+    return (16 if cout <= 16 else 32 if cout <= 32 else 64 if cout <= 64
+            else 128 if cout <= 128 else 256)
+
+
+def pixel_box(b, h, w, bm=128):
+    """The non-up bf16 body's TMA box of a tile's ``bm`` pixels (tw, th,
+    nb): 64 columns (W >= 64) or whole rows, as many rows as make bm
+    pixels, and where the rows are whole images, as many images: at 128,
+    64 x 2, 32 x 4, 16 x 8, 8 x 8 x 2, 4 x 4 x 8 at the StyleGAN widths. A
+    box of fewer than bm pixels (ragged widths) leaves the tile's last rows
+    unused."""
+    tw = min(w, 64)
+    th = min(h, bm // tw)
+    nb = min(b, bm // (tw * th)) if th == h else 1
+    return tw, th, nb
+
+
+def tile_m(bn, m, sms=132):
+    """The bf16 kernels' tile rows for ``m`` output pixels (or up-body
+    positions) at tile width ``bn``: 256 where the tile is at most 128 wide
+    (two m64 blocks a consumer warpgroup: 128 accumulators a thread at
+    most) and 256-row tiles still make two waves of the SMs, else 128. A
+    taller tile reads B once for twice the rows, from L2 as from memory."""
+    return 256 if bn <= 128 and m >= 2 * sms * 256 else 128
+
+
+def bf16_ring(bm, bn):
+    """csrc/bf16_wgmma.cuh's ring for a bm x bn tile: (stages, bytes a
+    stage, the block's dynamic shared memory)."""
+    stage_bytes = 2 * BF16_BK * (bm + bn)
+    fixed = 1024 + 16 * max(BF16_BMS)  # alignment slack, the row table
+    stages = min(BF16_MAX_STAGES,
+                 (BF16_SMEM_LIMIT - fixed - 16 * BF16_MAX_STAGES) // stage_bytes)
+    return stages, stage_bytes, fixed + stages * (stage_bytes + 16)
+
+
+Bf16Plan = namedtuple("Bf16Plan", [
+    "bm",           # tile rows (pixels or positions)
+    "bn",           # tile width (output channels)
+    "stages",       # the ring's depth
+    "stage_bytes",  # one stage: bm rows of A and bn rows of B, 128 B each
+    "smem_bytes",   # the block's dynamic shared memory
+    "chunks",       # 64-channel stages a tap
+    "mode",         # A's TMA mode: "tile" (non-up) or "im2col" (up)
+    "box",          # A's box, innermost first: (64, tw, th, nb) or (64, bm)
+    "tiles",        # tile: (x, y, image) tiles; im2col: (tiles,) a class
+    "tiles_m",      # bm-row tiles (a class's, up)
+    "tiles_n",      # bn-wide tiles
+    "nsplit",       # tap splits (non-up; 1 up)
+    "blocks",       # the grid: tiles_m * tiles_n * nsplit (times 4 classes, up)
+])
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_plan(b, h, w, cin, cout, up, sms=132):
+    """The bf16 kernels' plan for input (b, h, w, cin) and ``cout`` output
+    channels on ``sms`` SMs (csrc/bf16_wgmma.cuh, csrc/styled_conv.cu,
+    csrc/styled_up_conv.cu). Non-up: tiles of ``pixel_box`` pixels over the
+    (b, h, w) grid, A by a tiled box at each tap's shifted coordinates; a
+    grid of fewer tiles than SMs splits its taps (``grid_splits``). Up:
+    every phase class walks the (h + 1) x (w + 1) positions of each image
+    flat, bm a tile, A by TMA's im2col mode."""
+    bn = tile_n(cout)
+    m = b * (h + 1) * (w + 1) if up else b * h * w
+    bm = tile_m(bn, m, sms)
+    stages, stage_bytes, smem = bf16_ring(bm, bn)
+    chunks, tiles_n = -(-cin // BF16_BK), -(-cout // bn)
+    if up:
+        tiles_m = -(-m // bm)
+        return Bf16Plan(bm, bn, stages, stage_bytes, smem, chunks, "im2col",
+                        (BF16_BK, bm), (tiles_m,), tiles_m, tiles_n, 1,
+                        4 * tiles_m * tiles_n)
+    tw, th, nb = pixel_box(b, h, w, bm)
+    tiles = (-(-w // tw), -(-h // th), -(-b // nb))
+    tiles_m = tiles[0] * tiles[1] * tiles[2]
+    nsplit = grid_splits(tiles_m * tiles_n, sms)
+    return Bf16Plan(bm, bn, stages, stage_bytes, smem, chunks, "tile",
+                    (BF16_BK, tw, th, nb), tiles, tiles_m, tiles_n, nsplit,
+                    tiles_m * tiles_n * nsplit)
 
 
 def _bf16_operands(kernel, x, w, s, demod, noise, noise_weight, bias):
@@ -278,18 +379,18 @@ def _bf16_conv_forward(x, w, s, demod, noise, noise_weight, bias, out_shape):
         return out
     xm, w_nk, demod, noise, nw, bias = _bf16_operands(
         kernel, x, w, s, demod, noise, noise_weight, bias)
-    bn = tile_n(cout)
-    m = b * oh * ow
-    nsplit = tap_splits(m, cout, _sm_count(x.device), bn)
+    plan = bf16_plan(*x.shape, cout, False, _sm_count(x.device))
     part = None
-    if nsplit > 1:
-        part = torch.empty((nsplit, m, cout), dtype=torch.float32, device=x.device)
+    if plan.nsplit > 1:
+        part = torch.empty((plan.nsplit, b * oh * ow, cout), dtype=torch.float32,
+                           device=x.device)
     _build.launch(
         kernel, "gk_styled_conv3x3_bf16",
         xm.data_ptr(), w_nk.data_ptr(), demod.data_ptr(), noise.data_ptr(),
         0 if noise.shape[0] == 1 else oh * ow, nw.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), None if part is None else part.data_ptr(), nsplit,
-        *x.shape, cout, bn, _build.stream_of(x),
+        out.data_ptr(), None if part is None else part.data_ptr(), plan.nsplit,
+        *x.shape, cout, plan.bm, plan.bn, plan.stages, *plan.box[1:],
+        _build.stream_of(x),
     )
     return out
 
@@ -409,12 +510,13 @@ def _bf16_up_conv_forward(x, w, s, demod, noise, noise_weight, bias, taps,
     # the epilogue read the unrounded sums
     scratch = torch.empty((b, oh + 1, ow + 1, cout), dtype=torch.float32,
                           device=x.device)
+    plan = bf16_plan(*x.shape, cout, True, _sm_count(x.device))
     _build.launch(
         kernel, "gk_styled_up_conv3x3_bf16",
         xm.data_ptr(), w_nk.data_ptr(), demod.data_ptr(), noise.data_ptr(),
         0 if noise.shape[0] == 1 else oh * ow, nw.data_ptr(), bias.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), *x.shape, cout, *taps,
-        tile_n(cout), _build.stream_of(x),
+        scratch.data_ptr(), out.data_ptr(), *x.shape, cout, *taps, plan.bm,
+        plan.bn, plan.stages, plan.tiles_m, _build.stream_of(x),
     )
     return out
 

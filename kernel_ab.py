@@ -32,17 +32,31 @@ iteration:
     over 1000 calls enqueued without a sync; the card is faster than the
     host there), beside the CUDA-event time per call;
   * resample_rows at BagGAN-HQ's two pass shapes (this turn's checkout's
-    chip_smoke.py draws them from a fixed seed), ``ms`` per augment call.
+    chip_smoke.py draws them from a fixed seed), ``ms`` per augment call;
+  * the bf16 StyledConvs at chip_smoke.py's phase 16 (a) shapes:
+    ``styled_conv3x3_bf16`` and ``styled_up_conv3x3_bf16`` at the ffhq-256
+    request of 8 (ms per request, each layer's time times its calls, and
+    per layer), each call's kernels apart (device time a call under
+    torch.profiler): the GEMM (``..._gemm``), the up body's blur epilogue
+    (``styled_up_conv3x3_bf16_blur``) and the rest (``..._wrapper``: the
+    wrapper's x * s, weight and operand casts, the tap splits' sum); and
+    both at the pidray G step's rosinality widths at B = 20 with one noise
+    map per sample (``..._g20``, ms per layer and their sum).
 
 And the two host-bound paths, phase 4's request of 8 (``serve``) and phase
-5's SwAV step (``swav_step``), ms on the host clock with the card synced.
-And one BagGAN-HQ iteration at the full pidray config (``gan``, ADA p
-0.6, iteration 0: D, R1, G and PPL steps) after a warm-up: ms per step
-kind (host clock, the card synced on both sides; ``ms`` is D + R1), then
-one more under torch.profiler with each range's kernel time and its
-elementwise kernels' time (the fused act's own, PyTorch's elementwise
-kernels and its reductions), each kernel in the innermost range it starts
-in (as chip_smoke.py splits them: ADA's forward in ``gan.ada``).
+5's SwAV step (``swav_step``), and the same request in bf16
+(``serve_bf16``: phase 16 (b)'s server, ``inference_dtype='bfloat16'``),
+ms on the host clock with the card synced. And one BagGAN-HQ iteration at
+the full pidray config (``gan``, ADA p 0.6, iteration 0: D, R1, G and PPL
+steps) after a warm-up: ms per step kind (host clock, the card synced on
+both sides; ``ms`` is D + R1), then one more under torch.profiler with
+each range's kernel time and its elementwise kernels' time (the fused
+act's own, PyTorch's elementwise kernels and its reductions), each kernel
+in the innermost range it starts in (as chip_smoke.py splits them: ADA's
+forward in ``gan.ada``); and the same with ``compute_dtype='bfloat16'``
+(``gan_bf16``, ``ms`` its G step). The summary adds the bf16 StyledConvs'
+bounds (``bf16_bounds``, ms: the GEMMs' operations at 989 TFLOP/s, the
+blur's bytes at 3.35 TB/s), from the shapes alone.
 
 The turns of a round run base, new, new, base. One JSON line per turn, then
 the medians per checkout and the ratio new / base. ``--paths-only`` times
@@ -179,7 +193,7 @@ ELEMENTWISE_TAGS = {"fused_act": "fused_leaky_relu", "torch_elementwise": "eleme
                     "torch_reduce": "reduce_kernel"}
 
 
-def gan_iteration(cs, dev):
+def gan_iteration(cs, dev, compute_dtype=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -187,6 +201,8 @@ def gan_iteration(cs, dev):
     from ganecdotes_torch.ops.opset import KERNELS
 
     cfg = cs.pidray_config(os.path.join(os.getcwd(), "build", "kernel_ab_gan"))
+    if compute_dtype:
+        cfg.compute_dtype = compute_dtype
     gan = BagGANHQ(cfg, seed=0, device=dev, ops=KERNELS)
     gan.ada_state["p"].fill_(0.6)
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -219,35 +235,122 @@ def gan_iteration(cs, dev):
         for kind, tag in ELEMENTWISE_TAGS.items():
             if tag in e.name:
                 ranges[label][kind] += ms
+    if compute_dtype:
+        return {"gan_bf16": {"ms": steps.get("g", 0.0), "step_ms": steps, "ranges": ranges}}
     return {"gan": {"ms": steps.get("d", 0.0) + steps.get("r1", 0.0), "step_ms": steps,
                     "ranges": ranges}}
 
 
+def kernel_us(fn, calls=20):
+    """``fn``'s device time a call per kernel name, in microseconds, under
+    torch.profiler (each kernel's spans over ``calls`` calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / calls
+    return out
+
+
+def bf16_conv_cases(cs):
+    """chip_smoke.py's phase 16 (a) bf16 StyledConv rows at the ffhq-256
+    request and the pidray G step's rosinality widths: (key, kernel, shape,
+    calls per request (0: summed once), noise batch)."""
+    for name, path, shape, calls, noise_b in cs.bf16_styled_shapes():
+        if path.startswith("serve"):
+            yield f"{name}_bf16", name, shape, calls, noise_b
+        elif path == "train rosinality":
+            yield f"{name}_bf16_g20", name, shape, 0, noise_b
+
+
+def time_bf16_convs(cs, dev):
+    import torch
+
+    from ganecdotes_torch.ops import modulated_conv
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = {}
+
+    def add(key, case, ms, calls):
+        rec = out.setdefault(key, {"ms": 0.0, "cases_ms": {}})
+        rec["cases_ms"][case] = ms
+        rec["ms"] += ms * (calls or 1)
+
+    for key, name, shape, calls, noise_b in bf16_conv_cases(cs):
+        up = name == "styled_up_conv3x3"
+        x, wt, s, demod, noise, nw, bias = cs.styled_inputs(shape, up, gen, dev, noise_b)
+        args = [x.to(bf), wt, s.to(bf), demod.to(bf), noise, nw, bias]
+        fn = getattr(modulated_conv, name)
+        case = str(tuple(shape))
+        add(key, case, cs.time_ms(lambda: fn(*args)), calls)
+        if calls:  # the kernels apart: GEMM, the up body's blur, the rest
+            us = kernel_us(lambda: fn(*args))
+            gemm = sum(v for k, v in us.items() if "bf16_kernel" in k) / 1e3
+            blur = sum(v for k, v in us.items() if "up_blur_epilogue" in k) / 1e3
+            add(key + "_gemm", case, gemm, calls)
+            if up:
+                add(key + "_blur", case, blur, calls)
+            add(key + "_wrapper", case, sum(us.values()) / 1e3 - gemm - blur, calls)
+        del x, wt, s, demod, noise, nw, bias, args
+    return out
+
+
+def bf16_bounds(cs):
+    """The bf16 StyledConvs' bounds per key of ``time_bf16_convs`` (ms,
+    summed like its ``ms``): the GEMMs' 2 * 9 * Cin * Cout flops a pixel at
+    989 TFLOP/s; the up body's blur epilogue its bytes at 3.35 TB/s (T read
+    once in float32, the noise map and bias, the bf16 output written once)."""
+    out = {}
+    for key, name, (b, h, w, ci, co), calls, noise_b in bf16_conv_cases(cs):
+        n = calls or 1
+        gemm = 2 * b * h * w * 9 * ci * co / 989e12 * 1e3
+        out[key] = out.get(key, 0.0) + gemm * n
+        if calls:
+            out[key + "_gemm"] = out.get(key + "_gemm", 0.0) + gemm * n
+        if name == "styled_up_conv3x3" and calls:
+            nbytes = (4 * b * (2 * h + 1) * (2 * w + 1) * co + 4 * noise_b * 4 * h * w
+                      + 4 * co + 2 * b * 4 * h * w * co)
+            out[key + "_blur"] = out.get(key + "_blur", 0.0) + nbytes / 3.35e12 * 1e3 * n
+    return out
+
+
 def paths(cs, dev, requests=6):
     """Phase 4's request of 8 z through the folded ffhq-256 server
-    (``serve``) and phase 5's SwAV step at the full config
-    (``swav_step``, ``run_pretrain``'s 1 + 4 steps): ms, host clock with
-    the card synced, the median after the first."""
+    (``serve``), the same in bf16 (``serve_bf16``) and phase 5's SwAV step
+    at the full config (``swav_step``, ``run_pretrain``'s 1 + 4 steps): ms,
+    host clock with the card synced, the median after the first."""
     import torch
 
     from ganecdotes_torch.models.stylegan2.generator import Generator
     from ganecdotes_torch.ops.opset import KERNELS
     from ganecdotes_torch.pipeline.serving import OneShotServer
 
-    server = OneShotServer(device=dev, seed=0)
-    ms = []
-    for i in range(requests):
-        z = torch.randn(8, 512, generator=torch.Generator().manual_seed(100 + i))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        server.serve(z)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-    del server
+    timed = {}
+    for key, dtype in (("serve", None), ("serve_bf16", "bfloat16")):
+        server = OneShotServer(device=dev, seed=0, **({"dtype": dtype} if dtype else {}))
+        ms = []
+        for i in range(requests):
+            z = torch.randn(8, 512, generator=torch.Generator().manual_seed(100 + i))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            server.serve(z)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        timed[key] = {"ms": statistics.median(ms[1:]), "request_ms": ms}
+        del server
     mc, _, _, _ = cs.swav_configs()
     gen = Generator(**mc.gen_args, generator=torch.Generator().manual_seed(0)).to(dev)
     _, step_ms = cs.run_pretrain(gen, dev, KERNELS)
-    return {"serve": {"ms": statistics.median(ms[1:]), "request_ms": ms},
+    return {**timed,
             "swav_step": {"ms": statistics.median(step_ms[1:]), "step_ms": step_ms}}
 
 
@@ -296,17 +399,7 @@ def host_us(fn, calls=200):
 def device_us(fn, calls=20):
     """``fn``'s kernels' device time a call in microseconds, under
     torch.profiler (the sum of the kernels' spans over ``calls`` calls)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type.name == "CUDA") / calls
+    return sum(kernel_us(fn, calls).values())
 
 
 def lean_variants(root, out_path):
@@ -481,12 +574,14 @@ def worker(root, cases, paths_only=False):
     out["sinkhorn_knopp"] = {"ms": cs.time_ms(
         lambda: sinkhorn.sinkhorn_knopp(x, sk["niters"], sk["eps"], r, c))}
     out.update(time_lean_convs(cs, dev))
+    out.update(time_bf16_convs(cs, dev))
     firs = time_firs(cs, dev, cases)
     out["upfirdn2d"] = {"ms": sum(v for k, v in firs.items() if k.startswith("D ")),
                         "cases_ms": firs}
     out.update(time_fused_act(cs, dev))
     out.update(time_resample(cs, dev))
     out.update(gan_iteration(cs, dev))
+    out.update(gan_iteration(cs, dev, "bfloat16"))
     out.update(paths(cs, dev))
     print(json.dumps(out), flush=True)
 
@@ -550,19 +645,25 @@ def main():
         summary[kernel]["cases_ms"] = cases_ms
     if args.paths_only:
         turns_ms = {path: {side: [t[path]["ms"] for t in turns if t["side"] == side]
-                           for side in ("base", "new")} for path in ("serve", "swav_step")}
+                           for side in ("base", "new")}
+                    for path in ("serve", "serve_bf16", "swav_step")}
         summary["turns_ms"] = turns_ms
         return _write(args.out, turns, summary)
-    summary["gan"]["step_ms"] = {
-        kind: {side: statistics.median(t["gan"]["step_ms"][kind] for t in turns
-                                       if t["side"] == side) for side in ("base", "new")}
-        for kind in turns[0]["gan"]["step_ms"]}
-    summary["gan"]["ranges"] = {
-        label: {key: {side: statistics.median(t["gan"]["ranges"][label][key] for t in turns
-                                              if t["side"] == side)
-                      for side in ("base", "new")}
-                for key in turns[0]["gan"]["ranges"][label]}
-        for label in turns[0]["gan"]["ranges"]}
+    for gan in ("gan", "gan_bf16"):
+        summary[gan]["step_ms"] = {
+            kind: {side: statistics.median(t[gan]["step_ms"][kind] for t in turns
+                                           if t["side"] == side) for side in ("base", "new")}
+            for kind in turns[0][gan]["step_ms"]}
+        summary[gan]["ranges"] = {
+            label: {key: {side: statistics.median(t[gan]["ranges"][label][key]
+                                                  for t in turns if t["side"] == side)
+                          for side in ("base", "new")}
+                    for key in turns[0][gan]["ranges"][label]}
+            for label in turns[0][gan]["ranges"]}
+    sys.path.insert(0, HERE)
+    import chip_smoke as cs
+
+    summary["bf16_bounds"] = bf16_bounds(cs)
     return _write(args.out, turns, summary)
 
 

@@ -1169,11 +1169,17 @@ def _bf16_gate(kern, plain, ref, name):
 
 
 @pytest.mark.parametrize("shape", [(2, 8, 8, 512, 512), (3, 16, 16, 64, 16),
-                                   (2, 32, 32, 16, 32), (1, 4, 4, 24, 40)])
+                                   (2, 32, 32, 16, 32), (1, 4, 4, 24, 40),
+                                   (3, 5, 7, 72, 24), (20, 4, 4, 512, 512),
+                                   (2, 9, 72, 64, 136), (1, 3, 130, 16, 264),
+                                   (8, 64, 64, 128, 256)])
 @pytest.mark.parametrize("up", [False, True])
 def test_bf16_styled_convs_match_plain(cuda, shape, up):
     """Kernels 3 and 4's bf16 bodies at every tile width (Cout 16 to 512,
-    a ragged 40) against their plain bf16 versions."""
+    ragged 40, 136 and 264) against their plain bf16 versions; Cin of 72
+    (a full and a partial 64-channel stage), pixel boxes across images
+    (W = 7, W = 4 at B = 20: a partial last box), partial column tiles
+    (W = 72, 130) and the up body's (H + 1) x (W + 1) position grids."""
     bf = torch.bfloat16
     args = _styled_inputs(*shape, 1, up, cuda)
     args = [args[0].to(bf), args[1], args[2].to(bf), args[3].to(bf), *args[4:]]
@@ -1182,6 +1188,18 @@ def test_bf16_styled_convs_match_plain(cuda, shape, up):
     name = "styled_up_conv3x3" if up else "styled_conv3x3"
     _bf16_gate(lambda: fn(*args), lambda: ref(*args),
                lambda: ref(*[a.float() for a in args]), name)
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 8, 512, 512), (2, 32, 32, 256, 128)])
+@pytest.mark.parametrize("up", [False, True])
+def test_bf16_styled_convs_repeat_bit_for_bit(cuda, shape, up):
+    """Two launches on the same input give the same bits: no atomics, the
+    tap splits (8x8 at B = 2) summed in order."""
+    bf = torch.bfloat16
+    args = _styled_inputs(*shape, shape[0], up, cuda, seed=3)
+    args = [args[0].to(bf), args[1], args[2].to(bf), args[3].to(bf), *args[4:]]
+    fn = tmc.styled_up_conv3x3 if up else tmc.styled_conv3x3
+    assert torch.equal(fn(*args), fn(*args))
 
 
 def test_bf16_memory_bound_kernels_match_plain(cuda):

@@ -333,6 +333,271 @@ def test_3xtf32_split_keeps_fp32_accuracy():
 
 
 # ---------------------------------------------------------------------------
+# the bf16 StyledConvs' TMA + wgmma tiling (csrc/bf16_wgmma.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _tma_box(src, coords, box):
+    """TMA's tiled mode: the box of ``box`` elements (innermost first) of
+    ``src`` at ``coords`` (innermost first, any sign), zero wherever it lies
+    outside ``src``; shaped as ``box`` reversed."""
+    out = src.new_zeros(tuple(box[::-1]))
+    dst, sel = [], []
+    for c, n, d in zip(coords, box, src.shape[::-1]):
+        lo, hi = max(c, 0), min(c + n, d)
+        if lo >= hi:
+            return out
+        dst.append(slice(lo - c, hi - c))
+        sel.append(slice(lo, hi))
+    out[tuple(dst[::-1])] = src[tuple(sel[::-1])]
+    return out
+
+
+def _tma_im2col(src, start, lower, upper, offsets, c0, pixels, channels):
+    """TMA's im2col mode on NHWC ``src``: ``pixels`` base positions from
+    ``start`` = (w, h, n) on, walking w, then h, then n inside the bounding
+    box [lower, dim - 1 + upper] of each axis (W first); row i holds
+    channels c0 .. c0 + channels - 1 of pixel (w + offsets[0], h +
+    offsets[1]) of image n, zero outside the tensor (channels past C,
+    pixels outside the image, images past B)."""
+    b, h_len, w_len, c_len = src.shape
+    w, h, n = start
+    rows = src.new_zeros(pixels, channels)
+    for i in range(pixels):
+        x, y = w + offsets[0], h + offsets[1]
+        if n < b and 0 <= y < h_len and 0 <= x < w_len and c0 < c_len:
+            seg = src[n, y, x, c0:c0 + channels]
+            rows[i, :len(seg)] = seg
+        w += 1
+        if w > w_len - 1 + upper[0]:
+            w, h = lower[0], h + 1
+        if h > h_len - 1 + upper[1]:
+            h, n = lower[1], n + 1
+    return rows
+
+
+def _epilogue_np(acc, demod, noise, noise_weight, bias):
+    out = acc * demod[:, None, None, :]
+    out = out + noise_weight * noise
+    out = out + bias
+    return torch.where(out >= 0, out, 0.2 * out) * np.sqrt(2.0)
+
+
+def _blur_epilogue(t, noise, noise_weight, bias, blur_kernel=(1, 3, 3, 1)):
+    """up_blur_epilogue_kernel: the 4x4 blur of T (true convolution, pad 1,
+    gain 4 as separable 1-D taps), then noise, bias, leaky-ReLU, sqrt(2)."""
+    h2, w2 = t.shape[1] - 1, t.shape[2] - 1
+    k = np.asarray(blur_kernel, np.float32)
+    k1 = (np.float32(2.0) * k / k.sum())[::-1]
+    tp = F.pad(t, (0, 0, 1, 1, 1, 1))
+    hz = sum(float(k1[i]) * tp[:, :, i:i + w2] for i in range(4))
+    out = sum(float(k1[i]) * hz[:, i:i + h2] for i in range(4))
+    out = out + noise_weight * noise + bias
+    return torch.where(out >= 0, out, 0.2 * out) * np.sqrt(2.0)
+
+
+def _wgmma_tile_conv(x, w, s, demod, noise, noise_weight, bias, sms=132):
+    """What csrc/styled_conv.cu's bf16 body computes, in float32, block by
+    block as ``bf16_plan`` lays it out: block (tile m, tile n) of split z
+    sums, over its taps and 64-channel stages, the bm x 64 A stage (the
+    tiled box of x * s at the tap's shifted coordinates, zero filled; the
+    rows past the box hold the last stage's leftovers, here NaN) times the
+    bn x 64 B stage (the weights' box); tile row r is pixel (x0 + r % tw,
+    y0 + r // tw % th, b0 + r // (tw th)) and is stored only where that is
+    a pixel. The splits' sums are added in split order, then the epilogue.
+    Returns the output and how many times each element was stored."""
+    from ganecdotes_torch.ops.modulated_conv import bf16_plan
+
+    xm = x * s[:, None, None, :]
+    b, h, wd, cin = xm.shape
+    cout = w.shape[3]
+    plan = bf16_plan(b, h, wd, cin, cout, False, sms)
+    bm, bn, (_, tw, th, nb), (tiles_x, tiles_y, _) = plan.bm, plan.bn, plan.box, plan.tiles
+    w_taps = w.permute(0, 1, 3, 2).reshape(9, cout, cin)
+    rows = tw * th * nb
+    part = xm.new_zeros(plan.nsplit, b, h, wd, cout)
+    stored = torch.zeros(plan.nsplit, b, h, wd, cout, dtype=torch.int64)
+    for z in range(plan.nsplit):
+        for blk in range(plan.tiles_m * plan.tiles_n):
+            tm, tn = divmod(blk, plan.tiles_n)
+            n0 = tn * bn
+            x0, y0 = tm % tiles_x * tw, tm // tiles_x % tiles_y * th
+            b0 = tm // (tiles_x * tiles_y) * nb
+            acc = xm.new_zeros(bm, bn)
+            for tap in range(9 * z // plan.nsplit, 9 * (z + 1) // plan.nsplit):
+                dy, dx = divmod(tap, 3)
+                for c in range(plan.chunks):
+                    a = xm.new_full((bm, 64), float("nan"))
+                    a[:rows] = _tma_box(xm, (64 * c, x0 + dx - 1, y0 + dy - 1, b0),
+                                        plan.box).reshape(rows, 64)
+                    wb = _tma_box(w_taps, (64 * c, n0, tap), (64, bn, 1))[0]
+                    acc = acc + a @ wb.T
+            for r in range(bm):
+                xi, q = r % tw, r // tw
+                yy, bi = y0 + q % th, b0 + q // th
+                xx = x0 + xi
+                if q // th < nb and bi < b and yy < h and xx < wd:
+                    k = min(bn, cout - n0)
+                    part[z, bi, yy, xx, n0:n0 + k] = acc[r, :k]
+                    stored[z, bi, yy, xx, n0:n0 + k] += 1
+    acc = part[0]
+    for p in part[1:]:
+        acc = acc + p
+    return _epilogue_np(acc, demod, noise, noise_weight, bias), stored
+
+
+def _wgmma_im2col_up_conv(x, w, s, demod, noise, noise_weight, bias, sms=132):
+    """What csrc/styled_up_conv.cu's bf16 body computes, in float32: per
+    phase class (py, px), block (tile m, tile n) walks bm positions of the
+    (H + 1) x (W + 1) grid of every image from m0 on; tap (ty, tx)'s A
+    stage is TMA's im2col load from base pixel (x - 1, y - 1) of the
+    position (the bounding box [-1, dim - 1]) at offsets (1 - tx, 1 - ty);
+    position (y, x) of image b is stored, times demod, to T[b, 2y + py,
+    2x + px] where it lies in the class's (H + 1 - py) x (W + 1 - px).
+    Then the blur and the epilogue. Returns the output and how many times
+    each element of T was stored."""
+    from ganecdotes_torch.ops.modulated_conv import bf16_plan
+
+    xm = x * s[:, None, None, :]
+    b, h, wd, cin = xm.shape
+    cout = w.shape[3]
+    plan = bf16_plan(b, h, wd, cin, cout, True, sms)
+    bm, bn = plan.bm, plan.bn
+    w_taps = w.permute(0, 1, 3, 2).reshape(9, cout, cin)
+    hg, wg = h + 1, wd + 1
+    t = xm.new_full((b, 2 * h + 1, 2 * wd + 1, cout), float("nan"))
+    stored = torch.zeros(t.shape, dtype=torch.int64)
+    per_class = plan.tiles_m * plan.tiles_n
+    for blk in range(plan.blocks):
+        cls, local = divmod(blk, per_class)
+        py, px = cls >> 1, cls & 1
+        m0, n0 = local // plan.tiles_n * bm, local % plan.tiles_n * bn
+        n, r0 = divmod(m0, hg * wg)
+        y, xx = divmod(r0, wg)
+        ntx = 2 - px
+        acc = xm.new_zeros(bm, bn)
+        for tap in range((2 - py) * ntx):
+            ty, tx = (tap >> 1, tap & 1) if ntx == 2 else (tap, 0)
+            ky, kx = (1 if py else 2 * ty), (1 if px else 2 * tx)
+            for c in range(plan.chunks):
+                a = _tma_im2col(xm, (xx - 1, y - 1, n), (-1, -1), (0, 0),
+                                (1 - tx, 1 - ty), 64 * c, *plan.box[::-1])
+                wb = _tma_box(w_taps, (64 * c, n0, 3 * ky + kx), (64, bn, 1))[0]
+                acc = acc + a @ wb.T
+        for r in range(bm):
+            bi, q = divmod(m0 + r, hg * wg)
+            yy, xc = divmod(q, wg)
+            if bi < b and yy < hg - py and xc < wg - px:
+                k = min(bn, cout - n0)
+                t[bi, 2 * yy + py, 2 * xc + px, n0:n0 + k] = acc[r, :k] * demod[bi, n0:n0 + k]
+                stored[bi, 2 * yy + py, 2 * xc + px, n0:n0 + k] += 1
+    return _blur_epilogue(t, noise, noise_weight, bias), stored
+
+
+def _styled_args(rng, b, h, wd, cin, cout, noise_b, up):
+    f = 2 if up else 1
+    return [rng.randn(b, h, wd, cin), rng.randn(3, 3, cin, cout) * 0.05,
+            rng.rand(b, cin) + 0.5, rng.rand(b, cout) + 0.5,
+            rng.randn(noise_b, f * h, f * wd, 1), np.float32(0.3),
+            rng.randn(cout) * 0.1]
+
+
+@pytest.mark.parametrize("shape,noise_b", [
+    ((3, 5, 7, 72, 24), 3),   # Cin 72: a full and a partial stage; one box over 3 images
+    ((20, 4, 4, 16, 40), 1),  # boxes of 8 images, the last one partial; Cin 16
+    ((2, 3, 70, 8, 136), 2),  # W 70: a full and a partial column box; Cout 136 < 256
+    ((1, 9, 5, 24, 16), 1),   # 9 rows of 5: a box of 45 pixels
+    ((4, 8, 20, 16, 24), 4)])  # on 1 SM, 256-row tiles of 160-pixel boxes
+@pytest.mark.parametrize("sms", [132, 1], ids=["split", "whole"])
+def test_wgmma_tile_conv_matches_jax(shape, noise_b, sms):
+    """The non-up bf16 body's tiles, boxes and tap splits (9 or 3 on 132
+    SMs, none on 1; on 1 SM, 256-row tiles where they make two waves)
+    against the JAX package's ``styled_conv3x3_ref``; every output stored
+    once per split, and none of the NaN leftover rows read."""
+    rng = np.random.RandomState(8)
+    args = _styled_args(rng, *shape, noise_b, up=False)
+    out, stored = _wgmma_tile_conv(*[_t(a) for a in args], sms=sms)
+    assert bool((stored == 1).all())
+    b, h, wd, _, cout = shape
+    assert out.shape == (b, h, wd, cout) and bool(torch.isfinite(out).all())
+    jargs = [jnp.asarray(np.asarray(a, np.float32)) for a in args]
+    np.testing.assert_allclose(_np(out), np.asarray(jmc.styled_conv3x3_ref(*jargs)),
+                               **CONV3_TOL)
+
+
+@pytest.mark.parametrize("shape,noise_b", [
+    ((2, 3, 5, 72, 24), 2),   # Cin 72; 2 x 4 x 6 = 48 positions, one tile a class
+    ((3, 4, 9, 16, 40), 1),   # Cin 16 (a stage mostly zeros); 150 positions, 2 tiles
+    ((1, 2, 2, 8, 264), 1),   # Cout 264: two 256-wide tiles, the second 8 wide
+    ((2, 15, 15, 8, 16), 2)])  # on 1 SM, two 256-row tiles of 512 positions
+def test_wgmma_im2col_up_conv_matches_jax(shape, noise_b):
+    """The up bf16 body's im2col walk (every class over the (H + 1) x
+    (W + 1) positions, tap offsets, the class's positions stored; the last
+    shape planned for 1 SM, so 256 rows a tile) against the JAX package's
+    ``styled_up_conv3x3_ref`` and ``styled_up_conv3x3_xla``; every element
+    of T stored exactly once."""
+    rng = np.random.RandomState(9)
+    args = _styled_args(rng, *shape, noise_b, up=True)
+    sms = 1 if shape[1] == 15 else 132
+    out, stored = _wgmma_im2col_up_conv(*[_t(a) for a in args], sms=sms)
+    assert bool((stored == 1).all())
+    b, h, wd, _, cout = shape
+    assert out.shape == (b, 2 * h, 2 * wd, cout) and bool(torch.isfinite(out).all())
+    jargs = [jnp.asarray(np.asarray(a, np.float32)) for a in args]
+    for ref in (jmc.styled_up_conv3x3_ref, jmc.styled_up_conv3x3_xla):
+        np.testing.assert_allclose(_np(out), np.asarray(ref(*jargs)), **UP_TOL)
+
+
+def _phase16_styled_shapes():
+    """chip_smoke.py's phase 16 (a) StyledConv rows: the ffhq-256 request of
+    8, the pidray G step at B = 20 at the rosinality and lean widths."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return [(name == "styled_up_conv3x3", shape)
+            for name, _, shape, _, _ in cs.bf16_styled_shapes()]
+
+
+@pytest.mark.parametrize("up", [False, True], ids=["conv", "up_conv"])
+def test_bf16_plan_fits_at_every_phase16_shape(up):
+    """At every bf16 StyledConv shape chip_smoke.py's phase 16 (a) runs:
+    the ring within the 227 KB a block may use, with room for the fp32
+    staged tile; TMA boxes of at most 256 a side, 128-byte rows (the
+    swizzle's span) and 16-byte multiples of every global stride; 128-row
+    or 256-row tiles (two wgmma warpgroups of 64-row blocks) that the box
+    fills; the grid covering the pixels (non-up) or positions (up) and
+    Cout."""
+    from ganecdotes_torch.ops import modulated_conv as tmc
+
+    shapes = [s for u, s in _phase16_styled_shapes() if u == up]
+    assert len(shapes) == (18 if up else 21)
+    assert tmc.BF16_BK * 2 == 128
+    for b, h, w, cin, cout in shapes:
+        p = tmc.bf16_plan(b, h, w, cin, cout, up)
+        assert p.bm in tmc.BF16_BMS and p.bm * p.bn <= 256 * 128
+        assert p.smem_bytes <= tmc.BF16_SMEM_LIMIT
+        assert p.bm * (p.bn + 8) * 4 <= p.stages * p.stage_bytes
+        assert p.stage_bytes % 1024 == 0 and 4 <= p.stages <= tmc.BF16_MAX_STAGES
+        assert all(d <= tmc.BF16_BOX_MAX for d in p.box) and p.box[0] * 2 == 128
+        for stride in (cin * 2, w * cin * 2, h * w * cin * 2, cout * cin * 2):
+            assert stride % 16 == 0
+        assert p.tiles_n * p.bn >= cout > p.tiles_n * p.bn - p.bn
+        assert p.bn in (16, 32, 64, 128, 256)
+        if up:
+            assert p.box == (64, p.bm) and p.tiles_m * p.bm >= b * (h + 1) * (w + 1)
+        else:
+            _, tw, th, nb = p.box
+            assert tw * th * nb == p.bm or (tw, th, nb) == (w, h, b)
+            tx, ty, tb = p.tiles
+            assert tx * tw >= w and ty * th >= h and tb * nb >= b
+            assert p.nsplit in (1, 3, 9)
+
+
+# ---------------------------------------------------------------------------
 # the resample adjoint as a gather
 # ---------------------------------------------------------------------------
 

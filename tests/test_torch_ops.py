@@ -295,8 +295,8 @@ def test_kernel_build_has_a_source_per_kernel():
                "gk_styled_conv3x3", "gk_styled_up_conv3x3", "gk_resample_rows",
                "gk_resample_rows_t"}
     assert entries | {e + "_bf16" for e in entries} <= set(_build._SIGNATURES)
-    assert {"tf32x3.cuh", "bf16_mma.cuh"} <= {h.rsplit("/", 1)[-1]
-                                             for h in _build._sources()[1]}
+    assert {"tf32x3.cuh", "bf16_wgmma.cuh"} <= {h.rsplit("/", 1)[-1]
+                                               for h in _build._sources()[1]}
     # every op of the op sets has its count; the fused act's backward kernel
     # runs inside the fused_leaky_relu Function and counts on its own
     assert fp32 == set(OpSet._fields) | {"fused_leaky_relu_bwd"}
