@@ -4082,13 +4082,15 @@ def _outs(t):
 
 
 def bf16_row(name, path, case, shape, calls, kern, plain, ref32, lib, moved, ops,
-             repeat=False):
+             repeat=False, fp32=None):
     """One bf16 kernel row: the kernel (bf16 in and out) and the plain bf16
     version on the same inputs, each against the fp32 plain version on
     them; the kernel's bf16 instance must be the one that launched, and its
     error within the plain bf16 version's plus BF16_STEP of the output's
     scale; with ``repeat``, a second launch must equal the first bit for
-    bit. Times: kernel, plain bf16 version, one bf16 library call."""
+    bit. Times: kernel, plain bf16 version, one bf16 library call, and
+    with ``fp32`` the float32 kernel at the same shape (printed beside the
+    bf16 kernel's share of its bound)."""
     from ganecdotes_torch.ops import _build
 
     before = dict(_build.LAUNCHES)
@@ -4115,11 +4117,15 @@ def bf16_row(name, path, case, shape, calls, kern, plain, ref32, lib, moved, ops
            "library_ms": None if lib is None else time_ms(lib), "bytes": moved,
            "flops": sum(n for n, _ in ops), "repeat_equal": True if repeat else None}
     row["bound_ms"], row["bound_by"] = bound_ms(moved, ops)
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["fp32_ms"] = None if fp32 is None else time_ms(fp32)
+    beside = ("" if fp32 is None else f" fp32 {row['fp32_ms']:.4f}; "
+              f"{100 * row['bound_share']:.0f}% of the bound")
     print(f"  {name + '_bf16':24s} {case:24s} {str(tuple(shape)):26s} err {err:.3e} "
           f"(plain bf16 {plain_err:.3e}, tol {tol:.3e}) ms {row['ms']:.4f} "
           f"plain {row['plain_ms']:.4f} lib "
           f"{row['library_ms'] if lib is None else round(row['library_ms'], 4)} "
-          f"bound {row['bound_ms']:.4f} ({row['bound_by']})", flush=True)
+          f"bound {row['bound_ms']:.4f} ({row['bound_by']}){beside}", flush=True)
     check(row["ok"], f"{name} bf16 {case}: max abs err {err} over {tol}")
     return row
 
@@ -4145,17 +4151,59 @@ def bf16_styled_shapes():
                    0, GAN_B)
 
 
+def _fir_plan_key(shape, k2, up, down, pad):
+    """``plan``'s arguments for the bf16 FIR at one row of phase 16 (a)."""
+    from ganecdotes_torch.ops import upfirdn2d as tup
+
+    up, down, pad = tup._normalize_args(up, down, pad)
+    kh, kw = k2.shape
+    view = tup.launch_shape(shape, kw, up[0], down[0], pad[:2])
+    return view[3], kh, kw, up, down, 2
+
+
+def band_tiles(alpha, icpt, s_len, v_len, channels):
+    """The bf16 forward pass's tiles (ops/resample.py::forward_plan) at one
+    pass: how many stage their band of source rows in shared memory and how
+    many read the image, and the bands' mean and largest height, from the
+    geometry of csrc/affine_warp.cu (computed here in torch, one float32
+    step at a time)."""
+    from ganecdotes_torch.ops import resample
+
+    b, w = icpt.shape
+    (tw, tv), (gx, gy, _) = resample.forward_plan(b, v_len, w, torch.bfloat16)
+    v = torch.arange(gy * tv, device=icpt.device, dtype=torch.float32)[None, :, None]
+    ic = torch.nn.functional.pad(icpt, (0, gx * tw - w))[:, None, :]
+    U = torch.floor(ic)
+    au = alpha[:, None, None] * v
+    q = torch.floor(au)
+    e_in = (au - q) + (ic - U)
+    klo = U + q + (torch.floor(e_in) == 1).float()
+    valid = ((v < v_len) & (torch.arange(gx * tw, device=icpt.device) < w)).expand_as(klo)
+    big = torch.finfo(torch.float32).max
+    tiles = lambda t: t.reshape(b, gy, tv, gx, tw).transpose(2, 3).reshape(b, gy, gx, -1)
+    lo = tiles(torch.where(valid, klo, big)).amin(-1)
+    hi = tiles(torch.where(valid, klo + 1, -big)).amax(-1)
+    rows = hi - lo + 1
+    staged = channels * rows * tw * 2 <= resample.BAND_SMEM
+    return {"tiles": rows.numel(), "staged": int(staged.sum()),
+            "mean_rows": float(rows.mean()), "max_rows": int(rows.max())}
+
+
 def bf16_kernels(dev):
     """Phase 16 (a): every bf16 kernel at the bf16 serving request's shapes
     (ffhq-256, B = 8) and the bf16 training cell's (pidray, B = GAN_B)."""
-    import numpy as np
+    gen = torch.Generator(device=dev).manual_seed(16)
+    return (bf16_styled_rows(dev, gen) + bf16_fir_rows(dev, gen)
+            + bf16_act_rows(dev, gen) + bf16_resample_rows(dev, gen))
+
+
+def bf16_styled_rows(dev, gen):
+    """Phase 16 (a)'s bf16 StyledConv rows (each launched twice, bit-equal)."""
     import torch.nn.functional as F
 
-    from ganecdotes_torch.ops import fused_act, modulated_conv, resample
-    from ganecdotes_torch.ops import upfirdn2d as tup
+    from ganecdotes_torch.ops import modulated_conv
 
     bf = torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(16)
     rows = []
     for name, path, shape, calls, noise_b in bf16_styled_shapes():
         up = name == "styled_up_conv3x3"
@@ -4190,10 +4238,18 @@ def bf16_kernels(dev):
             b, h, w, ci, co, up,
             torch.cuda.get_device_properties(dev).multi_processor_count)._asdict()
         rows.append(row)
+    return rows
 
-    # the FIR kernel: the to_rgb skips of the request of 8 (per request),
-    # then (measured only) the pidray D's forward blurs, ADA's SYM6 passes
-    # and the to_rgb skips at B = GAN_B
+
+def bf16_fir_rows(dev, gen):
+    """Phase 16 (a)'s bf16 FIR rows: the to_rgb skips of the request of 8
+    (per request), then (measured only) the pidray D's forward blurs, ADA's
+    SYM6 passes and the to_rgb skips at B = GAN_B; each launched twice
+    (bit-equal) and beside the float32 kernel at the same shape."""
+    from ganecdotes_torch.ops import upfirdn2d as tup
+
+    bf = torch.bfloat16
+    rows = []
     blur4 = tup.make_kernel((1, 3, 3, 1), gain=4.0)
     firs = [("serve ffhq-256", f"to_rgb up {sh[1]}^2", sh, blur4, (2, 2), (1, 1),
              (2, 1, 2, 1), calls) for sh, calls in path_shapes()["upfirdn2d"]]
@@ -4213,16 +4269,28 @@ def bf16_kernels(dev):
         out = tup.upfirdn2d_ref(x, k2, up=up, down=down, pad=pad)
         kh, kw = k2.shape
         flops = 2 * (out.numel() * down[0] * kh / up[1] + out.numel() * kw / up[0])
+        x32 = x.float()
         rows.append(bf16_row(
             "upfirdn2d", path, case, shape, calls,
             lambda x=x, k2=k2, up=up, down=down, pad=pad: tup.upfirdn2d(x, k2, up, down, pad),
             lambda x=x, k2=k2, up=up, down=down, pad=pad: tup.upfirdn2d_ref(x, k2, up, down, pad),
             lambda x=x, k2=k2, up=up, down=down, pad=pad: tup.upfirdn2d_ref(
                 x.float(), k2, up, down, pad),
-            lambda x=x, fn=fn, wl=wl: fn(x, wl), nbytes(x, out), [(flops, FP32)]))
+            lambda x=x, fn=fn, wl=wl: fn(x, wl), nbytes(x, out), [(flops, FP32)],
+            repeat=True, fp32=lambda x=x32, k2=k2, up=up, down=down, pad=pad: tup.upfirdn2d(
+                x, k2, up, down, pad)))
+        rows[-1]["plan"] = tup.plan(*_fir_plan_key(shape, k2, up, down, pad))._asdict()
+        del x32
+    return rows
 
-    # the fused act and its backward at the pidray D's activations (per D
-    # forward at B = GAN_B)
+
+def bf16_act_rows(dev, gen):
+    """Phase 16 (a)'s bf16 fused act and its backward at the pidray D's
+    activations (per D forward at B = GAN_B)."""
+    from ganecdotes_torch.ops import fused_act
+
+    bf = torch.bfloat16
+    rows = []
     for kname, case, shape, _, d_calls in gan_d_shapes():
         if kname != "fused_leaky_relu":
             continue
@@ -4242,10 +4310,20 @@ def bf16_kernels(dev):
             lambda g=g, y=y: fused_act.fused_leaky_relu_bwd_ref(g, y),
             lambda g=g, y=y: fused_act.fused_leaky_relu_bwd_ref(g.float(), y.float()),
             None, nbytes(g, y, g) + 2 * shape[-1], [(4 * g.numel(), FP32)]))
+    return rows
 
-    # ADA's warp pass and its adjoint (per augment call)
+
+def bf16_resample_rows(dev, gen):
+    """Phase 16 (a)'s bf16 ADA warp pass (twice, bit-equal, beside the
+    float32 kernel; its tiles' bands) and its adjoint (per augment call)."""
+    import torch.nn.functional as F
+
+    from ganecdotes_torch.ops import resample
+
+    bf = torch.bfloat16
+    rows = []
     for case, x, alpha, icpt, out_len, calls in resample_cases(dev)[:2]:
-        x = x.to(bf)
+        x32, x = x, x.to(bf)
         s_len = x.shape[2]
         grid = _grid_for_pass(alpha, icpt, s_len, out_len).to(bf)
         g = torch.randn(x.shape[0], x.shape[1], out_len, x.shape[3], generator=gen,
@@ -4258,7 +4336,10 @@ def bf16_kernels(dev):
                 x.float(), a, i, n),
             lambda x=x, grid=grid: F.grid_sample(x, grid, mode="bilinear",
                                                  padding_mode="zeros", align_corners=False),
-            nbytes(x, alpha, icpt, g), [(3 * g.numel(), FP32)]))
+            nbytes(x, alpha, icpt, g), [(3 * g.numel(), FP32)], repeat=True,
+            fp32=lambda x=x32, a=alpha, i=icpt, n=out_len: resample.resample_rows(x, a, i, n)))
+        rows[-1]["band"] = band_tiles(alpha, icpt, s_len, out_len, x.shape[1])
+        print(f"    band: {json.dumps(rows[-1]['band'])}", flush=True)
         rows.append(bf16_row(
             "resample_rows_t", "train", case, tuple(x.shape), calls,
             lambda g=g, a=alpha, i=icpt, n=s_len: resample.resample_rows_t(g, a, i, n),
@@ -4474,11 +4555,12 @@ def bf16_chunk_cli(dev):
     (res2chlmap = "baggan", ADA p 0.6, B = GAN_B, R1 and PPL every 4th
     iteration as shipped) with compute_dtype = 'bfloat16' on .npy files,
     CHUNK_ITERS iterations with --chunk CHUNK and twice with --chunk 1, cuDNN
-    on its deterministic algorithms: the same batches, and the weights bit
-    for bit equal, or else every final loss within phase 7's drift gate or,
-    where the two single-stepped runs themselves drift apart by more (ops
-    whose CUDA backward sums with atomics, as the reflect pad's does), within
-    twice their drift."""
+    on its deterministic algorithms: the same batches; the two single-stepped
+    runs bit for bit equal (ADA's reflect pad has no atomic backward since
+    ``gan/ada.py::reflect_pad``); the chunked run's weights bit for bit
+    equal to theirs, or else every final loss within phase 7's drift gate.
+    Then the ops the deterministic-algorithms check warns about
+    (``nondeterministic_ops``)."""
     import shutil
 
     from ganecdotes_torch.ops.opset import KERNELS
@@ -4523,16 +4605,56 @@ def bf16_chunk_cli(dev):
 
     bit_equal, repeat_equal = equal(g_c, g_1), equal(g_2, g_1)
     d_chunk, d_repeat = drift(r_c, r_1), drift(r_2, r_1)
-    tol = max(GAN_DRIFT_TOL, 2 * d_repeat)
+    tol = GAN_DRIFT_TOL
     print(f"  chunked against single steps: weights bit-equal {bit_equal}, final "
           f"losses max relative difference {d_chunk:.3e} (gate {tol:.3e}); the two "
           f"single-stepped runs: bit-equal {repeat_equal}, {d_repeat:.3e}", flush=True)
+    check(repeat_equal, "two single-stepped runs of the same batches differ: "
+                        f"final losses {d_repeat} apart")
     check(bit_equal or d_chunk <= tol,
           f"the chunked run left the single-stepped one: {d_chunk} over {tol}")
+    warned = nondeterministic_ops(run_cfg, data, root)
     return {"chunk": CHUNK, "iterations": CHUNK_ITERS, "bit_equal": bit_equal,
             "loss_drift": d_chunk, "single_repeat_bit_equal": repeat_equal,
-            "single_repeat_drift": d_repeat, "tol": tol,
+            "single_repeat_drift": d_repeat, "tol": tol, "nondeterministic_ops": warned,
             **{name: {"record": r[1], "wall_s": r[3]} for name, r in runs.items()}}
+
+
+def nondeterministic_ops(run_cfg, data, root):
+    """The ops ``torch.use_deterministic_algorithms(True, warn_only=True)``
+    warns about in one bf16 iteration (--chunk 1) of the lean-map CLI, with
+    the kernels and with the plain ops: the ops that may keep a training
+    run from repeating bit for bit on the card (the kernels are atomic-free
+    and outside PyTorch's list). Printed as one line."""
+    import re
+    import warnings
+
+    from ganecdotes_torch.ops.opset import KERNELS, PLAIN
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    found = {}
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for name, ops in (("kernels", KERNELS), ("plain", PLAIN)):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                train_cli(run_cfg, data, os.path.join(root, f"warn_{name}"), 1, 1, ops)
+            ops_named = set()
+            for w in caught:
+                text = str(w.message)
+                if "does not have a deterministic implementation" in text:
+                    ops_named.add(text.split(" does not have")[0].strip())
+                elif "CuBLAS" in text or "CUBLAS_WORKSPACE_CONFIG" in text:
+                    ops_named.add("cuBLAS (CUBLAS_WORKSPACE_CONFIG unset)")
+                elif re.search(r"\bdeterministic", text):
+                    ops_named.add(text[:160])
+            found[name] = sorted(ops_named)
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    print(f"  ops use_deterministic_algorithms(True, warn_only=True) warns about in "
+          f"one bf16 CLI iteration: {json.dumps(found)}", flush=True)
+    return found
 
 
 def phase16(dev, served, fp32_plain):
@@ -4600,6 +4722,42 @@ def bf16_gemm_resources(log_path):
                 rec["registers"] = int(m.group(1))
                 bm, bn = (int(v) for v in key.split()[1].split("x"))
                 rec["smem_bytes"] = modulated_conv.bf16_ring(bm, bn)[2]
+                fn = None
+    return out
+
+
+BF16_MEMORY_KERNELS = ("upfirdn2d_bf16_kernel", "resample_rows_bf16_kernel")
+# their instances: the FIR's 9 (up, down) pairs x 3 channel vectors and the
+# known 4 x 4 blur; the forward pass's 3 row alignments
+BF16_MEMORY_INSTANCES = 9 * 3 + 1 + 3
+
+
+def bf16_memory_resources(log_path):
+    """Per instance of the bf16 FIR kernel (its (up_x, down_x, up_y, down_y,
+    channels a thread)) and of the bf16 forward pass (its row alignment),
+    from ptxas -v in the build log: registers and spill bytes (stores +
+    loads)."""
+    import re
+
+    out, fn = {}, None
+    with open(log_path) as f:
+        for line in f:
+            if "Function properties for" in line:
+                name = line.split("Function properties for")[1].strip()
+                kind = next((k for k in BF16_MEMORY_KERNELS if k in name), None)
+                fn = None if kind is None else (
+                    kind.replace("_kernel", "") + " "
+                    + ",".join(re.findall(r"Li(\d+)E", name.split(kind)[1])))
+                continue
+            if fn is None:
+                continue
+            rec = out.setdefault(fn, {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                rec["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rec["registers"] = int(m.group(1))
                 fn = None
     return out
 
@@ -4684,6 +4842,14 @@ def main():
           flush=True)
     check(len(resources) == 18 and all(r.get("spill_bytes") == 0 for r in resources.values()),
           f"the bf16 StyledConv GEMMs must not spill: {resources}")
+    mem16 = bf16_memory_resources(info["log"])
+    print(f"  bf16 FIR (up_x, down_x, up_y, down_y, channels a thread, known taps) "
+          f"and forward pass (row alignment) kernels: {json.dumps(mem16)}", flush=True)
+    # reported, not gated: the forward pass's register cap (six blocks an
+    # SM) and ptxas's own choice for the FIR's down-2 instances at 8
+    # channels a thread (no path's) spill a few bytes
+    check(len(mem16) == BF16_MEMORY_INSTANCES,
+          f"{BF16_MEMORY_INSTANCES} bf16 FIR and forward-pass instances expected: {mem16}")
 
     print("kernels vs plain versions (ms per call, CUDA events):", flush=True)
     rows = check_kernels(dev)
@@ -4775,7 +4941,7 @@ def main():
                        "configs": other_configs, "train_evaluate": trained_evaluated,
                        "gui": gui_run, "item5": item5_run, "phase15": phase15_run,
                        "phase16": phase16_run, "hmma_bf16": hmma16,
-                       "bf16_gemm_resources": resources,
+                       "bf16_gemm_resources": resources, "bf16_memory_resources": mem16,
                        "kernels": line}, f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": line}))

@@ -46,13 +46,46 @@
 // ADA's scales (|alpha| ~ 1) a thread visits about 6 candidates; the pass
 // moves the same bytes as the forward.
 //
-// bfloat16 images (the _bf16 entries): both kernels instantiated on bf16
-// storage for the image and its cotangent (alpha and the intercepts stay
-// float32). Each tap is converted to fp32 on the load, the geometry, the
-// lerp and the adjoint's sums run in fp32 with the same _rn steps, and the
-// result is rounded once to bf16 on the store.
+// bfloat16 images (the _bf16 entries): alpha and the intercepts stay
+// float32, every tap is converted to fp32, the geometry and the lerp (and the
+// adjoint's sums) run in fp32 with the same _rn steps, and each result is
+// rounded once to bf16 on the store. The adjoint is the kernel above on bf16
+// storage. The forward is a kernel of its own, resample_rows_bf16_kernel:
+//
+// Why. At ADA's draws the intercept climbs about half a source row per
+// column (rotations and shears), so the 32 columns of a warp read about 16
+// to 19 distinct rows. The thread-per-output design above then makes each
+// warp load touch as many 128-byte lines as rows: the float32 instance and
+// the bf16 one take the same time (L1 lines, not bytes, bound them), and
+// the bf16 one reaches a third of its bytes bound. A run of 8 columns shares
+// its source row in about 10% of runs at both pass shapes, so vector loads
+// of shared rows would rarely apply.
+//
+// Design. A block takes a tile of 32 output rows x 32 columns and 128
+// threads, each 8 consecutive columns of one output row:
+//   1. every thread computes its columns' geometry (geometry(), the same _rn
+//      steps, so the coefficients are bit for bit the forward's and the
+//      adjoint's), and the block reduces the lowest and highest source row
+//      any output of the tile reads: the tile's band (about 32*|alpha| + 32
+//      * the intercept's slope + 2 rows, 43 to 57 on average at ADA's draws);
+//   2. it stages the band's rows of all C channels and its 32 columns in
+//      shared memory with 16-byte cp.async copies (8 bytes where W % 8 != 0
+//      but W % 4 == 0; 2-byte loads otherwise), zero past the last column
+//      and in the rows outside the image, so the lerp reads every tap from
+//      the band without a bounds test;
+//   3. each thread lerps its outputs from shared memory (the geometry again:
+//      cheaper than holding it in registers across the staging) and stores
+//      each channel's 8 outputs as one 16-byte store (two 8-byte stores
+//      where W % 8 != 0; one at a time at the ragged right end).
+// A band taller than the shared buffer (BAND_SMEM bytes; a steep or scaled
+// draw, or many channels) falls back to reading the taps from global memory,
+// tile by tile, with the same arithmetic. 32-row tiles of 128 threads, and
+// not 64-row tiles of 256: their bands fetch more rows than they use, but on
+// the H100 they ran no slower at pass V and faster at pass H, more blocks an
+// SM overlapping one block's staging with another's lerps.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -67,6 +100,12 @@ __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// the bf16 forward's tile (ops/resample.py::forward_plan mirrors them)
+constexpr int BF_TW = 32;               // output columns a block
+constexpr int BF_TV = 32;               // output rows a block
+constexpr int BF_NW = 8;                // consecutive columns a thread
+constexpr int BAND_SMEM = BF_TV * 512;  // the staged band's bytes (16 KB)
 
 struct Geometry {
   int k0;     // unwrapped index of tap 0
@@ -171,6 +210,178 @@ __global__ void resample_rows_t_kernel(const T* __restrict__ gout,
   }
 }
 
+// The bf16 forward (see the header). A: the elements of one aligned access
+// of a row (8, 4 or 1: W % 8 == 0, W % 4 == 0, else).
+template <int A>
+__global__ void __launch_bounds__(BF_TW / BF_NW * BF_TV, 6)
+    resample_rows_bf16_kernel(const bf16* __restrict__ x,
+                              const float* __restrict__ alpha,
+                              const float* __restrict__ icpt,
+                              bf16* __restrict__ out, int C, int S, int W,
+                              int V) {
+  extern __shared__ __align__(16) unsigned char band_raw[];
+  bf16* band = reinterpret_cast<bf16*>(band_raw);
+  __shared__ int red[2][BF_TW / BF_NW * BF_TV / 32];
+  const int run = threadIdx.x % (BF_TW / BF_NW);
+  const int v = blockIdx.y * BF_TV + threadIdx.x / (BF_TW / BF_NW);
+  const int tw0 = blockIdx.x * BF_TW;
+  const int w0 = tw0 + run * BF_NW;
+  const int b = blockIdx.z;
+  const float a = alpha[b];
+  const float* ic = icpt + (int64_t)b * W;
+
+  // 1. the geometry of the thread's columns, and the tile's band
+  auto load_icpt = [&](float (&ic8)[BF_NW]) {
+    if (A >= 4 && w0 + BF_NW <= W) {
+      const float4 p = *reinterpret_cast<const float4*>(ic + w0);
+      const float4 q = *reinterpret_cast<const float4*>(ic + w0 + 4);
+      ic8[0] = p.x, ic8[1] = p.y, ic8[2] = p.z, ic8[3] = p.w;
+      ic8[4] = q.x, ic8[5] = q.y, ic8[6] = q.z, ic8[7] = q.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < BF_NW; ++k) ic8[k] = w0 + k < W ? ic[w0 + k] : 0.f;
+    }
+  };
+  float ic8[BF_NW];
+  load_icpt(ic8);
+  const bool v_ok = v < V;
+  int lo_row = INT_MAX, hi_row = INT_MIN;
+#pragma unroll
+  for (int k = 0; k < BF_NW; ++k) {
+    const Geometry g = geometry(a, ic8[k], v);
+    const int kl = g.k0 + (g.e1 ? 1 : 0);
+    if (v_ok && w0 + k < W) {
+      lo_row = min(lo_row, kl);
+      hi_row = max(hi_row, kl + 1);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo_row = min(lo_row, __shfl_xor_sync(0xffffffffu, lo_row, o));
+    hi_row = max(hi_row, __shfl_xor_sync(0xffffffffu, hi_row, o));
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) red[0][warp] = lo_row, red[1][warp] = hi_row;
+  __syncthreads();
+  lo_row = red[0][0], hi_row = red[1][0];
+#pragma unroll
+  for (int i = 1; i < BF_TW / BF_NW * BF_TV / 32; ++i)
+    lo_row = min(lo_row, red[0][i]), hi_row = max(hi_row, red[1][i]);
+  // the band's rows, zero where they lie outside the image (so the lerp
+  // reads every tap from the band unchecked)
+  const int r0 = lo_row;
+  const int64_t rows64 = (int64_t)hi_row - lo_row + 1;
+  const bool staged = C * rows64 * BF_TW * 2 <= BAND_SMEM;
+  const int rows = staged ? (int)rows64 : 0;
+  const int64_t plane = (int64_t)S * W;
+
+  // 2. stage the band: rows r0..hi_row x the tile's 32 columns, every channel
+  if (staged) {
+    // thread t copies chunk t % PER_ROW of rows t / PER_ROW, + 256 / PER_ROW, ...
+    constexpr int PER_ROW = BF_TW / A;
+    constexpr int ROW_STEP = BF_TW / BF_NW * BF_TV / PER_ROW;
+    const int chunk = threadIdx.x % PER_ROW;
+    const int col = tw0 + chunk * A;
+    for (int c = 0; c < C; ++c) {
+      const bf16* img = x + ((int64_t)b * C + c) * plane + col;
+      bf16* dst_c = band + c * rows * BF_TW + chunk * A;
+      for (int r = threadIdx.x / PER_ROW; r < rows; r += ROW_STEP) {
+        const bool in_img = col < W && r0 + r >= 0 && r0 + r < S;
+        const bf16* src = img + (int64_t)(r0 + r) * W;
+        bf16* dst = dst_c + r * BF_TW;
+        if constexpr (A == 1) {
+          *dst = in_img ? *src : __ushort_as_bfloat16(0);
+        } else {
+          const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+          const bf16* s_ = in_img ? src : x;
+          if constexpr (A == 8)
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                         "l"(s_), "r"(in_img ? 16 : 0));
+          else
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                         "l"(s_), "r"(in_img ? 8 : 0));
+        }
+      }
+    }
+    if constexpr (A > 1) {
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+  }
+  __syncthreads();
+  if (!v_ok || w0 >= W) return;
+
+  // 3. the lerp of each channel's 8 outputs, one store where aligned (the
+  // geometry again: recomputing it is cheaper than holding it in registers
+  // across the staging, which would cost the SM a block)
+  int klo[BF_NW];
+  float f[BF_NW], one_f[BF_NW];
+  load_icpt(ic8);  // again, from L1: not held across the staging
+#pragma unroll
+  for (int k = 0; k < BF_NW; ++k) {
+    const Geometry g = geometry(a, ic8[k], v);
+    klo[k] = g.k0 + (g.e1 ? 1 : 0);
+    f[k] = g.f;
+    one_f[k] = __fsub_rn(1.f, g.f);
+  }
+  const bool whole = w0 + BF_NW <= W;
+  for (int c = 0; c < C; ++c) {
+    float o[BF_NW];
+    const bf16* img = x + ((int64_t)b * C + c) * plane;
+    const bf16* rowc = band + c * rows * BF_TW + (w0 - tw0);
+#pragma unroll
+    for (int k = 0; k < BF_NW; ++k) {
+      const int kl = klo[k];
+      float lo = 0.f, hi = 0.f;
+      if (w0 + k < W) {  // (a column past W has no band row)
+        if (staged) {
+          lo = __bfloat162float(rowc[(kl - r0) * BF_TW + k]);
+          hi = __bfloat162float(rowc[(kl + 1 - r0) * BF_TW + k]);
+        } else {
+          if (kl >= 0 && kl < S) lo = ld(img + (int64_t)kl * W + w0 + k);
+          if (kl + 1 >= 0 && kl + 1 < S) hi = ld(img + (int64_t)(kl + 1) * W + w0 + k);
+        }
+      }
+      o[k] = __fadd_rn(__fmul_rn(one_f[k], lo), __fmul_rn(f[k], hi));
+    }
+    bf16* dst = out + (((int64_t)b * C + c) * V + v) * W + w0;
+    if (A > 1 && whole) {
+      uint32_t u[BF_NW / 2];
+#pragma unroll
+      for (int k = 0; k < BF_NW / 2; ++k) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(o[2 * k], o[2 * k + 1]);
+        u[k] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+      if constexpr (A == 8) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(u[0], u[1], u[2], u[3]);
+      } else {
+        reinterpret_cast<uint2*>(dst)[0] = make_uint2(u[0], u[1]);
+        reinterpret_cast<uint2*>(dst)[1] = make_uint2(u[2], u[3]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < BF_NW; ++k)
+        if (w0 + k < W) dst[k] = __float2bfloat16_rn(o[k]);
+    }
+  }
+}
+
+int launch_fwd_bf16(const bf16* x, const float* alpha, const float* icpt,
+                    bf16* out, int B, int C, int S, int W, int V, int tw,
+                    int tv, void* stream) {
+  if (tw != BF_TW || tv != BF_TV) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((W + BF_TW - 1) / BF_TW, (V + BF_TV - 1) / BF_TV, B);
+  const int threads = BF_TW / BF_NW * BF_TV;
+  if (W % 8 == 0)
+    resample_rows_bf16_kernel<8><<<grid, threads, BAND_SMEM, s>>>(x, alpha, icpt, out, C, S, W, V);
+  else if (W % 4 == 0)
+    resample_rows_bf16_kernel<4><<<grid, threads, BAND_SMEM, s>>>(x, alpha, icpt, out, C, S, W, V);
+  else
+    resample_rows_bf16_kernel<1><<<grid, threads, BAND_SMEM, s>>>(x, alpha, icpt, out, C, S, W, V);
+  return (int)cudaGetLastError();
+}
+
 template <class T>
 int launch_fwd(const T* x, const float* alpha, const float* icpt, T* out,
                int B, int C, int S, int W, int V, int tw, int tv, void* stream) {
@@ -210,12 +421,14 @@ extern "C" int gk_resample_rows_t(const float* gout, const float* alpha,
 
 // The bf16 instances: the image (or its cotangent) and the output bf16,
 // alpha and the intercepts float32.
+// The bf16 forward's (tw, tv) is its tile, (BF_TW, BF_TV); its grid
+// (ceil(W / tw), ceil(V / tv), B) of 256 threads.
 extern "C" int gk_resample_rows_bf16(const void* x, const float* alpha,
                                      const float* icpt, void* out, int B,
                                      int C, int S, int W, int V, int tw,
                                      int tv, void* stream) {
-  return launch_fwd(static_cast<const bf16*>(x), alpha, icpt,
-                    static_cast<bf16*>(out), B, C, S, W, V, tw, tv, stream);
+  return launch_fwd_bf16(static_cast<const bf16*>(x), alpha, icpt,
+                         static_cast<bf16*>(out), B, C, S, W, V, tw, tv, stream);
 }
 
 extern "C" int gk_resample_rows_t_bf16(const void* gout, const float* alpha,

@@ -29,7 +29,6 @@ from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ganecdotes_torch.ops.affine_warp import affine_warp, norm_to_pixel_matrix
 from ganecdotes_torch.ops.grid_sample import grid_sample_bilinear
@@ -288,6 +287,24 @@ def warp_geometry(G, h, w, len_k=len(SYM6), pad_frac=0.25):
     return G_inv, (src_h, src_w), (out_h, out_w)
 
 
+def reflect_pad(img, pad_y, pad_x):
+    """``F.pad(..., mode="reflect")`` of the NHWC ``img`` by ``pad_y`` rows
+    and ``pad_x`` columns on each side, built from slices and flips joined
+    by ``torch.cat``, one axis at a time. The forward is bit-equal to
+    ``F.pad``'s; the backward is slices, flips and adds in a fixed order,
+    where ``F.pad``'s CUDA backward sums with atomics, so training repeats
+    bit for bit. As ``F.pad``, it takes a pad smaller than the axis."""
+    for axis, p in ((1, pad_y), (2, pad_x)):
+        n = img.shape[axis]
+        if not 0 <= p < n:
+            raise ValueError(f"reflect pad of {p} on an axis of {n}: the pad "
+                             "must be non-negative and smaller than the axis")
+        if p:
+            img = torch.cat([img.narrow(axis, 1, p).flip(axis), img,
+                             img.narrow(axis, n - 1 - p, p).flip(axis)], dim=axis)
+    return img
+
+
 def wavelet_passes(k):
     """ADA's four separable anti-aliasing passes for the 1-D float32 taps
     ``k``, as (2-D kernel, up, down, pad) in ``upfirdn2d``'s terms, as
@@ -327,8 +344,7 @@ def random_apply_affine(img, p=None, generator=None, G=None,
     pad_k = len_k // 4
     pad_x = int(round(w * pad_frac)) + pad_k * 2
     pad_y = int(round(h * pad_frac)) + pad_k * 2
-    img_pad = F.pad(img.permute(0, 3, 1, 2), [pad_x, pad_x, pad_y, pad_y],
-                    mode="reflect").permute(0, 2, 3, 1)
+    img_pad = reflect_pad(img, pad_y, pad_x)
 
     passes = wavelet_passes(k)
     img_2x = img_pad

@@ -20,7 +20,9 @@ drawn, never differentiated.
 A bfloat16 image (or cotangent) launches the kernels' bf16 instances
 (counted as ``resample_rows_bf16`` / ``resample_rows_t_bf16``; alpha and
 the intercepts stay float32, the lerp and the sums run in fp32 and round
-once on the store); any other type but float32 raises.
+once on the store): the forward a kernel of its own, 8 consecutive columns
+a thread from a band of source rows staged in shared memory
+(``forward_plan``); any other type but float32 raises.
 """
 
 import torch
@@ -41,14 +43,25 @@ def resample_rows_t_ref(g, alpha, intercept, src_len):
 
 GRID_MAX = 65535  # the grid's y and z extents
 FWD_BLOCK = (32, 8)  # the forward's block: 32 columns w (one warp) x 8 rows v
+# csrc/affine_warp.cu: the bf16 forward's tile (BF_TW columns x BF_TV rows),
+# the consecutive columns a thread (BF_NW) and the staged band's bytes
+BF16_TILE = (32, 32)
+BF16_COLUMNS = 8
+BAND_SMEM = 16 * 1024
 
 
-def forward_plan(b, v, w):
-    """The forward kernel's launch: block (tw, tv), grid (ceil(W / tw),
-    ceil(V / tv), B); thread (x, y) of block (i, j, k) computes output
-    (b, v, w) = (k, j*tv + y, i*tw + x) for every channel, where v < V and
-    w < W."""
-    tw, tv = FWD_BLOCK
+def forward_plan(b, v, w, dtype=torch.float32):
+    """The forward kernel's launch: (tw, tv) and the grid (ceil(W / tw),
+    ceil(V / tv), B).
+
+    float32: a block of (tw, tv) threads; thread (x, y) of block (i, j, k)
+    computes output (b, v, w) = (k, j*tv + y, i*tw + x) for every channel,
+    where v < V and w < W.
+
+    bf16: a tile of tw columns x tv rows, tw / BF16_COLUMNS * tv threads; thread t of block (i, j, k) computes outputs (k, j*tv + t //
+    r, i*tw + BF16_COLUMNS * (t % r) + e), r = tw / BF16_COLUMNS, for e <
+    BF16_COLUMNS, where v < V and w < W."""
+    tw, tv = BF16_TILE if dtype is torch.bfloat16 else FWD_BLOCK
     return (tw, tv), (-(-w // tw), -(-v // tv), b)
 
 
@@ -68,7 +81,7 @@ def _launch(kernel, entry, src, alpha, intercept, out_rows):
     if out_rows <= 0:
         raise ValueError(f"{kernel}: {out_rows} output rows")
     if kernel == "resample_rows":
-        (tw, tv), (_, gy, gz) = forward_plan(b, out_rows, w)
+        (tw, tv), (_, gy, gz) = forward_plan(b, out_rows, w, dtype)
         if gy > GRID_MAX or gz > GRID_MAX:
             raise ValueError(f"{kernel}: at most {GRID_MAX} images and "
                              f"{tv * GRID_MAX} output rows")

@@ -33,6 +33,13 @@ iteration:
     host there), beside the CUDA-event time per call;
   * resample_rows at BagGAN-HQ's two pass shapes (this turn's checkout's
     chip_smoke.py draws them from a fixed seed), ``ms`` per augment call;
+  * the bf16 FIR (``upfirdn2d_bf16``) at the D blur and ADA shapes, ms per
+    call, ``ms`` summing the D shapes; at the request's to_rgb upsamples
+    (``upfirdn2d_bf16_request``, ms a request of 8); the FIR wrapper's host
+    time a call at (8, 128^2, 3), bf16 and float32 (``upfirdn2d_bf16_host``,
+    ``upfirdn2d_host``: ``ms`` holds microseconds, as ``fused_act_host``);
+    and resample_rows in bf16 at the two pass shapes
+    (``resample_rows_bf16``, ms an augment call);
   * the bf16 StyledConvs at chip_smoke.py's phase 16 (a) shapes:
     ``styled_conv3x3_bf16`` and ``styled_up_conv3x3_bf16`` at the ffhq-256
     request of 8 (ms per request, each layer's time times its calls, and
@@ -75,6 +82,13 @@ without a sync) and its error against the plain version, the wrapper's
 and the library call's device time under torch.profiler: the
 measurement the wrapper's choice (``variant``,
 ``narrow_splits``) is read from.
+
+    python3 kernel_ab.py --fir-plans DIR [--out PATH]
+
+times, in one checkout, the bf16 FIR at the D blur and ADA shapes under
+each tile of FIR_PLANS beside the plan's own (``ops/upfirdn2d.py::
+_plan_bf16``), with the share of the bytes bound and the float32 kernel's
+time: the measurement the bf16 plan is read from.
 
     python3 kernel_ab.py --ops-route DIR [--out PATH]
 
@@ -136,6 +150,70 @@ def time_firs(cs, dev, cases):
             out[case] = None
             continue
         out[case] = cs.time_ms(fn)
+    return out
+
+
+def host_us_per_call(fn, calls=1000):
+    """The host's microseconds a call of ``fn`` under inference mode, the
+    calls enqueued without a sync (the card is faster than the host at the
+    shapes this is used for)."""
+    import torch
+
+    with torch.inference_mode():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    return us
+
+
+def time_bf16_memory(cs, dev, cases):
+    """The bf16 FIR at the D blur and ADA cases (``cases``) and at the
+    request's to_rgb upsamples (ms a request: each layer's time times its
+    calls), the wrapper's host µs a call at (8, 128^2, 3) in bf16 and in
+    float32, and the bf16 resample_rows at the two pass shapes (ms an
+    augment call)."""
+    import numpy as np
+    import torch
+
+    from ganecdotes_torch.ops import resample, upfirdn2d
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    firs = {}
+    for case, shape, k, up, down, pad in cases:
+        x = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+        k = np.asarray(k, np.float32)
+        firs[case] = cs.time_ms(lambda x=x, k=k, up=up, down=down, pad=pad: upfirdn2d.upfirdn2d(
+            x, k, up=tuple(up), down=tuple(down), pad=tuple(pad)))
+        del x
+    out["upfirdn2d_bf16"] = {"ms": sum(v for c, v in firs.items() if c.startswith("D ")),
+                             "cases_ms": firs}
+    blur4 = upfirdn2d.make_kernel((1, 3, 3, 1), gain=4.0)
+    layers, total = {}, 0.0
+    for shape, calls in cs.path_shapes()["upfirdn2d"]:
+        x = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+        layers[f"to_rgb up {shape[1]}^2"] = ms = cs.time_ms(
+            lambda x=x: upfirdn2d.upsample_2d(x, (1, 3, 3, 1)))
+        total += ms * calls
+    out["upfirdn2d_bf16_request"] = {"ms": total, "cases_ms": layers}
+    for dtype, key in ((torch.bfloat16, "upfirdn2d_bf16_host"), (torch.float32, "upfirdn2d_host")):
+        x = torch.randn(8, 128, 128, 3, generator=gen, device=dev).to(dtype)
+        out[key] = {"ms": host_us_per_call(lambda x=x: upfirdn2d.upfirdn2d(
+                        x, blur4, up=2, down=1, pad=(2, 1))),
+                    "event_ms_8x128x128x3": cs.time_ms(lambda x=x: upfirdn2d.upfirdn2d(
+                        x, blur4, up=2, down=1, pad=(2, 1)))}
+    passes = {}
+    for case, x, alpha, icpt, out_len, calls in cs.resample_cases(dev):
+        if calls:
+            x = x.to(torch.bfloat16)
+            passes[case] = cs.time_ms(lambda x=x, a=alpha, i=icpt, n=out_len:
+                                      resample.resample_rows(x, a, i, n))
+    out["resample_rows_bf16"] = {"ms": sum(passes.values()), "cases_ms": passes}
     return out
 
 
@@ -466,6 +544,92 @@ def lean_variants(root, out_path):
             json.dump({"card": smi, "rows": rows}, f, indent=1)
 
 
+# (toh, tow, ct or None for the plan's own, threads) for --fir-plans: 8
+# channels a thread (the D blurs), then 1 or 4 (ADA's passes, C = 3)
+FIR_PLANS = {8: [(4, 16, 64, 128), (8, 16, 64, 256), (8, 32, 32, 256), (4, 16, 32, 128),
+                 (8, 16, 32, 128), (4, 8, 64, 64), (4, 16, 128, 256)],
+             1: [(8, 64, None, 256), (8, 128, None, 256), (16, 64, None, 256),
+                 (4, 128, None, 256), (16, 128, None, 256)],
+             4: [(8, 128, None, 256), (16, 128, None, 256), (8, 64, None, 256),
+                 (4, 128, None, 128), (16, 64, None, 256)]}
+
+
+def fir_plans(root, out_path):
+    """The ``--fir-plans`` table: the bf16 FIR at the D blur and ADA shapes
+    (``fir_cases``) under each tile of FIR_PLANS for its channels a thread,
+    beside the plan's own, ms (CUDA events), the share of the bytes bound
+    and the float32 kernel's ms; each tile's output checked bit-equal to the
+    plan's own (the tile moves no sum)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    from ganecdotes_torch import resolve_device
+    from ganecdotes_torch.ops import upfirdn2d as tup
+    from ganecdotes_torch.ops._build import load
+
+    dev = resolve_device("cuda")
+    load()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(smi, flush=True)
+    own = tup._plan_bf16
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for case, shape, k, up, down, pad in fir_cases():
+        x = torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+        k = np.asarray(k, np.float32)
+        up, down, pad = tup._normalize_args(up, down, pad)
+
+        def run(x=x, k=k, up=up, down=down, pad=pad):
+            return tup.upfirdn2d(x, k, up=up, down=down, pad=pad)
+
+        def replan(tile):
+            def plan(c, kh, kw, up_, down_, tile=tile):
+                p = own(c, kh, kw, up_, down_)
+                if tile is None or p.vec != vec:
+                    return p
+                toh, tow, ct, threads = tile
+                ct = p.ct if ct is None else min(c, ct)
+                threads -= threads % (ct // p.vec)
+                ih = tup._extent(toh, kh, up_[1], down_[1]) if p.vpass else toh
+                iw = tup._extent(tow, kw, up_[0], down_[0])
+                return p._replace(toh=toh, tow=tow, ct=ct, ih=ih, iw=iw, threads=threads,
+                                  smem=tup.smem_bf16(ih, iw, toh, ct, p.vpass))
+            tup._plan_bf16 = plan
+            tup.plan.cache_clear()
+            tup._LAUNCHES.clear()
+
+        replan(None)
+        want = run()
+        vec = tup.plan(*cs._fir_plan_key(shape, k, up, down, pad)).vec
+        moved = 2 * (x.numel() + want.numel())
+        bound = cs.bound_ms(moved, [(1, cs.FP32)])[0]
+        x32 = x.float()
+        row = {"case": case, "shape": list(shape), "vec": vec, "bound_ms": bound,
+               "fp32_ms": cs.time_ms(lambda: tup.upfirdn2d(x32, k, up, down, pad)),
+               "tiles": {}}
+        del x32
+        for tile in [None] + FIR_PLANS[vec]:
+            replan(tile)
+            got = run()
+            torch.cuda.synchronize()
+            ms = cs.time_ms(run)
+            row["tiles"]["plan" if tile is None else "x".join(map(str, tile))] = {
+                "ms": ms, "bound_share": bound / ms, "bit_equal": bool(torch.equal(got, want))}
+        replan(None)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del x, want
+    tup._plan_bf16 = own
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump({"card": smi, "rows": rows}, f, indent=1)
+
+
 def ops_route(root, out_path, requests=40):
     """In one checkout: phase 4's request of 8 through the live server on
     ``KERNELS`` and through the same server on ``ops.library.LIBRARY``
@@ -580,6 +744,7 @@ def worker(root, cases, paths_only=False):
                         "cases_ms": firs}
     out.update(time_fused_act(cs, dev))
     out.update(time_resample(cs, dev))
+    out.update(time_bf16_memory(cs, dev, cases))
     out.update(gan_iteration(cs, dev))
     out.update(gan_iteration(cs, dev, "bfloat16"))
     out.update(paths(cs, dev))
@@ -594,6 +759,9 @@ def main():
     parser.add_argument("--out", help="write the turns and the summary to this JSON file")
     parser.add_argument("--variants", metavar="DIR",
                         help="time every lean StyledConv variant in this checkout")
+    parser.add_argument("--fir-plans", metavar="DIR",
+                        help="time the bf16 FIR's tiles at the D and ADA shapes "
+                             "in this checkout")
     parser.add_argument("--ops-route", metavar="DIR",
                         help="time the live server on the wrappers against "
                              "the custom ops in this checkout")
@@ -609,8 +777,12 @@ def main():
     if args.ops_route:
         ops_route(os.path.abspath(args.ops_route), args.out)
         return 0
+    if args.fir_plans:
+        fir_plans(os.path.abspath(args.fir_plans), args.out)
+        return 0
     if not (args.base and args.new):
-        parser.error("give BASE_DIR and NEW_DIR, --variants DIR or --ops-route DIR")
+        parser.error("give BASE_DIR and NEW_DIR, --variants DIR, --fir-plans DIR "
+                     "or --ops-route DIR")
     if args.worker:
         worker(os.path.abspath(args.worker), json.loads(args.cases), args.paths_only)
         return 0

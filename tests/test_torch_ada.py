@@ -283,6 +283,39 @@ def test_random_apply_affine_matches_jax(ops):
     np.testing.assert_array_equal(_np(oG), G)
 
 
+@pytest.mark.parametrize("shape,pad", [((2, 9, 7, 3), (5, 6)), ((1, 13, 6, 2), (12, 1))],
+                         ids=["9x7", "13x6"])
+def test_reflect_pad_matches_f_pad_and_jax(shape, pad):
+    """``reflect_pad`` (slices, flips, ``torch.cat``) against ``F.pad(mode=
+    "reflect")``: the forward bit for bit; the gradient of <w, pad(x)>
+    against F.pad's and against the VJP of JAX's ``jnp.pad(mode="reflect")``
+    (ganecdotes_tpu/gan/ada.py:260), within 1e-6 relative: the sums of up to
+    nine reflected cotangents may be taken in another order."""
+    py, px = pad
+    rng = np.random.RandomState(sum(shape))
+    img = rng.randn(*shape).astype(np.float32)
+    w = rng.randn(shape[0], shape[1] + 2 * py, shape[2] + 2 * px, shape[3]).astype(np.float32)
+
+    def f_pad(x):
+        return torch.nn.functional.pad(x.permute(0, 3, 1, 2), [px, px, py, py],
+                                       mode="reflect").permute(0, 2, 3, 1)
+
+    x = _t(img).requires_grad_(True)
+    ours = tada.reflect_pad(x, py, px)
+    assert torch.equal(ours, f_pad(_t(img)))
+    (g,) = torch.autograd.grad((ours * _t(w)).sum(), x)
+    x = _t(img).requires_grad_(True)
+    (g_f,) = torch.autograd.grad((f_pad(x) * _t(w)).sum(), x)
+    _, vjp = jax.vjp(lambda a: jnp.pad(a, ((0, 0), (py, py), (px, px), (0, 0)),
+                                       mode="reflect"), jnp.asarray(img))
+    (g_j,) = vjp(jnp.asarray(w))
+    for want in (_np(g_f), np.asarray(g_j)):
+        np.testing.assert_allclose(_np(g), want, rtol=1e-6,
+                                   atol=1e-6 * np.abs(want).max())
+    with pytest.raises(ValueError, match="smaller than the axis"):
+        tada.reflect_pad(_t(img), shape[1], px)
+
+
 def test_augment_gradients_match_jax():
     """First and second order through augment: grad of <w, aug(x)> and the
     gradient of ||grad_x <w, aug(x)^2>||^2 (the R1 shape: a gradient of a

@@ -1204,7 +1204,13 @@ def test_bf16_styled_convs_repeat_bit_for_bit(cuda, shape, up):
 
 def test_bf16_memory_bound_kernels_match_plain(cuda):
     """Kernels 1, 1-bwd, 2, 6a and 6b's bf16 instances against their plain
-    bf16 versions, C = 3 and C % 4 == 0 alike."""
+    bf16 versions, C = 3 and C % 4 == 0 alike; the bf16 FIR's tiles at
+    ragged shapes (C = 40: a 32- and an 8-channel slice, 16-byte copies;
+    ADA's y pass as 4-channel columns; 13 x 37 outputs over 8 x 32 tiles)
+    and the bf16 forward pass's (W = 36, 40 and 37: 8-byte, 16-byte and
+    2-byte rows, a ragged last run of 8; V = 70: a ragged second tile of
+    rows; a steep alpha whose band outgrows the shared buffer), each
+    launched twice, bit-equal."""
     from ganecdotes_torch.ops import resample as trs
 
     bf = torch.bfloat16
@@ -1225,6 +1231,33 @@ def test_bf16_memory_bound_kernels_match_plain(cuda):
         _bf16_gate(lambda: tup.upfirdn2d(xc, k, 2, 1, (2, 1)),
                    lambda: tup.upfirdn2d_ref(xc, k, 2, 1, (2, 1)),
                    lambda: tup.upfirdn2d_ref(xc.float(), k, 2, 1, (2, 1)), "upfirdn2d")
+    blur = tup.make_kernel((1, 3, 3, 1))
+    sym6 = np.asarray(ada.SYM6, np.float32)[:, None]
+    for shape, k2, up, down, pad in (((2, 13, 37, 40), blur, 1, 1, (2, 2)),
+                                     ((3, 14, 38, 16), blur, 1, 1, (1, 1)),
+                                     ((2, 16, 16, 24), blur, 1, 2, (1, 1)),
+                                     ((2, 9, 12, 3), sym6, (1, 2), 1, (0, 0, 6, 5)),
+                                     ((2, 18, 12, 3), np.ascontiguousarray(sym6[::-1]), 1,
+                                      (1, 2), (0, 0, -1, -1)),
+                                     ((2, 9, 10, 3), sym6.T, (2, 1), 1, (6, 5, 0, 0))):
+        xc = torch.randn(*shape, generator=g, device=cuda).to(bf)
+        run = (lambda xc=xc, k2=k2, up=up, down=down, pad=pad:
+               tup.upfirdn2d(xc, k2, up, down, pad))
+        _bf16_gate(run, lambda xc=xc, k2=k2, up=up, down=down, pad=pad:
+                   tup.upfirdn2d_ref(xc, k2, up, down, pad),
+                   lambda xc=xc, k2=k2, up=up, down=down, pad=pad:
+                   tup.upfirdn2d_ref(xc.float(), k2, up, down, pad), "upfirdn2d")
+        assert torch.equal(run(), run()), shape
+    for w, v, a in ((36, 70, 0.9), (40, 70, -1.1), (37, 20, 0.7), (40, 70, 3.0)):
+        xr = torch.randn(2, 3, 200, w, generator=g, device=cuda).to(bf)
+        al = torch.tensor([a, -a], device=cuda)
+        ic = (torch.arange(w, device=cuda) * 0.5 + 40
+              + torch.rand(2, w, generator=g, device=cuda))
+        run = lambda xr=xr, al=al, ic=ic, v=v: trs.resample_rows(xr, al, ic, v)
+        _bf16_gate(run, lambda xr=xr, al=al, ic=ic, v=v: trs.resample_rows_ref(xr, al, ic, v),
+                   lambda xr=xr, al=al, ic=ic, v=v: trs.resample_rows_ref(xr.float(), al, ic, v),
+                   "resample_rows")
+        assert torch.equal(run(), run()), (w, v, a)
     xr = torch.randn(2, 3, 24, 16, generator=g, device=cuda).to(bf)
     alpha = torch.tensor([0.9, -1.1], device=cuda)
     icpt = torch.rand(2, 16, generator=g, device=cuda) * 20

@@ -54,7 +54,13 @@ here on every run. None of them is on a path of the port.
   (``ops/resample.py::forward_plan``), one thread per output (b, v, w) for
   every channel, covering each output exactly once; the thread's two live
   taps and lerp equal ``_resample_pass`` bit for bit and the JAX Pallas
-  ``resample_rows`` in interpret mode within 1e-5.
+  ``resample_rows`` in interpret mode within 1e-5. Its bf16 kernel: 8
+  consecutive columns a thread in tiles of 64 rows x 32 columns, the
+  tile's band of source rows reduced from the geometry and staged where it
+  fits the shared buffer (else read from the image), each output covered
+  once at W = 524 and 792 (8-byte and 16-byte rows); the fp32 lerps equal
+  ``_resample_pass`` bit for bit on the bf16 values, and the JAX pass within
+  1e-5.
 * csrc/upfirdn2d.cu's tiles: each block stages its input footprint with
   zero fill, runs the vertical pass into a second buffer (or folds a single
   tap into the horizontal ones) and the horizontal pass to the outputs, the
@@ -63,7 +69,13 @@ here on every run. None of them is on a path of the port.
   (``ops/upfirdn2d.py::plan``) and with small tiles, so that a small input
   spans many ragged tiles. Held against the JAX package's
   ``upfirdn2d_ref`` with the 2-D kernel outer(taps_y, taps_x), 1e-5
-  absolute (sums of at most 16 * 16 products of O(1)).
+  absolute (sums of at most 16 * 16 products of O(1)). Its bf16 kernel,
+  with the bf16 plan (``plan`` at 2-byte elements): the C entry's checks,
+  the vertical pass RV rows and the horizontal pass CH columns a thread,
+  each reading a staged row or column once for every output it reaches,
+  every output's taps counted; on bf16-rounded inputs, rounded once to
+  bf16, within one bf16 step of the JAX ``upfirdn2d_ref`` on the same
+  values rounded once.
 """
 
 import jax.numpy as jnp
@@ -745,6 +757,94 @@ def test_resample_forward_threads_cover_each_output_once(c, alpha):
     np.testing.assert_allclose(_np(ours), np.asarray(want), **ADJ_TOL)
 
 
+def _forward_pass_bf16(x, alpha, icpt, v_len):
+    """csrc/affine_warp.cu's bf16 forward at the wrapper's launch, block by
+    block: the tile's outputs (BF16_COLUMNS consecutive columns a thread),
+    its band of source rows reduced from the valid outputs'
+    geometry, staged (the tile's columns, zero past W and in the rows
+    outside the image) where all channels fit BAND_SMEM bytes, else read
+    from the image; every staged read, unchecked in the kernel, checked
+    here to lie in the band. Returns the fp32 lerps
+    (before the rounding on the store), how often each (b, v, w) was
+    computed, and how many tiles were staged and not."""
+    b, c, s_len, w = x.shape
+    (tw, tv), (gx, gy, gz) = trs.forward_plan(b, v_len, w, torch.bfloat16)
+    nw = trs.BF16_COLUMNS
+    threads = (tw // nw) * tv
+    assert threads == 128 and gy <= trs.GRID_MAX and gz <= trs.GRID_MAX
+    out = torch.zeros(b, c, v_len, w)
+    hits = torch.zeros(b, v_len, w, dtype=torch.int64)
+    tiles = {"staged": 0, "direct": 0}
+    for k in range(gz):
+        for j in range(gy):
+            for i in range(gx):
+                # thread t: row t // (tw / nw), columns nw * (t % (tw / nw)) + e
+                t = torch.arange(threads)
+                vv = (j * tv + t // (tw // nw))[:, None].expand(threads, nw)
+                ww = i * tw + nw * (t % (tw // nw))[:, None] + torch.arange(nw)
+                live = (vv < v_len) & (ww < w)
+                vv, ww = vv[live], ww[live]
+                hits[k].index_put_((vv, ww), torch.ones_like(vv), accumulate=True)
+                k0, e1, f = _geometry(alpha[k], icpt[k, ww], vv.to(torch.float32))
+                klo = k0 + e1.to(torch.int64)
+                r0, r1 = int(klo.min()), int(klo.max()) + 1
+                rows = r1 - r0 + 1
+                staged = c * rows * tw * 2 <= trs.BAND_SMEM
+                tiles["staged" if staged else "direct"] += 1
+                taps = []
+                if staged:  # rows r0..r1, zero outside the image and past W
+                    band = torch.zeros(c, rows, tw)
+                    s0, s1 = max(r0, 0), min(r1, s_len - 1)
+                    cols = slice(i * tw, min(i * tw + tw, w))
+                    if s1 >= s0:
+                        band[:, s0 - r0:s1 - r0 + 1, :cols.stop - cols.start] = \
+                            x[k, :, s0:s1 + 1, cols]
+                for kk in (klo, klo + 1):
+                    if staged:  # unchecked, as the kernel reads
+                        r = kk - r0
+                        assert bool(((r >= 0) & (r < rows)).all())
+                        tap = band[:, r, ww - i * tw]
+                    else:
+                        inside = (kk >= 0) & (kk < s_len)
+                        tap = torch.where(inside, x[k, :, kk.clamp(0, s_len - 1), ww], 0.0)
+                    taps.append(tap)
+                out[k, :, vv, ww] = (1 - f) * taps[0] + f * taps[1]
+    return out, hits, tiles
+
+
+@pytest.mark.parametrize("w", [524, 792])
+@pytest.mark.parametrize("alpha", [None, "neg", 0.0, "steep"], ids=["pos", "neg", "zero", "steep"])
+def test_resample_bf16_forward_threads_cover_each_output_once(w, alpha):
+    """The bf16 forward's multi-column threads at BagGAN-HQ's two pass widths
+    (W = 524: 8-byte rows, the last run of 8 ragged; W = 792: 16-byte rows),
+    V = 70 (a ragged second tile of rows), ADA-like intercepts (about half a
+    source row per column, as at ADA's draws) off both ends of the source
+    column, and a steep alpha whose band outgrows the shared buffer (read
+    from the image): each output once, the lerps equal ``_resample_pass``
+    bit for bit on the bf16 values, and the JAX pass within 1e-5."""
+    b, c, s_len, v_len = 2, 3, 48, 70
+    rng = np.random.RandomState(w)
+    x = torch.from_numpy(rng.randn(b, c, s_len, w).astype(np.float32)).bfloat16().float()
+    a = (rng.rand(b) * 0.6 + 0.7).astype(np.float32)
+    slope = rng.choice([-0.6, 0.5], b)[:, None]
+    icpt = (slope * np.arange(w) + rng.rand(b, 1) * s_len - 0.5 * slope * w
+            - 0.4 * a[:, None] * v_len).astype(np.float32)
+    if alpha == "neg":
+        a, icpt = -a, (icpt + 0.8 * v_len).astype(np.float32)
+    elif alpha == "steep":
+        a, s_len = np.full(b, 3.0, np.float32), 300
+        x = torch.from_numpy(rng.randn(b, c, s_len, w).astype(np.float32)).bfloat16().float()
+    elif alpha is not None:
+        a = np.full(b, alpha, np.float32)
+    ours, hits, tiles = _forward_pass_bf16(x, _t(a), _t(icpt), v_len)
+    assert bool((hits == 1).all())
+    assert tiles["direct" if alpha == "steep" else "staged"] > 0
+    plain = taw._resample_pass(x, _t(a), _t(icpt), axis=2, out_len=v_len)
+    assert torch.equal(ours, plain)
+    want = jawp.resample_rows(jnp.asarray(x.numpy()), jnp.asarray(a), jnp.asarray(icpt), v_len)
+    np.testing.assert_allclose(_np(ours), np.asarray(want), **ADJ_TOL)
+
+
 # ---------------------------------------------------------------------------
 # the fused act's backward: strided rows, partial sums in a fixed order
 # ---------------------------------------------------------------------------
@@ -983,6 +1083,122 @@ def _fir_kernel_mirror(x, taps_y, taps_x, up, down, pad):
     return y.numpy()
 
 
+def _gk_upfirdn2d_bf16(x, y, B, H, W, C, OH, OW, ux, uy, dx, dy, px0, py0, toh, tow,
+                       ct, ih, iw, vec, threads, vpass, taps):
+    """csrc/upfirdn2d.cu's bf16 kernel with the C entry's checks, block by
+    block in float32 numpy: x (bf16 values) into y (the fp32 sums, before
+    the rounding on the store). The vertical pass takes RV rows and the
+    horizontal pass CH columns a thread, each reading the staged rows or
+    intermediate columns that reach one of them once, in increasing order;
+    every index is checked to lie in its buffer and every output's taps
+    are counted against the live taps of its row and column. The 4 x 4 blur
+    at up = down = 1 and 8 channels a thread takes RV_BLUR rows a thread."""
+    kh, kw = taps.kh, taps.kw
+    blur = (ux, dx, uy, dy, vec, kh, kw, bool(vpass)) == (1, 1, 1, 1, 8, 4, 4, True)
+    rv, ch = tup.RV_BLUR if blur else tup.RV, tup.CH
+    assert vec in (1, 4, 8) and C % vec == 0 and ct % vec == 0
+    assert threads <= 256 and threads % (ct // vec) == 0
+    assert ih >= (-(-((toh - 1) * dy + kh) // uy) if vpass else toh)
+    assert iw >= -(-((tow - 1) * dx + kw) // ux)
+    assert tup.smem_bf16(ih, iw, toh, ct, vpass) <= 232448
+    ky, kx = np.float32(taps.ky[:kh]), np.float32(taps.kx[:kw])
+
+    def at(buf, i, n):
+        assert 0 <= i < n, (i, n)
+        return buf[i]
+
+    def live(k, u, e, o):  # the taps of output o along one axis
+        return list(range(k)) if u == 1 else list(range((e + o) & 1, k, 2))
+
+    for b in range(B):
+        for c0 in range(0, C, ct):
+            cs = slice(c0, min(c0 + ct, C))
+            for oy0 in range(0, OH, toh):
+                for ox0 in range(0, OW, tow):
+                    my0, mx0 = oy0 * dy - py0, ox0 * dx - px0
+                    ey, ex = (my0 & 1) * (uy == 2), (mx0 & 1) * (ux == 2)
+                    iy0 = (my0 + ey) >> 1 if uy == 2 else my0
+                    ix0 = (mx0 + ex) >> 1 if ux == 2 else mx0
+                    stage = np.zeros((ih, iw, cs.stop - c0), np.float32)
+                    for r in range(ih):
+                        for col in range(iw):
+                            iy, ix = iy0 + r, ix0 + col
+                            if 0 <= iy < H and 0 <= ix < W:
+                                stage[r, col] = x[b, iy, ix, cs]
+                    src = stage
+                    if vpass:
+                        src = np.zeros((toh, iw, stage.shape[2]), np.float32)
+                        for r0 in range(0, toh, rv):
+                            used = {k: [] for k in range(rv)}
+                            i0 = (r0 * dy - ey + uy - 1) // uy
+                            i1 = min(ih - 1, ((r0 + rv - 1) * dy + kh - 1 - ey) // uy)
+                            for i in range(i0, i1 + 1):
+                                row = at(stage, i, ih)
+                                for k in range(rv):
+                                    t = uy * i + ey - (r0 + k) * dy
+                                    if 0 <= t < kh and r0 + k < toh:
+                                        src[r0 + k] += ky[kh - 1 - t] * row
+                                        used[k].append(t)
+                            for k in range(min(rv, toh - r0)):
+                                assert used[k] == live(kh, uy, ey, r0 + k), (r0 + k, used[k])
+                    for r in range(min(toh, OH - oy0)):
+                        for g0 in range(0, tow, ch):
+                            if ox0 + g0 >= OW:
+                                continue
+                            acc = np.zeros((ch, stage.shape[2]), np.float32)
+                            used = {k: [] for k in range(ch)}
+                            j0 = (g0 * dx - ex + ux - 1) // ux
+                            j1 = min(iw - 1, ((g0 + ch - 1) * dx + kw - 1 - ex) // ux)
+                            for j in range(j0, j1 + 1):
+                                v = at(src[r], j, iw)
+                                for k in range(ch):
+                                    t = ux * j + ex - (g0 + k) * dx
+                                    if 0 <= t < kw:
+                                        acc[k] += kx[kw - 1 - t] * v
+                                        used[k].append(t)
+                            for k in range(ch):
+                                if g0 + k < tow and ox0 + g0 + k < OW:
+                                    assert used[k] == live(kw, ux, ex, g0 + k), (g0 + k, used[k])
+                                    y[b, oy0 + r, ox0 + g0 + k, cs] = acc[k]
+
+
+def _fir_bf16_mirror(x, taps_y, taps_x, up, down, pad):
+    """The wrapper's bf16 launch (``launch_args`` on bf16 tensors: the view,
+    the bf16 plan, the folded taps) fed to the mirror of the bf16 kernel;
+    returns the (B, OH, OW, C) output rounded once to bf16, as float32."""
+    ty, tx = np.asarray(taps_y, np.float32), np.asarray(taps_x, np.float32)
+    spec = tup._Spec(np.outer(ty, tx), (ty, tx), *tup._normalize_args(up, down, pad))
+    (ux, uy), (dx, dy), (px0, px1, py0, py1) = spec.up, spec.down, spec.pad
+    b, h, w, c = x.shape
+    y = torch.empty((b, tup.out_size(h, uy, py0, py1, len(ty), dy),
+                     tup.out_size(w, ux, px0, px1, len(tx), dx), c), dtype=torch.bfloat16)
+    xl, yl, args = tup.launch_args(torch.from_numpy(x).bfloat16(), y, spec)
+    lc = xl.shape[3]
+    assert args[-4] == (8 if lc % 8 == 0 else 4 if lc % 4 == 0 else 1)  # vec
+    sums = torch.full(yl.shape, float("nan"))
+    _gk_upfirdn2d_bf16(xl.float().numpy(), sums.numpy(), *args)
+    return sums.view(y.shape).bfloat16().float().numpy()
+
+
+def _bf16_want(x, taps_y, taps_x, up, down, pad):
+    """The JAX ``upfirdn2d_ref`` on x's bf16 values, rounded once to bf16."""
+    xb = torch.from_numpy(x).bfloat16().float().numpy()
+    want = jup.upfirdn2d_ref(jnp.asarray(xb), np.outer(np.float32(taps_y), np.float32(taps_x)),
+                             up=up, down=down, pad=pad)
+    return torch.from_numpy(np.array(want)).bfloat16().float().numpy()
+
+
+def _assert_within_a_bf16_step(ours, want):
+    """Every output within one bf16 step (2^-7 of its binade) of the
+    reference: both round an fp32 sum once, and the sums differ in their
+    last fp32 bits only (other summation orders)."""
+    assert ours.shape == want.shape
+    mag = np.maximum(np.abs(ours), np.abs(want))
+    step = 2.0 ** (np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+    bad = np.abs(ours - want) > step
+    assert not bad.any(), (ours[bad][:5], want[bad][:5])
+
+
 AXES = {"1": (1, 1), "up2": (2, 1), "down2": (1, 2)}
 
 
@@ -1001,8 +1217,8 @@ def test_fir_tiles_match_jax(ax, ay, taps, monkeypatch):
     pad = (kw // 2, -1, kh // 2 - 1, kh // 2)
     plan = tup.plan
 
-    def small(c, kh, kw, up, down):
-        p = plan(c, kh, kw, up, down)
+    def small(c, kh, kw, up, down, esize=4):
+        p = plan(c, kh, kw, up, down, esize)
         return p._replace(toh=3, tow=5, ih=tup._extent(3, kh, up[1], down[1]),
                           iw=tup._extent(5, kw, up[0], down[0]))
 
@@ -1045,20 +1261,89 @@ def test_fir_tiles_at_the_paths_cases_match_jax(case):
     np.testing.assert_allclose(ours, np.asarray(want), **UP_TOL)
 
 
+@pytest.mark.parametrize("ax", AXES)
+@pytest.mark.parametrize("ay", AXES)
+@pytest.mark.parametrize("taps", ["blur", "sym6"])
+def test_fir_bf16_tiles_match_jax(ax, ay, taps, monkeypatch):
+    """The bf16 kernel at every instantiated (up, down) pair per axis, 4 and
+    12 taps, at C = 3 (one channel a thread) and C = 8 (eight channels a
+    thread, 16-byte copies and stores), with a negative pad on one side; 3 x
+    5 output tiles, so that the RV-row and CH-column groups are ragged too."""
+    (ux, dx), (uy, dy) = AXES[ax], AXES[ay]
+    t = BLUR if taps == "blur" else SYM6
+    ty, tx = t * 1.5, t[::-1].copy()
+    kh = kw = len(t)
+    pad = (kw // 2, -1, kh // 2 - 1, kh // 2)
+    plan = tup.plan
+
+    def small(c, kh, kw, up, down, esize=4):
+        p = plan(c, kh, kw, up, down, esize)
+        return p._replace(toh=3, tow=5, ih=tup._extent(3, kh, up[1], down[1]),
+                          iw=tup._extent(5, kw, up[0], down[0]))
+
+    monkeypatch.setattr(tup, "plan", small)
+    for c in (3, 8):
+        x = np.random.RandomState(c).randn(2, 9, 11, c).astype(np.float32)
+        ours = _fir_bf16_mirror(x, ty, tx, (ux, uy), (dx, dy), pad)
+        _assert_within_a_bf16_step(ours, _bf16_want(x, ty, tx, (ux, uy), (dx, dy), pad))
+
+
+@pytest.mark.parametrize("case", ["ada_up_x", "ada_up_y", "ada_down_x", "ada_down_y",
+                                  "to_rgb_up", "to_rgb_bwd", "d_blur", "d_blur_skip"])
+def test_fir_bf16_tiles_at_the_paths_cases_match_jax(case):
+    """The bf16 kernel at the paths' cases with the bf16 plan's own tile and
+    view: ADA's four SYM6 passes (C = 3; the y passes as 4-channel columns,
+    8-byte copies), the to_rgb skip upsample and its backward, and the
+    discriminator's blurs at C = 40 (a 32-channel slice and an 8-channel
+    one, 16-byte copies and stores) over ragged 8 x 32 tiles."""
+    n = 12
+    blur = 2 * BLUR
+    cases = {
+        "ada_up_x": ((2, n, n, 3), [1.0], SYM6, (2, 1), (1, 1), (6, 5, 0, 0)),
+        "ada_up_y": ((2, n, 2 * n, 3), SYM6, [1.0], (1, 2), (1, 1), (0, 0, 6, 5)),
+        "ada_down_x": ((2, 2 * n, 2 * n, 3), [1.0], SYM6[::-1], (1, 1), (2, 1), (-1, -1, 0, 0)),
+        "ada_down_y": ((2, 2 * n, n, 3), SYM6[::-1], [1.0], (1, 1), (1, 2), (0, 0, -1, -1)),
+        "to_rgb_up": ((2, n, n, 3), blur, blur, (2, 2), (1, 1), (2, 1, 2, 1)),
+        "to_rgb_bwd": ((2, 2 * n, 2 * n, 3), blur[::-1], blur[::-1], (1, 1), (2, 2), (1, 1, 1, 1)),
+        "d_blur": ((1, 2 * n - 3, 3 * n + 5, 40), BLUR, BLUR, (1, 1), (1, 1), (2, 2, 2, 2)),
+        "d_blur_skip": ((1, 2 * n, 3 * n, 40), BLUR, BLUR, (1, 1), (1, 1), (1, 1, 1, 1)),
+    }
+    shape, ty, tx, up, down, pad = cases[case]
+    x = np.random.RandomState(len(case)).randn(*shape).astype(np.float32)
+    view = tup.launch_shape(shape, len(tx), up[0], down[0], pad[:2])
+    assert (view[3] == 4) == (case.startswith("ada") and case.endswith("_y"))
+    ours = _fir_bf16_mirror(x, ty, tx, up, down, pad)
+    _assert_within_a_bf16_step(ours, _bf16_want(x, ty, tx, up, down, pad))
+
+
 @pytest.mark.parametrize("c", [1, 3, 5, 8, 12, 40, 128, 512])
 def test_fir_plan_fits_a_block(c):
     """For every tap count and (up, down) per axis the plan fits the shared
     memory budget, its threads divide into whole channel groups, and its
-    staged footprint covers what the tile reads."""
+    staged footprint covers what the tile reads; at 2-byte elements too
+    (the bf16 plan: its vector of channels divides C, its budget is
+    ``SMEM_MAX_BF16`` and its horizontal pass's column groups of CH give
+    every thread a group where the tile allows)."""
     for (ux, dx) in AXES.values():
         for (uy, dy) in AXES.values():
             for kh in (1, 4, 12, 16):
                 for kw in (1, 4, 12, 16):
-                    p = tup.plan(c, kh, kw, (ux, uy), (dx, dy))
-                    assert p.smem <= tup.SMEM_MAX
-                    assert p.threads <= tup.THREADS and p.threads % (p.ct // p.vec) == 0
-                    assert p.ct % p.vec == 0 and p.toh >= 1 and p.tow >= 1
-                    # the last output's last tap reads staged column iw - 1 at most
-                    assert ((p.tow - 1) * dx + kw - 1) // ux < p.iw
-                    if p.vpass:
-                        assert ((p.toh - 1) * dy + kh - 1) // uy < p.ih
+                    for esize, smem_max in ((4, tup.SMEM_MAX), (2, tup.SMEM_MAX_BF16)):
+                        p = tup.plan(c, kh, kw, (ux, uy), (dx, dy), esize)
+                        assert p.smem <= smem_max
+                        assert p.threads <= tup.THREADS and p.threads % (p.ct // p.vec) == 0
+                        assert p.ct % p.vec == 0 and p.toh >= 1 and p.tow >= 1
+                        assert c % p.vec == 0
+                        # the last output's last tap reads staged column iw - 1 at most
+                        assert ((p.tow - 1) * dx + kw - 1) // ux < p.iw
+                        if p.vpass:
+                            assert ((p.toh - 1) * dy + kh - 1) // uy < p.ih
+                        if esize == 2:
+                            assert p.smem == tup.smem_bf16(p.ih, p.iw, p.toh, p.ct, p.vpass)
+                            assert p.vec == (8 if c % 8 == 0 else 4 if c % 4 == 0 else 1)
+                            groups = p.toh * -(-p.tow // tup.CH) * (p.ct // p.vec)
+                            wider = tup.smem_bf16(p.ih, tup._extent(2 * p.tow, kw, ux, dx),
+                                                  p.toh, p.ct, p.vpass)
+                            assert (groups >= p.threads or p.tow == 128
+                                    or p.toh < (4 if p.vec == 8 else 8)
+                                    or wider > tup.SMEM_MAX_BF16)
