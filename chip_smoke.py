@@ -183,22 +183,26 @@ Phases (any failure exits non-zero before the last line):
      float32 plain version on the same bf16 inputs: the kernel's error
      within the plain bf16 version's plus 2^-8 * max(1, max |ref|), timed
      beside its plain version, one bf16 library call and its bound (the
-     StyledConvs' at 989 TFLOP/s bf16); each StyledConv row launched twice
-     and required equal bit for bit, its tile plan recorded; (b) phase 4's
-     server with inference_dtype = 'bfloat16': 3 requests of 8 folded and
-     unfused, no float32 StyledConv or FIR launched, labels against the
-     float32 server (>= 95%) and the plain bf16 server (flipping at most
+     StyledConvs' at 989 TFLOP/s bf16); each StyledConv, FIR and warp-pass
+     row launched twice and required equal bit for bit (the FIR and warp
+     rows beside the float32 kernel; the warp adjoint also equal to the
+     float32 kernel's sums rounded once), its tile plan or band recorded;
+     (b) phase 4's server with inference_dtype = 'bfloat16': 3 requests of
+     8 folded and unfused, no float32 StyledConv or FIR launched, labels
+     against the float32 server (>= 95%) and the plain bf16 server (flipping at most
      twice the pixels the plain bf16 server flips against float32), one
      exported bf16 request against the live one; (c) phase 7's run with
      compute_dtype = 'bfloat16', kernels and plain ops: every bf16 kernel
      launched, parameters and Adam moments float32, the gates set from
      bf16 (twice the plain bf16 run's distance to phase 7's float32 plain
      run, or phase 7's gate where larger); (d) cli/train_baggan.py at the
-     pidray lean map with compute_dtype = 'bfloat16', 6 iterations with
-     --chunk 4 and twice with --chunk 1 under cuDNN's deterministic
-     algorithms: the weights bit-equal, or else the final losses within
-     phase 7's drift gate (or twice the two single-stepped runs' own drift,
-     where that is larger). The plain bf16 run of (c) takes 2 iterations.
+     pidray lean map with compute_dtype = 'bfloat16', 6 iterations under
+     cuDNN's deterministic algorithms, with --chunk 4 in a fresh process,
+     then here twice with --chunk 1 and with --chunk 4 after the caching
+     allocator's free memory was filled with 0xFF bytes:
+     every run's weights bit-equal to the first --chunk 1 run's; the ops
+     the deterministic check warns about. The plain bf16 run of (c) takes
+     1 iteration (iteration 0: all four step kinds).
 Phases 13 and 14 run with matplotlib, cv2, sklearn and PIL unimportable
 (``host_only_refused``): their paths need none of them.
 
@@ -1348,17 +1352,15 @@ def check_pretrain_agreement(kern, plain):
 # ---------------------------------------------------------------------------
 
 
-def resample_cases(dev):
-    """(case, x, alpha, intercept, out_len, calls per augment call) of the
-    two passes BagGAN-HQ's augment runs at 256^2, B = 20, with the geometry
-    of ADA draws at p = 1 (p = 0 draws the identity), a small ragged case
-    with a flip, and small cases at alpha = 0 and 0.05. The images are
-    random: the pass does not care."""
+def ada_pass_geometry(dev):
+    """The shear geometry of BagGAN-HQ's augment at 256^2, B = GAN_B, from
+    the first ADA draw at p = 1 (p = 0 draws the identity) with both warp
+    branches and a flip: (swap, delta, icpt_v, a, icpt_h, src, out) of
+    ``shear_geometry`` and ``warp_geometry``."""
     from ganecdotes_torch.gan.ada import sample_transforms, warp_geometry
     from ganecdotes_torch.ops.affine_warp import norm_to_pixel_matrix, shear_geometry
-    from ganecdotes_torch.ops.resample import resample_rows_ref
 
-    for seed in range(21, 121):  # the first draw with both branches and a flip
+    for seed in range(21, 121):
         G, _ = sample_transforms(torch.Generator().manual_seed(seed), 1.0, GAN_B,
                                  GAN_SIZE, GAN_SIZE, dev)
         G_inv, src, out = warp_geometry(G, GAN_SIZE, GAN_SIZE)
@@ -1366,9 +1368,19 @@ def resample_cases(dev):
         swap, delta, icpt_v, a, icpt_h = shear_geometry(M, src[1], out[0])
         if (bool(swap.any()) and not bool(swap.all())
                 and bool((delta < 0).any() or (a < 0).any())):
-            break
-    else:
-        raise SmokeFailure("no ADA draw covers both warp branches and a flip")
+            return swap, delta, icpt_v, a, icpt_h, src, out
+    raise SmokeFailure("no ADA draw covers both warp branches and a flip")
+
+
+def resample_cases(dev):
+    """(case, x, alpha, intercept, out_len, calls per augment call) of the
+    two passes BagGAN-HQ's augment runs at 256^2, B = 20, with the geometry
+    of ADA draws at p = 1 (p = 0 draws the identity), a small ragged case
+    with a flip, and small cases at alpha = 0 and 0.05. The images are
+    random: the pass does not care."""
+    from ganecdotes_torch.ops.resample import resample_rows_ref
+
+    swap, delta, icpt_v, a, icpt_h, src, out = ada_pass_geometry(dev)
     gen = torch.Generator(device=dev).manual_seed(22)
     x = torch.randn(GAN_B, 3, src[0], src[1], generator=gen, device=dev)
     x_eff = torch.where(swap[:, None, None, None], x.transpose(2, 3), x).contiguous()
@@ -4189,6 +4201,37 @@ def band_tiles(alpha, icpt, s_len, v_len, channels):
             "mean_rows": float(rows.mean()), "max_rows": int(rows.max())}
 
 
+def adjoint_band_tiles(alpha, icpt, s_len, v_len, channels):
+    """The bf16 adjoint's tiles (ops/resample.py::adjoint_plan) at one pass:
+    how many stage their band of cotangent rows in shared memory and how
+    many read the cotangent, and the bands' mean and largest height, from
+    the candidate windows of csrc/affine_warp.cu (computed here in torch,
+    one float32 step at a time)."""
+    from ganecdotes_torch.ops import resample
+
+    b, w = icpt.shape
+    (tw, ts), (gx, gy, _) = resample.adjoint_plan(b, s_len, w, torch.bfloat16)
+    s = torch.arange(s_len, device=icpt.device, dtype=torch.float32)[None, :, None]
+    U = torch.floor(icpt)[:, None, :]
+    inv = 1 / alpha[:, None, None]
+    full = ((alpha == 0) | ~torch.isfinite(1 / alpha))[:, None, None]
+    e0, e1 = ((s - 2) - U) * inv, ((s + 1) - U) * inv
+    lo = torch.minimum(e0, e1).clamp(-2, v_len + 1)
+    hi = torch.maximum(e0, e1).clamp(-2, v_len + 1)
+    v0 = torch.where(full, 0, (torch.floor(lo) - 1).clamp(min=0))
+    v1 = torch.where(full, v_len - 1, (torch.ceil(hi) + 1).clamp(max=v_len - 1))
+    ok = v0 <= v1
+    big = float(1 << 30)
+    pad = (0, gx * tw - w, 0, gy * ts - s_len)
+    tiles = lambda t: t.reshape(b, gy, ts, gx, tw).transpose(2, 3).reshape(b, gy, gx, -1)
+    lo_t = tiles(torch.nn.functional.pad(torch.where(ok, v0, big), pad, value=big)).amin(-1)
+    hi_t = tiles(torch.nn.functional.pad(torch.where(ok, v1, -big), pad, value=-big)).amax(-1)
+    rows = (hi_t - lo_t + 1).clamp(min=0)
+    staged = channels * rows * tw * 2 <= resample.BAND_T_SMEM
+    return {"tiles": rows.numel(), "staged": int(staged.sum()),
+            "mean_rows": float(rows.mean()), "max_rows": int(rows.max())}
+
+
 def bf16_kernels(dev):
     """Phase 16 (a): every bf16 kernel at the bf16 serving request's shapes
     (ffhq-256, B = 8) and the bf16 training cell's (pidray, B = GAN_B)."""
@@ -4314,8 +4357,10 @@ def bf16_act_rows(dev, gen):
 
 
 def bf16_resample_rows(dev, gen):
-    """Phase 16 (a)'s bf16 ADA warp pass (twice, bit-equal, beside the
-    float32 kernel; its tiles' bands) and its adjoint (per augment call)."""
+    """Phase 16 (a)'s bf16 ADA warp pass and its adjoint (per augment
+    call): each twice, bit-equal, beside the float32 kernel, and their
+    tiles' bands; the adjoint also bit-equal to the float32 kernel's sums
+    rounded once."""
     import torch.nn.functional as F
 
     from ganecdotes_torch.ops import resample
@@ -4348,7 +4393,16 @@ def bf16_resample_rows(dev, gen):
                 g.float(), a, i, n),
             lambda g=g, x=x, grid=grid: torch.ops.aten.grid_sampler_2d_backward(
                 g, x, grid, 0, 0, False, [True, False])[0],
-            nbytes(g, alpha, icpt, x), [(3 * x.numel(), FP32)]))
+            nbytes(g, alpha, icpt, x), [(3 * x.numel(), FP32)], repeat=True,
+            fp32=lambda g=g.float(), a=alpha, i=icpt, n=s_len: resample.resample_rows_t(
+                g, a, i, n)))
+        # the float32 kernel adds the same terms in the same order: its sums
+        # rounded once are the bf16 kernel's bits
+        check(torch.equal(resample.resample_rows_t(g, alpha, icpt, s_len),
+                          resample.resample_rows_t(g.float(), alpha, icpt, s_len).to(bf)),
+              f"resample_rows_t bf16 {case}: not the float32 kernel's sums rounded once")
+        rows[-1]["band"] = adjoint_band_tiles(alpha, icpt, s_len, out_len, x.shape[1])
+        print(f"    band: {json.dumps(rows[-1]['band'])}", flush=True)
     return rows
 
 
@@ -4546,20 +4600,69 @@ def bf16_train(dev, fp32):
     return out
 
 
-GAN_PLAIN16_ITERS = 2  # phase 16 (c)'s plain bf16 run: all four step kinds, then D + G
+GAN_PLAIN16_ITERS = 1  # phase 16 (c)'s plain bf16 run: all four step kinds
 CHUNK_ITERS, CHUNK = 6, 4  # phase 16 (d): calls of 4 and 2 against 6 of 1
+
+
+POISON, ZERO = 0xFF, 0x00  # 0xFF bytes are NaN in float32 and bfloat16
+SMALL_POOL_FILL = 256 << 20  # bytes of the allocator's small pool filled
+FREE_LEFT = 1 << 30  # device memory left unfilled (and unallocated)
+
+
+def fill_free_memory(byte, device, nbytes=None):
+    """Fill with ``byte`` the memory PyTorch's caching allocator hands out
+    next on ``device``, so that a kernel reading memory nothing wrote shows
+    it: two runs after fills of two bytes then differ. The cache is emptied
+    first; then blocks of the small pool (requests up to 1 MB, carved from
+    2 MB segments) and one block of most of the free memory (at most
+    ``nbytes``) are allocated, filled and freed without ``empty_cache``, so
+    they stay cached and later allocations are carved from them."""
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    small = [torch.empty(1 << 20, dtype=torch.uint8, device=device)
+             for _ in range(SMALL_POOL_FILL >> 20)]
+    size = max(torch.cuda.mem_get_info(device)[0] - FREE_LEFT, 2 << 20)
+    large = torch.empty(min(size, nbytes or size), dtype=torch.uint8, device=device)
+    for t in small + [large]:
+        t.fill_(byte)
+    torch.cuda.synchronize(device)
+    del small, large
+
+
+# the CLI in a process of its own (phase 16 (d)), cuDNN on its deterministic
+# algorithms as in this one
+FRESH_CLI = ("import sys, torch\n"
+             "torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False\n"
+             "from ganecdotes_torch.cli import train_baggan\n"
+             "train_baggan.main(sys.argv[1:])\n")
+
+
+def saved_weights(out_dir):
+    """The G and D files the CLI saved last under ``out_dir``: {file:key:
+    the array's bytes}."""
+    import glob
+
+    import numpy as np
+
+    out = {}
+    for path in sorted(glob.glob(os.path.join(out_dir, "**", "latest_net_*.npz"),
+                                 recursive=True)):
+        with np.load(path) as z:
+            out.update({f"{os.path.basename(path)}:{k}": z[k].tobytes() for k in z.files})
+    return out
 
 
 def bf16_chunk_cli(dev):
     """Phase 16 (d): cli/train_baggan.py at the pidray lean-map config
     (res2chlmap = "baggan", ADA p 0.6, B = GAN_B, R1 and PPL every 4th
     iteration as shipped) with compute_dtype = 'bfloat16' on .npy files,
-    CHUNK_ITERS iterations with --chunk CHUNK and twice with --chunk 1, cuDNN
-    on its deterministic algorithms: the same batches; the two single-stepped
-    runs bit for bit equal (ADA's reflect pad has no atomic backward since
-    ``gan/ada.py::reflect_pad``); the chunked run's weights bit for bit
-    equal to theirs, or else every final loss within phase 7's drift gate.
-    Then the ops the deterministic-algorithms check warns about
+    CHUNK_ITERS iterations, cuDNN on its deterministic algorithms, the same
+    batches: with --chunk CHUNK in a fresh process (the run the drift showed
+    in: the first of its process), then here twice with --chunk 1 and with
+    --chunk CHUNK after the caching allocator's free memory was filled with
+    0xFF bytes. Every run's weights bit for bit equal to the first
+    single-stepped run's. Then the ops the deterministic-algorithms check
+    warns about
     (``nondeterministic_ops``)."""
     import shutil
 
@@ -4573,11 +4676,20 @@ def bf16_chunk_cli(dev):
     run_cfg = config_copy("config_pidray_unlabeled", os.path.join("models", "baggan"),
                           "res2chlmap = 'baggan'\naugment_p = 0.6\n"
                           "compute_dtype = 'bfloat16'\n", root)
+    fresh_dir = os.path.join(root, "chunked_fresh_process")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", FRESH_CLI, "--config", run_cfg, "--data_dir", data,
+                    "--out_dir", fresh_dir, "--epochs", "1", "--iters_per_epoch",
+                    str(CHUNK_ITERS), "--chunk", str(CHUNK), "--device", "cuda"],
+                   cwd=ROOT, check=True, capture_output=True, timeout=600)
+    fresh_s = time.perf_counter() - t0
     det, bench = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     runs = {}
     try:
-        for name, chunk in (("chunked", CHUNK), ("single", 1), ("single again", 1)):
+        for name, chunk in (("single", 1), ("single again", 1), ("chunked again", CHUNK)):
+            if name == "chunked again":  # carved from memory full of NaN bytes
+                fill_free_memory(POISON, dev)
             gan, rec, launches, _, wall = train_cli(
                 run_cfg, data, os.path.join(root, name.replace(" ", "_")), 1,
                 CHUNK_ITERS, KERNELS, chunk=chunk)
@@ -4587,13 +4699,13 @@ def bf16_chunk_cli(dev):
                   f"{json.dumps(rec['epochs'][-1]['losses'])}", flush=True)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det, bench
-    (g_c, r_c, l_c, _), (g_1, r_1, _, _) = runs["chunked"], runs["single"]
-    g_2, r_2 = runs["single again"][:2]
-    check(r_c["call_iterations"] == [CHUNK, CHUNK_ITERS - CHUNK],
-          f"--chunk {CHUNK} calls: {r_c['call_iterations']}")
-    check(r_c["batch_sums"] == r_1["batch_sums"], "the two runs read other batches")
+    (g_1, r_1, _, _), (g_2, r_2, _, _) = runs["single"], runs["single again"]
+    g_p, r_p, l_p, _ = runs["chunked again"]
+    check(r_p["call_iterations"] == [CHUNK, CHUNK_ITERS - CHUNK],
+          f"--chunk {CHUNK} calls: {r_p['call_iterations']}")
+    check(r_p["batch_sums"] == r_1["batch_sums"], "the runs read other batches")
     for k in BF16_TRAINING_KERNELS:
-        check(l_c[k] > 0, f"kernel {k} was not launched by the chunked bf16 run")
+        check(l_p[k] > 0, f"kernel {k} was not launched by the chunked bf16 run")
     def equal(a, b):
         return all(torch.equal(u, v) for net in ("netG", "netD")
                    for u, v in zip(getattr(a, net).state_dict().values(),
@@ -4603,20 +4715,26 @@ def bf16_chunk_cli(dev):
         la, lb = ra["epochs"][-1]["losses"], rb["epochs"][-1]["losses"]
         return max(abs(la[k] - lb[k]) / max(1.0, abs(lb[k])) for k in lb)
 
-    bit_equal, repeat_equal = equal(g_c, g_1), equal(g_2, g_1)
-    d_chunk, d_repeat = drift(r_c, r_1), drift(r_2, r_1)
-    tol = GAN_DRIFT_TOL
-    print(f"  chunked against single steps: weights bit-equal {bit_equal}, final "
-          f"losses max relative difference {d_chunk:.3e} (gate {tol:.3e}); the two "
-          f"single-stepped runs: bit-equal {repeat_equal}, {d_repeat:.3e}", flush=True)
+    single = saved_weights(os.path.join(root, "single"))
+    fresh_equal = bool(single) and saved_weights(fresh_dir) == single
+    repeat_equal, poisoned_equal = equal(g_2, g_1), equal(g_p, g_1)
+    d_repeat, d_poisoned = drift(r_2, r_1), drift(r_p, r_1)
+    print(f"  weights bit-equal to the first --chunk 1 run's: --chunk {CHUNK} in a "
+          f"fresh process {fresh_equal} ({fresh_s:.1f} s); --chunk 1 again "
+          f"{repeat_equal} (final losses {d_repeat:.3e} apart); --chunk {CHUNK} after "
+          f"the allocator's poison {poisoned_equal} ({d_poisoned:.3e})", flush=True)
     check(repeat_equal, "two single-stepped runs of the same batches differ: "
                         f"final losses {d_repeat} apart")
-    check(bit_equal or d_chunk <= tol,
-          f"the chunked run left the single-stepped one: {d_chunk} over {tol}")
+    check(fresh_equal, f"the --chunk {CHUNK} run in a fresh process left the "
+                       "single-stepped one")
+    check(poisoned_equal, f"the poisoned chunked run left the single-stepped one: "
+                          f"{d_poisoned}")
     warned = nondeterministic_ops(run_cfg, data, root)
-    return {"chunk": CHUNK, "iterations": CHUNK_ITERS, "bit_equal": bit_equal,
-            "loss_drift": d_chunk, "single_repeat_bit_equal": repeat_equal,
-            "single_repeat_drift": d_repeat, "tol": tol, "nondeterministic_ops": warned,
+    return {"chunk": CHUNK, "iterations": CHUNK_ITERS, "fresh_process_bit_equal": fresh_equal,
+            "fresh_process_s": fresh_s, "poisoned_bit_equal": poisoned_equal,
+            "poisoned_loss_drift": d_poisoned, "single_repeat_bit_equal": repeat_equal,
+            "single_repeat_drift": d_repeat,
+            "nondeterministic_ops": warned,
             **{name: {"record": r[1], "wall_s": r[3]} for name, r in runs.items()}}
 
 
@@ -4726,17 +4844,18 @@ def bf16_gemm_resources(log_path):
     return out
 
 
-BF16_MEMORY_KERNELS = ("upfirdn2d_bf16_kernel", "resample_rows_bf16_kernel")
+BF16_MEMORY_KERNELS = ("upfirdn2d_bf16_kernel", "resample_rows_bf16_kernel",
+                       "resample_rows_t_bf16_kernel")
 # their instances: the FIR's 9 (up, down) pairs x 3 channel vectors and the
-# known 4 x 4 blur; the forward pass's 3 row alignments
-BF16_MEMORY_INSTANCES = 9 * 3 + 1 + 3
+# known 4 x 4 blur; the forward pass's and the adjoint's 3 row alignments
+BF16_MEMORY_INSTANCES = 9 * 3 + 1 + 3 + 3
 
 
 def bf16_memory_resources(log_path):
     """Per instance of the bf16 FIR kernel (its (up_x, down_x, up_y, down_y,
-    channels a thread)) and of the bf16 forward pass (its row alignment),
-    from ptxas -v in the build log: registers and spill bytes (stores +
-    loads)."""
+    channels a thread)), of the bf16 forward pass (its row alignment) and
+    of the bf16 adjoint (its row alignment), from ptxas -v
+    in the build log: registers and spill bytes (stores + loads)."""
     import re
 
     out, fn = {}, None
@@ -4843,13 +4962,15 @@ def main():
     check(len(resources) == 18 and all(r.get("spill_bytes") == 0 for r in resources.values()),
           f"the bf16 StyledConv GEMMs must not spill: {resources}")
     mem16 = bf16_memory_resources(info["log"])
-    print(f"  bf16 FIR (up_x, down_x, up_y, down_y, channels a thread, known taps) "
-          f"and forward pass (row alignment) kernels: {json.dumps(mem16)}", flush=True)
+    print(f"  bf16 FIR (up_x, down_x, up_y, down_y, channels a thread, known taps), "
+          f"forward pass and adjoint (row alignment) kernels: {json.dumps(mem16)}",
+          flush=True)
     # reported, not gated: the forward pass's register cap (six blocks an
     # SM) and ptxas's own choice for the FIR's down-2 instances at 8
-    # channels a thread (no path's) spill a few bytes
+    # channels a thread and the adjoint's 2-byte rows (no path's) spill a
+    # few bytes
     check(len(mem16) == BF16_MEMORY_INSTANCES,
-          f"{BF16_MEMORY_INSTANCES} bf16 FIR and forward-pass instances expected: {mem16}")
+          f"{BF16_MEMORY_INSTANCES} bf16 FIR and warp-pass instances expected: {mem16}")
 
     print("kernels vs plain versions (ms per call, CUDA events):", flush=True)
     rows = check_kernels(dev)

@@ -49,8 +49,9 @@
 // bfloat16 images (the _bf16 entries): alpha and the intercepts stay
 // float32, every tap is converted to fp32, the geometry and the lerp (and the
 // adjoint's sums) run in fp32 with the same _rn steps, and each result is
-// rounded once to bf16 on the store. The adjoint is the kernel above on bf16
-// storage. The forward is a kernel of its own, resample_rows_bf16_kernel:
+// rounded once to bf16 on the store. Each direction is a kernel of its own,
+// resample_rows_bf16_kernel and resample_rows_t_bf16_kernel (the float32
+// kernels above stay float32 only):
 //
 // Why. At ADA's draws the intercept climbs about half a source row per
 // column (rotations and shears), so the 32 columns of a warp read about 16
@@ -83,6 +84,40 @@
 // not 64-row tiles of 256: their bands fetch more rows than they use, but on
 // the H100 they ran no slower at pass V and faster at pass H, more blocks an
 // SM overlapping one block's staging with another's lerps.
+//
+// The bf16 adjoint stages a band too. Its thread-per-(b, s, w) form above
+// walks one candidate window per thread, and the 32 windows of a warp start
+// at about 16 different cotangent rows, so each 2-byte warp load touched
+// as many lines as rows and the kernel ran no faster than its float32
+// instance. A block takes a tile of BT_ROWS = 32 source rows x 32 columns
+// and 128 threads, each 8 consecutive rows of one column (a warp: 32
+// columns):
+//   1. every thread computes the candidate rows of its run of rows
+//      (walk_range(): the union of their windows, the same rounded 1/alpha
+//      and widening), and the block reduces the lowest and highest
+//      cotangent row of any non-empty walk: the tile's band (about 32 and
+//      34 rows on average at ADA's passes V and H, as chip_smoke.py's phase
+//      16 (a) counts them from the draw's geometry; every tile staged);
+//   2. it stages the band's rows of all C channels and the tile's columns
+//      with cp.async as the forward does (16, 8 or 2 bytes), zero past W;
+//   3. each thread walks its v once, in increasing v, with geometry() once
+//      a v, and adds coef_t * g[v] (tap_coef()'s three coefficients, the
+//      zero one too) to the running sums of rows k0(v) + t, t = 0, 1, 2:
+//      three slots that slide with k0, which is monotone in v (up for
+//      alpha >= 0, down for alpha < 0); a row is done when k0 has moved
+//      past it, and is rounded into the tile's output in shared memory;
+//      BT_CH channels a walk (ADA's images), fewer in a last group;
+//   4. the tile's rows leave as 16-byte stores (8-byte where W % 8 != 0,
+//      one element at a time at the ragged right end).
+// A first design gave each thread 8 columns of one row, as the forward
+// does, and walked each output's own window: ~6 geometry() calls an output
+// against ~1.4 here, and it ran at 20% of the bytes bound on the H100.
+// Tiles of 16 and 64 rows ran slower than 32 at both pass shapes there.
+// Each row's sum has the thread-per-output kernel's terms in its order
+// (increasing v; every v of a row's window whose taps reach it lies in the
+// walk), so the bits are that kernel's. A band over BAND_T_SMEM bytes (a
+// small |alpha|, alpha = 0 or a subnormal one, a steep intercept, many
+// channels) reads g from global memory with the same arithmetic.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -106,6 +141,14 @@ constexpr int BF_TW = 32;               // output columns a block
 constexpr int BF_TV = 32;               // output rows a block
 constexpr int BF_NW = 8;                // consecutive columns a thread
 constexpr int BAND_SMEM = BF_TV * 512;  // the staged band's bytes (16 KB)
+// the bf16 adjoint's tile (ops/resample.py::adjoint_plan mirrors them):
+// BF_TW source columns by BT_ROWS source rows of BT_THREADS threads, BT_CH
+// channels a walk of v, and its staged band's bytes (4 cotangent rows of 3
+// channels a tile row)
+constexpr int BT_ROWS = 32;
+constexpr int BT_THREADS = 128;
+constexpr int BT_CH = 3;
+constexpr int BAND_T_SMEM = BT_ROWS * 768;
 
 struct Geometry {
   int k0;     // unwrapped index of tap 0
@@ -126,6 +169,35 @@ __device__ __forceinline__ Geometry geometry(float alpha, float icpt, int v) {
   g.e1 = e == 1.f;
   g.f = __fsub_rn(e_in, e);
   return g;
+}
+
+// The candidate rows [v0, v1] of the cotangent whose taps may reach any
+// source row of s_first..s_last in a column at intercept icpt (see the
+// header; for one row, its window): the ends are monotone in s. Empty where
+// v0 > v1. full: alpha = 0, or 1/alpha (inv) overflows (a subnormal alpha).
+__device__ __forceinline__ void walk_range(float inv, bool full, float icpt,
+                                           int s_first, int s_last, int V,
+                                           int& v0, int& v1) {
+  v0 = 0, v1 = V - 1;
+  if (full) return;
+  const float U = floorf(icpt);
+  const float e0 = __fmul_rn(__fsub_rn((float)(s_first - 2), U), inv);
+  const float e1 = __fmul_rn(__fsub_rn((float)(s_last + 1), U), inv);
+  // clip in float first: the ends may be huge or infinite
+  const float lo = fminf(fmaxf(fminf(e0, e1), -2.f), (float)V + 1.f);
+  const float hi = fminf(fmaxf(fmaxf(e0, e1), -2.f), (float)V + 1.f);
+  v0 = max(v0, (int)floorf(lo) - 1);
+  v1 = min(v1, (int)ceilf(hi) + 1);
+}
+
+// The coefficient of tap t = s - k0(v) in output v's lerp, or false where
+// source row s is none of v's taps.
+__device__ __forceinline__ bool tap_coef(const Geometry& g, int s, float& coef) {
+  const int t = s - g.k0;
+  if (t < 0 || t > 2) return false;
+  const float one_f = __fsub_rn(1.f, g.f);
+  coef = t == 0 ? (g.e1 ? 0.f : one_f) : t == 1 ? (g.e1 ? one_f : g.f) : (g.e1 ? g.f : 0.f);
+  return true;
 }
 
 // One thread per output (b, v, w): w across a warp in x, v in y, b in z;
@@ -169,19 +241,10 @@ __global__ void resample_rows_t_kernel(const T* __restrict__ gout,
   if (w >= W || s >= S) return;
   const float a = alpha[b];
   const float ic = icpt[(int64_t)b * W + w];
-  int v0 = 0, v1 = V - 1;
   // 1/alpha overflows for a subnormal alpha: take all of [0, V) there too
   const float inv = __frcp_rn(a);
-  if (a != 0.f && isfinite(inv)) {
-    const float U = floorf(ic);
-    const float e0 = __fmul_rn(__fsub_rn((float)(s - 2), U), inv);
-    const float e1 = __fmul_rn(__fsub_rn((float)(s + 1), U), inv);
-    // clip in float first: the ends may be huge or infinite
-    const float lo = fminf(fmaxf(fminf(e0, e1), -2.f), (float)V + 1.f);
-    const float hi = fminf(fmaxf(fmaxf(e0, e1), -2.f), (float)V + 1.f);
-    v0 = max(v0, (int)floorf(lo) - 1);
-    v1 = min(v1, (int)ceilf(hi) + 1);
-  }
+  int v0, v1;
+  walk_range(inv, !(a != 0.f && isfinite(inv)), ic, s, s, V, v0, v1);
   // the geometry is the same for every channel: CMAX channels per walk
   for (int c0 = 0; c0 < C; c0 += CMAX) {
     const T* gp = gout + ((int64_t)b * C + c0) * V * W + w;
@@ -189,14 +252,8 @@ __global__ void resample_rows_t_kernel(const T* __restrict__ gout,
 #pragma unroll
     for (int c = 0; c < CMAX; ++c) acc[c] = 0.f;
     for (int v = v0; v <= v1; ++v) {
-      const Geometry g = geometry(a, ic, v);
-      const int t = s - g.k0;
-      if (t < 0 || t > 2) continue;
-      const float one_f = __fsub_rn(1.f, g.f);
-      // coefficient of tap t in the forward lerp
-      const float coef = t == 0 ? (g.e1 ? 0.f : one_f)
-                       : t == 1 ? (g.e1 ? one_f : g.f)
-                                : (g.e1 ? g.f : 0.f);
+      float coef;
+      if (!tap_coef(geometry(a, ic, v), s, coef)) continue;
 #pragma unroll
       for (int c = 0; c < CMAX; ++c) {
         if (c0 + c < C)
@@ -366,6 +423,205 @@ __global__ void __launch_bounds__(BF_TW / BF_NW * BF_TV, 6)
   }
 }
 
+// The bf16 adjoint (see the header). A: the elements of one aligned access
+// of a row (8, 4 or 1).
+template <int A>
+__global__ void __launch_bounds__(BT_THREADS)
+    resample_rows_t_bf16_kernel(const bf16* __restrict__ gout,
+                                const float* __restrict__ alpha,
+                                const float* __restrict__ icpt,
+                                bf16* __restrict__ dx, int C, int S, int W,
+                                int V) {
+  constexpr int SR = BT_ROWS, CG = BT_CH;
+  constexpr int R = SR * BF_TW / BT_THREADS;  // rows a thread
+  extern __shared__ __align__(16) unsigned char band_raw[];
+  bf16* band = reinterpret_cast<bf16*>(band_raw);
+  __shared__ __align__(16) bf16 outs[CG][SR][BF_TW];
+  __shared__ int red[2][BT_THREADS / 32];
+  const int lane = threadIdx.x & 31;
+  const int tw0 = blockIdx.x * BF_TW;
+  const int ts0 = blockIdx.y * SR;
+  const int w = tw0 + lane;
+  const int s0 = ts0 + (threadIdx.x >> 5) * R;
+  const int s_last = min(s0 + R, S) - 1;
+  const int b = blockIdx.z;
+  const float a = alpha[b];
+  const float inv = __frcp_rn(a);
+  const bool full = !(a != 0.f && isfinite(inv));
+  const bool live = w < W && s0 < S;
+  const float ic = live ? icpt[(int64_t)b * W + w] : 0.f;
+
+  // 1. the thread's walk of v (its rows' windows), and the tile's band:
+  // the rows of the cotangent any non-empty walk of the tile reads
+  int v0 = 0, v1 = -1;
+  if (live) walk_range(inv, full, ic, s0, s_last, V, v0, v1);
+  int lo_row = v0 <= v1 ? v0 : INT_MAX, hi_row = v0 <= v1 ? v1 : INT_MIN;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo_row = min(lo_row, __shfl_xor_sync(0xffffffffu, lo_row, o));
+    hi_row = max(hi_row, __shfl_xor_sync(0xffffffffu, hi_row, o));
+  }
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) red[0][warp] = lo_row, red[1][warp] = hi_row;
+  __syncthreads();
+  lo_row = red[0][0], hi_row = red[1][0];
+#pragma unroll
+  for (int i = 1; i < BT_THREADS / 32; ++i)
+    lo_row = min(lo_row, red[0][i]), hi_row = max(hi_row, red[1][i]);
+  const int r0 = lo_row;
+  const int64_t rows64 = hi_row >= lo_row ? (int64_t)hi_row - lo_row + 1 : 0;
+  const bool staged = C * rows64 * BF_TW * 2 <= BAND_T_SMEM;
+  const int rows = staged ? (int)rows64 : 0;
+
+  // 2. stage the band: rows r0..hi_row of every channel, the tile's 32
+  // columns, zero past W (and outside [0, V), where no walk reaches)
+  if (staged) {
+    constexpr int PER_ROW = BF_TW / A;
+    constexpr int ROW_STEP = BT_THREADS / PER_ROW;
+    const int chunk = threadIdx.x % PER_ROW;
+    const int col = tw0 + chunk * A;
+    for (int c = 0; c < C; ++c) {
+      const bf16* img = gout + ((int64_t)b * C + c) * V * W + col;
+      bf16* dst_c = band + c * rows * BF_TW + chunk * A;
+      for (int r = threadIdx.x / PER_ROW; r < rows; r += ROW_STEP) {
+        const bool in_img = col < W && r0 + r >= 0 && r0 + r < V;
+        const bf16* src = img + (int64_t)(r0 + r) * W;
+        bf16* dst = dst_c + r * BF_TW;
+        if constexpr (A == 1) {
+          *dst = in_img ? *src : __ushort_as_bfloat16(0);
+        } else {
+          const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+          const bf16* s_ = in_img ? src : gout;
+          if constexpr (A == 8)
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                         "l"(s_), "r"(in_img ? 16 : 0));
+          else
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                         "l"(s_), "r"(in_img ? 8 : 0));
+        }
+      }
+    }
+    if constexpr (A > 1) {
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
+  }
+  __syncthreads();
+
+  // 3. per CG channels: each thread walks its v once, in increasing v,
+  // adding coef_t * g[v] to the running sums of rows k0(v) + t, t = 0, 1,
+  // 2 (three slots that slide with k0, monotone in v: up for alpha >= 0,
+  // down for alpha < 0); a row is done, and rounded into the tile's
+  // output in shared memory, when k0 moves past it. Then the tile's rows
+  // leave in 16-byte stores (8-byte where W % 8 != 0, one element at a
+  // time at the ragged right end).
+  const bool up = !(a < 0.f);
+  const int64_t plane = (int64_t)V * W;
+  for (int c0 = 0; c0 < C; c0 += CG) {
+    const int cg = min(CG, C - c0);
+    if (live) {
+      float acc[3][CG];
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+#pragma unroll
+        for (int c = 0; c < CG; ++c) acc[t][c] = 0.f;
+      // the row of slot 0; slot t holds row base + t (up) or base - t
+      int base = up ? s0 - 2 : s_last + 2;
+      auto emit = [&]() {  // slot 0's row is done: round it, slide
+        if (base >= s0 && base <= s_last) {
+#pragma unroll
+          for (int c = 0; c < CG; ++c)
+            if (c < cg) outs[c][base - ts0][lane] = __float2bfloat16_rn(acc[0][c]);
+        }
+#pragma unroll
+        for (int c = 0; c < CG; ++c) {
+          acc[0][c] = acc[1][c], acc[1][c] = acc[2][c], acc[2][c] = 0.f;
+        }
+        base += up ? 1 : -1;
+      };
+      for (int v = v0; v <= v1; ++v) {
+        const Geometry g = geometry(a, ic, v);
+        const int k = g.k0;
+        if (up) {
+          if (k + 2 < s0) continue;
+          if (k > s_last) break;
+          while (base < k) emit();
+        } else {
+          if (k > s_last) continue;
+          if (k + 2 < s0) break;
+          while (base > k + 2) emit();
+        }
+        const float one_f = __fsub_rn(1.f, g.f);
+        // tap t's coefficient (tap_coef), t = 0, 1, 2, and the slot of
+        // row k + t: t (up) or 2 - t (down)
+        const float c0f = g.e1 ? 0.f : one_f, c1f = g.e1 ? one_f : g.f, c2f = g.e1 ? g.f : 0.f;
+        const float cs[3] = {up ? c0f : c2f, c1f, up ? c2f : c0f};
+        float gv[CG];
+#pragma unroll
+        for (int c = 0; c < CG; ++c) {
+          gv[c] = 0.f;
+          if (c < cg)
+            gv[c] = staged ? __bfloat162float(band[((c0 + c) * rows + v - r0) * BF_TW + lane])
+                           : ld(gout + ((int64_t)b * C + c0 + c) * plane + (int64_t)v * W + w);
+        }
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int c = 0; c < CG; ++c)
+            acc[j][c] = __fadd_rn(acc[j][c], __fmul_rn(cs[j], gv[c]));
+      }
+      if (up) {
+        while (base <= s_last) emit();
+      } else {
+        while (base >= s0) emit();
+      }
+    }
+    __syncthreads();
+    constexpr int PER_ROW = BF_TW / A;
+    for (int i = threadIdx.x; i < cg * SR * PER_ROW; i += BT_THREADS) {
+      const int chunk = i % PER_ROW, r = i / PER_ROW % SR, c = i / (PER_ROW * SR);
+      const int s = ts0 + r, col = tw0 + chunk * A;
+      if (s >= S || col >= W) continue;
+      bf16* dst = dx + (((int64_t)b * C + c0 + c) * S + s) * W + col;
+      const bf16* src = &outs[c][r][chunk * A];
+      if constexpr (A == 8) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else if constexpr (A == 4) {
+        *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+      } else {
+        *dst = *src;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int A>
+cudaError_t launch_adj_bf16_kernel(const bf16* gout, const float* alpha,
+                                   const float* icpt, bf16* dx, int B, int C,
+                                   int S, int W, int V, cudaStream_t s) {
+  static const cudaError_t set = cudaFuncSetAttribute(
+      resample_rows_t_bf16_kernel<A>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BAND_T_SMEM);
+  if (set != cudaSuccess) return set;
+  const dim3 grid((W + BF_TW - 1) / BF_TW, (S + BT_ROWS - 1) / BT_ROWS, B);
+  resample_rows_t_bf16_kernel<A><<<grid, BT_THREADS, BAND_T_SMEM, s>>>(
+      gout, alpha, icpt, dx, C, S, W, V);
+  return cudaSuccess;
+}
+
+int launch_adj_bf16(const bf16* gout, const float* alpha, const float* icpt,
+                    bf16* dx, int B, int C, int S, int W, int V, int tw, int ts,
+                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tw != BF_TW || ts != BT_ROWS) return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      W % 8 == 0   ? launch_adj_bf16_kernel<8>(gout, alpha, icpt, dx, B, C, S, W, V, s)
+      : W % 4 == 0 ? launch_adj_bf16_kernel<4>(gout, alpha, icpt, dx, B, C, S, W, V, s)
+                   : launch_adj_bf16_kernel<1>(gout, alpha, icpt, dx, B, C, S, W, V, s);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
 int launch_fwd_bf16(const bf16* x, const float* alpha, const float* icpt,
                     bf16* out, int B, int C, int S, int W, int V, int tw,
                     int tv, void* stream) {
@@ -431,10 +687,13 @@ extern "C" int gk_resample_rows_bf16(const void* x, const float* alpha,
                          static_cast<bf16*>(out), B, C, S, W, V, tw, tv, stream);
 }
 
+// The bf16 adjoint's (tw, ts) is its tile, BF_TW columns by BT_ROWS source
+// rows (ops/resample.py::adjoint_plan); its grid (ceil(W / tw), ceil(S /
+// ts), B) of BT_THREADS threads.
 extern "C" int gk_resample_rows_t_bf16(const void* gout, const float* alpha,
                                        const float* icpt, void* dx, int B,
-                                       int C, int S, int W, int V,
-                                       void* stream) {
-  return launch_adj(static_cast<const bf16*>(gout), alpha, icpt,
-                    static_cast<bf16*>(dx), B, C, S, W, V, stream);
+                                       int C, int S, int W, int V, int tw,
+                                       int ts, void* stream) {
+  return launch_adj_bf16(static_cast<const bf16*>(gout), alpha, icpt,
+                         static_cast<bf16*>(dx), B, C, S, W, V, tw, ts, stream);
 }

@@ -461,12 +461,23 @@ class BagGANHQ(GANBaseModel):
 
     @contextmanager
     def _step(self, kind):
-        """One step's profiler range, launch counts and (if asked) time."""
+        """One step's profiler range, launch counts and (if asked) time.
+
+        The step's backward passes run on this thread, not on the device's
+        autograd thread. The engine runs ready graph nodes in the order of
+        their sequence numbers, which each thread counts apart; the gradient
+        graph that a double backward (the D step's gradient penalty, R1,
+        PPL) builds on the device's thread is numbered from that thread's
+        count, so the engine interleaved it with the forward graph in
+        another order on the first run in a process than on later ones, and
+        summed some gradients in another order: a training run's bits
+        depended on what the process had run before."""
         before = dict(_build.LAUNCHES)
         if self.time_steps:
             self._sync()
             t0 = time.perf_counter()
-        with record_function(PROFILE_RANGES[kind]):
+        with record_function(PROFILE_RANGES[kind]), \
+                torch.autograd.set_multithreading_enabled(False):
             yield
         if self.time_steps:
             self._sync()

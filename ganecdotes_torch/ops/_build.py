@@ -119,9 +119,10 @@ _SIGNATURES = {
     "gk_resample_rows": [P] * 4 + [I] * 7 + [P],
     # g, alpha, intercept, dx, B, C, S, W, V, stream
     "gk_resample_rows_t": [P] * 4 + [I] * 5 + [P],
-    # their bf16 instances (alpha and intercept float32)
+    # their bf16 kernels (alpha and intercept float32), with their tiles:
+    # (tw, tv) and (tw, ts) after B, C, S, W, V
     "gk_resample_rows_bf16": [P] * 4 + [I] * 7 + [P],
-    "gk_resample_rows_t_bf16": [P] * 4 + [I] * 5 + [P],
+    "gk_resample_rows_t_bf16": [P] * 4 + [I] * 7 + [P],
 }
 
 _lib = None

@@ -20,9 +20,11 @@ drawn, never differentiated.
 A bfloat16 image (or cotangent) launches the kernels' bf16 instances
 (counted as ``resample_rows_bf16`` / ``resample_rows_t_bf16``; alpha and
 the intercepts stay float32, the lerp and the sums run in fp32 and round
-once on the store): the forward a kernel of its own, 8 consecutive columns
-a thread from a band of source rows staged in shared memory
-(``forward_plan``); any other type but float32 raises.
+once on the store): each a kernel of its own reading a band of rows
+staged in shared memory, the forward 8 consecutive columns of an output
+row a thread (``forward_plan``), the adjoint 8 consecutive rows of a
+column of dx a thread, walking the cotangent's rows once
+(``adjoint_plan``); any other type but float32 raises.
 """
 
 import torch
@@ -43,11 +45,18 @@ def resample_rows_t_ref(g, alpha, intercept, src_len):
 
 GRID_MAX = 65535  # the grid's y and z extents
 FWD_BLOCK = (32, 8)  # the forward's block: 32 columns w (one warp) x 8 rows v
+ADJ_ROWS = 8  # the float32 adjoint's block rows (its columns as FWD_BLOCK's)
 # csrc/affine_warp.cu: the bf16 forward's tile (BF_TW columns x BF_TV rows),
 # the consecutive columns a thread (BF_NW) and the staged band's bytes
 BF16_TILE = (32, 32)
 BF16_COLUMNS = 8
 BAND_SMEM = 16 * 1024
+# the bf16 adjoint's tile: 32 columns by BF16_ADJ_ROWS source rows of
+# BF16_ADJ_THREADS threads, and its staged band's bytes (the C entry checks
+# the tile)
+BF16_ADJ_ROWS = 32
+BF16_ADJ_THREADS = 128
+BAND_T_SMEM = BF16_ADJ_ROWS * 768
 
 
 def forward_plan(b, v, w, dtype=torch.float32):
@@ -63,6 +72,25 @@ def forward_plan(b, v, w, dtype=torch.float32):
     BF16_COLUMNS, where v < V and w < W."""
     tw, tv = BF16_TILE if dtype is torch.bfloat16 else FWD_BLOCK
     return (tw, tv), (-(-w // tw), -(-v // tv), b)
+
+
+def adjoint_plan(b, s, w, dtype=torch.float32):
+    """The adjoint kernel's launch: (tw, ts) and the grid (ceil(W / tw),
+    ceil(S / ts), B).
+
+    float32: a block of (tw, ts) threads; thread (x, y) of block (i, j, k)
+    computes dx (b, s, w) = (k, j*ts + y, i*tw + x) for every channel.
+
+    bf16: a tile of tw columns x ts = BF16_ADJ_ROWS source rows of
+    BF16_ADJ_THREADS threads; thread t of block (i, j, k)
+    sums dx (k, j*ts + n*(t // 32) + e, i*tw + t % 32), n = ts * tw /
+    BF16_ADJ_THREADS consecutive rows of one column, for e < n, where s < S
+    and w < W (the tile's rows leave through shared memory)."""
+    if dtype is torch.bfloat16:
+        tw, ts = BF16_TILE[0], BF16_ADJ_ROWS
+    else:
+        tw, ts = FWD_BLOCK[0], ADJ_ROWS
+    return (tw, ts), (-(-w // tw), -(-s // ts), b)
 
 
 def _launch(kernel, entry, src, alpha, intercept, out_rows):
@@ -87,11 +115,13 @@ def _launch(kernel, entry, src, alpha, intercept, out_rows):
                              f"{tv * GRID_MAX} output rows")
         geometry = [src.shape[2], w, out_rows, tw, tv]
     else:
-        # the adjoint's grid: one block row per 8 source rows, one z per image
-        if b > GRID_MAX or out_rows > 8 * GRID_MAX:
+        (tw, ts), (_, gy, gz) = adjoint_plan(b, out_rows, w, dtype)
+        if gy > GRID_MAX or gz > GRID_MAX:
             raise ValueError(f"{kernel}: at most {GRID_MAX} images and "
-                             f"{8 * GRID_MAX} source rows")
+                             f"{ts * GRID_MAX} source rows")
         geometry = [out_rows, w, src.shape[2]]
+        if dtype is torch.bfloat16:
+            geometry += [tw, ts]
     out = torch.empty((b, c, out_rows, w), dtype=src.dtype, device=src.device)
     if out.numel() == 0:
         return out

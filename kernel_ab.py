@@ -31,15 +31,16 @@ iteration:
     path's (8, 512) under inference mode, in microseconds (the host clock
     over 1000 calls enqueued without a sync; the card is faster than the
     host there), beside the CUDA-event time per call;
-  * resample_rows at BagGAN-HQ's two pass shapes (this turn's checkout's
-    chip_smoke.py draws them from a fixed seed), ``ms`` per augment call;
+  * resample_rows and its adjoint resample_rows_t at BagGAN-HQ's two pass
+    shapes (this turn's checkout's chip_smoke.py draws them from a fixed
+    seed), ``ms`` per augment call;
   * the bf16 FIR (``upfirdn2d_bf16``) at the D blur and ADA shapes, ms per
     call, ``ms`` summing the D shapes; at the request's to_rgb upsamples
     (``upfirdn2d_bf16_request``, ms a request of 8); the FIR wrapper's host
     time a call at (8, 128^2, 3), bf16 and float32 (``upfirdn2d_bf16_host``,
     ``upfirdn2d_host``: ``ms`` holds microseconds, as ``fused_act_host``);
-    and resample_rows in bf16 at the two pass shapes
-    (``resample_rows_bf16``, ms an augment call);
+    and resample_rows and resample_rows_t in bf16 at the two pass shapes
+    (``resample_rows_bf16``, ``resample_rows_t_bf16``, ms an augment call);
   * the bf16 StyledConvs at chip_smoke.py's phase 16 (a) shapes:
     ``styled_conv3x3_bf16`` and ``styled_up_conv3x3_bf16`` at the ffhq-256
     request of 8 (ms per request, each layer's time times its calls, and
@@ -89,6 +90,14 @@ times, in one checkout, the bf16 FIR at the D blur and ADA shapes under
 each tile of FIR_PLANS beside the plan's own (``ops/upfirdn2d.py::
 _plan_bf16``), with the share of the bytes bound and the float32 kernel's
 time: the measurement the bf16 plan is read from.
+
+    python3 kernel_ab.py --backward-threads DIR [--rounds N] [--out PATH]
+
+times, in one checkout, BagGANHQ's D and G steps at the pidray config in
+bf16 and float32 (ADA p 0.6, iteration 1), each step's backward on the
+calling thread (``BagGANHQ._step``, the trainer's) and on the device's
+autograd thread, in alternating turns in one process: what running the
+backward on the calling thread costs the steps.
 
     python3 kernel_ab.py --ops-route DIR [--out PATH]
 
@@ -207,13 +216,7 @@ def time_bf16_memory(cs, dev, cases):
                         x, blur4, up=2, down=1, pad=(2, 1))),
                     "event_ms_8x128x128x3": cs.time_ms(lambda x=x: upfirdn2d.upfirdn2d(
                         x, blur4, up=2, down=1, pad=(2, 1)))}
-    passes = {}
-    for case, x, alpha, icpt, out_len, calls in cs.resample_cases(dev):
-        if calls:
-            x = x.to(torch.bfloat16)
-            passes[case] = cs.time_ms(lambda x=x, a=alpha, i=icpt, n=out_len:
-                                      resample.resample_rows(x, a, i, n))
-    out["resample_rows_bf16"] = {"ms": sum(passes.values()), "cases_ms": passes}
+    out.update(time_resample(cs, dev, torch.bfloat16))
     return out
 
 
@@ -256,15 +259,92 @@ def time_fused_act(cs, dev):
             "fused_act_host": {"ms": host_us, "event_ms_8x512": event_ms}}
 
 
-def time_resample(cs, dev):
+def time_resample(cs, dev, dtype=None):
+    """resample_rows and resample_rows_t at the two pass shapes, float32 or
+    ``dtype`` (keys ``..._bf16``), ms an augment call."""
+    import torch
+
     from ganecdotes_torch.ops import resample
 
-    cases = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    fwd, adj = {}, {}
     for case, x, alpha, icpt, out_len, calls in cs.resample_cases(dev):
         if calls:
-            cases[case] = cs.time_ms(lambda x=x, a=alpha, i=icpt, n=out_len:
-                                     resample.resample_rows(x, a, i, n))
-    return {"resample_rows": {"ms": sum(cases.values()), "cases_ms": cases}}
+            x = x.to(dtype or x.dtype)
+            g = torch.randn(x.shape[0], x.shape[1], out_len, x.shape[3], generator=gen,
+                            device=dev).to(x.dtype)
+            fwd[case] = cs.time_ms(lambda x=x, a=alpha, i=icpt, n=out_len:
+                                   resample.resample_rows(x, a, i, n))
+            adj[case] = cs.time_ms(lambda g=g, a=alpha, i=icpt, n=x.shape[2]:
+                                   resample.resample_rows_t(g, a, i, n))
+    tag = "_bf16" if dtype is torch.bfloat16 else ""
+    return {"resample_rows" + tag: {"ms": sum(fwd.values()), "cases_ms": fwd},
+            "resample_rows_t" + tag: {"ms": sum(adj.values()), "cases_ms": adj}}
+
+
+def backward_threads(root, out_path, rounds):
+    """The ``--backward-threads`` table: per compute type, ``rounds`` turns
+    of each mode (calling thread, device thread; the order alternating),
+    each turn two iterations' D and G steps (host clock, the card synced
+    around each step), ms per step kind: every turn's median and the
+    medians of the turns."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, root)
+    import chip_smoke as cs
+    from ganecdotes_torch import resolve_device
+    from ganecdotes_torch.gan.train import BagGANHQ
+    from ganecdotes_torch.ops._build import load
+    from ganecdotes_torch.ops.opset import KERNELS
+
+    dev = resolve_device("cuda")
+    load()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(smi, flush=True)
+    calling = torch.autograd.set_multithreading_enabled
+    out = {"card": smi}
+    for dtype in ("bfloat16", None):
+        cfg = cs.pidray_config(os.path.join(os.getcwd(), "build", "kernel_ab_threads"))
+        cfg.compute_dtype = dtype
+        gan = BagGANHQ(cfg, seed=0, device=dev, ops=KERNELS)
+        gan.ada_state["p"].fill_(0.6)
+        rng = np.random.RandomState(3)
+        real = (rng.rand(cfg.batch_size, cfg.image_size, cfg.image_size,
+                         cfg.num_channels) * 2 - 1).astype(np.float32)
+        turns = {"calling": [], "device": []}
+        for i in range(rounds + 1):  # a warm-up turn, then the pairs
+            order = ("calling", "device") if i % 2 else ("device", "calling")
+            for mode in order:
+                if mode == "device":
+                    torch.autograd.set_multithreading_enabled = (
+                        lambda flag: contextlib.nullcontext())
+                try:
+                    gan.time_steps = True
+                    gan.step_ms = {k: [] for k in gan.step_ms}
+                    for _ in range(2):
+                        gan.set_input({"ct": real}, iter_no=1)
+                        gan.optimize_parameters()
+                finally:
+                    torch.autograd.set_multithreading_enabled = calling
+                if i:
+                    turns[mode].append({k: statistics.median(v)
+                                        for k, v in gan.step_ms.items() if v})
+        out[dtype or "float32"] = {
+            "turns": turns,
+            "median": {mode: {k: statistics.median(t[k] for t in ts) for k in ts[0]}
+                       for mode, ts in turns.items()}}
+        print(json.dumps({dtype or "float32": out[dtype or "float32"]["median"]}), flush=True)
+        del gan
+        torch.cuda.empty_cache()
+    if out_path:
+        os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+        with open(out_path, "w") as f:
+            json.dump(out, f, indent=1)
 
 
 ELEMENTWISE_TAGS = {"fused_act": "fused_leaky_relu", "torch_elementwise": "elementwise_kernel",
@@ -762,6 +842,9 @@ def main():
     parser.add_argument("--fir-plans", metavar="DIR",
                         help="time the bf16 FIR's tiles at the D and ADA shapes "
                              "in this checkout")
+    parser.add_argument("--backward-threads", metavar="DIR",
+                        help="time the GAN steps with the backward on the calling "
+                             "thread and on the device's thread in this checkout")
     parser.add_argument("--ops-route", metavar="DIR",
                         help="time the live server on the wrappers against "
                              "the custom ops in this checkout")
@@ -780,9 +863,12 @@ def main():
     if args.fir_plans:
         fir_plans(os.path.abspath(args.fir_plans), args.out)
         return 0
+    if args.backward_threads:
+        backward_threads(os.path.abspath(args.backward_threads), args.out, args.rounds)
+        return 0
     if not (args.base and args.new):
-        parser.error("give BASE_DIR and NEW_DIR, --variants DIR, --fir-plans DIR "
-                     "or --ops-route DIR")
+        parser.error("give BASE_DIR and NEW_DIR, --variants DIR, --fir-plans DIR, "
+                     "--backward-threads DIR or --ops-route DIR")
     if args.worker:
         worker(os.path.abspath(args.worker), json.loads(args.cases), args.paths_only)
         return 0

@@ -134,3 +134,25 @@ def test_cli_chunk_3_equals_chunk_1(tmp_path):
         for a, b in zip(getattr(g1, net).state_dict().values(),
                         getattr(g3, net).state_dict().values()):
             assert torch.equal(a, b)
+
+
+def test_every_step_runs_its_backward_on_the_calling_thread(tmp_path, monkeypatch):
+    """Each step kind's gradients (D with WGAN-GP's gradient of a gradient,
+    R1, G, PPL: iteration 0 runs all four) are taken with the autograd
+    engine's device threads off: on a card, a double backward's gradient
+    graph built on the device's thread was numbered from that thread's own
+    count, and the engine ran it in another order on the first run in a
+    process than on later ones (chip_smoke.py's phase 16 (d))."""
+    grad = torch.autograd.grad
+    threaded = []
+
+    def recording(*args, **kwargs):
+        threaded.append(torch._C._is_multithreading_enabled())
+        return grad(*args, **kwargs)
+
+    monkeypatch.setattr(torch.autograd, "grad", recording)
+    gan = tt.BagGANHQ(_cfg(tmp_path), seed=3, device="cpu")
+    gan.set_input(_batches(1)[0], iter_no=0)
+    gan.optimize_parameters()
+    assert len(threaded) >= 6 and not any(threaded)
+    assert torch._C._is_multithreading_enabled()

@@ -1209,8 +1209,10 @@ def test_bf16_memory_bound_kernels_match_plain(cuda):
     ADA's y pass as 4-channel columns; 13 x 37 outputs over 8 x 32 tiles)
     and the bf16 forward pass's (W = 36, 40 and 37: 8-byte, 16-byte and
     2-byte rows, a ragged last run of 8; V = 70: a ragged second tile of
-    rows; a steep alpha whose band outgrows the shared buffer), each
-    launched twice, bit-equal."""
+    rows; a steep alpha whose band outgrows the shared buffer) and
+    adjoint's (the same widths, S = 70 and 20, steep intercepts, C = 4),
+    each launched twice, bit-equal, the adjoint's bits also the float32
+    kernel's rounded once."""
     from ganecdotes_torch.ops import resample as trs
 
     bf = torch.bfloat16
@@ -1258,6 +1260,28 @@ def test_bf16_memory_bound_kernels_match_plain(cuda):
                    lambda xr=xr, al=al, ic=ic, v=v: trs.resample_rows_ref(xr.float(), al, ic, v),
                    "resample_rows")
         assert torch.equal(run(), run()), (w, v, a)
+    # the bf16 adjoint's tiles: 8-byte, 16-byte and 2-byte rows, S = 70 and
+    # 20 (a ragged last tile of 32 source rows, and less than one),
+    # intercepts climbing 4 rows a column over V = 300 (bands over the
+    # shared buffer: read from the cotangent), and C = 4 (a walk of 3
+    # channels, then one); the float32 kernel adds the same terms in the
+    # same order, so its sums rounded once are the bf16 kernel's bits
+    for c, w, s_len, v, a, slope in ((3, 36, 70, 48, 0.9, 0.5), (3, 40, 70, 48, -1.1, 0.5),
+                                     (3, 37, 20, 48, 0.7, 0.5), (3, 40, 70, 300, 1.0, 4.0),
+                                     (4, 40, 70, 48, 0.9, 0.5)):
+        gr = torch.randn(2, c, v, w, generator=g, device=cuda).to(bf)
+        al = torch.tensor([a, -a], device=cuda)
+        ic = ((torch.arange(w, device=cuda) - w / 2) * slope
+              + torch.rand(2, w, generator=g, device=cuda) * s_len
+              + torch.tensor([[-0.5 * a * v], [0.5 * a * v]], device=cuda))
+        run = lambda gr=gr, al=al, ic=ic, s=s_len: trs.resample_rows_t(gr, al, ic, s)
+        _bf16_gate(run,
+                   lambda gr=gr, al=al, ic=ic, s=s_len: trs.resample_rows_t_ref(gr, al, ic, s),
+                   lambda gr=gr, al=al, ic=ic, s=s_len: trs.resample_rows_t_ref(
+                       gr.float(), al, ic, s), "resample_rows_t")
+        assert torch.equal(run(), run()), (c, w, s_len, v, a)
+        assert torch.equal(run(), trs.resample_rows_t(gr.float(), al, ic, s_len).to(bf)), \
+            (c, w, s_len, v, a)
     xr = torch.randn(2, 3, 24, 16, generator=g, device=cuda).to(bf)
     alpha = torch.tensor([0.9, -1.1], device=cuda)
     icpt = torch.rand(2, 16, generator=g, device=cuda) * 20
@@ -1271,3 +1295,176 @@ def test_bf16_memory_bound_kernels_match_plain(cuda):
                "resample_rows_t")
     with pytest.raises(TypeError, match="fused_leaky_relu: x is torch.float16"):
         tfa.fused_leaky_relu(x.half(), None)
+
+
+# ---------------------------------------------------------------------------
+# every kernel against memory that nothing wrote
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module: its phase 16 (a) shapes and its
+    ``fill_free_memory``."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def _randn(shape, g, dev, dtype):
+    return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+
+def _act_cases(dtype, dev, g):
+    shapes = [(3, 7, 6), (5, 3), (37, 1), (2, 5, 4), (3, 1040), (20, 16, 16, 512)]
+    shapes += [shape for kname, _, shape, _, _ in _chip_smoke().gan_d_shapes()
+               if kname == "fused_leaky_relu"]
+    for shape in shapes:
+        x = _randn(shape, g, dev, dtype)
+        b = torch.randn(shape[-1], generator=g, device=dev)
+        yield f"act {shape}", lambda x, b: tfa.fused_leaky_relu(x, b), (x, b)
+        y, gy = tfa.fused_leaky_relu(x, b), _randn(shape, g, dev, dtype)
+        yield f"act bwd {shape}", lambda gy, y: tfa.fused_leaky_relu_bwd(gy, y), (gy, y)
+
+
+def _fir_cases(dtype, dev, g):
+    cs = _chip_smoke()
+    blur, blur4 = tup.make_kernel((1, 3, 3, 1)), tup.make_kernel((1, 3, 3, 1), gain=4)
+    firs = [((2, 9, 11, 5), blur4, 2, 1, (2, 1)), ((2, 9, 11, 5), blur4, (2, 1), 1, (2, 1, 0, 0)),
+            ((2, 13, 37, 40), blur, 1, 1, (2, 2)), ((3, 14, 38, 16), blur, 1, 1, (1, 1)),
+            ((2, 16, 16, 24), blur, 1, 2, (1, 1)), ((2, 9, 12, 3), SYM6[:, None], (1, 2), 1,
+                                                    (0, 0, 6, 5)),
+            ((2, 9, 10, 3), SYM6[None], (2, 1), 1, (6, 5, 0, 0))]
+    for ax in FIR_AXES:  # every (up, down) pair, ragged, at a thread's 1 and 4 channels
+        for ay in FIR_AXES:
+            (ux, dx), (uy, dy) = FIR_AXES[ax], FIR_AXES[ay]
+            for c in (3, 128):
+                firs.append(((2, 37, 70, c), _fir_kernel("sym6"), (ux, uy), (dx, dy),
+                             (6, -1, -2, 6)))
+    firs += [(sh, blur4, 2, 1, (2, 1)) for sh, _ in cs.path_shapes()["upfirdn2d"]]
+    firs += [(shape, blur, 1, 1, tuple(pad)) for kname, _, shape, pad, _ in cs.gan_d_shapes()
+             if kname == "upfirdn2d"]
+    firs += [(shape, k2, up, down, pad) for _, shape, k2, up, down, pad in cs.gan_fir_shapes()]
+    for shape, k2, up, down, pad in firs:
+        x = _randn(shape, g, dev, dtype)
+        yield (f"fir {shape} up {up} down {down} pad {pad}",
+               lambda x, k2=k2, up=up, down=down, pad=pad: tup.upfirdn2d(x, k2, up, down, pad),
+               (x,))
+
+
+STYLED_RAGGED = [(3, 5, 7, 36, 20), (1, 9, 3, 4, 132), (3, 13, 6, 40, 136), (20, 7, 5, 64, 4),
+                 (1, 11, 9, 32, 100), (8, 16, 16, 512, 124), (2, 8, 8, 512, 512)]
+STYLED_RAGGED_BF16 = [(3, 16, 16, 64, 16), (2, 32, 32, 16, 32), (1, 4, 4, 24, 40),
+                      (3, 5, 7, 72, 24), (20, 4, 4, 512, 512), (2, 9, 72, 64, 136),
+                      (1, 3, 130, 16, 264)]
+
+
+def _styled_cases(dtype, dev, g, up):
+    """Kernels 3 (up False) and 4 (up True): float32 through both variants
+    (the 3xTF32 GEMMs and the narrow kernel at every split), bf16 through
+    the wgmma bodies; ragged shapes and phase 16 (a)'s."""
+    name = "styled_up_conv3x3" if up else "styled_conv3x3"
+    fn = getattr(tmc, name)
+    cs = _chip_smoke()
+    phase = [(shape, nb) for n, _, shape, _, nb in cs.bf16_styled_shapes() if n == name]
+    taps = tmc._blur_taps(name, (1, 3, 3, 1))
+    if dtype is torch.bfloat16:
+        for shape, nb in [(s, 1) for s in STYLED_RAGGED_BF16] + phase:
+            a = cs.styled_inputs(shape, up, g, dev, nb)
+            a = [a[0].to(dtype), a[1], a[2].to(dtype), a[3].to(dtype), *a[4:]]
+            yield f"{name} bf16 {shape} nb {nb}", lambda *a: fn(*a), a
+        return
+    for shape in STYLED_RAGGED:
+        a = cs.styled_inputs(shape, up, g, dev, shape[0])
+        out = (shape[0], 2 * shape[1], 2 * shape[2], shape[4]) if up else shape[:3] + shape[4:]
+        if up:
+            body = lambda *a, out=out: tmc._tf32x3_up_conv_forward(*a, taps, out)
+        else:
+            body = lambda *a, out=out: tmc._tf32x3_conv_forward(*a, out)
+        yield f"{name} tf32x3 {shape}", body, a
+    for cout in tmc.NARROW_COUTS:
+        for nsplit in (1, 2, 3, 8):
+            shape = (3, 13, 37, 120 if nsplit > 3 else 36, cout)
+            a = cs.styled_inputs(shape, up, g, dev, 3)
+            yield (f"{name} narrow {shape} split {nsplit}",
+                   lambda *a, n=nsplit: tmc._narrow_forward(name, *a, up=up, taps=taps,
+                                                            nsplit=n), a)
+    for shape, nb in phase:  # the wrapper's own variant
+        a = cs.styled_inputs(shape, up, g, dev, nb)
+        yield f"{name} {shape} nb {nb}", lambda *a: fn(*a), a
+
+
+def _sinkhorn_cases(dtype, dev, g):
+    for b, k, niters, eps in ((64, 128, 10, 0.005), (1999, 1237, 3, 0.05), (130, 7, 2, 0.5),
+                              (20000, 5000, 10, 0.05), (2003, 5001, 1, 0.05),
+                              (257, 8192, 1, 0.05)):
+        scores = torch.randn(b, k, generator=g, device=dev)
+        r = torch.rand(k, generator=g, device=dev) + 0.1
+        c = torch.rand(b, generator=g, device=dev) + 0.1
+        yield (f"sinkhorn {(b, k, niters)}",
+               lambda s, r, c, n=niters, e=eps: tsk.sinkhorn_knopp(s, n, e, r, c),
+               (scores, r / r.sum(), c / c.sum()))
+
+
+def _resample_cases(dtype, dev, g):
+    from ganecdotes_torch.ops import resample as trs
+
+    cases = []
+    for shape in ((2, 3, 40, 36, 29), (3, 1, 101, 77, 59), (1, 2, 9, 300, 120),
+                  (2, 4, 33, 41, 70)):
+        for negative, alpha in ((False, None), (True, None), (False, 0.0), (True, 0.05),
+                                (True, 1e-40)):
+            x, a, icpt, v = _pass_case(*shape, negative, dev, alpha=alpha)
+            cases.append((f"{shape} neg {negative} alpha {alpha}", x, a, icpt, v))
+    for w, v, a in ((36, 70, 0.9), (40, 70, -1.1), (37, 20, 0.7), (40, 70, 3.0)):
+        ic = (torch.arange(w, device=dev) * 0.5 + 40
+              + torch.rand(2, w, generator=g, device=dev))
+        cases.append((f"tile W {w} V {v} alpha {a}", torch.randn(2, 3, 200, w, generator=g,
+                      device=dev), torch.tensor([a, -a], device=dev), ic, v))
+    for case, x, a, icpt, v, _ in _chip_smoke().resample_cases(dev):
+        cases.append((case, x, a, icpt, v))
+    for case, x, a, icpt, v in cases:
+        x = x.to(dtype)
+        gout = _randn((x.shape[0], x.shape[1], v, x.shape[3]), g, dev, dtype)
+        yield (f"resample {case}",
+               lambda x, a, i, v=v: trs.resample_rows(x, a, i, v), (x, a, icpt))
+        yield (f"resample_t {case}",
+               lambda g, a, i, s=x.shape[2]: trs.resample_rows_t(g, a, i, s), (gout, a, icpt))
+
+
+UNWRITTEN_GROUPS = {
+    "fused_act": _act_cases, "upfirdn2d": _fir_cases,
+    "styled_conv3x3": lambda d, dev, g: _styled_cases(d, dev, g, False),
+    "styled_up_conv3x3": lambda d, dev, g: _styled_cases(d, dev, g, True),
+    "sinkhorn": _sinkhorn_cases, "resample": _resample_cases}
+UNWRITTEN_FILL_BYTES = 16 << 30  # far more than any case allocates
+
+
+@pytest.mark.parametrize("group,dtype", [(k, d) for k in UNWRITTEN_GROUPS
+                                         for d in ("float32", "bfloat16")
+                                         if (k, d) != ("sinkhorn", "bfloat16")])
+def test_kernels_read_only_what_they_write(cuda, group, dtype):
+    """Every kernel (its float32 and bf16 instances, both float32 StyledConv
+    variants, ragged shapes and phase 16 (a)'s) run once after the caching
+    allocator's free memory was filled with 0xFF bytes (NaN in float32 and
+    bf16) and once after it was filled with zeros, its inputs copied and
+    its outputs and scratch allocated after each fill: the two results
+    equal bit for bit, so no kernel reads memory that nothing wrote."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    cs = _chip_smoke()
+    differ = []
+    for label, fn, args in UNWRITTEN_GROUPS[group](getattr(torch, dtype), cuda, g):
+        outs = []
+        for byte in (cs.POISON, cs.ZERO):
+            cs.fill_free_memory(byte, cuda, UNWRITTEN_FILL_BYTES)
+            got = fn(*[a.clone() for a in args])
+            outs.append(got if isinstance(got, tuple) else (got,))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            differ.append(label)
+    assert not differ, differ

@@ -560,9 +560,8 @@ def test_wgmma_im2col_up_conv_matches_jax(shape, noise_b):
         np.testing.assert_allclose(_np(out), np.asarray(ref(*jargs)), **UP_TOL)
 
 
-def _phase16_styled_shapes():
-    """chip_smoke.py's phase 16 (a) StyledConv rows: the ffhq-256 request of
-    8, the pidray G step at B = 20 at the rosinality and lean widths."""
+def _chip_smoke():
+    """chip_smoke.py as a module (its phase 16 (a) shapes and ADA draw)."""
     import importlib.util
     import os
 
@@ -570,8 +569,14 @@ def _phase16_styled_shapes():
     spec = importlib.util.spec_from_file_location("chip_smoke_shapes", path)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def _phase16_styled_shapes():
+    """chip_smoke.py's phase 16 (a) StyledConv rows: the ffhq-256 request of
+    8, the pidray G step at B = 20 at the rosinality and lean widths."""
     return [(name == "styled_up_conv3x3", shape)
-            for name, _, shape, _, _ in cs.bf16_styled_shapes()]
+            for name, _, shape, _, _ in _chip_smoke().bf16_styled_shapes()]
 
 
 @pytest.mark.parametrize("up", [False, True], ids=["conv", "up_conv"])
@@ -649,7 +654,8 @@ def _window(alpha, icpt, s_len, v_len):
 
 def _gather_adjoint(g, alpha, icpt, s_len):
     """dx[b, c, s, w] = sum over the candidate v of coef_t(v) * g[b, c, v, w],
-    t = s - k0(v) in {0, 1, 2}."""
+    t = s - k0(v) in {0, 1, 2}, summed in increasing v (the kernels' order:
+    one rounded add per member, a non-member adding an exact zero)."""
     b, c, v_len, w = g.shape
     v0, v1 = _window(alpha, icpt, s_len, v_len)
     span = int((v1 - v0).max()) + 1
@@ -667,7 +673,11 @@ def _gather_adjoint(g, alpha, icpt, s_len):
     gv = g[torch.arange(b)[:, None, None, None, None],
            torch.arange(c)[None, :, None, None, None], cand[:, None],
            torch.arange(w)[None, None, None, :, None]]
-    return (coef[:, None] * gv).sum(-1)
+    terms = coef[:, None] * gv
+    out = torch.zeros(terms.shape[:-1])
+    for i in range(span):
+        out = out + terms[..., i]
+    return out
 
 
 @pytest.mark.parametrize("alpha", [None, "neg", 0.0, 0.05, -0.05, 1e-40],
@@ -843,6 +853,208 @@ def test_resample_bf16_forward_threads_cover_each_output_once(w, alpha):
     assert torch.equal(ours, plain)
     want = jawp.resample_rows(jnp.asarray(x.numpy()), jnp.asarray(a), jnp.asarray(icpt), v_len)
     np.testing.assert_allclose(_np(ours), np.asarray(want), **ADJ_TOL)
+
+
+def _walk_range(alpha, icpt, s_first, s_last, v_len):
+    """csrc/affine_warp.cu walk_range(): the candidate rows [v0, v1] of the
+    cotangent for source rows s_first..s_last of a column (the union of
+    their ``_window``s); all of [0, V) where alpha = 0 or 1/alpha
+    overflows. Broadcasts."""
+    inv = 1 / alpha
+    full = (alpha == 0) | ~torch.isfinite(inv)
+    inv = torch.where(full, 0.0, inv)
+    U = torch.floor(icpt)
+    e0 = ((s_first - 2).to(torch.float32) - U) * inv
+    e1 = ((s_last + 1).to(torch.float32) - U) * inv
+    lo = torch.minimum(e0, e1).clamp(-2, v_len + 1)
+    hi = torch.maximum(e0, e1).clamp(-2, v_len + 1)
+    v0 = (torch.floor(lo).to(torch.int64) - 1).clamp(min=0)
+    v1 = (torch.ceil(hi).to(torch.int64) + 1).clamp(max=v_len - 1)
+    full = full.expand_as(v0)
+    return torch.where(full, 0, v0), torch.where(full, v_len - 1, v1)
+
+
+def _adjoint_pass_bf16(g, alpha, icpt, s_len):
+    """csrc/affine_warp.cu's bf16 adjoint at the wrapper's launch
+    (``adjoint_plan``), block by block, its threads at once: thread t of a
+    tile takes column t % 32 and ts / 4 consecutive source rows; its walk
+    of v (``_walk_range``); the tile's band of cotangent rows reduced from
+    the non-empty walks, staged (the tile's columns, zero past W) where all
+    channels fit ``BAND_T_SMEM`` bytes, else read from the cotangent (every
+    staged read, unchecked in the kernel, checked here to lie in the band);
+    the walk in increasing v adding coef_t * g[v] to three slots, rows k0(v)
+    + t, that slide with k0 (up for alpha >= 0, down for alpha < 0), a row
+    emitted when k0 moves past it or at the walk's end. Returns the emitted
+    fp32 sums (before the rounding), how often each (b, s, w) was emitted,
+    and how many tiles were staged and not."""
+    b, c, v_len, w = g.shape
+    (tw, ts), (gx, gy, gz) = trs.adjoint_plan(b, s_len, w, torch.bfloat16)
+    threads = trs.BF16_ADJ_THREADS
+    r_n = ts * tw // threads
+    assert gy <= trs.GRID_MAX and gz <= trs.GRID_MAX and r_n * threads == ts * tw
+    out = torch.zeros(b, c, s_len, w)
+    hits = torch.zeros(b, s_len, w, dtype=torch.int64)
+    tiles = {"staged": 0, "direct": 0}
+    for k in range(gz):
+        a = alpha[k]
+        up = not bool(a < 0)
+        step_dir = 1 if up else -1
+        for j in range(gy):
+            for i in range(gx):
+                t = torch.arange(threads)
+                ww = i * tw + t % 32
+                s0 = j * ts + (t // 32) * r_n
+                live = (ww < w) & (s0 < s_len)
+                ww, s0 = ww[live], s0[live]
+                s_last = torch.clamp(s0 + r_n, max=s_len) - 1
+                ic = icpt[k, ww]
+                v0, v1 = _walk_range(a, ic, s0, s_last, v_len)
+                some = v0 <= v1
+                r0 = int(v0[some].min()) if bool(some.any()) else 0
+                n_rows = int(v1[some].max()) - r0 + 1 if bool(some.any()) else 0
+                staged = c * n_rows * tw * 2 <= trs.BAND_T_SMEM
+                tiles["staged" if staged else "direct"] += 1
+                if staged:  # rows r0.., zero past W (and outside [0, V))
+                    band = torch.zeros(c, n_rows, tw)
+                    cols = slice(i * tw, min(i * tw + tw, w))
+                    band[:, :, :cols.stop - cols.start] = g[k, :, r0:r0 + n_rows, cols]
+                n = len(ww)
+                acc = torch.zeros(3, c, n)
+                base = s0 - 2 if up else s_last + 2
+                done = torch.zeros(n, dtype=torch.bool)
+
+                def emit(m):
+                    nonlocal acc, base
+                    keep = m & (base >= s0) & (base <= s_last)
+                    out[k, :, base[keep], ww[keep]] = acc[0][:, keep]
+                    hits[k].index_put_((base[keep], ww[keep]),
+                                       torch.ones(int(keep.sum()), dtype=torch.int64),
+                                       accumulate=True)
+                    shifted = torch.stack([acc[1], acc[2], torch.zeros_like(acc[0])])
+                    acc = torch.where(m, shifted, acc)
+                    base = torch.where(m, base + step_dir, base)
+
+                span = int((v1 - v0).max()) + 1 if n else 0
+                for step in range(max(span, 0)):
+                    v = v0 + step
+                    active = (v <= v1) & ~done
+                    kk0, e1, f = _geometry(a, ic, v.to(torch.float32))
+                    skip = (kk0 + 2 < s0) if up else (kk0 > s_last)
+                    stop = (kk0 > s_last) if up else (kk0 + 2 < s0)
+                    done = done | (active & stop)
+                    go = active & ~skip & ~stop
+                    while True:
+                        m = go & ((base < kk0) if up else (base > kk0 + 2))
+                        if not bool(m.any()):
+                            break
+                        emit(m)
+                    one_f = 1 - f
+                    cf = [torch.where(e1, 0.0, one_f), torch.where(e1, one_f, f),
+                          torch.where(e1, f, 0.0)]
+                    if not up:
+                        cf = cf[::-1]
+                    if staged:  # unchecked, as the kernel reads
+                        r = v - r0
+                        assert bool(((r[go] >= 0) & (r[go] < n_rows)).all())
+                        gv = band[:, r.clamp(0, max(n_rows - 1, 0)), ww - i * tw] \
+                            if n_rows else torch.zeros(c, n)
+                    else:
+                        gv = g[k, :, v.clamp(0, v_len - 1), ww]
+                    acc = torch.where(go, acc + torch.stack(cf)[:, None] * gv, acc)
+                while True:  # the rows the walk left
+                    m = (base <= s_last) if up else (base >= s0)
+                    if not bool(m.any()):
+                        break
+                    emit(m)
+    return out, hits, tiles
+
+
+def _bf16_adjoint_case(w, alpha, c=3):
+    """An adjoint case at width ``w``: B = 2, C = ``c``, V = 48 cotangent rows,
+    S = 70 source rows (a ragged last tile of 32), ADA-like intercepts
+    (about half a source row per column) off both ends of the source
+    column, bf16-valued cotangents; ``alpha`` None (positive), "neg",
+    "steep" (intercepts climbing 4 rows a column and V = 300: bands over
+    the buffer) or a number for every image."""
+    b, s_len, v_len = 2, 70, 300 if alpha == "steep" else 48
+    rng = np.random.RandomState(w)
+    g = torch.from_numpy(rng.randn(b, c, v_len, w).astype(np.float32)).bfloat16().float()
+    a = (rng.rand(b) * 0.6 + 0.7).astype(np.float32)
+    slope = rng.choice([-0.6, 0.5], b)[:, None] * (8.0 if alpha == "steep" else 1.0)
+    icpt = (slope * np.arange(w) + rng.rand(b, 1) * s_len - 0.5 * slope * w
+            - 0.4 * a[:, None] * v_len).astype(np.float32)
+    if alpha == "neg":
+        a, icpt = -a, (icpt + 0.8 * v_len).astype(np.float32)
+    elif alpha not in (None, "steep"):
+        a = np.full(b, alpha, np.float32)
+    return g, a, icpt, s_len
+
+
+@pytest.mark.parametrize("w", [524, 792])
+@pytest.mark.parametrize("alpha", [None, "neg", 0.0, 1e-40, -1e-40, "steep"],
+                         ids=["pos", "neg", "zero", "subnormal", "subnormal_neg", "steep"])
+def test_resample_bf16_adjoint_threads_cover_each_output_once(w, alpha):
+    """The bf16 adjoint's tiles at BagGAN-HQ's two pass widths (W = 524:
+    8-byte rows, the last run of 8 ragged; W = 792: 16-byte rows), S = 70
+    (a ragged last tile of rows), alpha positive, negative, 0 and
+    subnormal of either sign (every window all of [0, V); below 0 the tap
+    index drops by one after v = 0) and steep intercepts whose bands
+    outgrow the shared buffer (read from the cotangent): each dx element
+    once, every staged read in the band, the fp32 sums equal
+    ``_gather_adjoint`` bit for bit on the bf16 values, and the JAX
+    adjoint within 1e-5."""
+    g, a, icpt, s_len = _bf16_adjoint_case(w, alpha)
+    ours, hits, tiles = _adjoint_pass_bf16(g, _t(a), _t(icpt), s_len)
+    assert bool((hits == 1).all())
+    assert tiles["direct" if alpha == "steep" else "staged"] > 0
+    assert torch.equal(ours, _gather_adjoint(g, _t(a), _t(icpt), s_len))
+    np.testing.assert_allclose(_np(ours), _np(taw._resample_pass_t(g, _t(a), _t(icpt), s_len)),
+                               **ADJ_TOL)
+    want = jawp.resample_rows_t(jnp.asarray(g.numpy()), jnp.asarray(a), jnp.asarray(icpt),
+                                s_len)
+    np.testing.assert_allclose(_np(ours), np.asarray(want), **ADJ_TOL)
+
+
+@pytest.mark.parametrize("c", [1, 4, 8])
+def test_resample_bf16_adjoint_of_any_channel_count(c):
+    """Channel counts other than ADA's 3 at the ragged pass (the kernel
+    walks 3 channels at a time, the last group short; at 8 channels some
+    bands outgrow the shared buffer): each output once, the sums
+    ``_gather_adjoint``'s bit for bit."""
+    g, a, icpt, s_len = _bf16_adjoint_case(524, None, c)
+    ours, hits, tiles = _adjoint_pass_bf16(g, _t(a), _t(icpt), s_len)
+    assert bool((hits == 1).all())
+    assert tiles["staged"] > 0
+    assert torch.equal(ours, _gather_adjoint(g, _t(a), _t(icpt), s_len))
+
+
+def _ada_band_rows(alpha, icpt, s_len, v_len):
+    """Each tile's band of cotangent rows at one pass of ADA's draws, as
+    ``_adjoint_pass_bf16`` reduces it (0 where no window of the tile holds
+    a row), the adjoint plan's tiles."""
+    b, w = icpt.shape
+    (tw, ts), (gx, gy, _) = trs.adjoint_plan(b, s_len, w, torch.bfloat16)
+    v0, v1 = _window(alpha, icpt, s_len, v_len)
+    ok = v0 <= v1
+    pad = (0, gx * tw - w, 0, gy * ts - s_len)
+    lo = F.pad(torch.where(ok, v0, 1 << 30), pad, value=1 << 30)
+    hi = F.pad(torch.where(ok, v1, -(1 << 30)), pad, value=-(1 << 30))
+    lo = lo.reshape(b, gy, ts, gx, tw).amin((2, 4))
+    hi = hi.reshape(b, gy, ts, gx, tw).amax((2, 4))
+    return (hi - lo + 1).clamp(min=0)
+
+
+def test_bf16_adjoint_band_fits_at_ada_draws():
+    """At the two passes of chip_smoke.py's ADA draw (256^2, B = 20, both
+    warp branches and flips; alpha from -1.52 to 1.63) every tile of the
+    adjoint plan stages its band: all three channels' rows in its buffer,
+    so no tile of the path reads the cotangent from global memory."""
+    cs = _chip_smoke()
+    _, delta, icpt_v, a, icpt_h, src, out = cs.ada_pass_geometry("cpu")
+    for alpha, icpt, s_len, v_len in ((delta, icpt_v, src[0], out[0]),
+                                      (a, icpt_h, src[1], out[1])):
+        rows = _ada_band_rows(alpha, icpt, s_len, v_len)
+        assert 3 * int(rows.max()) * trs.BF16_TILE[0] * 2 <= trs.BAND_T_SMEM
 
 
 # ---------------------------------------------------------------------------
