@@ -172,7 +172,14 @@ Phases (any failure exits non-zero before the last line):
      gradients, the losses, ADA's state and the mean path length within
      DP_GRAD_TOL and DP_LOSS_TOL, the ranks' weights equal after the
      second iteration, the test images within 1e-3 and labels on 99.9%;
-     then NCCL at world size 1: an all-reduce and a broadcast on the card,
+     the BagGAN run's training state (both nets, both Adams, ADA, the
+     generator's state), saved by both ranks with save_pytree_orbax,
+     restored by this process, which has no process group, into a fresh
+     trainer on the card through like: weights and Adam moments bit-equal
+     to the ranks' (digests), then one more iteration with the kernels,
+     every kernel of the GAN path launched and the losses finite (MB,
+     save and load s and the iteration's ms printed); then NCCL at world
+     size 1: an all-reduce and a broadcast on the card,
      and the pretraining update with data_parallel bit-equal to the one
      without.
  16. bfloat16: (a) every kernel's bf16 instance (kernels 1, 1-bwd, 2, 3,
@@ -3386,6 +3393,7 @@ EXPORT_IMAGE_TOL = 1e-6  # artifact vs live server, of max(1, max |live|)
 DP_WORLD = 2  # ranks sharing the one card (gloo)
 DP_TIMEOUT_S = 600
 DP_SWAV_SEED = 16  # the data-parallel pipeline's swav_params.npz
+DP_REAL_SEED = 21  # the data-parallel BagGAN iterations' real batch
 # ranks against one process on the global batch at a learning rate of 0
 # (every step kind's gradients at the same weights): ||g - one|| / ||one||
 # over the step's tensors, about 10x the larger of two H100 runs' readings
@@ -3691,6 +3699,18 @@ def _weights_digest(gan):
     return h.hexdigest()
 
 
+def _adam_digest(gan):
+    """Both Adams' update counts and moments, hashed."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for opt in (gan.optimizer_g, gan.optimizer_d):
+        h.update(str(opt.count).encode())
+        for t in opt.m + opt.v:
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def _dp_swav(dev, out_dir, data_parallel):
     """``SwAVClustering`` at the full hfc_with_swav ffhq config for one
     update (one epoch of one sample; under ``data_parallel`` a sample a
@@ -3742,7 +3762,7 @@ def _gan_dp_iteration(dev, data_parallel, out_dir):
     gan = BagGANHQ(_dp_gan_config(out_dir, data_parallel), seed=0, device=dev)
     gan.ada_state["p"].fill_(ADA_P)
     gan.keep_first_grads = True
-    g = torch.Generator().manual_seed(21)
+    g = torch.Generator().manual_seed(DP_REAL_SEED)
     real = torch.rand(GAN_B, GAN_SIZE, GAN_SIZE, 3, generator=g) * 2 - 1
     draws = draw_step_inputs(g, gan.config, gan.gen_meta, GAN_B, 0, ADA_P, dev)
     gan.optimizer_g.lr = gan.optimizer_d.lr = 0.0
@@ -3812,7 +3832,8 @@ def dp_rank(rank, world, port, ref_path, results):
     """One rank of phase 15 (c) on the one card over gloo, through the
     entry points: ``SwAVClustering.pretrain`` with ``data_parallel`` for
     one update (its own sample), a BagGAN-HQ iteration with
-    ``data_parallel`` (its half of B = 20) and the evaluate path's
+    ``data_parallel`` (its half of B = 20), a second one whose training
+    state the ranks save together (``save_pytree_orbax``), and the evaluate path's
     ``predict_tests`` under the pipeline's mesh (its half of each request
     of 8), each against the one-process reference at ``ref_path``; the
     rank's launches per case."""
@@ -3822,6 +3843,7 @@ def dp_rank(rank, world, port, ref_path, results):
         from ganecdotes_torch.ops import _build
         from ganecdotes_torch.parallel import mesh as pm
         from ganecdotes_torch.selfsup.lars import tree_leaves
+        from ganecdotes_torch.utils.serialization import save_pytree_orbax
 
         dev = resolve_device("cuda")
         pm.distributed_init(f"tcp://localhost:{port}", world, rank, backend="gloo")
@@ -3862,7 +3884,13 @@ def dp_rank(rank, world, port, ref_path, results):
         # a second iteration at the config's rates: the ranks stay replicated
         gan.set_input({"ct": real}, iter_no=1)
         gan.optimize_parameters()
+        # the run's training state, each key written once by one of the ranks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_pytree_orbax(os.path.join(root, "gan_state"), gan.training_state())
+        out["gan"]["save_s"] = time.perf_counter() - t0
         out["gan"]["digest"] = _weights_digest(gan)
+        out["gan"]["adam_digest"] = _adam_digest(gan)
         del gan
         torch.cuda.empty_cache()
 
@@ -3889,6 +3917,45 @@ def dp_rank(rank, world, port, ref_path, results):
 
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def restore_on_one_card(dev, root, ranks):
+    """The ranks' checkpoint restored by this process, which has no process
+    group, into a fresh BagGAN-HQ of another seed on the card through
+    ``like`` (``load_pytree_orbax(path, like=gan.training_state())``), then
+    one more iteration with the kernels on the ranks' batch. -> record"""
+    from ganecdotes_torch.gan.train import BagGANHQ
+    from ganecdotes_torch.ops import _build
+    from ganecdotes_torch.utils.serialization import load_pytree_orbax
+
+    path = os.path.join(root, "gan_state")
+    mb = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e6
+    gan = BagGANHQ(_dp_gan_config(os.path.join(root, "gan_restored"), False), seed=1,
+                   device=dev)
+    check(gan.mesh is None, "the restoring trainer has a mesh")
+    fresh = _weights_digest(gan)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gan.load_training_state(load_pytree_orbax(path, like=gan.training_state()))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rec = {"mb": mb, "save_s": [out["gan"]["save_s"] for out in ranks], "load_s": load_s,
+           "digest": _weights_digest(gan), "adam_digest": _adam_digest(gan),
+           "fresh_digest": fresh, "iter_no": gan.iter_no,
+           "device": str(next(gan.netG.parameters()).device)}
+    real = torch.rand(GAN_B, GAN_SIZE, GAN_SIZE, 3,
+                      generator=torch.Generator().manual_seed(DP_REAL_SEED)) * 2 - 1
+    gan.set_input({"ct": real})
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gan.optimize_parameters()
+    torch.cuda.synchronize()
+    rec.update(iteration_ms=(time.perf_counter() - t0) * 1e3,
+               launches=dict(_build.LAUNCHES), losses=gan_losses(gan, rec["iter_no"]))
+    del gan
+    torch.cuda.empty_cache()
+    return rec
 
 
 def nccl_rank(port, results):
@@ -4004,6 +4071,9 @@ def data_parallel(dev):
     ranks = _spawn(dp_rank, DP_WORLD, ref_path)
     ranks_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    restored = restore_on_one_card(dev, root, ranks)
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     (nccl,) = _spawn(nccl_rank, 0)
     nccl_s = time.perf_counter() - t0
     for r, out in enumerate(ranks):
@@ -4014,6 +4084,12 @@ def data_parallel(dev):
               f"{out['gan']['mean_path_length_rel']:.3e}; predict "
               f"{json.dumps(out['predict'])}; launches {json.dumps(out['launches'])}",
               flush=True)
+    print(f"  checkpoint of the ranks' training state: {restored['mb']:.1f} MB, saved in "
+          f"{json.dumps(restored['save_s'])} s (rank 0, 1), restored onto "
+          f"{restored['device']} through like in {restored['load_s']:.3f} s; one more "
+          f"iteration there {restored['iteration_ms']:.1f} ms, losses "
+          f"{json.dumps(restored['losses'])}; the restore with its trainer, digests "
+          f"and iteration {restore_s:.3f} s", flush=True)
     print(f"  one process's test requests {[round(t, 3) for t in one_request_ms]} ms; "
           f"nccl world size 1: {json.dumps(nccl)}; one-process references "
           f"{ref_s:.3f} s, {DP_WORLD} ranks {ranks_s:.3f} s, nccl {nccl_s:.3f} s",
@@ -4044,12 +4120,25 @@ def data_parallel(dev):
                 check(out["launches"][case][k] > 0, f"rank {r} {case}: {k} not launched")
     check(len({out["gan"]["digest"] for out in ranks}) == 1,
           "the ranks' GAN weights differ after the second iteration")
+    check(restored["digest"] == ranks[0]["gan"]["digest"] != restored["fresh_digest"],
+          "the weights restored on one card differ from the ranks'")
+    check(len({out["gan"]["adam_digest"] for out in ranks} | {restored["adam_digest"]}) == 1,
+          "the Adam moments restored on one card differ from the ranks'")
+    check(restored["iter_no"] == 2
+          and torch.device(restored["device"]) == torch.device("cuda", 0),
+          f"restored at iteration {restored['iter_no']} on {restored['device']}")
+    check(all(math.isfinite(v) for v in restored["losses"].values()),
+          f"the restored trainer's losses: {restored['losses']}")
+    for k in SERVING_KERNELS + RESAMPLE_KERNELS + ("fused_leaky_relu_bwd",):
+        check(restored["launches"][k] > 0, f"the restored iteration did not launch {k}")
     check(os.path.exists(os.path.join(root, "pipe_ranks", "tests", "label_predictions.npy")),
           "rank 0 did not write label_predictions.npy")
     check(nccl["collectives"], f"NCCL's all-reduce or broadcast is wrong: {nccl}")
     check(nccl["bit_equal"], f"the NCCL world-size-1 update differs: {nccl}")
-    return {"ranks": ranks, "nccl": nccl, "one_request_ms": one_request_ms,
-            "reference_s": ref_s, "ranks_s": ranks_s, "nccl_s": nccl_s}
+    return {"ranks": ranks, "restored": restored, "nccl": nccl,
+            "one_request_ms": one_request_ms,
+            "reference_s": ref_s, "ranks_s": ranks_s, "restore_s": restore_s,
+            "nccl_s": nccl_s}
 
 
 def phase15(dev, flat_request_ms):
@@ -4065,8 +4154,9 @@ def phase15(dev, flat_request_ms):
     torch.cuda.empty_cache()
     print(f"data parallel ({DP_WORLD} ranks on the one card over gloo: "
           "SwAVClustering.pretrain for one update, a BagGAN iteration at B = "
-          f"{GAN_B} at lr 0 then one at the config's, the evaluate path's test "
-          "requests of 8; then NCCL at world size 1):", flush=True)
+          f"{GAN_B} at lr 0 then one at the config's, its training state saved "
+          "by the ranks and restored on the one card for one more iteration, the "
+          "evaluate path's test requests of 8; then NCCL at world size 1):", flush=True)
     dp = data_parallel(dev)
     seconds = time.perf_counter() - t0
     print(f"  phase 15: {seconds:.1f} s", flush=True)
@@ -4914,6 +5004,7 @@ def kernels_line(rows, launches):
 
 
 def main():
+    started = time.perf_counter()
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--details", help="write per-shape details to this JSON file")
     args = parser.parse_args()
@@ -5052,6 +5143,8 @@ def main():
                     **{k: phase16_run["train"]["launches"][k]
                        for k in BF16_KERNEL_NAMES if k not in BF16_SERVING_KERNELS})
     line = kernels_line(rows, launches)
+    seconds = time.perf_counter() - started
+    print(f"chip_smoke.py: {seconds:.1f} s from start to result", flush=True)
     if args.details:
         os.makedirs(os.path.dirname(os.path.abspath(args.details)), exist_ok=True)
         with open(args.details, "w") as f:
@@ -5063,7 +5156,7 @@ def main():
                        "gui": gui_run, "item5": item5_run, "phase15": phase15_run,
                        "phase16": phase16_run, "hmma_bf16": hmma16,
                        "bf16_gemm_resources": resources, "bf16_memory_resources": mem16,
-                       "kernels": line}, f, indent=1, default=str)
+                       "kernels": line, "seconds": seconds}, f, indent=1, default=str)
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

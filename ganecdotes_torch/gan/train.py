@@ -94,7 +94,7 @@ from ganecdotes_torch.gan.losses import (
     r1_penalty,
 )
 from ganecdotes_torch.models.baggan.convert import BAGGAN_RES_TO_CHANNEL_MAP
-from ganecdotes_torch.models.stylegan2.convert import module_tree, tree_to_state
+from ganecdotes_torch.models.stylegan2.convert import _flatten, module_tree, tree_to_state
 from ganecdotes_torch.models.stylegan2.discriminator import (
     Discriminator,
     discriminator_forward,
@@ -265,6 +265,18 @@ class GANBaseModel:
             self.logger.info(f"[Network {name}] Total parameters: {n / 1e6:.3f} M")
             if verbose:
                 self.logger.info(str(net))
+
+    def set_requires_grad(self, nets, requires_grad=False):
+        """A no-op, kept for parity with the JAX package's API (ref
+        base_model.py:289-307). Each step takes the gradients of the tensors
+        it names (``BagGANHQ._apply``: ``torch.autograd.grad(loss,
+        tensors)``), so a flag changes nothing a step computes, and D's
+        weights with the flag off would make the D step raise."""
+
+    def eval(self):
+        """A no-op, kept for parity with the JAX package's API: the nets
+        have no dropout and no batch statistics, so there is no train or
+        eval mode to set."""
 
 
 class BagGANDraws(NamedTuple):
@@ -444,6 +456,54 @@ class BagGANHQ(GANBaseModel):
                 for net in (self.netG, getattr(self, "netD", None)):
                     for t in [] if net is None else net.state_dict().values():
                         t.copy_(replicate(self.mesh, t))
+
+    def training_state(self):
+        """The state a run resumes from, as a tree for
+        ``utils.serialization``: both nets' parameters and buffers
+        (``module_tree``'s nesting), each Adam's moments, update count and
+        learning rate, ADA's state, the mean path length, the iteration and
+        the draws' generator state (the learning-rate schedule's is not in
+        it). The nets', moments', ADA's and path length's tensors are the
+        trainer's own, so ``load_pytree_orbax(path,
+        like=gan.training_state())`` restores them in place on the
+        trainer's device; the counts, rates, iteration and generator state
+        are copies: hand the restored tree to ``load_training_state``."""
+        tree = {"netG": module_tree(self.netG, own=True), "ada": self.ada_state,
+                "mean_path_length": self.mean_path_length,
+                "iter_no": torch.tensor(self.iter_no), "rng": self.generator.get_state()}
+        if self.is_train:
+            tree["netD"] = module_tree(self.netD, own=True)
+            for name, opt in (("adam_g", self.optimizer_g), ("adam_d", self.optimizer_d)):
+                tree[name] = {"m": opt.m, "v": opt.v, "count": torch.tensor(opt.count),
+                              "lr": torch.tensor(opt.lr, dtype=torch.float64)}
+        return tree
+
+    def load_training_state(self, tree):
+        """Take back a ``training_state`` tree (as ``load_pytree_orbax``
+        returns it, with or without ``like``, or ``load_pytree``): each
+        tensor is copied into the trainer's own (nothing to copy where it
+        was restored in place), and the counts, rates, iteration and
+        generator state are set. A key either side lacks, or a tensor of
+        another shape or dtype, raises."""
+        own, got = dict(_flatten(self.training_state())), dict(_flatten(tree))
+        if own.keys() != got.keys():
+            raise KeyError(f"training state: {sorted(own.keys() ^ got.keys())} "
+                           "on one side only")
+        for key, t in own.items():
+            new = got[key]
+            if new.shape != t.shape or new.dtype != t.dtype:
+                raise ValueError(f"training state {key}: {tuple(new.shape)} {new.dtype}, "
+                                 f"the trainer's {tuple(t.shape)} {t.dtype}")
+        with torch.no_grad():
+            for key, t in own.items():
+                if got[key] is not t:
+                    t.copy_(got[key])
+        self.iter_no = int(got["iter_no"])
+        self.generator.set_state(got["rng"].cpu())
+        for name, opt in (("adam_g", getattr(self, "optimizer_g", None)),
+                          ("adam_d", getattr(self, "optimizer_d", None))):
+            if opt is not None:
+                opt.count, opt.lr = int(got[f"{name}.count"]), float(got[f"{name}.lr"])
 
     @property
     def ada_aug_p(self):

@@ -110,15 +110,17 @@ def tree_to_state(tree):
             for k, v in _flatten(tree)}
 
 
-def module_tree(module):
+def module_tree(module, own=False):
     """A module's parameters and buffers as the JAX package's nested tree
-    (dicts, with lists where the keys are indices), CPU tensors."""
+    (dicts, with lists where the keys are indices): CPU tensors, or with
+    ``own`` the module's own tensors on their device (``state_dict``'s,
+    detached: writing into one writes the module)."""
     root = {}
     for name, t in module.state_dict().items():
         node, parts = root, name.split(".")
         for part in parts[:-1]:
             node = node.setdefault(part, {})
-        node[parts[-1]] = t.detach().cpu()
+        node[parts[-1]] = t.detach() if own else t.detach().cpu()
 
     def listify(node):
         if not isinstance(node, dict):

@@ -1,14 +1,21 @@
-"""Label colours, mask rendering, image collages, subplot grids and image
-files (port of ganecdotes_tpu/utils/visualization.py
-``sample_label_colors``, ``visualize_label_mask``, ``create_pil_collage``,
-``quick_imshow`` and ``load_image``). Host-side numpy; PIL and matplotlib
-are imported inside the functions that draw or read with them, so nothing
-else needs them.
+"""Label colours, mask rendering, image collages, subplot grids, GIFs,
+slide shows, box plots, histograms and image files (port of
+ganecdotes_tpu/utils/visualization.py). Host-side numpy; an image or a
+vector may also be a tensor on any device. PIL and matplotlib are imported
+inside the functions that draw or read with them, so the module imports
+without them.
 """
 
 import os
 
 import numpy as np
+
+
+def _host(x):
+    """``x`` as a numpy array (a tensor is copied off its device)."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu()
+    return np.asarray(x)
 
 
 def _hsv_to_rgb(hsv):
@@ -118,3 +125,97 @@ def load_image(im_path):
 
         return read_fits_data(im_path)
     raise ValueError(f"{im_path}: format not supported")
+
+
+def create_gif(fname, input_im, stride=1, scale=None, fps=5):
+    """Write frames (T, H, W[, C]) to an animated GIF: every ``stride``-th
+    frame, a float frame min/max normalised, resized by ``scale``, looping,
+    1000 / ``fps`` ms a frame."""
+    from PIL import Image
+
+    frames = []
+    arr = _host(input_im)
+    for t in range(0, arr.shape[0], stride):
+        im = arr[t]
+        if im.dtype != np.uint8:
+            lo, hi = im.min(), im.max()
+            im = np.uint8((im - lo) / (hi - lo + 1e-12) * 255)
+        if im.ndim == 2:
+            im = np.stack([im] * 3, axis=-1)
+        pil = Image.fromarray(im)
+        if scale is not None:
+            pil = pil.resize((int(pil.width * scale), int(pil.height * scale)))
+        frames.append(pil)
+    frames[0].save(fname, save_all=True, append_images=frames[1:],
+                   duration=int(1000 / fps), loop=0)
+
+
+def slide_show(image, dt=0.01, vmax=None, vmin=None):
+    """Show a (w, h, d) volume one depth slice after another, ``dt`` s
+    each, titled ``slice k``; the figure is closed at the end."""
+    import matplotlib.pyplot as plt
+
+    image = _host(image)
+    fig, ax = plt.subplots()
+    im = ax.imshow(image[:, :, 0], vmax=vmax, vmin=vmin)
+    for k in range(image.shape[2]):
+        im.set_data(image[:, :, k])
+        ax.set_title(f"slice {k}")
+        plt.pause(dt)
+    plt.close(fig)
+
+
+def _titles(ax, titles):
+    titles = titles or {}
+    ax.set_xlabel(titles.get("xlabel", ""))
+    ax.set_ylabel(titles.get("ylabel", ""))
+    ax.set_title(titles.get("title", ""))
+
+
+def plot_boxplot(fname, vectors, titles=None, lbl_rotation=None):
+    """Box plot of ``vectors`` = (labels, data) saved to ``fname``;
+    ``titles``: optional 'xlabel', 'ylabel', 'title'."""
+    import matplotlib.pyplot as plt
+
+    labels, data = vectors
+    fig, ax = plt.subplots()
+    data = _host(data) if hasattr(data, "shape") else [_host(v) for v in data]
+    ax.boxplot(data, tick_labels=list(labels))
+    _titles(ax, titles)
+    if lbl_rotation is not None:
+        plt.setp(ax.get_xticklabels(), rotation=lbl_rotation)
+    fig.tight_layout()
+    fig.savefig(fname)
+    plt.close(fig)
+
+
+def plot_histogram_1d(fname, vectors, titles=None, legend=True, is_hist=True,
+                      hist_params=None):
+    """Overlaid histograms (``is_hist``) or line plots of ``vectors`` =
+    (labels, data) saved to ``fname``; ``hist_params`` go to ``ax.hist``."""
+    import matplotlib.pyplot as plt
+
+    labels, data = vectors
+    hist_params = hist_params or {}
+    fig, ax = plt.subplots()
+    for lbl, vec in zip(labels, data):
+        if is_hist:
+            ax.hist(_host(vec), label=str(lbl), alpha=0.6, **hist_params)
+        else:
+            ax.plot(_host(vec), label=str(lbl))
+    _titles(ax, titles)
+    if legend:
+        ax.legend()
+    fig.tight_layout()
+    fig.savefig(fname)
+    plt.close(fig)
+
+
+def plot_image_on_axis(ax, image, title=None, cmap=None, vmin=None, vmax=None):
+    """Draw one image on the matplotlib axis ``ax``, axis off, titled if
+    ``title``; returns ``ax``."""
+    ax.imshow(_host(image), cmap=cmap, vmin=vmin, vmax=vmax)
+    ax.set_axis_off()
+    if title:
+        ax.set_title(title)
+    return ax

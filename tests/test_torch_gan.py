@@ -587,3 +587,35 @@ def test_draws_are_seeded(tmp_path):
     c = tt.draw_step_inputs(torch.Generator().manual_seed(1), cfg, meta, B, 1, P)
     assert c.r1_aug is None and c.ppl_z is None
     assert 1 <= a.inject_index <= meta["n_latent"]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_api_no_ops_change_no_flag_and_no_gradient(tmp_path):
+    """``set_requires_grad`` and ``eval`` (no-ops, as in JAX, train.py:206-211)
+    called between two iterations: every tensor's ``requires_grad`` stays as
+    it was, and the second iteration's gradients of each step kind and the
+    weights after it equal those of a run without the calls, bit for bit."""
+    rng = np.random.RandomState(17)
+    reals = [rng.randn(B, SIZE, SIZE, 3).astype(np.float32) for _ in range(2)]
+    runs = []
+    for call in (False, True):
+        gan = tt.BagGANHQ(_cfg(tmp_path / str(call), d_reg_every=1, g_reg_every=1),
+                          device="cpu")
+        gan.set_input(reals[0], iter_no=0)
+        gan.optimize_parameters()
+        tensors = gan.g_tensors + gan.d_tensors
+        flags = [t.requires_grad for t in tensors]
+        if call:
+            assert gan.set_requires_grad([gan.netD], False) is None
+            assert gan.set_requires_grad([gan.netG, gan.netD], True) is None
+            assert gan.eval() is None
+        assert [t.requires_grad for t in tensors] == flags
+        gan.keep_first_grads = True
+        gan.set_input(reals[1], iter_no=1)
+        gan.optimize_parameters()
+        runs.append((gan.first_grads, [t.detach().clone() for t in tensors]))
+    (want_grads, want_w), (got_grads, got_w) = runs
+    assert set(got_grads) == set(want_grads) == {"d", "r1", "g", "ppl"}
+    for kind, grads in want_grads.items():
+        assert all(torch.equal(a, b) for a, b in zip(got_grads[kind], grads)), kind
+    assert all(torch.equal(a, b) for a, b in zip(got_w, want_w))

@@ -1468,3 +1468,39 @@ def test_kernels_read_only_what_they_write(cuda, group, dtype):
         if not all(torch.equal(a, b) for a, b in zip(*outs)):
             differ.append(label)
     assert not differ, differ
+
+
+def test_checkpoint_of_cuda_tensors_restores_onto_the_card(cuda, tmp_path):
+    """``save_pytree_orbax`` of CUDA tensors (float32, bf16, int64; a dict,
+    a list, a tuple), restored through ``like`` onto fresh CUDA tensors in
+    place, and without ``like`` onto the CPU: bit-equal either way."""
+    from ganecdotes_torch.utils.serialization import load_pytree_orbax, save_pytree_orbax
+
+    g = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(64, 33, generator=g).to(cuda),
+            "nested": {"bf16": torch.randn(7, 5, generator=g).to(torch.bfloat16).to(cuda),
+                       "idx": torch.randint(-2**40, 2**40, (9,), generator=g).to(cuda)},
+            "moments": [torch.randn(3, 3, 8, generator=g).to(cuda) for _ in range(2)],
+            "pair": (torch.tensor(3, device=cuda), torch.randn(4, generator=g).to(cuda))}
+    save_pytree_orbax(tmp_path / "ckpt", tree)
+    like = {"w": torch.zeros(64, 33, device=cuda),
+            "nested": {"bf16": torch.zeros(7, 5, dtype=torch.bfloat16, device=cuda),
+                       "idx": torch.zeros(9, dtype=torch.int64, device=cuda)},
+            "moments": [torch.zeros(3, 3, 8, device=cuda) for _ in range(2)],
+            "pair": (torch.tensor(0, device=cuda), torch.zeros(4, device=cuda))}
+    ptrs = [t.data_ptr() for t in (like["w"], like["nested"]["bf16"], like["pair"][1])]
+    out = load_pytree_orbax(tmp_path / "ckpt", like=like)
+    assert out is like and isinstance(out["pair"], tuple)
+    assert ptrs == [t.data_ptr() for t in (like["w"], like["nested"]["bf16"], like["pair"][1])]
+    cpu = load_pytree_orbax(tmp_path / "ckpt")
+    for got, host, want in ((like["w"], cpu["w"], tree["w"]),
+                            (like["nested"]["bf16"], cpu["nested"]["bf16"],
+                             tree["nested"]["bf16"]),
+                            (like["nested"]["idx"], cpu["nested"]["idx"],
+                             tree["nested"]["idx"]),
+                            (like["pair"][0], cpu["pair"][0], tree["pair"][0]),
+                            (like["pair"][1], cpu["pair"][1], tree["pair"][1]),
+                            *zip(like["moments"], cpu["moments"], tree["moments"])):
+        assert got.device == want.device and host.device.type == "cpu"
+        assert got.dtype == host.dtype == want.dtype
+        assert torch.equal(got, want) and torch.equal(host, want.cpu())

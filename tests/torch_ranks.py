@@ -270,3 +270,14 @@ def pipeline(rank, world, out_dir, cfg, seed):
     pipe.run_pipeline()
     return dict(pred=pipe.pred_labels, mesh=pipe.mesh.size,
                 scored=hasattr(pipe, "test_results"))
+
+
+def save_tree(rank, world, path, arrays):
+    """``save_pytree_orbax`` of the replicated tree {name: array} (bf16
+    where the name starts with 'bf16') from every rank of the group."""
+    from ganecdotes_torch.utils.serialization import save_pytree_orbax
+
+    tree = {k: torch.from_numpy(v).to(torch.bfloat16) if k.startswith("bf16")
+            else torch.from_numpy(v) for k, v in arrays.items()}
+    save_pytree_orbax(path, {"weights": tree, "step": (torch.tensor(7), [tree["w"]])})
+    return rank
