@@ -1,0 +1,10 @@
+"""serve.synthesis_ms: device milliseconds a request in the program's
+``serve.synthesis`` span (mapping, truncation, the generator and to_rgb;
+``pipeline/serving.py``), the mean over the traced window's requests.
+Layer: the server (pipeline/serving.py)."""
+
+from harness import program_spans
+
+
+def read(outcome, patterns):
+    return program_spans.mean_ms(outcome, "serve.request", {"serve.synthesis"})

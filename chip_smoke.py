@@ -1000,16 +1000,23 @@ def check_sinkhorn(dev):
 
 
 def profile_request(server, z):
-    """Device time by kernel for one request (torch.profiler)."""
+    """Device time by kernel for one request (torch.profiler; the server's
+    spans, ranges on the device, left out)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from ganecdotes_torch.utils import tracing
+
+    tracing.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         server.serve(z)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    spans = {sp.name for sp in tracing.snapshot().spans}
+    tracing.reset()
     events = [e for e in prof.key_averages()
-              if getattr(e, "device_time_total", 0) > 0 and e.device_type.name == "CUDA"]
+              if getattr(e, "device_time_total", 0) > 0 and e.device_type.name == "CUDA"
+              and e.key not in spans]
     busy = sum(e.device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.device_time_total)[:15]
     return {
@@ -1192,13 +1199,14 @@ PROFILE_LABELS = ("swav.generator", "swav.projection", "swav.sinkhorn",
 
 def profile_step(swav):
     """Device time of one KERNELS step (torch.profiler), split by the step's
-    record_function ranges. Each range's device-side span is taken from the
-    trace, and the device time of the kernels that start inside it is its
-    share; kernels outside every range (the backward, which autograd runs on
+    spans (``utils/tracing.py``; the profiler records them as ranges). Each
+    range's device-side span is taken from the trace, and the device time of
+    the kernels that start inside it is its share; kernels outside every range (the backward, which autograd runs on
     its own thread, and the loss) make up "loss/backward"."""
     from torch.profiler import ProfilerActivity, profile
 
     from ganecdotes_torch.selfsup.swav import draw_step_inputs, make_swav_train_step
+    from ganecdotes_torch.utils import tracing
 
     mc = swav._model_config_dict()
     optimizer, step = make_swav_train_step(
@@ -1209,15 +1217,15 @@ def profile_step(swav):
     opt_state = optimizer.init(swav.ssl_params)
     step(swav.model, swav.ssl_params, opt_state, draws, 0)  # warm
     torch.cuda.synchronize()
+    tracing.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step(swav.model, swav.ssl_params, opt_state, draws, 0)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    spans = [(e.name, e.time_range.start, e.time_range.end) for e in device
+    ranges, kernels = device_ranges(prof)
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in ranges
              if e.name in PROFILE_LABELS]
-    kernels = [e for e in device if e.name not in PROFILE_LABELS]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     split = {label: 0.0 for label in PROFILE_LABELS}
     span_ms = {label: 0.0 for label in PROFILE_LABELS}
@@ -1557,58 +1565,99 @@ def grouped_convs_per_step(gan):
         del gan._step
 
 
+def step_readings(snap):
+    """{"ms": {step kind: [device ms of each step]}, "launches": {step
+    kind: {kernel: launches}}} from a ``tracing.snapshot()`` of a run: the
+    steps' spans (``gan.train.STEP_SPANS``)."""
+    from ganecdotes_torch.gan.train import STEP_KINDS, STEP_SPANS
+    from ganecdotes_torch.ops import _build
+
+    kind_of = {name: k for k, name in STEP_SPANS.items()}
+    ms = {k: [] for k in STEP_KINDS}
+    launches = {k: dict.fromkeys(_build.LAUNCHES, 0) for k in STEP_KINDS}
+    for sp in snap.spans:
+        k = kind_of.get(sp.name)
+        if k is not None:
+            ms[k].append(sp.device_ms)
+            for kernel, n in sp.launches.items():
+                launches[k][kernel] += n
+    return {"ms": ms, "launches": launches}
+
+
 def run_gan(dev, ops, iters=None, **over):
     """BagGANHQ at the full pidray config (``over``: config values on top)
-    for ``iters`` (default GAN_ITERS) iterations from seed 0; the trainer,
-    per-iteration host ms, losses and the grouped convs on the card per step
-    kind."""
+    for ``iters`` (default GAN_ITERS) iterations from seed 0, its spans
+    recorded (``utils/tracing.py``); the trainer, per-iteration host ms
+    (synced), losses and ``step_readings``. The grouped convs on the card
+    per step kind are the trainer's ``grouped_convs``."""
     from ganecdotes_torch.gan.train import BagGANHQ
+    from ganecdotes_torch.utils import tracing
 
     cfg = pidray_config(os.path.join(ROOT, "build", "chip_smoke_gan"))
     for k, v in over.items():
         setattr(cfg, k, v)
     gan = BagGANHQ(cfg, seed=0, device=dev, ops=ops)
     gan.ada_state["p"].fill_(ADA_P)
-    gan.time_steps = True
     gan.keep_first_grads = True
     gen = torch.Generator(device=dev).manual_seed(11)
     size = cfg.image_size
     iter_ms, losses = [], []
-    with grouped_convs_per_step(gan) as grouped:
-        for it in range(iters or GAN_ITERS):
-            real = torch.rand(cfg.batch_size, size, size, cfg.num_channels,
-                              generator=gen, device=dev) * 2 - 1
-            gan.set_input(real, iter_no=it)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            gan.optimize_parameters()
-            torch.cuda.synchronize()
-            iter_ms.append((time.perf_counter() - t0) * 1e3)
-            losses.append(gan_losses(gan, it))
+    tracing.reset()
+    tracing.start()
+    try:
+        with grouped_convs_per_step(gan) as grouped:
+            for it in range(iters or GAN_ITERS):
+                real = torch.rand(cfg.batch_size, size, size, cfg.num_channels,
+                                  generator=gen, device=dev) * 2 - 1
+                gan.set_input(real, iter_no=it)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                gan.optimize_parameters()
+                torch.cuda.synchronize()
+                iter_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(gan_losses(gan, it))
+    finally:
+        tracing.stop()
+    steps = step_readings(tracing.snapshot())
+    tracing.reset()
     gan.grouped_convs = grouped
-    return gan, iter_ms, losses
+    return gan, iter_ms, losses, steps
+
+
+def device_ranges(prof):
+    """(device ranges by the spans' names, device kernels) of a profile:
+    every span the run recorded (``tracing.snapshot()``, then reset) is a
+    range on the device too, and no kernel."""
+    from ganecdotes_torch.utils import tracing
+
+    names = {sp.name for sp in tracing.snapshot().spans}
+    tracing.reset()
+    device = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    return ([e for e in device if e.name in names],
+            [e for e in device if e.name not in names])
 
 
 def profile_iteration(gan):
     """Device time of one KERNELS iteration with all four step kinds
-    (iter_no 0) under torch.profiler, split by the record_function ranges:
+    (iter_no 0) under torch.profiler, split by the trainer's spans:
     each kernel counts toward the innermost range whose device-side span it
     starts in (gan.ada lies inside the steps); kernels outside every range
     make up "outside"."""
     from torch.profiler import ProfilerActivity, profile
 
-    gan.time_steps = False
+    from ganecdotes_torch.utils import tracing
+
     gan.set_input(gan.ref_image, iter_no=0)
     torch.cuda.synchronize()
+    tracing.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         gan.optimize_parameters()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    spans = [(e.name, e.time_range.start, e.time_range.end) for e in device
+    ranges, kernels = device_ranges(prof)
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in ranges
              if e.name in GAN_PROFILE_LABELS]
-    kernels = [e for e in device if e.name not in GAN_PROFILE_LABELS]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     split = {label: 0.0 for label in GAN_PROFILE_LABELS}
     span_ms = {label: 0.0 for label in GAN_PROFILE_LABELS}
@@ -1683,7 +1732,7 @@ def check_gan_agreement(kern, plain):
     drift tolerance about 9x; a kernel that computes something
     else (a wrong tap, padding or mask) moves a gradient by its own size.
     """
-    (k_gan, _, k_losses), (p_gan, _, p_losses) = kern, plain
+    (k_gan, _, k_losses, _), (p_gan, _, p_losses, _) = kern, plain
     grads = {}
     for kind, gs in k_gan.first_grads.items():
         ps = p_gan.first_grads[kind]
@@ -1774,8 +1823,8 @@ def train(dev):
     kern = run_gan(dev, KERNELS)
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    gan, iter_ms, losses = kern
-    step_ms = {k: statistics.median(v) for k, v in gan.step_ms.items() if v}
+    gan, iter_ms, losses, steps = kern
+    step_ms = {k: statistics.median(v) for k, v in steps["ms"].items() if v}
     dg_ms = statistics.median(iter_ms[1:4])
     print(f"  {GAN_ITERS} iterations, ms {[round(t, 3) for t in iter_ms]} (iteration 0: "
           f"D + R1 + G + PPL and warm-up; 1-3: D + G; 4: D + G + PPL); D + G iteration "
@@ -1784,7 +1833,7 @@ def train(dev):
           f"{peak / 2**30:.3f} GiB", flush=True)
     print(f"  launches {launches}", flush=True)
     for kind in STEP_KINDS:
-        print(f"  launches in {kind} steps: {gan.step_launches[kind]}", flush=True)
+        print(f"  launches in {kind} steps: {steps['launches'][kind]}", flush=True)
     print(f"  grouped F.conv2d calls on the card per step kind: {gan.grouped_convs}",
           flush=True)
     print(f"  losses {json.dumps(losses)}", flush=True)
@@ -1793,7 +1842,7 @@ def train(dev):
     # every step kind differentiates D's or G's activations: the backward
     # kernel in each, and in R1's double backward the forward kernel again
     for kind in STEP_KINDS:
-        check(gan.step_launches[kind]["fused_leaky_relu_bwd"] > 0,
+        check(steps["launches"][kind]["fused_leaky_relu_bwd"] > 0,
               f"the fused act's backward kernel did not run in the {kind} steps")
     check(not any(gan.grouped_convs.values()),
           f"a plain FIR (grouped conv) ran on the card: {gan.grouped_convs}")
@@ -1803,7 +1852,7 @@ def train(dev):
     # to_rgb skip upsamples and the composite's blur at each up layer.
     n_res = gan.config.image_size.bit_length() - 3  # resolutions 8 .. size
     d_blurs = 2 * n_res  # per D forward: before each ResBlock's two convs
-    fir = {k: gan.step_launches[k]["upfirdn2d"] for k in STEP_KINDS}
+    fir = {k: steps["launches"][k]["upfirdn2d"] for k in STEP_KINDS}
     check(fir["r1"] >= 4 * d_blurs + 2 * 4,
           f"R1 launched the FIR kernel {fir['r1']} times: not D's blurs and ADA's passes")
     check(fir["ppl"] >= 2 * (n_res + n_res),
@@ -1820,9 +1869,9 @@ def train(dev):
     plain[0].first_grads = {k: [g.cpu() for g in v] for k, v in plain[0].first_grads.items()}
     agreement = check_gan_agreement(kern, plain)
     print(f"  plain ops: iteration ms {[round(t, 3) for t in plain[1]]}; ms per step kind "
-          f"{ {k: round(statistics.median(v), 3) for k, v in plain[0].step_ms.items() if v} }; "
+          f"{ {k: round(statistics.median(v), 3) for k, v in plain[3]['ms'].items() if v} }; "
           f"{json.dumps(agreement)}", flush=True)
-    plain_iter_ms, plain_step_ms, plain_losses = plain[1], plain[0].step_ms, plain[2]
+    plain_iter_ms, plain_step_ms, plain_losses = plain[1], plain[3]["ms"], plain[2]
     plain_grouped = plain[0].grouped_convs
     # phase 16 (c) sets its bf16 gates from these float32 gradients
     plain_reference = {"first_grads": plain[0].first_grads, "losses": plain_losses}
@@ -1836,8 +1885,8 @@ def train(dev):
           flush=True)
     out = {
         "iterations": GAN_ITERS, "iter_ms": iter_ms, "dg_iter_ms": dg_ms,
-        "step_ms": gan.step_ms, "step_ms_median": step_ms, "peak_memory_bytes": peak,
-        "launches": launches, "step_launches": gan.step_launches, "losses": losses,
+        "step_ms": steps["ms"], "step_ms_median": step_ms, "peak_memory_bytes": peak,
+        "launches": launches, "step_launches": steps["launches"], "losses": losses,
         "grouped_convs": gan.grouped_convs, "plain_grouped_convs": plain_grouped,
         "plain_iter_ms": plain_iter_ms, "plain_step_ms": plain_step_ms,
         "plain_losses": plain_losses, "agreement": agreement, "profile": prof,
@@ -4634,10 +4683,10 @@ def bf16_train(dev, fp32):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    gan, iter_ms, losses = run_gan(dev, KERNELS, compute_dtype="bfloat16")
+    gan, iter_ms, losses, steps = run_gan(dev, KERNELS, compute_dtype="bfloat16")
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    step_ms = {k: statistics.median(v) for k, v in gan.step_ms.items() if v}
+    step_ms = {k: statistics.median(v) for k, v in steps["ms"].items() if v}
     print(f"  bf16, kernels: iteration ms {[round(t, 3) for t in iter_ms]}; ms per step "
           f"kind (median) { {k: round(v, 3) for k, v in step_ms.items()} }; peak memory "
           f"{peak / 2**30:.3f} GiB", flush=True)
@@ -4647,26 +4696,26 @@ def bf16_train(dev, fp32):
         check(launches[k] > 0, f"kernel {k} was not launched on the bf16 training path")
     for kind in ("d", "g"):  # their D and synthesis run in bf16 only
         for k in ("styled_conv3x3", "styled_up_conv3x3", "resample_rows"):
-            check(gan.step_launches[kind][k] == 0,
+            check(steps["launches"][kind][k] == 0,
                   f"the float32 {k} ran in the bf16 {kind} step")
     for opt in (gan.optimizer_g, gan.optimizer_d):
         check(all(t.dtype == torch.float32 for t in opt.params + opt.m + opt.v),
               "a parameter or Adam moment left float32")
     check(all(math.isfinite(v) for l in losses for v in l.values()), "non-finite bf16 loss")
     kern_grads = {k: [g.cpu() for g in v] for k, v in gan.first_grads.items()}
-    out = {"iter_ms": iter_ms, "step_ms": gan.step_ms, "step_ms_median": step_ms,
+    out = {"iter_ms": iter_ms, "step_ms": steps["ms"], "step_ms_median": step_ms,
            "peak_memory_bytes": peak, "launches": launches,
-           "step_launches": gan.step_launches, "losses": losses}
+           "step_launches": steps["launches"], "losses": losses}
     del gan
     torch.cuda.empty_cache()
     _build.reset_launches()
-    p_gan, p_iter_ms, p_losses = run_gan(dev, PLAIN, iters=GAN_PLAIN16_ITERS,
+    p_gan, p_iter_ms, p_losses, p_steps = run_gan(dev, PLAIN, iters=GAN_PLAIN16_ITERS,
                                          compute_dtype="bfloat16")
     check(all(v == 0 for v in _build.LAUNCHES.values()), "the plain run launched a kernel")
     plain_grads = {k: [g.cpu() for g in v] for k, v in p_gan.first_grads.items()}
     out["plain_iter_ms"], out["plain_losses"] = p_iter_ms, p_losses
     out["plain_step_ms_median"] = {k: statistics.median(v)
-                                   for k, v in p_gan.step_ms.items() if v}
+                                   for k, v in p_steps["ms"].items() if v}
     del p_gan
     torch.cuda.empty_cache()
     grads = {}

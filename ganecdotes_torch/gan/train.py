@@ -68,13 +68,11 @@ the single-stepped trajectory.
 import functools
 import math
 import os
-import time
 from contextlib import contextmanager
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ganecdotes_torch import compute_dtype, resolve_device
@@ -105,7 +103,6 @@ from ganecdotes_torch.models.stylegan2.generator import (
     make_noise,
     mapping_apply,
 )
-from ganecdotes_torch.ops import _build
 from ganecdotes_torch.ops.modulated_conv import styled_conv3x3_ref, styled_up_conv3x3_xla
 from ganecdotes_torch.ops.opset import KERNELS
 from ganecdotes_torch.parallel.mesh import (
@@ -116,14 +113,15 @@ from ganecdotes_torch.parallel.mesh import (
     shard_batch,
 )
 from ganecdotes_torch.pipeline.schedulers import plateau_lr
+from ganecdotes_torch.utils import tracing
 from ganecdotes_torch.utils.optim import Adam
 from ganecdotes_torch.utils.serialization import load_pytree, save_pytree
 from ganecdotes_torch.utils.util import get_logger
 
 STEP_KINDS = ("d", "r1", "g", "ppl")
-# torch.profiler ranges of the steps; ADA's augment runs inside "gan.ada"
-PROFILE_RANGES = {"d": "gan.d_step", "r1": "gan.r1", "g": "gan.g_step",
-                  "ppl": "gan.ppl"}
+# the steps' spans (utils/tracing.py), inside an iteration's "gan.optimize";
+# in a step, ADA's augment is "gan.ada" and the gradient "gan.grad"
+STEP_SPANS = {"d": "gan.d_step", "r1": "gan.r1", "g": "gan.g_step", "ppl": "gan.ppl"}
 
 
 def initialize_params(params, generator, init_type="normal", init_gain=0.02):
@@ -375,11 +373,13 @@ class BagGANHQ(GANBaseModel):
     config's ``compute_dtype`` ('float32', None or 'bfloat16') is
     ``compute_dtype`` here: None or ``torch.bfloat16``.
 
-    Instrumentation, for measuring runs: ``step_launches`` sums each
-    kernel's launches per step kind ('d', 'r1', 'g', 'ppl'), always;
-    ``time_steps = True`` records host-clock ms per step in ``step_ms``
-    (synchronising the device around each step); ``keep_first_grads = True``
-    keeps each step kind's first gradients in ``first_grads``.
+    Spans (``utils/tracing.py``, recorded while a profiler or
+    ``tracing.start()`` records): ``gan.optimize`` a root of each iteration
+    (its id the iteration), ``STEP_SPANS`` of its steps, ``gan.ada`` and
+    ``gan.grad`` in them, and ``gan.draw`` a root of each iteration's draws
+    (the same id); a step's launches and device time are its span's.
+    ``keep_first_grads = True`` keeps each step kind's first gradients in
+    ``first_grads``.
     """
 
     def __init__(self, config, seed=0, device=None, ops=KERNELS):
@@ -420,9 +420,6 @@ class BagGANHQ(GANBaseModel):
                                         self.device)
         self.iter_no = 0
         self.draws = None
-        self.step_launches = {k: dict.fromkeys(_build.LAUNCHES, 0) for k in STEP_KINDS}
-        self.time_steps = False
-        self.step_ms = {k: [] for k in STEP_KINDS}
         self.keep_first_grads = False
         self.first_grads = {}
         self.logger.info("Initialized Generator " + "+" * 40)
@@ -515,13 +512,9 @@ class BagGANHQ(GANBaseModel):
 
     # ------------------------------------------------------------------
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     @contextmanager
     def _step(self, kind):
-        """One step's profiler range, launch counts and (if asked) time.
+        """One step's span.
 
         The step's backward passes run on this thread, not on the device's
         autograd thread. The engine runs ready graph nodes in the order of
@@ -532,21 +525,13 @@ class BagGANHQ(GANBaseModel):
         another order on the first run in a process than on later ones, and
         summed some gradients in another order: a training run's bits
         depended on what the process had run before."""
-        before = dict(_build.LAUNCHES)
-        if self.time_steps:
-            self._sync()
-            t0 = time.perf_counter()
-        with record_function(PROFILE_RANGES[kind]), \
+        with tracing.span(STEP_SPANS[kind]), \
                 torch.autograd.set_multithreading_enabled(False):
             yield
-        if self.time_steps:
-            self._sync()
-            self.step_ms[kind].append((time.perf_counter() - t0) * 1e3)
-        for k, n in _build.LAUNCHES.items():
-            self.step_launches[kind][k] += n - before[k]
 
     def _apply(self, kind, optimizer, loss, tensors):
-        grads = torch.autograd.grad(loss, tensors, allow_unused=True)
+        with tracing.span("gan.grad"):
+            grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         grads = average_gradients(self.mesh, [torch.zeros_like(t) if g is None else g
                                               for t, g in zip(tensors, grads)])
         if self.keep_first_grads and kind not in self.first_grads:
@@ -558,7 +543,7 @@ class BagGANHQ(GANBaseModel):
             return img
         if isinstance(transform, TransformDraws):  # a step called on its own
             transform = compose_transforms(transform, self.ada_state["p"])
-        with record_function("gan.ada"):
+        with tracing.span("gan.ada"):
             return augment(img, transform_matrix=transform,
                            warp_impl=self._ada_warp_impl, ops=self.ops)[0]
 
@@ -688,8 +673,9 @@ class BagGANHQ(GANBaseModel):
             real = torch.zeros(cfg.batch_size, cfg.image_size, cfg.image_size,
                                getattr(cfg, "num_channels", 3), device=self.device)
         if draws is None:
-            draws = draw_step_inputs(self.generator, cfg, self.gen_meta, real.shape[0],
-                                     iter_no, None, self.device)
+            with tracing.span("gan.draw", id=iter_no):
+                draws = draw_step_inputs(self.generator, cfg, self.gen_meta,
+                                         real.shape[0], iter_no, None, self.device)
         if latent is not None:
             latent = latent if isinstance(latent, (list, tuple)) else [latent]
             draws = draws._replace(z=list(latent), inject_index=self.gen_meta["n_latent"])
@@ -715,15 +701,17 @@ class BagGANHQ(GANBaseModel):
         """One full GAN iteration: D, lazy R1, ADA tune, G, lazy PPL
         (ref bagganhq.py:432-483)."""
         cfg = self.config
-        # the iteration's ADA matrices at p before its D step updates it
-        d = self.draws = compose_draws(self.draws, self.ada_state["p"])
-        self.loss_d, self.loss_d_out, self.loss_d_ref, _ = self.d_step(self.ref_image, d)
-        if self.iter_no % cfg.d_reg_every == 0:
-            self.loss_d_r1 = self.r1_step(self.ref_image, d)
-        self.loss_g_gan = self.g_step(d)
-        self.loss_g = self.loss_g_gan
-        if getattr(cfg, "use_ppl", False) and self.iter_no % cfg.g_reg_every == 0:
-            self.loss_g_ppl, self.mean_path_length = self.ppl_step(d)
+        with tracing.span("gan.optimize", id=self.iter_no):
+            # the iteration's ADA matrices at p before its D step updates it
+            d = self.draws = compose_draws(self.draws, self.ada_state["p"])
+            self.loss_d, self.loss_d_out, self.loss_d_ref, _ = self.d_step(
+                self.ref_image, d)
+            if self.iter_no % cfg.d_reg_every == 0:
+                self.loss_d_r1 = self.r1_step(self.ref_image, d)
+            self.loss_g_gan = self.g_step(d)
+            self.loss_g = self.loss_g_gan
+            if getattr(cfg, "use_ppl", False) and self.iter_no % cfg.g_reg_every == 0:
+                self.loss_g_ppl, self.mean_path_length = self.ppl_step(d)
         self.iter_no += 1
 
     def optimize_parameters_chunk(self, real_batches):
@@ -761,9 +749,10 @@ class BagGANHQ(GANBaseModel):
         its G step. Nothing here reads a device value: the losses stay
         device tensors (the last iteration's are the attributes)."""
         for real, draws in run:
-            d = compose_draws(draws, self.ada_state["p"])
-            self.loss_d, self.loss_d_out, self.loss_d_ref, _ = self.d_step(real, d)
-            self.loss_g_gan = self.loss_g = self.g_step(d)
+            with tracing.span("gan.optimize", id=self.iter_no):
+                d = compose_draws(draws, self.ada_state["p"])
+                self.loss_d, self.loss_d_out, self.loss_d_ref, _ = self.d_step(real, d)
+                self.loss_g_gan = self.loss_g = self.g_step(d)
             self.iter_no += 1
 
     def update_learning_rate(self, metric=None):

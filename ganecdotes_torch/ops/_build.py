@@ -26,6 +26,7 @@ import time
 import torch
 
 from ganecdotes_torch import BUILD_DIR, PKG_DIR
+from ganecdotes_torch.utils import tracing
 
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 NVCC_FLAGS = [
@@ -225,13 +226,16 @@ def load():
 
 
 def launch(kernel, entry, *args):
-    """Call C entry ``entry`` of the library, raise on a CUDA error, count it."""
+    """Call C entry ``entry`` of the library, raise on a CUDA error, count it
+    (and, while a span records, credit it to the innermost open span)."""
     lib = _lib or load()
     rc = getattr(lib, entry)(*args)
     if rc != 0:
         msg = lib.gk_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc} at launch: {msg}")
     LAUNCHES[kernel] += 1
+    if tracing.OPEN:
+        tracing.credit(kernel)
 
 
 def reset_launches():

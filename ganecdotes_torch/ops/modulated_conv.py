@@ -69,6 +69,7 @@ from ganecdotes_torch.nn.layers import conv2d_nhwc, conv2d_transpose_nhwc
 from ganecdotes_torch.ops import _build
 from ganecdotes_torch.ops.subpixel_upconv import upsampled_conv2x_blur
 from ganecdotes_torch.ops.upfirdn2d import blur_2d, upfirdn2d, upfirdn2d_ref
+from ganecdotes_torch.utils import tracing
 
 SQRT2 = math.sqrt(2.0)
 
@@ -576,19 +577,25 @@ def _needs_graph(x, w, s, demod, noise, noise_weight, bias):
 
 def styled_conv3x3(x, w, s, demod, noise, noise_weight, bias):
     """Non-up StyledConv body: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors; first-order differentiable."""
-    if _needs_graph(x, w, s, demod, noise, noise_weight, bias):
-        return _StyledConv3x3.apply(x, w, s, demod, noise, noise_weight, bias)
-    return _conv_forward(x, w, s, demod, noise, noise_weight, bias)
+    version on CPU tensors; first-order differentiable. The span
+    ``ops.styled_conv3x3`` holds the whole layer: the wrapper's passes and
+    the kernel."""
+    with tracing.span("ops.styled_conv3x3"):
+        if _needs_graph(x, w, s, demod, noise, noise_weight, bias):
+            return _StyledConv3x3.apply(x, w, s, demod, noise, noise_weight, bias)
+        return _conv_forward(x, w, s, demod, noise, noise_weight, bias)
 
 
 def styled_up_conv3x3(x, w, s, demod, noise, noise_weight, bias,
                       blur_kernel=(1, 3, 3, 1)):
     """Upsampling StyledConv body (2x): the CUDA kernels on CUDA tensors
     (a 1-D ``blur_kernel`` of 4 taps), the plain sub-pixel version on CPU
-    tensors; first-order differentiable."""
+    tensors; first-order differentiable. Its span is
+    ``ops.styled_up_conv3x3``."""
     blur_kernel = tuple(blur_kernel)
-    if _needs_graph(x, w, s, demod, noise, noise_weight, bias):
-        return _StyledUpConv3x3.apply(x, w, s, demod, noise, noise_weight, bias,
-                                      blur_kernel)
-    return _up_conv_forward(x, w, s, demod, noise, noise_weight, bias, blur_kernel)
+    with tracing.span("ops.styled_up_conv3x3"):
+        if _needs_graph(x, w, s, demod, noise, noise_weight, bias):
+            return _StyledUpConv3x3.apply(x, w, s, demod, noise, noise_weight, bias,
+                                          blur_kernel)
+        return _up_conv_forward(x, w, s, demod, noise, noise_weight, bias,
+                                blur_kernel)

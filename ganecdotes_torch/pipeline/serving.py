@@ -72,6 +72,7 @@ from ganecdotes_torch.selfsup.simclr import (
     simclr_predict_segment,
 )
 from ganecdotes_torch.selfsup.swav import init_swav_params, swav_predict_from_features
+from ganecdotes_torch.utils import tracing
 
 
 class OneShotServer:
@@ -154,15 +155,21 @@ class OneShotServer:
             self.interp)
 
     def _unfused(self, w):
-        img, feats = self._synthesize(w)
+        return self._unfused_head(*self._synthesize(w))
+
+    def _unfused_head(self, img, feats):
         emb = self._project(feats)
         logits = one_shot_segmentor_apply(self.seg_params, emb, self.seg_size)
         return img, logits, emb[:1]
 
     def _folded(self, w):
+        return self._folded_head(*self._synthesize(w))
+
+    def _folded_head(self, img, feats):
+        """The head folded into the pyramid, and sample 0's projection
+        (``_unfused_head`` where nothing folds)."""
         if not self.foldable:
-            return self._unfused(w)
-        img, feats = self._synthesize(w)
+            return self._unfused_head(img, feats)
         logits = project_segment_fcn(
             feats, self.ssl_params["projection"][0]["weight"], self.seg_params,
             self.seg_size, hlen=self.hlen)
@@ -187,8 +194,17 @@ class OneShotServer:
 
     def serve(self, z, input_is_latent=False):
         """(img, labels, z0) for a batch of z (or w), as the JAX ``infer``
-        computes them: ``infer_folded``'s argmaxes."""
-        return _argmax(*self.infer_folded(z, input_is_latent))
+        computes them: ``infer_folded``'s argmaxes. Spans: ``serve.request``
+        (a root, an id of its own) over ``serve.synthesis`` (mapping,
+        truncation, the generator, to_rgb) and ``serve.segment`` (the folded
+        head, sample 0's projection and the argmaxes)."""
+        with tracing.span("serve.request"):
+            with tracing.span("serve.synthesis"), torch.inference_mode():
+                img, feats = self._synthesize(self._w(z, input_is_latent))
+            with tracing.span("serve.segment"):
+                with torch.inference_mode():
+                    out = self._folded_head(img, feats)
+                return _argmax(*out)
 
 
 def _argmax(img, logits, emb0):

@@ -15,6 +15,9 @@ be built or loaded, ``NativeDataLoader`` raises with the build error.
 With one worker thread the native loader's batches are the JAX package's
 native loader's, in the same order, for the same files and seed; with more,
 the threads race for the queue and the order of the batches varies.
+
+While spans record (``utils/tracing.py``), each ``next`` counts the ms it
+waited on an empty queue, the worker threads behind, as ``loader.starved``.
 """
 
 import ctypes
@@ -26,6 +29,7 @@ import threading
 import numpy as np
 
 from ganecdotes_torch import ROOT_DIR
+from ganecdotes_torch.utils import tracing
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src", "loader.cpp")
 BUILD_DIR = os.path.join(ROOT_DIR, "build", "loader")
@@ -76,6 +80,8 @@ def load_native():
         ]
         lib.gx_next.restype = ctypes.c_int
         lib.gx_next.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)]
+        lib.gx_last_starved_ns.restype = ctypes.c_longlong
+        lib.gx_last_starved_ns.argtypes = [ctypes.c_void_p]
         for name in ("gx_batches", "gx_errors", "gx_epoch"):
             getattr(lib, name).restype = ctypes.c_long
             getattr(lib, name).argtypes = [ctypes.c_void_p]
@@ -111,6 +117,9 @@ class NativeDataLoader:
                                self._buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
         if rc != 0:
             raise StopIteration
+        if tracing.recording():
+            tracing.count("loader.starved",
+                          self._lib.gx_last_starved_ns(self._handle) / 1e6)
         return self._buf.copy()
 
     __next__ = next

@@ -17,6 +17,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <chrono>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
@@ -105,6 +106,8 @@ struct Loader {
   std::atomic<bool> stop{false};
   std::atomic<long> batches_produced{0};
   std::atomic<long> decode_errors{0};
+  // nanoseconds the last gx_next blocked on an empty queue
+  std::atomic<long long> last_starved_ns{0};
 
   std::mutex idx_mu;
   std::vector<int> order;
@@ -214,13 +217,21 @@ void* gx_open(const char** paths, int n_paths, int batch, int h, int w, int c,
   return L;
 }
 
-// Blocking pop of one (batch, h, w, c) float32 batch into `out`.
+// Blocking pop of one (batch, h, w, c) float32 batch into `out`. The time it
+// waits on an empty queue (the workers behind) is gx_last_starved_ns's.
 int gx_next(void* handle, float* out) {
   Loader* L = static_cast<Loader*>(handle);
   std::vector<float> b;
   {
     std::unique_lock<std::mutex> lk(L->q_mu);
-    L->q_pop_cv.wait(lk, [&] { return L->stop.load() || !L->ready.empty(); });
+    long long starved = 0;
+    if (!L->stop.load() && L->ready.empty()) {
+      auto t0 = std::chrono::steady_clock::now();
+      L->q_pop_cv.wait(lk, [&] { return L->stop.load() || !L->ready.empty(); });
+      starved = std::chrono::duration_cast<std::chrono::nanoseconds>(
+                    std::chrono::steady_clock::now() - t0).count();
+    }
+    L->last_starved_ns.store(starved);
     if (L->ready.empty()) return -1;
     b = std::move(L->ready.front());
     L->ready.pop_front();
@@ -228,6 +239,10 @@ int gx_next(void* handle, float* out) {
   }
   memcpy(out, b.data(), b.size() * sizeof(float));
   return 0;
+}
+
+long long gx_last_starved_ns(void* handle) {
+  return static_cast<Loader*>(handle)->last_starved_ns.load();
 }
 
 long gx_batches(void* handle) {

@@ -27,7 +27,6 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ganecdotes_torch import resolve_device
 from ganecdotes_torch.models.stylegan2.convert import from_jax_params
@@ -63,6 +62,7 @@ from ganecdotes_torch.selfsup.lars import (
     tree_leaves,
     tree_map,
 )
+from ganecdotes_torch.utils import tracing
 from ganecdotes_torch.utils.serialization import load_pytree, save_pytree
 
 
@@ -383,7 +383,7 @@ def make_swav_train_step(gen_meta, model_config, perturb_args, swav_args,
     )
 
     def scores_fn(ssl_params, feats, picks):
-        with record_function("swav.projection"):
+        with tracing.span("swav.projection"):
             z = project_gathered(feats, picks, (h, w),
                                  ssl_params["projection"][0]["weight"],
                                  hlen=hlen)[0]  # (N, nclasses); batch 1
@@ -396,7 +396,7 @@ def make_swav_train_step(gen_meta, model_config, perturb_args, swav_args,
     def sample_inputs(gen, draws):
         """Both views' rotated and flipped feature pyramids (and their norm
         maps for the 'image' pdf) for one sample."""
-        with torch.no_grad(), record_function("swav.generator"):
+        with torch.no_grad(), tracing.span("swav.generator"):
             w_lat = mapping_apply(gen, draws.z.to(device), ops)
             # trunc(w) repeated n_latent times, as the JAX step computes it
             w_tr = mean_latent_w + truncation * (w_lat - mean_latent_w)
@@ -415,7 +415,7 @@ def make_swav_train_step(gen_meta, model_config, perturb_args, swav_args,
 
     def swapped_loss(s_s, s_t, marginals):
         (r_s, c_s), (r_t, c_t) = marginals
-        with record_function("swav.sinkhorn"):
+        with tracing.span("swav.sinkhorn"):
             q_s = sinkhorn_knopp(s_s, niters, eps, r_s, c_s, ops)
             q_t = sinkhorn_knopp(s_t, niters, eps, r_t, c_t, ops)
         return swapped_prediction_loss(s_s / temperature, s_t / temperature,
@@ -460,7 +460,7 @@ def make_swav_train_step(gen_meta, model_config, perturb_args, swav_args,
                                          for p, g in zip(leaves, grads)])
         grads = iter(grads)
         grads = tree_map(lambda _: next(grads), params)
-        with torch.no_grad(), record_function("swav.lars"):
+        with torch.no_grad(), tracing.span("swav.lars"):
             updates, opt_state = optimizer.update(grads, opt_state, ssl_params)
             return (apply_updates(ssl_params, updates), opt_state,
                     mean_over_ranks(mesh, loss.detach()))

@@ -56,9 +56,9 @@ And the two host-bound paths, phase 4's request of 8 (``serve``) and phase
 (``serve_bf16``: phase 16 (b)'s server, ``inference_dtype='bfloat16'``),
 ms on the host clock with the card synced. And one BagGAN-HQ iteration at
 the full pidray config (``gan``, ADA p 0.6, iteration 0: D, R1, G and PPL
-steps) after a warm-up: ms per step kind (host clock, the card synced on
-both sides; ``ms`` is D + R1), then one more under torch.profiler with
-each range's kernel time and its elementwise kernels' time (the fused
+steps) after a warm-up: device ms per step kind (the trainer's spans,
+``utils/tracing.py``, which a checkout must have; ``ms`` is D + R1), then
+one more under torch.profiler with each range's kernel time and its elementwise kernels' time (the fused
 act's own, PyTorch's elementwise kernels and its reductions), each kernel
 in the innermost range it starts in (as chip_smoke.py splits them: ADA's
 forward in ``gan.ada``); and the same with ``compute_dtype='bfloat16'``
@@ -285,8 +285,8 @@ def time_resample(cs, dev, dtype=None):
 def backward_threads(root, out_path, rounds):
     """The ``--backward-threads`` table: per compute type, ``rounds`` turns
     of each mode (calling thread, device thread; the order alternating),
-    each turn two iterations' D and G steps (host clock, the card synced
-    around each step), ms per step kind: every turn's median and the
+    each turn two iterations' D and G steps (device ms of each step's span,
+    ``utils/tracing.py``), ms per step kind: every turn's median and the
     medians of the turns."""
     import contextlib
 
@@ -299,6 +299,7 @@ def backward_threads(root, out_path, rounds):
     from ganecdotes_torch.gan.train import BagGANHQ
     from ganecdotes_torch.ops._build import load
     from ganecdotes_torch.ops.opset import KERNELS
+    from ganecdotes_torch.utils import tracing
 
     dev = resolve_device("cuda")
     load()
@@ -323,17 +324,19 @@ def backward_threads(root, out_path, rounds):
                 if mode == "device":
                     torch.autograd.set_multithreading_enabled = (
                         lambda flag: contextlib.nullcontext())
+                tracing.reset()
+                tracing.start()
                 try:
-                    gan.time_steps = True
-                    gan.step_ms = {k: [] for k in gan.step_ms}
                     for _ in range(2):
                         gan.set_input({"ct": real}, iter_no=1)
                         gan.optimize_parameters()
                 finally:
                     torch.autograd.set_multithreading_enabled = calling
+                    tracing.stop()
+                step_ms = cs.step_readings(tracing.snapshot())["ms"]
                 if i:
                     turns[mode].append({k: statistics.median(v)
-                                        for k, v in gan.step_ms.items() if v})
+                                        for k, v in step_ms.items() if v})
         out[dtype or "float32"] = {
             "turns": turns,
             "median": {mode: {k: statistics.median(t[k] for t in ts) for k in ts[0]}
@@ -357,6 +360,7 @@ def gan_iteration(cs, dev, compute_dtype=None):
 
     from ganecdotes_torch.gan.train import BagGANHQ
     from ganecdotes_torch.ops.opset import KERNELS
+    from ganecdotes_torch.utils import tracing
 
     cfg = cs.pidray_config(os.path.join(os.getcwd(), "build", "kernel_ab_gan"))
     if compute_dtype:
@@ -366,26 +370,32 @@ def gan_iteration(cs, dev, compute_dtype=None):
     gen = torch.Generator(device=dev).manual_seed(11)
     real = torch.rand(cfg.batch_size, cfg.image_size, cfg.image_size, cfg.num_channels,
                       generator=gen, device=dev) * 2 - 1
-    gan.time_steps = True
-    for _ in range(3):  # a warm-up, then two timed iterations
-        gan.set_input(real, iter_no=0)
-        gan.optimize_parameters()
-        torch.cuda.synchronize()
-    steps = {k: statistics.median(v[1:]) for k, v in gan.step_ms.items() if len(v) > 1}
-    gan.time_steps = False
+    tracing.reset()
+    tracing.start()
+    try:
+        for _ in range(3):  # a warm-up, then two timed iterations
+            gan.set_input(real, iter_no=0)
+            gan.optimize_parameters()
+            torch.cuda.synchronize()
+    finally:
+        tracing.stop()
+    steps = {k: statistics.median(v[1:])
+             for k, v in cs.step_readings(tracing.snapshot())["ms"].items() if len(v) > 1}
     gan.set_input(real, iter_no=0)
     torch.cuda.synchronize()
+    tracing.reset()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         gan.optimize_parameters()
         torch.cuda.synchronize()
     labels = ("gan.d_step", "gan.r1", "gan.g_step", "gan.ppl", "gan.ada")
-    device = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    spans = [(e.name, e.time_range.start, e.time_range.end) for e in device if e.name in labels]
+    ranges_on_device, kernels = cs.device_ranges(prof)
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in ranges_on_device
+             if e.name in labels]
     ranges = {lb: {"kernel_ms": 0.0, **dict.fromkeys(ELEMENTWISE_TAGS, 0.0)}
               for lb in labels}
-    for e in device:  # each kernel in the innermost range it starts in
+    for e in kernels:  # each kernel in the innermost range it starts in
         inside = [(b - a, lb) for lb, a, b in spans if a <= e.time_range.start < b]
-        if e.name in labels or not inside:
+        if not inside:
             continue
         label = min(inside)[1]
         ms = e.time_range.elapsed_us() / 1e3
@@ -401,19 +411,25 @@ def gan_iteration(cs, dev, compute_dtype=None):
 
 def kernel_us(fn, calls=20):
     """``fn``'s device time a call per kernel name, in microseconds, under
-    torch.profiler (each kernel's spans over ``calls`` calls)."""
+    torch.profiler (each kernel's spans over ``calls`` calls; the port's
+    own spans, ranges on the device, left out)."""
     import torch
+
+    from ganecdotes_torch.utils import tracing
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    tracing.reset()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    spans = {sp.name for sp in tracing.snapshot().spans}
+    tracing.reset()
     out = {}
     for e in prof.events():
-        if e.device_type.name == "CUDA":
+        if e.device_type.name == "CUDA" and e.name not in spans:
             out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / calls
     return out
 

@@ -50,6 +50,7 @@ from ganecdotes_torch.models.stylegan2 import convert
 from ganecdotes_torch.models.stylegan2 import generator as tg
 from ganecdotes_torch.ops import _build
 from ganecdotes_torch.ops.opset import KERNELS
+from ganecdotes_torch.utils import tracing
 
 from test_torch_discriminator import disc_tree, one_torch_thread  # noqa: F401
 
@@ -517,16 +518,24 @@ def test_five_iterations_on_the_cpu(tmp_path):
     g_params, _ = _jax_generator(seed=2)
     gan = _trainer(tmp_path, g_params, disc_tree(seed=3, widths=WIDTHS), ada_length=20)
     gan.ada_state["p"].fill_(P)
-    gan.time_steps = True
     _build.reset_launches()
     rng = np.random.RandomState(15)
     losses = []
-    for it in range(5):
-        gan.set_input(rng.randn(B, SIZE, SIZE, 3).astype(np.float32), iter_no=it)
-        gan.optimize_parameters()
-        losses.append(gan.get_current_losses())
+    tracing.reset()
+    tracing.start()
+    try:
+        for it in range(5):
+            gan.set_input(rng.randn(B, SIZE, SIZE, 3).astype(np.float32), iter_no=it)
+            gan.optimize_parameters()
+            losses.append(gan.get_current_losses())
+    finally:
+        tracing.stop()
+    spans = tracing.snapshot().spans
+    tracing.reset()
     assert all(v == 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
-    assert [len(gan.step_ms[k]) for k in tt.STEP_KINDS] == [5, 2, 5, 2]
+    assert [sum(s.name == tt.STEP_SPANS[k] for s in spans)
+            for k in tt.STEP_KINDS] == [5, 2, 5, 2]
+    assert not any(s.launches for s in spans)
     assert all(np.isfinite(list(l.values())).all() for l in losses)
     assert set(losses[0]) == {"g_gan", "d", "g_ppl"}
     assert float(gan.mean_path_length) > 0
@@ -563,14 +572,23 @@ def test_ada_controller_tunes_p_in_the_d_step(tmp_path):
     gan = _trainer(tmp_path, g_params, disc_tree(seed=5, widths=WIDTHS),
                    use_ppl=False, d_reg_every=100, ada_length=4)
     rng = np.random.RandomState(16)
-    for it in range(1, 9):
-        gan.set_input(rng.randn(B, SIZE, SIZE, 3).astype(np.float32), iter_no=it)
-        gan.optimize_parameters()
+    tracing.reset()
+    try:
+        for it in range(1, 9):
+            if it == 8:  # iterations 1-7 record no span, the last one does
+                tracing.start()
+            gan.set_input(rng.randn(B, SIZE, SIZE, 3).astype(np.float32), iter_no=it)
+            gan.optimize_parameters()
+    finally:
+        tracing.stop()
+    spans = tracing.snapshot().spans
+    tracing.reset()
     # one update after 8 D steps: p moves by +-(8 * B) / ada_length from 0
     assert gan.ada_aug_p in (pytest.approx(1.0), 0.0)
     assert int(gan.ada_state["update"]) == 0
-    assert [len(v) for v in gan.step_ms.values()] == [0, 0, 0, 0]
-    assert gan.step_launches["d"] == dict.fromkeys(_build.LAUNCHES, 0)
+    assert {s.id for s in spans} == {8}
+    d_steps = [s for s in spans if s.name == "gan.d_step"]
+    assert len(d_steps) == 1 and d_steps[0].launches == {}
     assert gan.draws.r1_aug is None and gan.draws.ppl_z is None
 
 

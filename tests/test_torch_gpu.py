@@ -987,8 +987,9 @@ def test_baggan_iteration_runs_no_plain_fir_on_the_card(cuda, tmp_path, monkeypa
     upsample's backward, and the FIR kernel launches in every step kind."""
     import torch.nn.functional as F
 
-    from ganecdotes_torch.gan.train import STEP_KINDS, BagGANHQ
+    from ganecdotes_torch.gan.train import STEP_KINDS, STEP_SPANS, BagGANHQ
     from ganecdotes_torch.ops.opset import KERNELS
+    from ganecdotes_torch.utils import tracing
 
     conv2d = F.conv2d
 
@@ -1002,10 +1003,18 @@ def test_baggan_iteration_runs_no_plain_fir_on_the_card(cuda, tmp_path, monkeypa
     gan = BagGANHQ(_tiny_baggan_config(tmp_path), seed=2, device=cuda, ops=KERNELS)
     gan.ada_state["p"].fill_(0.6)
     gan.set_input(real, iter_no=0)
-    gan.optimize_parameters()
-    torch.cuda.synchronize()
+    tracing.reset()
+    tracing.start()
+    try:
+        gan.optimize_parameters()
+    finally:
+        tracing.stop()
+    launches = {s.name: s.launches for s in tracing.snapshot().spans
+                if s.name in STEP_SPANS.values()}
+    tracing.reset()
     for kind in STEP_KINDS:
-        assert gan.step_launches[kind]["upfirdn2d"] > 0, (kind, gan.step_launches[kind])
+        step = launches[STEP_SPANS[kind]]
+        assert step.get("upfirdn2d", 0) > 0, (kind, step)
     with pytest.raises(AssertionError, match="plain FIR"):  # the guard is live
         tup.upfirdn2d_ref(real.to(cuda), tup.make_kernel((1, 3, 3, 1)), pad=(1, 2))
 
