@@ -18,7 +18,9 @@ Phases (any failure exits non-zero before the last line):
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. build: compiles ganecdotes_torch/csrc/*.cu for sm_90a, prints the time;
      every instance of both bf16 StyledConv GEMM kernels must hold wgmma
-     (HGMMA ... BF16 in the SASS), no mma.sync (HMMA) and no spills; their
+     (HGMMA ... BF16 in the SASS), no mma.sync (HMMA) and no spills, and
+     every instance of both float32 StyledConv GEMMs (tile widths 32, 64,
+     128) wgmma in tf32 (HGMMA ... TF32), no HMMA and no spills; their
      registers, spills and dynamic shared memory are printed;
   3. kernels: each kernel at every shape the ffhq-256 serving path gives it
      at B = 8, held against its plain PyTorch version on the card (float32,
@@ -4934,21 +4936,54 @@ def phase16(dev, served, fp32_plain):
 
 
 BF16_GEMM_KERNELS = ("styled_conv3x3_bf16_kernel", "up_gemm_bf16_kernel")
+# the float32 StyledConv GEMMs (csrc/tf32x3.cuh), one instance a tile width
+TF32_GEMM_KERNELS = ("styled_conv3x3_kernel", "up_gemm_kernel")
 
 
-def bf16_gemm_instructions(library):
-    """Per instance of the two bf16 StyledConv GEMM kernels in the library's
-    SASS: its wgmma (HGMMA ... BF16) and mma.sync (HMMA) instructions."""
+def gemm_instructions(library, kernels, dtype):
+    """Per instance of ``kernels`` in the library's SASS: its wgmma
+    instructions on ``dtype`` operands (HGMMA ... dtype) and its mma.sync
+    (HMMA) instructions."""
     counts = {}
     for fn, line in sass_lines(library):
-        if not any(k in fn for k in BF16_GEMM_KERNELS):
+        if not any(k in fn for k in kernels):
             continue
-        c = counts.setdefault(fn, {"hgmma_bf16": 0, "hmma": 0})
-        if "HGMMA" in line and "BF16" in line:
-            c["hgmma_bf16"] += 1
+        c = counts.setdefault(fn, {"hgmma": 0, "hmma": 0})
+        if "HGMMA" in line and dtype in line:
+            c["hgmma"] += 1
         elif "HMMA" in line:
             c["hmma"] += 1
     return counts
+
+
+def tf32_gemm_resources(log_path):
+    """Per instance of the float32 StyledConv GEMMs, from ptxas -v in the
+    build log: "conv <width>" or "up <width>" -> registers, spill bytes
+    (stores + loads) and dynamic shared memory (the plan's)."""
+    import re
+
+    from ganecdotes_torch.ops import modulated_conv
+
+    out, fn = {}, None
+    with open(log_path) as f:
+        for line in f:
+            if "Function properties for" in line:
+                name = line.split("Function properties for")[1].strip()
+                fn = name if any(k in name for k in TF32_GEMM_KERNELS) else None
+                continue
+            if fn is None:
+                continue
+            bn = int(re.search(r"ILi(\d+)EE", fn).group(1))
+            rec = out.setdefault(("up " if "up_gemm" in fn else "conv ") + str(bn), {})
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                rec["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rec["registers"] = int(m.group(1))
+                rec["smem_bytes"] = modulated_conv.tf32_ring(bn)[2]
+                fn = None
+    return out
 
 
 def bf16_gemm_resources(log_path):
@@ -5086,14 +5121,25 @@ def main():
                 print("  " + line.strip())
     hmma = tensor_core_instructions(info["library"])
     print(f"  tensor-core (HMMA) instructions in the SASS: {json.dumps(hmma)}", flush=True)
-    check(any("styled_conv3x3" in k for k in hmma),
-          "the non-up StyledConv kernel has no tensor-core instruction")
-    hmma16 = bf16_gemm_instructions(info["library"])
+    hmma32 = gemm_instructions(info["library"], TF32_GEMM_KERNELS, "TF32")
+    print("  float32 StyledConv GEMMs' wgmma (HGMMA ... TF32) and mma.sync (HMMA) "
+          f"instructions in the SASS: {json.dumps(hmma32)}", flush=True)
+    for kernel in TF32_GEMM_KERNELS:
+        insts = [n for k, n in hmma32.items() if kernel in k]
+        check(len(insts) == 3 and all(n["hgmma"] > 0 and n["hmma"] == 0 for n in insts),
+              f"{kernel}: its 3 instances must run wgmma (HGMMA ... TF32) and no "
+              f"HMMA: {insts}")
+    resources32 = tf32_gemm_resources(info["log"])
+    print(f"  float32 StyledConv GEMMs (tile width): {json.dumps(resources32)}", flush=True)
+    check(len(resources32) == 6 and all(r.get("spill_bytes") == 0
+                                        for r in resources32.values()),
+          f"the float32 StyledConv GEMMs must not spill: {resources32}")
+    hmma16 = gemm_instructions(info["library"], BF16_GEMM_KERNELS, "BF16")
     print("  bf16 StyledConv GEMMs' wgmma (HGMMA ... BF16) and mma.sync (HMMA) "
           f"instructions in the SASS: {json.dumps(hmma16)}", flush=True)
     for kernel in BF16_GEMM_KERNELS:
         insts = [n for k, n in hmma16.items() if kernel in k]
-        check(insts and all(n["hgmma_bf16"] > 0 and n["hmma"] == 0 for n in insts),
+        check(insts and all(n["hgmma"] > 0 and n["hmma"] == 0 for n in insts),
               f"{kernel}: every instance must run wgmma (HGMMA ... BF16) and no "
               f"HMMA: {insts}")
     resources = bf16_gemm_resources(info["log"])
@@ -5204,6 +5250,7 @@ def main():
                        "configs": other_configs, "train_evaluate": trained_evaluated,
                        "gui": gui_run, "item5": item5_run, "phase15": phase15_run,
                        "phase16": phase16_run, "hmma_bf16": hmma16,
+                       "hmma_tf32": hmma32, "tf32_gemm_resources": resources32,
                        "bf16_gemm_resources": resources, "bf16_memory_resources": mem16,
                        "kernels": line, "seconds": seconds}, f, indent=1, default=str)
     print(smi)

@@ -11,18 +11,22 @@
 //
 // Bound: operations. 2*9*Cin*Cout flops per output pixel against
 // (Cin + Cout)*4 bytes: hundreds of flops per byte at the serving widths,
-// far above the balance point of the tensor cores.
-// Design: an implicit GEMM on the 3xTF32 tensor-core main loop of
-// tf32x3.cuh, M = output pixels, N = Cout, K = 9 taps x Cin. Tap (dy, dx)
-// reads pixel (y + dy - 1, x + dx - 1) with zero fill outside the image,
-// so the 'same' padding never exists in memory; the weights come as
-// (3, 3, Cout, Cin), k contiguous per output channel. The whole epilogue
-// (demod, noise, bias, leaky-ReLU, sqrt(2)) runs in registers on the MMA
-// fragments before the single write. Shapes are free: pixel rows past M
-// and channels past Cout are masked. Small M (the 4x4 to 16x16 layers at
-// B = 8, every early layer at B = 1) leaves most SMs idle while a few
-// blocks walk K = 9 * Cin, so the wrapper may split the 9 taps 3 or 9 ways
-// over blockIdx.z: each split writes its raw sums to a scratch tensor and
+// far above the balance point of the tensor cores; in 3xTF32 three
+// products a multiply-add at 495 TFLOP/s.
+// Design: an implicit GEMM on the 3xTF32 TMA + wgmma main loop of
+// tf32x3.cuh, M = output pixels, N = Cout, K = 9 taps x Cin. A tile is
+// 128 consecutive output pixels (flat over images, rows and columns: no
+// waste at any width) by 32, 64 or 128 channels (ops/modulated_conv.py
+// tf32_plan); tap (dy, dx) is TMA's im2col load of those pixels at the
+// offsets (dx, dy) from base pixel (x - 1, y - 1), zero outside the image,
+// so the 'same' padding never exists in memory. The C entry first splits
+// the (3, 3, Cin, Cout) weights into their (2, 9, Cout, Cin) TF32 planes
+// (tf32_split_weight_kernel), which TMA then loads. The whole epilogue
+// (demod, noise, bias, leaky-ReLU, sqrt(2)) runs on the staged sums before
+// the single 16-byte write. Small M (the 4x4 to 16x16 layers at B = 8,
+// every early layer at B = 1) leaves most SMs idle while a few blocks walk
+// K = 9 * Cin, so the plan may split the 9 taps 3 or 9 ways over
+// blockIdx.y: each split writes its raw sums to a scratch tensor and
 // styled_conv_epilogue_kernel sums the splits in order, then runs the
 // epilogue. Requires Cin % 4 == 0, Cout % 4 == 0 and 16-byte-aligned
 // pointers (the wrapper checks).
@@ -65,77 +69,113 @@ __device__ __forceinline__ float finish(float acc, float d, float nz, float bias
   return (o >= 0.f ? o : 0.2f * o) * SQRT2;
 }
 
+struct ConvArgs {
+  const float* demod;  // (B, Cout)
+  const float* noise;  // (Nb, H, W)
+  long long noise_bs;  // 0: broadcast over B
+  const float* nw;     // scalar
+  const float* bias;   // (Cout,)
+  float* out;          // (B, H, W, Cout)
+  float* part;         // (nsplit, M, Cout) if nsplit > 1
+  int nsplit, B, H, W, Cin, Cout;
+  int tiles_n, chunks;
+};
+
+// The float32 body: the 9-tap implicit GEMM on tf32x3.cuh, a BM x BN tile
+// of BM consecutive output pixels (flat over images, rows and columns).
+// A comes by TMA's im2col mode: pixel (y, x) of image b is base pixel
+// (x - 1, y - 1) of the bounding box [-1, dim - 2], and tap (dy, dx) the
+// offsets (dx, dy), so the load reads pixel (x + dx - 1, y + dy - 1), zero
+// outside the image (and past the last image). Splits (blockIdx.y) take
+// taps 9 z / nsplit .. 9 (z + 1) / nsplit and write raw sums.
+template <int BN>
 __global__ void __launch_bounds__(NT, 1)
-styled_conv3x3_kernel(const float* __restrict__ xm,     // (B, H, W, Cin)
-                      const float* __restrict__ w,      // (3, 3, Cout, Cin)
-                      const float* __restrict__ demod,  // (B, Cout)
-                      const float* __restrict__ noise,  // (Nb, H, W)
-                      int64_t noise_bs,                 // 0: broadcast over B
-                      const float* __restrict__ nw,     // scalar
-                      const float* __restrict__ bias,   // (Cout,)
-                      float* __restrict__ out,          // (B, H, W, Cout)
-                      float* __restrict__ part,  // (nsplit, M, Cout) if nsplit > 1
-                      int nsplit, int B, int H, int W, int Cin, int Cout) {
-  extern __shared__ __align__(16) float smem[];
+styled_conv3x3_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap, const ConvArgs p) {
+  namespace bw = bf16wg;
+  using TL = Tile<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const Ring<BN> ring = ring_setup<BN>(smem_raw);
 
-  const int HW = H * W;
-  const int M = B * HW;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int t0 = 9 * blockIdx.z / nsplit, t1 = 9 * (blockIdx.z + 1) / nsplit;
+  const int tm = blockIdx.x / p.tiles_n;
+  const int n0 = (blockIdx.x - tm * p.tiles_n) * BN;
+  const int64_t m0 = (int64_t)tm * BM;
+  const int z = blockIdx.y;
+  const int t0 = 9 * z / p.nsplit, t1 = 9 * (z + 1) / p.nsplit;
+  const int HW = p.H * p.W;
 
-  const ARows a = a_rows(m0, M, H, W, H, W);
-  float acc[4][4][4];
-  gemm(acc, smem, t1 - t0, Cin, [&](float* stage, int tap, int c0) {
-    tap += t0;
-    const int dy = tap / 3, dx = tap - 3 * (tap / 3);
-    load_stage(stage, xm, w + (int64_t)tap * Cout * Cin, a, dy - 1, dx - 1,
-               c0, n0, H, W, Cin, Cout);
-  });
-
-  if (nsplit > 1) {  // this split's raw sums
-    float* pz = part + (int64_t)blockIdx.z * M * Cout;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + frag_row(i, h);
-        if (m >= M) continue;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = n0 + frag_col(j);
-          if (n < Cout)
-            *reinterpret_cast<float2*>(pz + (int64_t)m * Cout + n) =
-                make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        }
-      }
-    return;
-  }
-
-  const float nwv = *nw;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + frag_row(i, h);
-      if (m >= M) continue;
-      const int b = m / HW;
-      const int r = m - b * HW;
-      const float nz = nwv * noise[(int64_t)b * noise_bs + r];
-      float* orow = out + (int64_t)m * Cout;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + frag_col(j);
-        if (n >= Cout) continue;
-        const float2 d =
-            *reinterpret_cast<const float2*>(demod + (int64_t)b * Cout + n);
-        const float2 bb = *reinterpret_cast<const float2*>(bias + n);
-        *reinterpret_cast<float2*>(orow + n) =
-            make_float2(finish(acc[i][j][2 * h], d.x, nz, bb.x),
-                        finish(acc[i][j][2 * h + 1], d.y, nz, bb.y));
-      }
+  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup: one thread works
+    if constexpr (TL::REBALANCE) bw::setmaxnreg_dec<bw::PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS) {
+      const CUtensorMap* xs = &xmap;
+      const CUtensorMap* ws = &wmap;
+      bw::prefetch_map(xs);
+      bw::prefetch_map(ws);
+      const int n = (int)(m0 / HW), r = (int)(m0 - (int64_t)n * HW);
+      const int y = r / p.W, x = r - y * p.W;
+      produce<BN>(ring, t1 - t0, p.chunks,
+                  [=](uint32_t a, uint32_t bh, uint32_t bl, uint32_t bar, int tap, int c0) {
+                    tap += t0;
+                    const int dy = tap / 3, dx = tap - 3 * dy;
+                    bw::tma_im2col_4d(a, xs, bar, c0, x - 1, y - 1, n,
+                                      static_cast<uint16_t>(dx), static_cast<uint16_t>(dy));
+                    bw::tma_tile_3d(bh, ws, bar, c0, n0, tap);
+                    bw::tma_tile_3d(bl, ws, bar, c0, n0, 9 + tap);
+                  });
+    }
+  } else {  // the two consumer warpgroups
+    if constexpr (TL::REBALANCE) bw::setmaxnreg_inc<bw::CONSUMER_REGS>();
+    const int64_t M = (int64_t)p.B * HW;
+    bw::RowInfo* table = ring.table();
+    if (threadIdx.x < BM) {  // tile row r's pixel, while the first stages load
+      const int64_t m = m0 + threadIdx.x;
+      const int b = (int)(m / HW);
+      bw::RowInfo ri;
+      ri.off = m < M ? (m + (p.nsplit > 1 ? z * M : 0)) * p.Cout : -1;
+      ri.b = b;
+      ri.nz = m < M && p.nsplit == 1 ? *p.nw * p.noise[b * p.noise_bs + (m - (int64_t)b * HW)]
+                                     : 0.f;
+      table[threadIdx.x] = ri;
+    }
+    float acc[1][TL::ACC];
+    consume<BN>(acc, ring, (t1 - t0) * p.chunks, threadIdx.x >> 7);
+    bw::consumers_sync();  // every stage consumed: the ring is free
+    float* st = ring.staged();
+    bw::stage_acc<BM, BN>(st, acc);
+    bw::consumers_sync();
+    if (p.nsplit > 1) {  // this split's raw sums
+      bw::store_out<BM, BN>(st, table, p.part, n0, p.Cout,
+                            [](const bw::RowInfo&, int, float(&)[4]) {});
+    } else {
+      bw::store_out<BM, BN>(
+          st, table, p.out, n0, p.Cout, [&](const bw::RowInfo& ri, int n, float(&v)[4]) {
+            const float4 d = *reinterpret_cast<const float4*>(p.demod + (int64_t)ri.b * p.Cout + n);
+            const float4 c = *reinterpret_cast<const float4*>(p.bias + n);
+            v[0] = finish(v[0], d.x, ri.nz, c.x);
+            v[1] = finish(v[1], d.y, ri.nz, c.y);
+            v[2] = finish(v[2], d.z, ri.nz, c.z);
+            v[3] = finish(v[3], d.w, ri.nz, c.w);
+          });
     }
   }
+}
+
+template <int BN>
+int launch_tf32(const float* xm, const float* planes, ConvArgs p, cudaStream_t s) {
+  using TL = Tile<BN>;
+  // base pixels (x - 1, y - 1) of the H x W pixels: the bounding box
+  // [-1, dim - 2] on both axes
+  const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
+  CUtensorMap xmap, wmap;
+  cudaError_t e = im2col_map(&xmap, xm, p.B, p.H, p.W, p.Cin, lower, upper);
+  if (e == cudaSuccess) e = weight_map(&wmap, planes, p.Cin, p.Cout, BN);
+  auto kernel = styled_conv3x3_kernel<BN>;
+  if (e == cudaSuccess) e = bf16wg::set_smem(kernel, TL::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const long long M = (long long)p.B * p.H * p.W;
+  const dim3 grid((unsigned)((M + BM - 1) / BM) * p.tiles_n, p.nsplit);
+  kernel<<<grid, NT, TL::SMEM_BYTES, s>>>(xmap, wmap, p);
+  return (int)cudaGetLastError();
 }
 
 __device__ __forceinline__ void store4(float* p, float a, float b, float c,
@@ -298,26 +338,36 @@ int launch_bf16(const void* xm, const void* w, ConvBf16Args p, int stages,
 
 }  // namespace
 
-extern "C" int gk_styled_conv3x3(const float* xm, const float* w,
+// The float32 entry: w as (3, 3, Cin, Cout), split into ``planes`` (2, 9,
+// Cout, Cin; the wrapper's scratch) before the GEMM. The plan
+// (ops/modulated_conv.py tf32_plan): ``bn`` the tile's width (32, 64 or
+// 128), ``stages`` the ring's depth and ``tiles_m`` the 128-pixel tiles,
+// all checked against the kernel's.
+extern "C" int gk_styled_conv3x3(const float* xm, const float* w, float* planes,
                                  const float* demod, const float* noise,
                                  long long noise_bs, const float* nw,
                                  const float* bias, float* out, float* part,
                                  int nsplit, int B, int H, int W, int Cin,
-                                 int Cout, void* stream) {
+                                 int Cout, int bn, int stages, int tiles_m,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (nsplit != 1 && nsplit != 3 && nsplit != 9) return (int)cudaErrorInvalidValue;
-  cudaError_t e = set_smem(styled_conv3x3_kernel);
+  const long long M = (long long)B * H * W;
+  if ((nsplit != 1 && nsplit != 3 && nsplit != 9) || Cin % 4 || Cout % 4 ||
+      bn != tile_n(Cout) || tiles_m != (M + BM - 1) / BM)
+    return (int)cudaErrorInvalidValue;
+  if (stages != (bn == 32 ? Tile<32>::STAGES : bn == 64 ? Tile<64>::STAGES : Tile<128>::STAGES))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = split_weights(w, planes, Cin, Cout, s);
   if (e != cudaSuccess) return (int)e;
-  const int M = B * H * W;
-  dim3 grid((M + BM - 1) / BM, (Cout + BN - 1) / BN, nsplit);
-  styled_conv3x3_kernel<<<grid, NT, SMEM_BYTES, s>>>(
-      xm, w, demod, noise, noise_bs, nw, bias, out, part, nsplit, B, H, W,
-      Cin, Cout);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || nsplit == 1) return (int)e;
-  const int64_t total = (int64_t)M * (Cout / 4);
+  ConvArgs p{demod, noise, noise_bs, nw, bias, out, part, nsplit, B, H, W, Cin, Cout,
+             (Cout + bn - 1) / bn, (Cin + BK - 1) / BK};
+  const int rc = bn == 32   ? launch_tf32<32>(xm, planes, p, s)
+                 : bn == 64 ? launch_tf32<64>(xm, planes, p, s)
+                            : launch_tf32<128>(xm, planes, p, s);
+  if (rc != 0 || nsplit == 1) return rc;
+  const int64_t total = M * (Cout / 4);
   styled_conv_epilogue_kernel<float><<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
-      part, nsplit, demod, noise, noise_bs, nw, bias, out, M, H * W, Cout);
+      part, nsplit, demod, noise, noise_bs, nw, bias, out, (int)M, H * W, Cout);
   return (int)cudaGetLastError();
 }
 

@@ -28,13 +28,16 @@
 // Bound: operations. 2 * 9 * Cin * Cout flops per input pixel against a few
 // bytes per output; at the ffhq-256 widths (102.9 G MACs per request of 8)
 // the convT is far above the tensor cores' balance point.
-// Design of the GEMM: the 3xTF32 tensor-core main loop of tf32x3.cuh
-// (plain TF32 would keep about 3 digits over K = 2048 and is not offered).
-// A block owns a 128 x 128 output tile of one phase class; A is the
-// gathered x * s pixels of a tap, B the tap's weight slice (the wrapper
-// passes w as (3, 3, Cout, Cin)). One flat grid covers the four classes
-// with the 4-tap tiles first and the 1-tap tiles last, so the short tiles
-// fill the SMs the long ones leave idle at the end.
+// Design of the GEMM: the 3xTF32 TMA + wgmma main loop of tf32x3.cuh
+// (plain TF32 would keep about 3 digits over K = 2048 and is not offered),
+// laid out as the bf16 body's below: every phase class walks the
+// (H + 1) x (W + 1) positions of each image flat, 128 a tile, A by TMA's
+// im2col mode with the tap as its offsets, B the tap's slice of the
+// weights' TF32 planes (split by the C entry, tf32_split_weight_kernel),
+// by 32, 64 or 128 channels (ops/modulated_conv.py tf32_plan). One flat
+// grid covers the four classes with the 4-tap tiles first and the 1-tap
+// tiles last, so the short tiles fill the SMs the long ones leave idle at
+// the end.
 //
 // The blur kernel is bound by bytes (16 taps per output, reading T once
 // from device memory at best): one thread owns a 2 x 2 block of outputs and
@@ -71,66 +74,109 @@ using namespace tf32x3;
 
 constexpr float SQRT2 = 1.4142135623730951f;
 
-struct PhaseTiles {
-  int first[5];  // first block of each phase class, first[4] = grid size
-  int tiles_n;
+struct UpArgs {
+  const float* demod;  // (B, Cout)
+  float* t_out;        // (B, 2H+1, 2W+1, Cout)
+  int B, H, W, Cin, Cout;
+  int tiles_m, tiles_n, chunks;  // a class's tiles: tiles_m x tiles_n
 };
 
+// The float32 body's phase GEMM on tf32x3.cuh, a BM x BN tile, laid out as
+// the bf16 body's (up_gemm_bf16_kernel, below): every class walks the
+// (H + 1) x (W + 1) positions of each image flat, A by TMA's im2col mode
+// from base pixel (x - 1, y - 1) of position (y, x), tap (ty, tx) the
+// offsets (1 - tx, 1 - ty); the positions outside the class are computed
+// and not stored. Blocks: class 0 (4 taps) first, then classes 1, 2 (2
+// taps), 3 (1), so the short tiles fill the SMs the long ones leave idle.
+template <int BN>
 __global__ void __launch_bounds__(NT, 1)
-up_gemm_kernel(const float* __restrict__ xm,     // (B, H, W, Cin)
-               const float* __restrict__ w,      // (3, 3, Cout, Cin)
-               const float* __restrict__ demod,  // (B, Cout)
-               float* __restrict__ t_out,        // (B, 2H+1, 2W+1, Cout)
-               PhaseTiles pt, int B, int H, int W, int Cin, int Cout) {
-  extern __shared__ __align__(16) float smem[];
+up_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
+               const __grid_constant__ CUtensorMap wmap, const UpArgs p) {
+  namespace bw = bf16wg;
+  using TL = Tile<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  const Ring<BN> ring = ring_setup<BN>(smem_raw);
 
-  int phase = 0;
-  while (phase < 3 && (int)blockIdx.x >= pt.first[phase + 1]) ++phase;
-  const int local = blockIdx.x - pt.first[phase];
-  const int m0 = (local / pt.tiles_n) * BM;
-  const int n0 = (local % pt.tiles_n) * BN;
+  const int per_class = p.tiles_m * p.tiles_n;
+  const int phase = blockIdx.x / per_class;
+  const int local = blockIdx.x - phase * per_class;
+  const int m0 = (local / p.tiles_n) * BM;
+  const int n0 = (local % p.tiles_n) * BN;
   const int py = phase >> 1, px = phase & 1;
-  const int Hp = H + 1 - py, Wp = W + 1 - px;  // rows, cols of this class
-  const int HWp = Hp * Wp;
-  const int M = B * HWp;
-  const int ntx = 2 - px;  // x taps: 2 for px = 0, 1 for px = 1
+  const int ntx = 2 - px;
   const int ntaps = (2 - py) * ntx;
+  const int Hg = p.H + 1, Wg = p.W + 1, HWg = Hg * Wg;
 
-  // class pixel (y, x) reads x pixel (y - ty, x - tx) through tap (ty, tx)
-  const ARows a = a_rows(m0, M, Hp, Wp, H, W);
-  float acc[4][4][4];
-  gemm(acc, smem, ntaps, Cin, [&](float* stage, int tap, int c0) {
-    const int ty = ntx == 2 ? tap >> 1 : tap, tx = ntx == 2 ? tap & 1 : 0;
-    const int ky = py ? 1 : 2 * ty, kx = px ? 1 : 2 * tx;
-    load_stage(stage, xm, w + (int64_t)(ky * 3 + kx) * Cout * Cin, a, -ty,
-               -tx, c0, n0, H, W, Cin, Cout);
-  });
-
-  // epilogue: demod, then T[b, 2y + py, 2x + px, n] as float2 pairs
-  const int TH = 2 * H + 1, TW = 2 * W + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + frag_row(i, h);
-      if (m >= M) continue;
-      const int b = m / HWp;
-      const int r = m - b * HWp;
-      const int y = r / Wp;
-      const int x = r - y * Wp;
-      float* trow =
-          t_out + (((int64_t)b * TH + 2 * y + py) * TW + 2 * x + px) * Cout;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + frag_col(j);
-        if (n >= Cout) continue;
-        const float2 d =
-            *reinterpret_cast<const float2*>(demod + (int64_t)b * Cout + n);
-        *reinterpret_cast<float2*>(trow + n) =
-            make_float2(acc[i][j][2 * h] * d.x, acc[i][j][2 * h + 1] * d.y);
-      }
+  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup: one thread works
+    if constexpr (TL::REBALANCE) bw::setmaxnreg_dec<bw::PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS) {
+      const CUtensorMap* xs = &xmap;
+      const CUtensorMap* ws = &wmap;
+      bw::prefetch_map(xs);
+      bw::prefetch_map(ws);
+      const int n = m0 / HWg, r = m0 - n * HWg;
+      const int y = r / Wg, x = r - y * Wg;
+      produce<BN>(ring, ntaps, p.chunks,
+                  [=](uint32_t a, uint32_t bh, uint32_t bl, uint32_t bar, int tap, int c0) {
+                    const int ty = ntx == 2 ? tap >> 1 : tap;
+                    const int tx = ntx == 2 ? tap & 1 : 0;
+                    const int ky = py ? 1 : 2 * ty, kx = px ? 1 : 2 * tx;
+                    bw::tma_im2col_4d(a, xs, bar, c0, x - 1, y - 1, n,
+                                      static_cast<uint16_t>(1 - tx),
+                                      static_cast<uint16_t>(1 - ty));
+                    bw::tma_tile_3d(bh, ws, bar, c0, n0, ky * 3 + kx);
+                    bw::tma_tile_3d(bl, ws, bar, c0, n0, 9 + ky * 3 + kx);
+                  });
     }
+  } else {  // the two consumer warpgroups
+    if constexpr (TL::REBALANCE) bw::setmaxnreg_inc<bw::CONSUMER_REGS>();
+    const int TH = 2 * p.H + 1, TW = 2 * p.W + 1;
+    const int M = p.B * HWg;
+    bw::RowInfo* table = ring.table();
+    if (threadIdx.x < BM) {  // tile row r -> T[b, 2y + py, 2x + px], none outside the class
+      const int q = m0 + threadIdx.x;
+      const int b = q / HWg, rest = q - b * HWg;
+      const int y = rest / Wg, x = rest - y * Wg;
+      bw::RowInfo ri;
+      ri.off = q < M && y < Hg - py && x < Wg - px
+                   ? (((int64_t)b * TH + 2 * y + py) * TW + 2 * x + px) * p.Cout
+                   : -1;
+      ri.b = b;
+      ri.nz = 0.f;
+      table[threadIdx.x] = ri;
+    }
+    float acc[1][TL::ACC];
+    consume<BN>(acc, ring, ntaps * p.chunks, threadIdx.x >> 7);
+    bw::consumers_sync();  // every stage consumed: the ring is free
+    float* st = ring.staged();
+    bw::stage_acc<BM, BN>(st, acc);
+    bw::consumers_sync();
+    bw::store_out<BM, BN>(st, table, p.t_out, n0, p.Cout,
+                          [&](const bw::RowInfo& ri, int n, float(&v)[4]) {
+                            const float4 d = *reinterpret_cast<const float4*>(
+                                p.demod + (int64_t)ri.b * p.Cout + n);
+                            v[0] *= d.x;
+                            v[1] *= d.y;
+                            v[2] *= d.z;
+                            v[3] *= d.w;
+                          });
   }
+}
+
+template <int BN>
+int launch_up(const float* xm, const float* planes, UpArgs p, cudaStream_t s) {
+  using TL = Tile<BN>;
+  // base pixels (x - 1, y - 1) of the (H + 1) x (W + 1) positions: the
+  // bounding box [-1, dim - 1] on both axes
+  const int lower[2] = {-1, -1}, upper[2] = {0, 0};
+  CUtensorMap xmap, wmap;
+  cudaError_t e = im2col_map(&xmap, xm, p.B, p.H, p.W, p.Cin, lower, upper);
+  if (e == cudaSuccess) e = weight_map(&wmap, planes, p.Cin, p.Cout, BN);
+  auto kernel = up_gemm_kernel<BN>;
+  if (e == cudaSuccess) e = bf16wg::set_smem(kernel, TL::SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<4 * p.tiles_m * p.tiles_n, NT, TL::SMEM_BYTES, s>>>(xmap, wmap, p);
+  return (int)cudaGetLastError();
 }
 
 struct UpBf16Args {
@@ -342,28 +388,33 @@ int launch_up_bf16(const void* xm, const void* w, UpBf16Args p, int stages,
 
 }  // namespace
 
-extern "C" int gk_styled_up_conv3x3(const float* xm, const float* w,
+// The float32 entry: w as (3, 3, Cin, Cout), split into ``planes`` (2, 9,
+// Cout, Cin; the wrapper's scratch) before the GEMM. The plan
+// (ops/modulated_conv.py tf32_plan): ``bn`` the GEMM tile's width (32, 64
+// or 128), ``stages`` the ring's depth and ``tiles_m`` a class's tiles, all
+// checked against the kernel's.
+extern "C" int gk_styled_up_conv3x3(const float* xm, const float* w, float* planes,
                                     const float* demod, const float* noise,
                                     long long noise_bs, const float* nw,
                                     const float* bias, float* scratch,
                                     float* out, int B, int H, int W, int Cin,
                                     int Cout, float k0, float k1, float k2,
-                                    float k3, void* stream) {
+                                    float k3, int bn, int stages, int tiles_m,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = set_smem(up_gemm_kernel);
+  const long long positions = (long long)B * (H + 1) * (W + 1);
+  if (Cin % 4 || Cout % 4 || bn != tile_n(Cout) || tiles_m != (positions + BM - 1) / BM)
+    return (int)cudaErrorInvalidValue;
+  if (stages != (bn == 32 ? Tile<32>::STAGES : bn == 64 ? Tile<64>::STAGES : Tile<128>::STAGES))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = split_weights(w, planes, Cin, Cout, s);
   if (e != cudaSuccess) return (int)e;
-  PhaseTiles pt;
-  pt.tiles_n = (Cout + BN - 1) / BN;
-  pt.first[0] = 0;
-  for (int p = 0; p < 4; ++p) {
-    const int rows = H + 1 - (p >> 1), cols = W + 1 - (p & 1);
-    const int tiles_m = (B * rows * cols + BM - 1) / BM;
-    pt.first[p + 1] = pt.first[p] + tiles_m * pt.tiles_n;
-  }
-  up_gemm_kernel<<<pt.first[4], NT, SMEM_BYTES, s>>>(xm, w, demod, scratch, pt,
-                                                     B, H, W, Cin, Cout);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  UpArgs p{demod, scratch, B, H, W, Cin, Cout, tiles_m, (Cout + bn - 1) / bn,
+           (Cin + BK - 1) / BK};
+  const int rc = bn == 32   ? launch_up<32>(xm, planes, p, s)
+                 : bn == 64 ? launch_up<64>(xm, planes, p, s)
+                            : launch_up<128>(xm, planes, p, s);
+  if (rc != 0) return rc;
   // the blur taps flipped once here: true convolution
   BlurTaps kt = {{k3, k2, k1, k0}};
   const int64_t total = (int64_t)B * H * W * (Cout / 4);

@@ -88,14 +88,18 @@ _SIGNATURES = {
     "gk_fused_leaky_relu_bf16": [P, P, P, P, I, I, F, F] + [I] * 5 + [P],
     "gk_fused_leaky_relu_bwd_bf16": [P] * 5 + [I, I, F, F] + [I] * 5 + [P],
     "gk_upfirdn2d_bf16": [P, P] + [I] * 20 + [Taps, P],
-    # xm, w (3, 3, Cout, Cin), demod, noise, noise batch stride, nw, bias,
-    # out, split scratch (or NULL), tap splits, B, H, W, Cin, Cout, stream
-    "gk_styled_conv3x3": [P, P, P, P, ctypes.c_longlong, P, P, P, P,
-                          I, I, I, I, I, I, P],
-    # xm, w (3, 3, Cout, Cin), demod, noise, noise batch stride, nw, bias,
-    # scratch, out, B, H, W, Cin, Cout, the four 1-D blur taps, stream
-    "gk_styled_up_conv3x3": [P, P, P, P, ctypes.c_longlong, P, P, P, P,
-                             I, I, I, I, I, F, F, F, F, P],
+    # xm, w (3, 3, Cin, Cout), its TF32 planes' scratch (2, 9, Cout, Cin),
+    # demod, noise, noise batch stride, nw, bias, out, split scratch (or
+    # NULL), tap splits, B, H, W, Cin, Cout, then the plan (the tile's
+    # width, the ring's stages, the 128-pixel tiles), stream
+    "gk_styled_conv3x3": [P, P, P, P, P, ctypes.c_longlong, P, P, P, P]
+                         + [I] * 9 + [P],
+    # xm, w (3, 3, Cin, Cout), its TF32 planes' scratch, demod, noise, noise
+    # batch stride, nw, bias, scratch, out, B, H, W, Cin, Cout, the four 1-D
+    # blur taps, then the plan (the tile's width, the ring's stages, a
+    # class's tiles), stream
+    "gk_styled_up_conv3x3": [P, P, P, P, P, ctypes.c_longlong, P, P, P, P,
+                             I, I, I, I, I, F, F, F, F, I, I, I, P],
     # bf16 xm, w (3, 3, Cout, Cin), out; fp32 demod, noise, nw, bias, split
     # scratch: xm, w, demod, noise, noise batch stride, nw, bias, out,
     # scratch, tap splits, B, H, W, Cin, Cout, then the plan (the tile's

@@ -8,11 +8,14 @@ Each body has two variants on the card, picked from the shape alone
 
 * ``"tf32x3"`` (Cout not in ``NARROW_COUTS``: the ffhq widths):
   ``styled_conv3x3`` launches the CUDA kernel of csrc/styled_conv.cu, a
-  9-tap implicit GEMM on tensor cores in 3xTF32 with the epilogue in
-  registers; ``styled_up_conv3x3`` the two kernels of
-  csrc/styled_up_conv.cu, the stride-2 transposed conv as a sub-pixel GEMM
-  with only the 9 taps that see data, on the same main loop
-  (csrc/tf32x3.cuh), into a scratch tensor, then the blur and the epilogue.
+  9-tap implicit GEMM on tensor cores in 3xTF32 with its epilogue;
+  ``styled_up_conv3x3`` the two kernels of csrc/styled_up_conv.cu, the
+  stride-2 transposed conv as a sub-pixel GEMM with only the 9 taps that
+  see data, on the same main loop (csrc/tf32x3.cuh: TMA + wgmma, the
+  weights split into their TF32 planes by the C entry), into a scratch
+  tensor, then the blur and the epilogue. Their tile plan (``tf32_plan``:
+  the tile width, the ring's depth, the tiles and the tap splits) is
+  computed here and passed to the C entries, which check it.
 * ``"narrow"`` (Cout of 16, 32 or 64: BagGAN's lean width map; the up
   body at 64 only on small inputs, ``variant``):
   csrc/styled_conv_narrow.cu on the fp32 SIMT units, x * s applied while
@@ -166,8 +169,9 @@ def _check(kernel, x, w, s, demod, noise, noise_weight, bias, up):
 
 def tap_splits(m, cout, sms):
     """How many ways csrc/styled_conv.cu's float32 kernel splits its 9 taps
-    (1, 3 or 9) for M = m output pixels on ``sms`` SMs (128 x 128 tiles)."""
-    return grid_splits(-(-m // 128) * -(-cout // 128), sms)
+    (1, 3 or 9) for M = m output pixels on ``sms`` SMs (128-pixel tiles,
+    ``tf32_tile_n(cout)`` wide)."""
+    return grid_splits(-(-m // TF32_BM) * -(-cout // tf32_tile_n(cout)), sms)
 
 
 def grid_splits(tiles, sms):
@@ -314,15 +318,16 @@ def bf16_ring(bm, bn):
     return stages, stage_bytes, fixed + stages * (stage_bytes + 16)
 
 
-Bf16Plan = namedtuple("Bf16Plan", [
+# The tile plan of either wgmma main loop (``bf16_plan``, ``tf32_plan``).
+WgmmaPlan = namedtuple("WgmmaPlan", [
     "bm",           # tile rows (pixels or positions)
     "bn",           # tile width (output channels)
     "stages",       # the ring's depth
-    "stage_bytes",  # one stage: bm rows of A and bn rows of B, 128 B each
+    "stage_bytes",  # one stage: bm rows of A and bn rows of B (tf32: its two planes), 128 B each
     "smem_bytes",   # the block's dynamic shared memory
-    "chunks",       # 64-channel stages a tap
-    "mode",         # A's TMA mode: "tile" (non-up) or "im2col" (up)
-    "box",          # A's box, innermost first: (64, tw, th, nb) or (64, bm)
+    "chunks",       # stages a tap: 64 bf16 or 32 float32 channels each
+    "mode",         # A's TMA mode: "tile" (bf16 non-up) or "im2col"
+    "box",          # A's box, innermost first: (64, tw, th, nb) or (channels, bm)
     "tiles",        # tile: (x, y, image) tiles; im2col: (tiles,) a class
     "tiles_m",      # bm-row tiles (a class's, up)
     "tiles_n",      # bn-wide tiles
@@ -347,16 +352,62 @@ def bf16_plan(b, h, w, cin, cout, up, sms=132):
     chunks, tiles_n = -(-cin // BF16_BK), -(-cout // bn)
     if up:
         tiles_m = -(-m // bm)
-        return Bf16Plan(bm, bn, stages, stage_bytes, smem, chunks, "im2col",
+        return WgmmaPlan(bm, bn, stages, stage_bytes, smem, chunks, "im2col",
                         (BF16_BK, bm), (tiles_m,), tiles_m, tiles_n, 1,
                         4 * tiles_m * tiles_n)
     tw, th, nb = pixel_box(b, h, w, bm)
     tiles = (-(-w // tw), -(-h // th), -(-b // nb))
     tiles_m = tiles[0] * tiles[1] * tiles[2]
     nsplit = grid_splits(tiles_m * tiles_n, sms)
-    return Bf16Plan(bm, bn, stages, stage_bytes, smem, chunks, "tile",
+    return WgmmaPlan(bm, bn, stages, stage_bytes, smem, chunks, "tile",
                     (BF16_BK, tw, th, nb), tiles, tiles_m, tiles_n, nsplit,
                     tiles_m * tiles_n * nsplit)
+
+
+# csrc/tf32x3.cuh's constants: 128-row tiles (two consumer warpgroups of
+# one m64 block), 32 float32 channels a stage (one 128-byte swizzled row),
+# A and B's two TF32 planes a stage, a ring of at most 6 stages in the same
+# 227 KB and fixed bytes as the bf16 loop's.
+TF32_BM = 128
+TF32_BK = 32
+TF32_MAX_STAGES = 6
+
+
+def tf32_tile_n(cout):
+    """The float32 GEMMs' tile width for ``cout`` channels (csrc/tf32x3.cuh
+    ``tile_n``): 32 or 64 where that holds them, else 128 (the running and
+    the partial sums take 128 accumulators a thread there)."""
+    return 32 if cout <= 32 else 64 if cout <= 64 else 128
+
+
+def tf32_ring(bn):
+    """csrc/tf32x3.cuh's ring for a 128 x bn tile: (stages, bytes a stage,
+    the block's dynamic shared memory)."""
+    stage_bytes = 4 * TF32_BK * (TF32_BM + 2 * bn)
+    fixed = 1024 + 16 * max(BF16_BMS)  # alignment slack, the row table
+    stages = min(TF32_MAX_STAGES,
+                 (BF16_SMEM_LIMIT - fixed - 16 * TF32_MAX_STAGES) // stage_bytes)
+    return stages, stage_bytes, fixed + stages * (stage_bytes + 16)
+
+
+@functools.lru_cache(maxsize=None)
+def tf32_plan(b, h, w, cin, cout, up, sms=132):
+    """The float32 GEMMs' plan for input (b, h, w, cin) and ``cout`` output
+    channels on ``sms`` SMs (csrc/tf32x3.cuh, csrc/styled_conv.cu,
+    csrc/styled_up_conv.cu): 128-row tiles walking the body's grid flat by
+    TMA's im2col mode, the (b, h, w) pixels (non-up) or every phase class
+    over the (h + 1) x (w + 1) positions of each image (up), by
+    ``tf32_tile_n(cout)`` channels; a non-up grid of fewer tiles than SMs
+    splits its taps (``grid_splits``)."""
+    bn = tf32_tile_n(cout)
+    m = b * (h + 1) * (w + 1) if up else b * h * w
+    stages, stage_bytes, smem = tf32_ring(bn)
+    chunks, tiles_n = -(-cin // TF32_BK), -(-cout // bn)
+    tiles_m = -(-m // TF32_BM)
+    nsplit = 1 if up else tap_splits(m, cout, sms)
+    return WgmmaPlan(TF32_BM, bn, stages, stage_bytes, smem, chunks, "im2col",
+                     (TF32_BK, TF32_BM), (tiles_m,), tiles_m, tiles_n, nsplit,
+                     (4 if up else nsplit) * tiles_m * tiles_n)
 
 
 def _bf16_operands(kernel, x, w, s, demod, noise, noise_weight, bias):
@@ -420,20 +471,21 @@ def _tf32x3_conv_forward(x, w, s, demod, noise, noise_weight, bias, out_shape):
         return out
     # the modulation x * s is materialised here, as the JAX kernel does
     xm = x * s[:, None, None, :]
-    w_nk = w.permute(0, 1, 3, 2).contiguous()  # per tap Cout x Cin, k contiguous
-    m = b * oh * ow
-    nsplit = tap_splits(m, cout, _sm_count(x.device))
+    cin = x.shape[3]
+    plan = tf32_plan(*x.shape, cout, False, _sm_count(x.device))
+    # the weights' TF32 planes (2, 9, Cout, Cin), written by the C entry
+    planes = torch.empty((2, 9, cout, cin), dtype=x.dtype, device=x.device)
     part = None
-    if nsplit > 1:
-        part = torch.empty((nsplit, m, cout), dtype=x.dtype, device=x.device)
+    if plan.nsplit > 1:
+        part = torch.empty((plan.nsplit, b * oh * ow, cout), dtype=x.dtype, device=x.device)
         _build.check_tensor(kernel, part, "scratch")
     _build.launch(
         kernel, "gk_styled_conv3x3",
-        _build.ptr(xm), _build.ptr(w_nk), _build.ptr(demod), _build.ptr(noise),
-        0 if noise.shape[0] == 1 else oh * ow, _build.ptr(noise_weight),
-        _build.ptr(bias), _build.ptr(out),
-        None if part is None else _build.ptr(part), nsplit, *x.shape, cout,
-        _build.stream_of(x),
+        _build.ptr(xm), _build.ptr(w), _build.ptr(planes), _build.ptr(demod),
+        _build.ptr(noise), 0 if noise.shape[0] == 1 else oh * ow,
+        _build.ptr(noise_weight), _build.ptr(bias), _build.ptr(out),
+        None if part is None else _build.ptr(part), plan.nsplit, *x.shape, cout,
+        plan.bn, plan.stages, plan.tiles_m, _build.stream_of(x),
     )
     VARIANT_LAUNCHES[(kernel, "tf32x3")] += 1
     return out
@@ -486,13 +538,17 @@ def _tf32x3_up_conv_forward(x, w, s, demod, noise, noise_weight, bias, taps,
                           device=x.device)
     _build.check_tensor(kernel, scratch, "scratch")
     xm = x * s[:, None, None, :]
-    w_nk = w.permute(0, 1, 3, 2).contiguous()  # per tap Cout x Cin, k contiguous
+    cin = x.shape[3]
+    plan = tf32_plan(*x.shape, cout, True, _sm_count(x.device))
+    # the weights' TF32 planes (2, 9, Cout, Cin), written by the C entry
+    planes = torch.empty((2, 9, cout, cin), dtype=x.dtype, device=x.device)
     _build.launch(
         kernel, "gk_styled_up_conv3x3",
-        _build.ptr(xm), _build.ptr(w_nk), _build.ptr(demod), _build.ptr(noise),
-        0 if noise.shape[0] == 1 else oh * ow, _build.ptr(noise_weight),
-        _build.ptr(bias), _build.ptr(scratch), _build.ptr(out), *x.shape,
-        cout, *taps, _build.stream_of(x),
+        _build.ptr(xm), _build.ptr(w), _build.ptr(planes), _build.ptr(demod),
+        _build.ptr(noise), 0 if noise.shape[0] == 1 else oh * ow,
+        _build.ptr(noise_weight), _build.ptr(bias), _build.ptr(scratch),
+        _build.ptr(out), *x.shape, cout, *taps, plan.bn, plan.stages,
+        plan.tiles_m, _build.stream_of(x),
     )
     VARIANT_LAUNCHES[(kernel, "tf32x3")] += 1
     return out

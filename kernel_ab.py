@@ -12,8 +12,11 @@ of the ffhq-256 serving request (B = 8), the SwAV step and the BagGAN-HQ
 iteration:
 
   * styled_conv3x3 and styled_up_conv3x3, ms per request (each layer's time
-    summed over the request's calls), and per layer; and the same two at
-    the BagGAN generator's lean width map (``styled_conv3x3_lean``,
+    summed over the request's calls), and per layer; the same two in
+    float32 at the pidray G step's rosinality widths at B = 20, one noise
+    map per sample (``styled_conv3x3_g20``, ``styled_up_conv3x3_g20``: ms
+    per layer and their sum, the float32 GEMMs' training shapes); and the
+    same two at the BagGAN generator's lean width map (``styled_conv3x3_lean``,
     ``styled_up_conv3x3_lean``: every lean row of chip_smoke.py's phase 3
     with Cout <= 64, B = 1 and 8, noise broadcast and per sample, ms per
     call; ``ms`` sums them);
@@ -478,6 +481,29 @@ def time_bf16_convs(cs, dev):
     return out
 
 
+def time_g20_convs(cs, dev):
+    """The float32 StyledConvs at the pidray G step's rosinality widths at
+    B = 20, one noise map per sample (chip_smoke.py's phase 16 (a) shapes,
+    float32): ``styled_conv3x3_g20`` and ``styled_up_conv3x3_g20``, ms per
+    layer and their sum."""
+    import torch
+
+    from ganecdotes_torch.ops import modulated_conv
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for name, path, shape, _, noise_b in cs.bf16_styled_shapes():
+        if path != "train rosinality":
+            continue
+        args = cs.styled_inputs(shape, name == "styled_up_conv3x3", gen, dev, noise_b)
+        fn = getattr(modulated_conv, name)
+        rec = out.setdefault(f"{name}_g20", {"ms": 0.0, "cases_ms": {}})
+        rec["cases_ms"][str(tuple(shape))] = ms = cs.time_ms(lambda: fn(*args))
+        rec["ms"] += ms
+        del args
+    return out
+
+
 def bf16_bounds(cs):
     """The bf16 StyledConvs' bounds per key of ``time_bf16_convs`` (ms,
     summed like its ``ms``): the GEMMs' 2 * 9 * Cin * Cout flops a pixel at
@@ -833,6 +859,7 @@ def worker(root, cases, paths_only=False):
     r, c = torch.ones(k, device=dev) / k, torch.ones(b, device=dev) / b
     out["sinkhorn_knopp"] = {"ms": cs.time_ms(
         lambda: sinkhorn.sinkhorn_knopp(x, sk["niters"], sk["eps"], r, c))}
+    out.update(time_g20_convs(cs, dev))
     out.update(time_lean_convs(cs, dev))
     out.update(time_bf16_convs(cs, dev))
     firs = time_firs(cs, dev, cases)

@@ -93,6 +93,54 @@ def test_styled_convs_match_plain(cuda, shape, noise_b):
     assert _build.LAUNCHES["styled_up_conv3x3"] == before["styled_up_conv3x3"] + 1
 
 
+def _path_shapes(b, up):
+    """The float32 StyledConv shapes of ffhq256's and pidray256's generators
+    (widths 512 at 4^2 to 128 at 256^2) at batch b."""
+    from ganecdotes_torch.models.stylegan2.generator import channel_map
+
+    ch = channel_map()
+    res = [2 ** k for k in range(2, 9)]
+    if up:
+        return [(b, r // 2, r // 2, ch[r // 2], ch[r]) for r in res[1:]]
+    return [(b, r, r, ch[r], ch[r]) for r in res]
+
+
+@pytest.mark.parametrize("b", [32, 20, 10])
+@pytest.mark.parametrize("up", [False, True], ids=["conv", "up_conv"])
+def test_tf32_styled_convs_match_plain_at_the_path_shapes(cuda, b, up):
+    """Every float32 StyledConv layer of the ffhq256 request of 32 (noise
+    broadcast) and of pidray256's G at B = 20 and PPL's B = 10 (one noise
+    map per sample), on the 3xTF32 GEMMs: the tap splits 9, 3 and 1 among
+    them (``tf32_plan``), each within CONV_TOL of the plain version."""
+    name = "styled_up_conv3x3" if up else "styled_conv3x3"
+    fn, ref = getattr(tmc, name), getattr(tmc, name + "_ref")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits = set()
+    for shape in _path_shapes(b, up):
+        before = dict(tmc.VARIANT_LAUNCHES)
+        a = _styled_inputs(*shape, 1 if b == 32 else b, up, cuda, seed=shape[1])
+        torch.testing.assert_close(fn(*a), ref(*a), **CONV_TOL)
+        assert tmc.VARIANT_LAUNCHES[(name, "tf32x3")] == before[(name, "tf32x3")] + 1
+        splits.add(tmc.tf32_plan(*shape, up, sms).nsplit)
+        del a
+    assert splits == ({1} if up else {9, 1} if b == 32 else {9, 3, 1})
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 8, 512, 512), (20, 8, 8, 512, 512),
+                                   (2, 32, 32, 256, 128), (4, 72, 72, 32, 68)])
+@pytest.mark.parametrize("up", [False, True])
+def test_tf32_styled_convs_repeat_bit_for_bit(cuda, shape, up):
+    """Two launches of the float32 StyledConvs on the same input give the
+    same bits: no atomics; the non-up taps split 9 ways (8x8 at B = 8), 3
+    (at B = 20) or not at all, the splits summed in order."""
+    args = _styled_inputs(*shape, shape[0], up, cuda, seed=3)
+    fn = tmc.styled_up_conv3x3 if up else tmc.styled_conv3x3
+    before = dict(tmc.VARIANT_LAUNCHES)
+    assert torch.equal(fn(*args), fn(*args))
+    name = "styled_up_conv3x3" if up else "styled_conv3x3"
+    assert tmc.VARIANT_LAUNCHES[(name, "tf32x3")] == before[(name, "tf32x3")] + 2
+
+
 @pytest.mark.parametrize("shape", [(8, 256, 256, 16, 16), (1, 256, 256, 16, 16),
                                    (8, 128, 128, 32, 32), (1, 128, 128, 32, 32)])
 @pytest.mark.parametrize("noise_b", ["one", "batch"])
@@ -1366,8 +1414,11 @@ def _fir_cases(dtype, dev, g):
                (x,))
 
 
+# the float32 GEMMs at every tile width (Cout 4 to 136: 32, 64 and 128 wide)
+# and tap split (9 at the small grids; 3 at (20, 8, 8); 1 at (4, 72, 72))
 STYLED_RAGGED = [(3, 5, 7, 36, 20), (1, 9, 3, 4, 132), (3, 13, 6, 40, 136), (20, 7, 5, 64, 4),
-                 (1, 11, 9, 32, 100), (8, 16, 16, 512, 124), (2, 8, 8, 512, 512)]
+                 (1, 11, 9, 32, 100), (8, 16, 16, 512, 124), (2, 8, 8, 512, 512),
+                 (2, 9, 10, 40, 64), (20, 8, 8, 512, 512), (4, 72, 72, 32, 68)]
 STYLED_RAGGED_BF16 = [(3, 16, 16, 64, 16), (2, 32, 32, 16, 32), (1, 4, 4, 24, 40),
                       (3, 5, 7, 72, 24), (20, 4, 4, 512, 512), (2, 9, 72, 64, 136),
                       (1, 3, 130, 16, 264)]
@@ -1375,8 +1426,9 @@ STYLED_RAGGED_BF16 = [(3, 16, 16, 64, 16), (2, 32, 32, 16, 32), (1, 4, 4, 24, 40
 
 def _styled_cases(dtype, dev, g, up):
     """Kernels 3 (up False) and 4 (up True): float32 through both variants
-    (the 3xTF32 GEMMs and the narrow kernel at every split), bf16 through
-    the wgmma bodies; ragged shapes and phase 16 (a)'s."""
+    (the 3xTF32 GEMMs with their weight split, and the narrow kernel at
+    every split), bf16 through the wgmma bodies; ragged shapes and phase
+    16 (a)'s."""
     name = "styled_up_conv3x3" if up else "styled_conv3x3"
     fn = getattr(tmc, name)
     cs = _chip_smoke()

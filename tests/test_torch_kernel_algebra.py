@@ -22,12 +22,18 @@ here on every run. None of them is on a path of the port.
   ``styled_up_conv3x3_xla`` at a ragged shape with Cin = 20 (one full
   chunk and one mostly zero), 1e-5 absolute (sums of 9 * Cin = 180 terms
   of O(0.1)).
-* csrc/styled_conv.cu: the 'same' 3x3 conv as a GEMM over 9 taps, tap
-  (dy, dx) reading pixel (y + dy - 1, x + dx - 1) with zero fill, in
-  32-channel stages each summed from 0 and added to the running sum, then
-  the epilogue in the kernel's order; held against the JAX package's
-  ``styled_conv3x3_ref`` at a ragged shape, 1e-5 absolute (sums of
-  9 * Cin = 360 terms of O(0.1)).
+* csrc/styled_conv.cu's float32 body, block by block as
+  ``tf32_plan`` lays it out: the 'same' 3x3 conv as a GEMM over 9 taps,
+  128 consecutive pixels a tile by TMA's im2col walk, tap (dy, dx) reading
+  pixel (y + dy - 1, x + dx - 1) with zero fill, in 32-channel stages of
+  three TF32 products each summed from 0 into a partial that joins the
+  running sum, the tap splits added in order, then the epilogue in the
+  kernel's order; held against the JAX package's ``styled_conv3x3_ref`` at
+  ragged shapes, 1e-5 absolute (sums of 9 * Cin = 360 terms of O(0.1)).
+  The up body's float32 GEMM (up_gemm_kernel) by the bf16 body's im2col
+  walk on the same stages, against ``styled_up_conv3x3_ref`` and
+  ``_xla``; the plan's ring, boxes, tiles and tap splits at every path
+  shape of ffhq256 and pidray256.
 * the 3xTF32 arithmetic both StyledConvs share (csrc/tf32x3.cuh): each fp32 operand split into a TF32
   big part and a TF32 small part (round to nearest, ties away, as
   cvt.rna.tf32.f32: add half of the 13 dropped mantissa bits, then mask
@@ -250,54 +256,115 @@ def test_narrow_conv_chunks_and_phase_filters_match_jax(up, noise_b):
                                    **CONV3_TOL)
 
 
-def _tap_gemm_conv(x, w, s, demod, noise, noise_weight, bias, nsplit=1,
-                   stage=32):
-    """What csrc/styled_conv.cu computes: out[m, n] = sum over the 9 taps and
-    the 32-channel stages of A_tap[m, c] * W_tap[n, c], each stage summed
-    from 0 and then added to the running sum; A_tap row m is pixel
-    (y + dy - 1, x + dx - 1) of x * s, zero outside the image; W_tap is the
-    tap's (Cout, Cin) slice of the (3, 3, Cout, Cin) weights. With the taps
-    split nsplit ways, each split's taps 9 z / nsplit .. 9 (z + 1) / nsplit
-    have their own running sum, and the splits are added in order. Then
-    demod, noise, bias, leaky-ReLU and sqrt(2), in that order."""
+def _tf32_parts(x):
+    """x's TF32 big and small parts (``_tf32``): hi + lo = x to 2^-22."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _stage_3xtf32(a, b_hi, b_lo):
+    """One 32-channel stage of csrc/tf32x3.cuh, summed from 0: A split into
+    its TF32 parts (in the consumers' registers), B's two planes as loaded,
+    the products a_lo b_hi, a_hi b_lo, a_hi b_hi; a_lo b_lo dropped."""
+    a_hi, a_lo = _tf32_parts(a)
+    return a_lo @ b_hi.T + a_hi @ b_lo.T + a_hi @ b_hi.T
+
+
+def _weight_planes(w):
+    """tf32_split_weight_kernel: the (3, 3, Cin, Cout) weights as their TF32
+    planes, (18, Cout, Cin): hi for taps 0-8, then lo."""
+    cout, cin = w.shape[3], w.shape[2]
+    return torch.cat(_tf32_parts(w.permute(0, 1, 3, 2).reshape(9, cout, cin)))
+
+
+def _tap_gemm_conv(x, w, s, demod, noise, noise_weight, bias, sms=132):
+    """What csrc/styled_conv.cu's float32 body computes, block by block as
+    ``tf32_plan`` lays it out: block (tile m, tile n) of split z walks 128
+    consecutive pixels flat over images, rows and columns by ``bn``
+    channels; over its taps 9 z / nsplit .. 9 (z + 1) / nsplit and their
+    32-channel stages, each stage's three products (``_stage_3xtf32``) are
+    summed from 0 into a partial that then joins the running sum. Tap (dy,
+    dx)'s A stage is TMA's im2col load from base pixel (x - 1, y - 1) of
+    the bounding box [-1, dim - 2] at offsets (dx, dy), zero outside the
+    image; B's are boxes of the weights' planes. Rows past the last pixel
+    and columns past Cout are not stored. The splits' sums are added in
+    split order, then demod, noise, bias, leaky-ReLU and sqrt(2), in that
+    order. Returns the output, how many times each element was stored per
+    split, and the plan."""
+    from ganecdotes_torch.ops.modulated_conv import tf32_plan
+
     xm = x * s[:, None, None, :]
     b, h, wd, cin = xm.shape
-    w_nk = w.permute(0, 1, 3, 2)
-    xp = F.pad(xm, (0, 0, 1, 1, 1, 1))  # xp[:, r, c] = xm[:, r - 1, c - 1]
-    parts = []
-    for z in range(nsplit):
-        acc = xm.new_zeros(b * h * wd, w.shape[3])
-        for tap in range(9 * z // nsplit, 9 * (z + 1) // nsplit):
-            dy, dx = divmod(tap, 3)
-            a = xp[:, dy:dy + h, dx:dx + wd].reshape(-1, cin)
-            for c0 in range(0, cin, stage):
-                acc = acc + a[:, c0:c0 + stage] @ w_nk[dy, dx, :, c0:c0 + stage].T
-        parts.append(acc)
-    acc = parts[0]
-    for p in parts[1:]:
+    cout = w.shape[3]
+    plan = tf32_plan(b, h, wd, cin, cout, False, sms)
+    bm, bn, bk = plan.bm, plan.bn, plan.box[0]
+    planes = _weight_planes(w)
+    m_all = b * h * wd
+    part = xm.new_zeros(plan.nsplit, m_all, cout)
+    stored = torch.zeros(plan.nsplit, m_all, cout, dtype=torch.int64)
+    for z in range(plan.nsplit):
+        for blk in range(plan.tiles_m * plan.tiles_n):
+            tm, tn = divmod(blk, plan.tiles_n)
+            m0, n0 = tm * bm, tn * bn
+            n, r0 = divmod(m0, h * wd)
+            y, xx = divmod(r0, wd)
+            acc = xm.new_zeros(bm, bn)
+            for tap in range(9 * z // plan.nsplit, 9 * (z + 1) // plan.nsplit):
+                dy, dx = divmod(tap, 3)
+                for c in range(plan.chunks):
+                    a = _tma_im2col(xm, (xx - 1, y - 1, n), (-1, -1), (-1, -1), (dx, dy),
+                                    bk * c, bm, bk)
+                    b_hi = _tma_box(planes, (bk * c, n0, tap), (bk, bn, 1))[0]
+                    b_lo = _tma_box(planes, (bk * c, n0, 9 + tap), (bk, bn, 1))[0]
+                    acc = acc + _stage_3xtf32(a, b_hi, b_lo)
+            rows, k = min(bm, m_all - m0), min(bn, cout - n0)
+            part[z, m0:m0 + rows, n0:n0 + k] = acc[:rows, :k]
+            stored[z, m0:m0 + rows, n0:n0 + k] += 1
+    acc = part[0]
+    for p in part[1:]:
         acc = acc + p
-    out = acc.reshape(b, h, wd, -1) * demod[:, None, None, :]
-    out = out + noise_weight * noise
-    out = out + bias
-    return torch.where(out >= 0, out, 0.2 * out) * np.sqrt(2.0)
+    out = _epilogue_np(acc.reshape(b, h, wd, cout), demod, noise, noise_weight, bias)
+    return out, stored, plan
+
+
+# SMs on which a grid of one tile splits its taps 1, 3 or 9 ways
+SMS_FOR_SPLITS = {1: 1, 3: 3, 9: 132}
 
 
 @pytest.mark.parametrize("nsplit", [1, 3, 9])
 @pytest.mark.parametrize("noise_b", [1, 3])
 def test_tap_gemm_conv_matches_jax(noise_b, nsplit):
-    """B * H * W = 105 rows (no multiple of the 128-row tile), Cout = 12,
-    Cin = 40: a full 32-channel stage and a partial one per tap; the taps
-    whole or split 3 or 9 ways."""
+    """B * H * W = 105 rows (no multiple of the 128-row tile), Cout = 12 (a
+    32-wide tile), Cin = 40: a full 32-channel stage and a partial one per
+    tap; the taps whole or split 3 or 9 ways (the one tile's grid planned
+    for 1, 3 and 132 SMs). Every output stored once per split."""
     rng = np.random.RandomState(5)
     b, h, wd, cin, cout = 3, 5, 7, 40, 12
     args = [rng.randn(b, h, wd, cin), rng.randn(3, 3, cin, cout) * 0.05,
             rng.rand(b, cin) + 0.5, rng.rand(b, cout) + 0.5,
             rng.randn(noise_b, h, wd, 1), np.float32(0.3),
             rng.randn(cout) * 0.1]
-    ours = _np(_tap_gemm_conv(*[_t(a) for a in args], nsplit=nsplit))
+    ours, stored, plan = _tap_gemm_conv(*[_t(a) for a in args], sms=SMS_FOR_SPLITS[nsplit])
+    assert plan.nsplit == nsplit and plan.bn == 32 and bool((stored == 1).all())
     assert ours.shape == (b, h, wd, cout)
     jargs = [jnp.asarray(np.asarray(a, np.float32)) for a in args]
-    np.testing.assert_allclose(ours, np.asarray(jmc.styled_conv3x3_ref(*jargs)),
+    np.testing.assert_allclose(_np(ours), np.asarray(jmc.styled_conv3x3_ref(*jargs)),
+                               **CONV3_TOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 10, 8, 136), (1, 3, 70, 36, 64)])
+def test_tf32_conv_tiles_cover_every_output_once(shape):
+    """Tiles that cross rows and images (W = 10, 2 x 90 pixels: two tiles,
+    the second partial) and Cout = 136 (two 128-wide tiles, the second 8
+    wide); W = 70 (a tile of 128 pixels spans a row break) at Cout 64 (a
+    64-wide tile), Cin 36 (a full and a nearly empty stage). Planned for
+    132 SMs, so the taps split; every output stored once per split."""
+    rng = np.random.RandomState(6)
+    args = _styled_args(rng, *shape, 1, up=False)
+    out, stored, plan = _tap_gemm_conv(*[_t(a) for a in args])
+    assert plan.nsplit > 1 and bool((stored == 1).all())
+    jargs = [jnp.asarray(np.asarray(a, np.float32)) for a in args]
+    np.testing.assert_allclose(_np(out), np.asarray(jmc.styled_conv3x3_ref(*jargs)),
                                **CONV3_TOL)
 
 
@@ -458,24 +525,28 @@ def _wgmma_tile_conv(x, w, s, demod, noise, noise_weight, bias, sms=132):
     return _epilogue_np(acc, demod, noise, noise_weight, bias), stored
 
 
-def _wgmma_im2col_up_conv(x, w, s, demod, noise, noise_weight, bias, sms=132):
-    """What csrc/styled_up_conv.cu's bf16 body computes, in float32: per
+def _wgmma_im2col_up_conv(x, w, s, demod, noise, noise_weight, bias, sms=132,
+                          tf32=False):
+    """What csrc/styled_up_conv.cu's bf16 body computes, in float32 (or,
+    ``tf32``, its float32 body, up_gemm_kernel on csrc/tf32x3.cuh): per
     phase class (py, px), block (tile m, tile n) walks bm positions of the
     (H + 1) x (W + 1) grid of every image from m0 on; tap (ty, tx)'s A
     stage is TMA's im2col load from base pixel (x - 1, y - 1) of the
-    position (the bounding box [-1, dim - 1]) at offsets (1 - tx, 1 - ty);
+    position (the bounding box [-1, dim - 1]) at offsets (1 - tx, 1 - ty),
+    64 channels (tf32: 32, and each stage's three TF32 products against the
+    weights' planes summed from 0 into a partial, ``_stage_3xtf32``);
     position (y, x) of image b is stored, times demod, to T[b, 2y + py,
     2x + px] where it lies in the class's (H + 1 - py) x (W + 1 - px).
     Then the blur and the epilogue. Returns the output and how many times
     each element of T was stored."""
-    from ganecdotes_torch.ops.modulated_conv import bf16_plan
+    from ganecdotes_torch.ops.modulated_conv import bf16_plan, tf32_plan
 
     xm = x * s[:, None, None, :]
     b, h, wd, cin = xm.shape
     cout = w.shape[3]
-    plan = bf16_plan(b, h, wd, cin, cout, True, sms)
-    bm, bn = plan.bm, plan.bn
-    w_taps = w.permute(0, 1, 3, 2).reshape(9, cout, cin)
+    plan = (tf32_plan if tf32 else bf16_plan)(b, h, wd, cin, cout, True, sms)
+    bm, bn, bk = plan.bm, plan.bn, plan.box[0]
+    w_taps = _weight_planes(w) if tf32 else w.permute(0, 1, 3, 2).reshape(9, cout, cin)
     hg, wg = h + 1, wd + 1
     t = xm.new_full((b, 2 * h + 1, 2 * wd + 1, cout), float("nan"))
     stored = torch.zeros(t.shape, dtype=torch.int64)
@@ -493,9 +564,13 @@ def _wgmma_im2col_up_conv(x, w, s, demod, noise, noise_weight, bias, sms=132):
             ky, kx = (1 if py else 2 * ty), (1 if px else 2 * tx)
             for c in range(plan.chunks):
                 a = _tma_im2col(xm, (xx - 1, y - 1, n), (-1, -1), (0, 0),
-                                (1 - tx, 1 - ty), 64 * c, *plan.box[::-1])
-                wb = _tma_box(w_taps, (64 * c, n0, 3 * ky + kx), (64, bn, 1))[0]
-                acc = acc + a @ wb.T
+                                (1 - tx, 1 - ty), bk * c, *plan.box[::-1])
+                wb = _tma_box(w_taps, (bk * c, n0, 3 * ky + kx), (bk, bn, 1))[0]
+                if tf32:
+                    lo = _tma_box(w_taps, (bk * c, n0, 9 + 3 * ky + kx), (bk, bn, 1))[0]
+                    acc = acc + _stage_3xtf32(a, wb, lo)
+                else:
+                    acc = acc + a @ wb.T
         for r in range(bm):
             bi, q = divmod(m0 + r, hg * wg)
             yy, xc = divmod(q, wg)
@@ -558,6 +633,74 @@ def test_wgmma_im2col_up_conv_matches_jax(shape, noise_b):
     jargs = [jnp.asarray(np.asarray(a, np.float32)) for a in args]
     for ref in (jmc.styled_up_conv3x3_ref, jmc.styled_up_conv3x3_xla):
         np.testing.assert_allclose(_np(out), np.asarray(ref(*jargs)), **UP_TOL)
+
+
+@pytest.mark.parametrize("shape,noise_b", [
+    ((2, 3, 5, 72, 24), 2),   # Cin 72: two full stages and a partial one; 48 positions
+    ((3, 4, 9, 16, 40), 1),   # Cin 16 (a stage half zeros); 150 positions, 2 tiles; 64 wide
+    ((1, 2, 2, 8, 264), 1),   # Cout 264: three 128-wide tiles, the last 8 wide
+    ((2, 15, 15, 8, 16), 2)])  # 512 positions: four tiles a class
+def test_tf32_im2col_up_conv_matches_jax(shape, noise_b):
+    """The up float32 body's im2col walk (csrc/styled_up_conv.cu
+    up_gemm_kernel: every class over the (H + 1) x (W + 1) positions, tap
+    offsets, the weights' TF32 planes, 32-channel stages summed from 0)
+    against the JAX package's ``styled_up_conv3x3_ref`` and
+    ``styled_up_conv3x3_xla``; every element of T stored exactly once."""
+    rng = np.random.RandomState(9)
+    args = _styled_args(rng, *shape, noise_b, up=True)
+    out, stored = _wgmma_im2col_up_conv(*[_t(a) for a in args], tf32=True)
+    assert bool((stored == 1).all())
+    b, h, wd, _, cout = shape
+    assert out.shape == (b, 2 * h, 2 * wd, cout) and bool(torch.isfinite(out).all())
+    jargs = [jnp.asarray(np.asarray(a, np.float32)) for a in args]
+    for ref in (jmc.styled_up_conv3x3_ref, jmc.styled_up_conv3x3_xla):
+        np.testing.assert_allclose(_np(out), np.asarray(ref(*jargs)), **UP_TOL)
+
+
+# The float32 GEMMs' tap splits at the non-up layers 4^2 .. 256^2 (widths
+# 512 to 128) on 132 SMs, per batch: ffhq256's serving (B = 1, 8, 32) and
+# pidray256's G (B = 20; PPL's B = 10)
+TF32_TAP_SPLITS = {1: (9, 9, 9, 3, 1, 1, 1), 8: (9, 9, 9, 1, 1, 1, 1),
+                   32: (9, 9, 1, 1, 1, 1, 1), 10: (9, 9, 3, 1, 1, 1, 1),
+                   20: (9, 3, 1, 1, 1, 1, 1)}
+
+
+@pytest.mark.parametrize("b", [1, 8, 32, 10, 20])
+@pytest.mark.parametrize("up", [False, True], ids=["conv", "up_conv"])
+def test_tf32_plan_fits_at_every_path_shape(b, up):
+    """At every float32 StyledConv shape of ffhq256 and pidray256 (their
+    generators' widths, 512 at 4^2 to 128 at 256^2) at each batch: the ring
+    within the 227 KB a block may use, with room for the fp32 staged tile;
+    TMA boxes of 128-byte rows (32 float32 channels, the swizzle's span)
+    and 16-byte multiples of every global stride; 128-row tiles covering the
+    pixels (non-up) or each class's (h + 1) x (w + 1) positions (up) and
+    128-wide tiles covering Cout; the tap splits only where a grid has
+    fewer tiles than SMs (TF32_TAP_SPLITS; the up body never splits)."""
+    from ganecdotes_torch.models.stylegan2.generator import channel_map
+    from ganecdotes_torch.ops import modulated_conv as tmc
+
+    ch = channel_map()
+    res = [2 ** k for k in range(2, 9)]
+    shapes = ([(b, r // 2, r // 2, ch[r // 2], ch[r]) for r in res[1:]] if up
+              else [(b, r, r, ch[r], ch[r]) for r in res])
+    assert tmc.TF32_BK * 4 == 128
+    splits = []
+    for bb, h, w, cin, cout in shapes:
+        p = tmc.tf32_plan(bb, h, w, cin, cout, up)
+        assert p.smem_bytes <= tmc.BF16_SMEM_LIMIT
+        assert p.bm * (p.bn + 8) * 4 <= p.stages * p.stage_bytes
+        assert p.stage_bytes == 4 * 32 * (128 + 2 * p.bn) and p.stage_bytes % 1024 == 0
+        assert p.stages == 4 and p.bn == 128 and p.bm == 128
+        assert p.box == (32, 128) and p.mode == "im2col" and p.chunks * 32 >= cin
+        for stride in (cin * 4, w * cin * 4, h * w * cin * 4, cout * cin * 4):
+            assert stride % 16 == 0
+        m = bb * (h + 1) * (w + 1) if up else bb * h * w
+        assert (p.tiles_m - 1) * 128 < m <= p.tiles_m * 128
+        assert (p.tiles_n - 1) * p.bn < cout <= p.tiles_n * p.bn
+        assert p.blocks == (4 if up else p.nsplit) * p.tiles_m * p.tiles_n
+        assert p.nsplit == 1 or p.tiles_m * p.tiles_n < 132
+        splits.append(p.nsplit)
+    assert tuple(splits) == ((1,) * 6 if up else TF32_TAP_SPLITS[b])
 
 
 def _chip_smoke():
