@@ -34,6 +34,7 @@ import torch.nn as nn
 from ganecdotes_torch.nn.layers import EqualLinear, pixel_norm
 from ganecdotes_torch.ops.opset import KERNELS
 from ganecdotes_torch.ops.upfirdn2d import upsample_2d
+from ganecdotes_torch.utils import tracing
 
 
 def channel_map(channel_multiplier=2, res2chlmap=None):
@@ -245,6 +246,9 @@ def generator_forward(g, styles, input_is_latent=False, truncation=1.0,
     ``dtype`` (e.g. ``torch.bfloat16``) casts the w+ rows and the constant
     input, so the synthesis and its outputs run in it.
 
+    Each resolution level (its up conv, conv and to_rgb; conv1 and to_rgb1
+    at 4) runs in the span ``synth.r<res>``.
+
     Returns (image, features), (image, latent) with ``return_latents``, or
     (image, latent, features) with ``return_latents="all"``.
     """
@@ -288,20 +292,23 @@ def generator_forward(g, styles, input_is_latent=False, truncation=1.0,
     if dtype is not None:
         out = out.to(dtype)
     out = out.contiguous()
-    out = g.conv1(out, latent[:, 0], noise[0], blur_kernel=blur_kernel, ops=ops)
-    features = [out]
-    skip = g.to_rgb1(out, latent[:, 1], blur_kernel=blur_kernel, ops=ops)
+    with tracing.span("synth.r4"):
+        out = g.conv1(out, latent[:, 0], noise[0], blur_kernel=blur_kernel,
+                      ops=ops)
+        features = [out]
+        skip = g.to_rgb1(out, latent[:, 1], blur_kernel=blur_kernel, ops=ops)
 
     i = 1
     for li in range(0, len(g.convs), 2):
-        out = g.convs[li](out, latent[:, i], noise[1 + li], up=True,
-                          blur_kernel=blur_kernel, ops=ops)
-        features.append(out)
-        out = g.convs[li + 1](out, latent[:, i + 1], noise[2 + li],
+        with tracing.span(f"synth.r{8 << (li // 2)}"):
+            out = g.convs[li](out, latent[:, i], noise[1 + li], up=True,
                               blur_kernel=blur_kernel, ops=ops)
-        features.append(out)
-        skip = g.to_rgbs[li // 2](out, latent[:, i + 2], skip,
+            features.append(out)
+            out = g.convs[li + 1](out, latent[:, i + 1], noise[2 + li],
                                   blur_kernel=blur_kernel, ops=ops)
+            features.append(out)
+            skip = g.to_rgbs[li // 2](out, latent[:, i + 2], skip,
+                                      blur_kernel=blur_kernel, ops=ops)
         i += 2
     if return_latents == "all":
         return skip, latent, features

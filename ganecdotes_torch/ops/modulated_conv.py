@@ -16,8 +16,8 @@ Each body has two variants on the card, picked from the shape alone
   tensor, then the blur and the epilogue. Their tile plan (``tf32_plan``:
   the tile width, the ring's depth, the tiles and the tap splits) is
   computed here and passed to the C entries, which check it.
-* ``"narrow"`` (Cout of 16, 32 or 64: BagGAN's lean width map; the up
-  body at 64 only on small inputs, ``variant``):
+* ``"narrow"`` (Cout of 16, 32 or 64: BagGAN's lean width map; both
+  bodies at 64 only on small inputs, ``variant``):
   csrc/styled_conv_narrow.cu on the fp32 SIMT units, x * s applied while
   staging, W read as HWIO: the non-up body in one launch, the up body as
   the transposed conv's four phase classes into a scratch tensor, then the
@@ -187,7 +187,8 @@ def grid_splits(tiles, sms):
 
 # Output widths the narrow variant (csrc/styled_conv_narrow.cu) takes.
 NARROW_COUTS = (16, 32, 64)
-# launches per (kernel, variant), beside _build.LAUNCHES' per-kernel counts
+# launches per (kernel, variant), beside _build.LAUNCHES' per-kernel counts;
+# while tracing records, also the counter ``ops.styled.<variant>``
 VARIANT_LAUNCHES = {(k, v): 0 for k in ("styled_conv3x3", "styled_up_conv3x3")
                     for v in ("tf32x3", "narrow")}
 NARROW_THREADS = 256  # per block, as the kernel's NT
@@ -198,12 +199,15 @@ _SMS = {}
 def variant(cout, up=False, pixels=0, sms=132):
     """The variant a CUDA call runs for ``cout`` output channels and
     ``pixels`` = B * H * W input pixels on ``sms`` SMs: "narrow" for Cout
-    in NARROW_COUTS, else "tf32x3"; but the up body at Cout 64 runs the
-    3xTF32 GEMMs where their four phase classes of 128-row tiles fill a
-    wave of the SMs, which they then do faster (kernel_ab.py --variants)."""
+    in NARROW_COUTS, else "tf32x3"; but at Cout 64 both bodies run the
+    3xTF32 GEMMs where their 128-row tiles (the up body's over its four
+    phase classes) fill a wave of the SMs, which they then do faster
+    (kernel_ab.py --variants: 2.0x on car512's 64 -> 64 conv at 512^2,
+    1.4-1.9x on the lean map's at 64^2 from B = 8; the narrow kernel
+    ahead below a wave, at B = 1)."""
     if cout not in NARROW_COUTS:
         return "tf32x3"
-    if up and cout == 64 and 4 * pixels >= 128 * sms:
+    if cout == 64 and (4 if up else 1) * pixels >= 128 * sms:
         return "tf32x3"
     return "narrow"
 
@@ -263,6 +267,7 @@ def _narrow_forward(kernel, x, w, s, demod, noise, noise_weight, bias, up,
         b, h, wd, cin, cout, int(up), *taps, _build.stream_of(x),
     )
     VARIANT_LAUNCHES[(kernel, "narrow")] += 1
+    tracing.count("ops.styled.narrow")
     return out
 
 
@@ -456,7 +461,7 @@ def _conv_forward(x, w, s, demod, noise, noise_weight, bias):
     if x.dtype is torch.bfloat16:
         return _bf16_conv_forward(x, w, s, demod, noise, noise_weight, bias,
                                   (b, oh, ow, cout))
-    if variant(cout) == "narrow":
+    if variant(cout, False, b * oh * ow, _sm_count(x.device)) == "narrow":
         return _narrow_forward(kernel, x, w, s, demod, noise, noise_weight,
                                bias, up=False)
     return _tf32x3_conv_forward(x, w, s, demod, noise, noise_weight, bias,
@@ -488,6 +493,7 @@ def _tf32x3_conv_forward(x, w, s, demod, noise, noise_weight, bias, out_shape):
         plan.bn, plan.stages, plan.tiles_m, _build.stream_of(x),
     )
     VARIANT_LAUNCHES[(kernel, "tf32x3")] += 1
+    tracing.count("ops.styled.tf32x3")
     return out
 
 
@@ -551,6 +557,7 @@ def _tf32x3_up_conv_forward(x, w, s, demod, noise, noise_weight, bias, taps,
         plan.tiles_m, _build.stream_of(x),
     )
     VARIANT_LAUNCHES[(kernel, "tf32x3")] += 1
+    tracing.count("ops.styled.tf32x3")
     return out
 
 

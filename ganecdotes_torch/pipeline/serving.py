@@ -207,6 +207,28 @@ class OneShotServer:
                 return _argmax(*out)
 
 
+def outputs_to_host(outs):
+    """The device tensors of ``outs`` copied to the host through page-locked
+    memory (PyTorch's caching host allocator, so a request's buffers are
+    those of an earlier request that the caller has let go), returned once
+    the copies are done; None and host tensors as they are. A copy into
+    pageable memory, what ``.cpu()`` does, runs through a staging buffer
+    at the host's memcpy rate, which varies with the host's load. Span:
+    ``serve.to_host``."""
+    host, streams = [], set()
+    with tracing.span("serve.to_host"):
+        for t in outs:
+            if t is not None and t.is_cuda:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                streams.add(t.device)
+                t = h
+            host.append(t)
+        for dev in streams:
+            torch.cuda.current_stream(dev).synchronize()
+    return tuple(host)
+
+
 def _argmax(img, logits, emb0):
     """(img, labels, z0): the argmaxes of the logits and of sample 0's
     embedding (None where the method has none)."""

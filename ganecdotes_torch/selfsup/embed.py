@@ -35,6 +35,7 @@ from ganecdotes_torch.ops.interp import (
     resize_bilinear,
     resize_nearest,
 )
+from ganecdotes_torch.utils import tracing
 
 
 def layer_channel_dims(features):
@@ -290,16 +291,20 @@ def project_segment_fcn(features, weight, seg_params, size, hlen=None):
     """Logits of an FCN head over the level-decomposed embedding: the first
     conv (dilation 1) folded into the pyramid by
     ``project_segment_single_conv``, the rest as
-    ``one_shot_segmentor_apply`` runs them."""
+    ``one_shot_segmentor_apply`` runs them, in the span ``seg.fcn_tail``
+    (a head of one conv, XXS, has no tail and no span)."""
     from ganecdotes_torch.selfsup.heads import DILATIONS
 
     out = project_segment_single_conv(
         features, weight, seg_params[0]["weight"], seg_params[0]["bias"],
         hlen=hlen)
-    for p, d in zip(seg_params[1:], DILATIONS[size][1:]):
-        out = leaky_relu(out)
-        out = conv2d_dilated_nhwc(out, p["weight"], dilation=d, padding=d)
-        out = out + p["bias"].to(out.dtype)
+    if len(seg_params) == 1:
+        return out
+    with tracing.span("seg.fcn_tail"):
+        for p, d in zip(seg_params[1:], DILATIONS[size][1:]):
+            out = leaky_relu(out)
+            out = conv2d_dilated_nhwc(out, p["weight"], dilation=d, padding=d)
+            out = out + p["bias"].to(out.dtype)
     return out
 
 

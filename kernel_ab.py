@@ -76,9 +76,11 @@ more rounds fit in a call.
 
     python3 kernel_ab.py --variants DIR [--out PATH]
 
-times, in one checkout, every lean row (Cout <= 64) of kernels 3 and 4
-with each variant forced (the 3xTF32 GEMMs, and the narrow kernel with its
-channel chunks whole and split 2, 4 and 8 ways), beside the wrapper's own
+times, in one checkout, every lean row (Cout <= 64) of kernels 3 and 4,
+and car512's Cout-64 layers at B = 1 and 32, with each variant forced (the
+3xTF32 GEMMs, and the narrow kernel with its channel chunks whole and
+split 2, 4 and 8 ways, car512's split only where the wrapper would split
+them), beside the wrapper's own
 choice and the library call
 (F.conv2d / F.conv_transpose2d, the conv part only), each with its host
 time per call (the host clock over 200 calls enqueued under no_grad
@@ -561,6 +563,14 @@ def lean_conv_cases(cs):
             if path == "baggan-lean" and name in CONVS and shape[4] <= 64]
 
 
+# car512's Cout-64 layers, its 512^2 level (the up conv 128 -> 64 from
+# 256^2, the conv 64 -> 64), at B = 1 and 32 (a request): (kernel, shape,
+# noise batch)
+CAR512_CASES = [(name, (b, r, r, ci, 64), 1) for b in (1, 32)
+                for name, r, ci in (("styled_up_conv3x3", 256, 128),
+                                    ("styled_conv3x3", 512, 64))]
+
+
 def time_lean_convs(cs, dev):
     import torch
 
@@ -622,7 +632,8 @@ def lean_variants(root, out_path):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for name, shape, noise_b in lean_conv_cases(cs):
+    cases = [(c, False) for c in lean_conv_cases(cs)]
+    for (name, shape, noise_b), car in cases + [(c, True) for c in CAR512_CASES]:
         up = name == "styled_up_conv3x3"
         args = cs.styled_inputs(shape, up, gen, dev, noise_b)
         want = getattr(mc, name + "_ref")(*args)
@@ -636,8 +647,9 @@ def lean_variants(root, out_path):
             cands["tf32x3"] = lambda: mc._tf32x3_up_conv_forward(*args, taps, out_shape)
         else:
             cands["tf32x3"] = lambda: mc._tf32x3_conv_forward(*args, out_shape)
+        splits = mc.narrow_splits(b, h, w, ci, co, up, sms)
         for n in (1, 2, 4, 8):
-            if n <= -(-ci // 16):
+            if n <= -(-ci // 16) and (n == 1 or splits > 1 or not car):
                 cands[f"narrow_s{n}"] = lambda n=n: mc._narrow_forward(
                     name, *args, up=up, taps=taps, nsplit=n)
         xm = (args[0] * args[2][:, None, None, :]).permute(0, 3, 1, 2)
@@ -649,7 +661,7 @@ def lean_variants(root, out_path):
             cands["library"] = lambda: F.conv2d(xm, wl, padding=1)
         row = {"kernel": name, "shape": list(shape), "noise_b": noise_b,
                "variant": mc.variant(co, up, b * h * w, sms),
-               "narrow_splits": mc.narrow_splits(b, h, w, ci, co, up, sms)}
+               "narrow_splits": splits}
         for key, fn in cands.items():
             got = fn()
             torch.cuda.synchronize()

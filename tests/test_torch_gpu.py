@@ -325,6 +325,45 @@ def test_lean_rows_run_their_variant_and_repeat(cuda, up, shape, noise_b):
     assert torch.equal(fn(*a), out)
 
 
+@pytest.mark.parametrize("b", [1, 32])
+@pytest.mark.parametrize("up", [False, True], ids=["conv", "up_conv"])
+def test_car512_top_level_matches_plain(cuda, b, up):
+    """car512's 512^2 level (StyleGAN2 config-f at 512), its Cout-64
+    layers: the up conv 128 -> 64 from 256^2 and the conv 64 -> 64 at
+    512^2, at B = 1 and 32 (the cell's request), the noise broadcast. The
+    wrapper launches the variant ``variant`` names for the shape, once,
+    within CONV_TOL of the plain version."""
+    shape = (b, 256, 256, 128, 64) if up else (b, 512, 512, 64, 64)
+    B, H, W, Ci, Co = shape
+    a = _styled_inputs(B, H, W, Ci, Co, 1, up, cuda, seed=7)
+    name = "styled_up_conv3x3" if up else "styled_conv3x3"
+    fn, ref = getattr(tmc, name), getattr(tmc, name + "_ref")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want = tmc.variant(Co, up, B * H * W, sms)
+    before = dict(tmc.VARIANT_LAUNCHES)
+    out = fn(*a)
+    torch.cuda.synchronize()
+    ran = [k for k, n in tmc.VARIANT_LAUNCHES.items() if n != before[k]]
+    assert ran == [(name, want)], ran
+    torch.testing.assert_close(out, ref(*a), **CONV_TOL)
+
+
+def test_outputs_to_host_are_page_locked_copies(cuda):
+    """``serving.outputs_to_host``: each device tensor comes back on the
+    host, page-locked, equal to ``.cpu()``'s copy and of its type; None
+    stays None."""
+    from ganecdotes_torch.pipeline.serving import outputs_to_host
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    outs = (torch.randn(4, 64, 64, 3, device=cuda, generator=g),
+            torch.randint(0, 8, (4, 64, 64), device=cuda, generator=g), None)
+    got = outputs_to_host(outs)
+    assert got[2] is None
+    for h, t in zip(got[:2], outs[:2]):
+        assert h.device.type == "cpu" and h.is_pinned() and h.dtype == t.dtype
+        assert torch.equal(h, t.cpu())
+
+
 @pytest.mark.parametrize("cout", [16, 32, 64])
 @pytest.mark.parametrize("up", [False, True], ids=["conv", "up_conv"])
 @pytest.mark.parametrize("nsplit", [1, 2, 3, 8])

@@ -7,9 +7,12 @@ its launches and its counters. The server, the trainer and the loader are
 driven at tiny sizes on the CPU.
 """
 
+import fcntl
 import io
 import json
 import os
+import struct
+import termios
 import threading
 import time
 from types import SimpleNamespace
@@ -21,7 +24,7 @@ import torch
 from ganecdotes_torch.gan.train import STEP_SPANS, BagGANHQ
 from ganecdotes_torch.models.stylegan2.generator import Generator
 from ganecdotes_torch.ops import _build
-from ganecdotes_torch.pipeline.serving import OneShotServer
+from ganecdotes_torch.pipeline.serving import OneShotServer, outputs_to_host
 from ganecdotes_torch.runtime import NativeDataLoader
 from ganecdotes_torch.utils import tracing
 
@@ -42,13 +45,13 @@ def fresh_registry():
     torch.set_num_threads(n)
 
 
-def _server():
+def _server(size="XXS"):
     mc = SimpleNamespace(truncation=0.7, num_latents_for_mean=8,
                          classes=["c%d" % i for i in range(4)], gen_args={})
     sc = SimpleNamespace(
         hfc_prep_args=dict(swav_args=dict(hlen=40, nclasses=8, nprototypes=16,
                                           projn_nw="linear", hf_interp="nearest")),
-        seg_args=dict(size="XXS"))
+        seg_args=dict(size=size))
     gen = Generator(16, style_dim=32, n_mlp=2, res2chlmap=WIDTHS,
                     generator=torch.Generator().manual_seed(0))
     return OneShotServer(mc, sc, device="cpu", gen=gen, seed=1)
@@ -252,7 +255,8 @@ def _children(spans, i):
 def test_server_request_spans():
     """``OneShotServer.serve``: a root ``serve.request`` a call, with an id
     of its own, over ``serve.synthesis`` (which holds every StyledConv
-    layer) and ``serve.segment`` (which holds none)."""
+    layer, in the span of its resolution level) and ``serve.segment``
+    (which holds none, and for the XXS head of one conv no span)."""
     server = _server()
     tracing.start()
     _serve(server)
@@ -265,14 +269,90 @@ def test_server_request_spans():
         assert _children(spans, r) == ["serve.synthesis", "serve.segment"]
         synth = next(i for i, s in enumerate(spans)
                      if s.parent == r and s.name == "serve.synthesis")
-        segment = synth + 1 + sum(s.parent == synth for s in spans)
-        convs = _children(spans, synth)
+        segment = next(i for i, s in enumerate(spans)
+                       if s.parent == r and s.name == "serve.segment")
+        convs = [s.name for s in spans[synth + 1 : segment]
+                 if s.name.startswith("ops.")]
         # 16 px: conv1 at 4, an up and a non-up layer at 8 and at 16
         assert convs == ["ops.styled_conv3x3", "ops.styled_up_conv3x3",
                          "ops.styled_conv3x3", "ops.styled_up_conv3x3",
                          "ops.styled_conv3x3"]
-        assert spans[segment].name == "serve.segment" and not _children(spans, segment)
+        assert not _children(spans, segment)
     assert {s.id for s in spans[roots[0]:roots[1]]} == {spans[roots[0]].id}
+
+
+@pytest.mark.parametrize("size,tail", [("XXS", 0), ("XS", 1)])
+def test_server_level_and_head_tail_spans(size, tail):
+    """Each request holds one ``synth.r<res>`` a resolution level under
+    ``serve.synthesis`` (4: conv1 and to_rgb1; 8 and 16: the up conv, the
+    conv and to_rgb), which covers the level's StyledConvs, and under
+    ``serve.segment`` one ``seg.fcn_tail`` for an FCN head of several
+    convs (XS: the two after the folded one) and none for XXS's one
+    conv."""
+    server = _server(size)
+    tracing.start()
+    _serve(server)
+    _serve(server)
+    spans = tracing.snapshot().spans
+    for r in [i for i, s in enumerate(spans) if s.parent is None]:
+        synth, segment = [i for i, s in enumerate(spans) if s.parent == r]
+        assert _children(spans, synth) == ["synth.r4", "synth.r8", "synth.r16"]
+        levels = [i for i, s in enumerate(spans) if s.parent == synth]
+        assert [_children(spans, i) for i in levels] == [
+            ["ops.styled_conv3x3"],
+            ["ops.styled_up_conv3x3", "ops.styled_conv3x3"],
+            ["ops.styled_up_conv3x3", "ops.styled_conv3x3"]]
+        assert all(spans[i].host_ms <= spans[synth].host_ms for i in levels)
+        assert _children(spans, segment) == ["seg.fcn_tail"] * tail
+
+
+def test_server_to_host_span():
+    """``serving.outputs_to_host`` runs in a root span ``serve.to_host`` of
+    its own, after the request's; on the CPU the outputs are what ``serve``
+    returns."""
+    server = _server()
+    z = torch.randn(2, 32, generator=torch.Generator().manual_seed(5))
+    want = server.serve(z)
+    tracing.start()
+    got = outputs_to_host(server.serve(z))
+    spans = tracing.snapshot().spans
+    assert [s.name for s in spans if s.parent is None] == ["serve.request",
+                                                           "serve.to_host"]
+    assert _children(spans, 0) == ["serve.synthesis", "serve.segment"]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_styled_conv_launches_are_counted_by_variant(monkeypatch):
+    """Each StyledConv kernel launch adds one to ``ops.styled.<variant>``
+    of the innermost span, beside ``VARIANT_LAUNCHES`` (the C entries
+    stubbed: the CPU has no card)."""
+    from ganecdotes_torch.ops import modulated_conv as mc
+
+    monkeypatch.setattr(_build, "_lib", SimpleNamespace(
+        gk_styled_conv3x3_narrow=lambda *a: 0, gk_styled_conv3x3=lambda *a: 0,
+        gk_styled_up_conv3x3=lambda *a: 0))
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(_build, "check_tensor", lambda *a: None)
+    monkeypatch.setattr(_build, "LAUNCHES", dict.fromkeys(_build.LAUNCHES, 0))
+    monkeypatch.setattr(mc, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(mc, "VARIANT_LAUNCHES", dict.fromkeys(mc.VARIANT_LAUNCHES, 0))
+    b, h, cin, cout = 2, 8, 32, 64
+    args = [torch.randn(b, h, h, cin), torch.randn(3, 3, cin, cout),
+            torch.ones(b, cin), torch.ones(b, cout), torch.zeros(1, h, h, 1),
+            torch.zeros(()), torch.zeros(cout)]
+    up_args = list(args)
+    up_args[4] = torch.zeros(1, 2 * h, 2 * h, 1)
+    mc._narrow_forward("styled_conv3x3", *args, up=False, nsplit=1)  # off
+    tracing.start()
+    with tracing.span("layer"):
+        mc._narrow_forward("styled_conv3x3", *args, up=False, nsplit=1)
+        mc._tf32x3_conv_forward(*args, (b, h, h, cout))
+        mc._tf32x3_up_conv_forward(*up_args, [0.25] * 4, (b, 2 * h, 2 * h, cout))
+    (layer,) = tracing.snapshot().spans
+    assert layer.counters == {"ops.styled.narrow": 1, "ops.styled.tf32x3": 2}
+    assert mc.VARIANT_LAUNCHES == {
+        ("styled_conv3x3", "narrow"): 2, ("styled_conv3x3", "tf32x3"): 1,
+        ("styled_up_conv3x3", "tf32x3"): 1, ("styled_up_conv3x3", "narrow"): 0}
 
 
 def test_trainer_iteration_spans(tmp_path):
@@ -309,21 +389,21 @@ def _npy(arr):
 
 
 def _feed(fifo, payload, delay, done):
-    """Write ``payload`` to each reader of ``fifo``, from ``delay`` s on,
-    until ``done``."""
-    time.sleep(delay)
-    while not done.is_set():
-        try:
-            fd = os.open(fifo, os.O_WRONLY | os.O_NONBLOCK)
-        except OSError:  # no reader yet
+    """Keep one copy of ``payload`` waiting in ``fifo``, from ``delay`` s
+    on, until ``done``: a reader that takes it finds the next one there.
+    The feeder holds the FIFO open at both ends, so the pipe outlives each
+    reader, and a reader never meets a writer that leaves with nothing
+    written (an empty read, which the loader takes for a bad file)."""
+    fd = os.open(fifo, os.O_RDWR | os.O_NONBLOCK)
+    try:
+        time.sleep(delay)
+        while not done.is_set():
+            pending = fcntl.ioctl(fd, termios.FIONREAD, b"\0" * 4)
+            if struct.unpack("i", pending)[0] == 0:
+                os.write(fd, payload)
             time.sleep(0.001)
-            continue
-        try:
-            os.write(fd, payload)
-        except OSError:  # the reader left
-            pass
-        finally:
-            os.close(fd)
+    finally:
+        os.close(fd)
 
 
 def test_loader_counts_the_time_next_is_starved(tmp_path):
